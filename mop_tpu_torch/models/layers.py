@@ -1,0 +1,66 @@
+"""Layers with the reference framework's defaults, in PyTorch.
+
+The port of ``mop_tpu/models/layers.py``. The JAX package reproduces torch's
+default initialisers (kaiming-uniform weights, fan-in uniform biases), so
+here the torch layers are used as they are; ``init_params`` redraws a whole
+model from an explicit ``torch.Generator`` with those same distributions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+Linear = nn.Linear
+Conv = nn.Conv2d
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with torch defaults (eps 1e-5, affine) and fp32 statistics;
+    the output takes the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(x.dtype)
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """GELU with the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def init_params(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Redraw every parameter of ``model`` with the reference's initialisers.
+
+    Linear and conv weights and biases ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (torch's kaiming_uniform(a=sqrt(5)) and bias default), LayerNorm ones and
+    zeros; then every module with an ``init_own(generator)`` method sets the
+    parameters it owns (position embeddings, gate presets, gains).
+    """
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+                if m.bias is not None:
+                    nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for m in model.modules():
+            if hasattr(m, "init_own"):
+                m.init_own(generator)
+    return model
