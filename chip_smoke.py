@@ -11,22 +11,28 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version;
-5. the main path: CIFAR-100 eval steps of the full-width 5M-parameter A, B
-   and E configurations at batch 256 in fp32, with kernel launch counts and
-   the logits held against the same model run through the plain versions;
-6. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one, and each model's
+5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
+   (autograd through the plain forward), all eight grads, fp32 and bf16;
+6. K1's autograd (kernel forward, recompute backward) against autograd
+   through the plain version;
+7. the eval path: CIFAR-100 eval steps of the full-width 5M-parameter A, B
+   and E configurations and B at the bench.py config, batch 256, fp32, with
+   kernel launch counts and the logits held against the plain path;
+8. the train path: the bench.py recipe (augment, bf16 compute, AdamW 3e-3 /
+   0.05) for the same four configs at batch 256: launches per step, one
+   step's fp32 grads held against the plain path, 20 steps on one repeated
+   batch whose loss must fall, images/s of the scanned step (K = 20) with a
+   torch.profiler breakdown, and an eval step after training;
+9. timings: each kernel at its path shape beside its plain version, its
+   bound and one library call where there is one, and each model's eval
    images/s with a torch.profiler breakdown of its device time.
-
-The last three lines are the kernels JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Weights and data are random,
-made from fixed seeds. No JAX is imported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -35,31 +41,43 @@ import time
 import torch
 
 from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ViT_Baseline, ViT_MoP, ViTEdgewise,
-                           make_classifier_eval_step)
+                           make_classifier_eval_step, make_classifier_train_step,
+                           make_scanned_classifier_train_step)
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
 from mop_tpu_torch.ops.preprocess import cifar_eval_transform
 
 BATCH = 256
 N_CLASSES = 100
+TRAIN_K = 20  # scanned steps per call, as bench.py's SCAN_STEPS
+TRAIN_WINDOWS = 5  # timed scanned calls per config
+LR, WD = 3e-3, 0.05  # bench.py's AdamW
+# bf16 grads, kernel vs plain: their rounding points differ (the plain
+# backward rounds each cotangent where autograd meets a cast, the kernel
+# keeps cotangents in fp32), so each grad is held to this fraction of its
+# largest magnitude.
+BF16_GRAD_FRAC = 2e-2
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 off the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Full-width configs of experiments/cifar100_ab5_param_budgets.py at the 5M
 # target (A, B, E) and of bench.py (B at 224/6/4).
+# name -> (constructor(generator, **kw), {kernel: launches per forward}); a
+# train step adds one K2b launch per K2 launch.
 MODELS = {
-    "A": (lambda g: ViT_Baseline(dim=224, depth=8, heads=4, n_classes=N_CLASSES,
-                                 generator=g), "flash_attention", 8),
-    "B": (lambda g: ViT_MoP(dim=216, depth=8, heads=4, n_classes=N_CLASSES, n_views=5,
-                            n_kernels=3, generator=g), "flash_attention", 8),
-    "B_bench": (lambda g: ViT_MoP(dim=224, depth=6, heads=4, n_classes=N_CLASSES,
-                                  n_views=5, n_kernels=3, generator=g),
-                "flash_attention", 6),
-    "E": (lambda g: ViTEdgewise(dim=224, depth=4, heads=4, n_classes=N_CLASSES,
-                                n_views=5, share_qkv=False, gate_mode="lowrank",
-                                gate_rank=4, gate_init="mix5", mlp_ratio=4.0, generator=g),
-          "fused_edgewise_lowrank_attention", 4),
+    "A": (lambda g, **kw: ViT_Baseline(dim=224, depth=8, heads=4, n_classes=N_CLASSES,
+                                       generator=g, **kw), {"flash_attention": 8}),
+    "B": (lambda g, **kw: ViT_MoP(dim=216, depth=8, heads=4, n_classes=N_CLASSES, n_views=5,
+                                  n_kernels=3, generator=g, **kw), {"flash_attention": 8}),
+    "B_bench": (lambda g, **kw: ViT_MoP(dim=224, depth=6, heads=4, n_classes=N_CLASSES,
+                                        n_views=5, n_kernels=3, generator=g, **kw),
+                {"flash_attention": 6}),
+    "E": (lambda g, **kw: ViTEdgewise(dim=224, depth=4, heads=4, n_classes=N_CLASSES,
+                                      n_views=5, share_qkv=False, gate_mode="lowrank",
+                                      gate_rank=4, gate_init="mix5", mlp_ratio=4.0,
+                                      generator=g, **kw),
+          {"fused_edgewise_lowrank_attention": 4}),
 }
 
 failures = []
@@ -82,6 +100,18 @@ def compare(name, got, ref, atol, rtol):
     err = (g - r).abs().max().item()
     ok = bool(torch.isfinite(g).all()) and bool(torch.allclose(g, r, atol=atol, rtol=rtol))
     check(ok, f"{name}: max_abs_err {err:.3e} (atol {atol:g}, rtol {rtol:g})")
+    return err
+
+
+def compare_rel(name, got, ref, frac):
+    """Max-abs error of got vs ref and whether it is within ``frac`` of ref's
+    largest magnitude (for bf16, whose rounding points differ)."""
+    torch.cuda.synchronize()
+    g, r = got.float(), ref.float()
+    err = (g - r).abs().max().item()
+    scale = r.abs().max().item()
+    ok = bool(torch.isfinite(g).all()) and err <= frac * scale
+    check(ok, f"{name}: max_abs_err {err:.3e} of max |ref| {scale:.3e} (limit {frac:g} of it)")
     return err
 
 
@@ -132,17 +162,47 @@ def flash_cost(bh, n, n_kv, dk, dtype):
     return 4 * bh * n * n_kv * dk, esize * bh * dk * (2 * n + 2 * n_kv)
 
 
+def _edgewise_mix_flops(nv, n, dk, r):
+    """Flops of one program of K2's forward up to the output products: the
+    part that K2b recomputes."""
+    c = 2 * nv + 2
+    return (nv * 2 * n * n * dk            # S_i
+            + 2 * (nv - 1) * 2 * n ** 3     # forward and backward chains
+            + 2 * 2 * n * c * 4 * r         # rank factors
+            + 4 * 2 * n * n * r             # gates
+            + (nv - 1) * 2 * n * n * dk)    # value transport
+
+
+def _edgewise_fwd_flops(nv, n, dk, r):
+    """Flops of one program of K2's forward, counted from its products."""
+    return _edgewise_mix_flops(nv, n, dk, r) + 2 * 2 * n * n * dk  # att v_0, A_0 transport
+
+
 def edgewise_cost(bh, nv, n, dk, r, dtype):
     esize = torch.finfo(dtype).bits // 8
     c = 2 * nv + 2
-    per_prog = (nv * 2 * n * n * dk            # S_i
-                + 2 * (nv - 1) * 2 * n ** 3     # forward and backward chains
-                + 2 * 2 * n * c * 4 * r         # rank factors
-                + 4 * 2 * n * n * r             # gates
-                + (nv - 1) * 2 * n * n * dk     # value transport
-                + 2 * 2 * n * n * dk)           # att v_0 and A_0 transport
     nbytes = esize * bh * dk * n * (3 * nv + 1) + 4 * (2 * c * 4 * r + 2 * 4 * r + 1)
-    return bh * per_prog, nbytes
+    return bh * _edgewise_fwd_flops(nv, n, dk, r), nbytes
+
+
+def edgewise_bwd_cost(bh, nv, n, dk, r, dtype):
+    """K2b: the recompute up to the output products (y itself is never
+    rebuilt), plus every product the backward needs; dw = <Ac_0, dAc_0> / w is
+    elementwise. Bytes are the inputs, dy, the weights, and the grads
+    (per-program weight grads) written."""
+    esize = torch.finfo(dtype).bits // 8
+    c = 2 * nv + 2
+    nd = 2 * n * n * dk  # one N x N by N x dk product
+    bwd = (4 * nd                           # dv_0, d att, dAc_0, dP_1
+           + 2 * n * n                      # dw
+           + (nv - 1) * 2 * nd              # dAc_i and dP_{i+1} down the transport
+           + 4 * 2 * 2 * n * n * r          # da_c, db_c
+           + 2 * 2 * 2 * n * c * 4 * r      # dwrow, dwcol, d row_feat, d col_feat
+           + 2 * 2 * (nv - 1) * 2 * n ** 3  # both chains, two products per link
+           + nv * 2 * nd)                   # dq_i, dk_i
+    w_floats = 2 * c * 4 * r + 2 * 4 * r + 1
+    nbytes = (esize * bh * dk * n * (6 * nv + 1) + 4 * w_floats + 4 * bh * w_floats)
+    return bh * (_edgewise_mix_flops(nv, n, dk, r) + bwd), nbytes
 
 
 @contextlib.contextmanager
@@ -155,6 +215,19 @@ def plain_kernels():
         yield
     finally:
         F.flash_attention, F.fused_edgewise_lowrank_attention = saved
+
+
+def cuda_generator(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def one_step_grads(model, x_u8, y):
+    """fp32 grads of one train step (augment off, fp32 compute), params kept."""
+    step = make_classifier_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                      CIFAR100_MEAN, CIFAR100_STD, augment=False,
+                                      compute_dtype=None)
+    step(x_u8, y)
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
 def edgewise_inputs(g, bh_shape, nv, n, dk, r, dtype):
@@ -231,28 +304,87 @@ def main() -> int:
                 F.fused_edgewise_lowrank_attention(*args),
                 F.fused_edgewise_lowrank_attention_plain(*args), 2e-5, 2e-4)
 
-    say(f"[5 main path] CIFAR-100 eval step, batch {BATCH}, fp32")
+    say("[5 K2b fused_edgewise_lowrank_attention_bwd vs plain backward]")
+    grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
+    k2b = "fused_edgewise_lowrank_attention_bwd"
+    errs[k2b] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, dtype)
+        dy = rn(256, 4, 64, 56, dtype=dtype)
+        got = F.fused_edgewise_lowrank_attention_bwd(*args, dy)
+        want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+        for gname, a, b in zip(grad_names, got, want):
+            label = f"(256, 4, 5, 64, 56) r=4 {dtype} {gname}"
+            if dtype == torch.float32:
+                errs[k2b] = max(errs[k2b], compare(label, a, b, 2e-4, 2e-3))
+            else:
+                compare_rel(label, a, b, BF16_GRAD_FRAC)
+    # Off the main shape: two views and rank 1; N < 64 with dk > 64 (two
+    # column tiles of every N x dk product).
+    for bh_shape, nv, n, dk, r in (((2, 2), 2, 16, 8, 1), ((2, 2), 3, 40, 100, 2)):
+        args = edgewise_inputs(g, bh_shape, nv, n, dk, r, torch.float32)
+        dy = rn(*bh_shape, n, dk)
+        got = F.fused_edgewise_lowrank_attention_bwd(*args, dy)
+        want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+        for gname, a, b in zip(grad_names, got, want):
+            compare(f"{(*bh_shape, nv, n, dk)} r={r} float32 {gname}", a, b, 2e-4, 2e-3)
+    # E's EdgewiseMSA: strided per-view views of one stacked qkv output, and
+    # the strided dy that merging the heads gives back.
+    args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, torch.float32)
+    qkv = rn(256, 64, 5, 3, 4, 56).permute(3, 0, 4, 2, 1, 5)
+    args = (*qkv, *args[3:])
+    dy = rn(256, 64, 4, 56).transpose(1, 2)
+    got = F.fused_edgewise_lowrank_attention_bwd(*args, dy)
+    want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+    for gname, a, b in zip(grad_names, got, want):
+        compare(f"strided view inputs float32 {gname}", a, b, 2e-4, 2e-3)
+
+    say("[6 K1 autograd (kernel forward, recompute backward) vs plain autograd]")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (rn(256, 4, 64, 56, dtype=dtype).requires_grad_() for _ in range(3))
+        do = rn(256, 4, 64, 56, dtype=dtype)
+        got = torch.autograd.grad(F.flash_attention(q, k, v), (q, k, v), do)
+        want = torch.autograd.grad(F.flash_attention_plain(q, k, v), (q, k, v), do)
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            label = f"(256, 4, 64, 56) {dtype} {gname}"
+            if dtype == torch.float32:
+                compare(label, a, b, 2e-4, 2e-3)
+            else:
+                compare_rel(label, a, b, BF16_GRAD_FRAC)
+
+    say(f"[7 eval path] CIFAR-100 eval step, batch {BATCH}, fp32")
     x_u8 = torch.randint(0, 256, (BATCH, 3, 32, 32), dtype=torch.uint8, device="cuda",
                          generator=g)
     y = torch.randint(0, N_CLASSES, (BATCH,), device="cuda", generator=g)
     valid = torch.ones(BATCH, device="cuda")
     launches = {f.__name__: 0 for f in F.KERNELS}
-    models = {}
-    for seed, (name, (ctor, kernel, expect)) in enumerate(MODELS.items()):
-        model = ctor(torch.Generator().manual_seed(seed))
-        models[name] = model
-        n_params = sum(p.numel() for p in model.parameters())
-        step = make_classifier_eval_step(model, CIFAR100_MEAN, CIFAR100_STD)
+
+    def expected(per_fwd, train):
+        want = {k: 0 for k in launches}
+        want.update(per_fwd)
+        if train and "fused_edgewise_lowrank_attention" in per_fwd:
+            want[k2b] = per_fwd["fused_edgewise_lowrank_attention"]
+        return want
+
+    def counted(fn):
         F.reset_launch_counts()
-        correct, n_valid = step(x_u8, y, valid)
+        out = fn()
         torch.cuda.synchronize()
         counts = {f.__name__: f.launches for f in F.KERNELS}
         for k_name, c in counts.items():
             launches[k_name] += c
+        return out, counts
+
+    models = {}
+    for seed, (name, (ctor, per_fwd)) in enumerate(MODELS.items()):
+        model = ctor(torch.Generator().manual_seed(seed))
+        models[name] = model
+        n_params = sum(p.numel() for p in model.parameters())
+        step = make_classifier_eval_step(model, CIFAR100_MEAN, CIFAR100_STD)
+        (correct, n_valid), counts = counted(lambda: step(x_u8, y, valid))
         say(f"  {name}: {n_params} params, correct {correct.item():.0f} / {n_valid.item():.0f}, "
             f"launches {counts}")
-        check(counts[kernel] == expect and sum(counts.values()) == expect,
-              f"{name}: {expect} launches of {kernel} per forward")
+        check(counts == expected(per_fwd, False), f"{name}: launches per forward {per_fwd}")
         check(n_valid.item() == BATCH and 0 <= correct.item() <= BATCH,
               f"{name}: eval counts in range")
         with torch.inference_mode():
@@ -263,8 +395,82 @@ def main() -> int:
         check(tuple(logits.shape) == (BATCH, N_CLASSES), f"{name}: logits shape")
         compare(f"{name}: logits kernel path vs plain path", logits, ref, 2e-5, 2e-4)
 
-    say(f"[6 timings] on {smi}")
+    say(f"[8 train path] bench.py recipe at batch {BATCH}: augment, bf16 compute, "
+        f"AdamW {LR} / {WD}")
+    xk = torch.randint(0, 256, (TRAIN_K, BATCH, 3, 32, 32), dtype=torch.uint8, device="cuda",
+                       generator=g)
+    yk = torch.randint(0, N_CLASSES, (TRAIN_K, BATCH), device="cuda", generator=g)
+    for seed, (name, (ctor, per_fwd)) in enumerate(MODELS.items()):
+        model = ctor(torch.Generator().manual_seed(seed), drop_path=0.0)
+        got = one_step_grads(model, x_u8, y)
+        with plain_kernels():
+            want = one_step_grads(model, x_u8, y)
+        worst = max((got[k] - want[k]).abs().max().item()
+                    / max(want[k].abs().max().item(), 1e-30) for k in got)
+        check(worst <= 1e-3 and all(bool(torch.isfinite(t).all()) for t in got.values()),
+              f"{name}: one step's fp32 grads (augment off, drop_path 0), kernel path vs "
+              f"plain path over {len(got)} tensors: worst max-abs error {worst:.2e} of the "
+              "tensor's largest grad (limit 1e-3)")
+        del model, got, want
+
+        model = ctor(torch.Generator().manual_seed(seed))
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD)
+        gen = cuda_generator(seed)
+        step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD)
+        _, counts = counted(lambda: step(x_u8, y, gen))
+        check(counts == expected(per_fwd, True), f"{name}: launches per train step {counts}")
+        scanned = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
+                                                     unroll_steps=TRAIN_K)
+        losses = scanned(x_u8.expand(TRAIN_K, -1, -1, -1, -1), y.expand(TRAIN_K, -1),
+                         gen)["loss"].tolist()
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"{name}: loss over {TRAIN_K} steps on one batch {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        scanned(xk, yk, gen)
+        torch.cuda.synchronize()
+        # The rate is every image over all the time of every timed window;
+        # the per-window rates show the spread.
+        dts = []
+        for _ in range(TRAIN_WINDOWS):
+            t0 = time.perf_counter()
+            scanned(xk, yk, gen)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        dt = sum(dts)
+        n_steps = TRAIN_K * TRAIN_WINDOWS
+        say(f"  {name} train step, batch {BATCH} (scanned K={TRAIN_K}, {TRAIN_WINDOWS} windows "
+            f"in total): {dt / n_steps * 1e3:.3f} ms/step, {BATCH * n_steps / dt:.0f} images/s "
+            f"[per window {', '.join(f'{BATCH * TRAIN_K / t:.0f}' for t in dts)} images/s] "
+            f"[{smi}]")
+        rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
+        busy = sum(t for _, t in rows)
+        top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:8])
+        say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
+            f"({TRAIN_K} steps, profiled); by kernel: {top}")
+        evaluate = make_classifier_eval_step(model, CIFAR100_MEAN, CIFAR100_STD)
+        first = [v.item() for v in evaluate(x_u8, y, valid)]
+        again = [v.item() for v in evaluate(x_u8, y, valid)]
+        check(not model.training and first == again and first[1] == BATCH,
+              f"{name}: eval after training runs in eval mode, counts {first} twice")
+        del model, opt, step, scanned
+
+    say(f"[9 timings] on {smi}")
     records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, dtype)
+        dy = rn(256, 4, 64, 56, dtype=dtype)
+        ms = time_ms(lambda: F.fused_edgewise_lowrank_attention_bwd(*args, dy), iters=10)
+        plain = time_ms(lambda: F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy),
+                        iters=5, reps=3)
+        bnd, by = bound_ms(*edgewise_bwd_cost(1024, 5, 64, 56, 4, dtype), dtype)
+        say(f"  K2b (256, 4, 5, 64, 56) r=4 {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+        if dtype == torch.float32:
+            k2b_record = dict(
+                name=k2b, route="cuda", source="mop_tpu_torch/csrc/edgewise_lowrank_bwd.cu",
+                replaces="mop_tpu/ops/fused.py:641", launches=launches[k2b],
+                max_abs_err=errs[k2b], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None)
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (rn(1024, 64, 56, dtype=dtype) for _ in range(3))
@@ -297,6 +503,7 @@ def main() -> int:
                     launches=launches["fused_edgewise_lowrank_attention"],
                     max_abs_err=errs["fused_edgewise_lowrank_attention"], ms=ms,
                     plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
+        records.append(k2b_record)
         x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
         for name, model in models.items():
             ms = time_ms(lambda: model(x), iters=10)

@@ -6,14 +6,19 @@ hand-written CUDA kernel under ``csrc/``, built with nvcc at first use
 (``ops/_build.py``). Entry points run on the GPU unless given
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
-This slice: CIFAR ViT inference for A (``ViT_Baseline``), B (``ViT_MoP``) and
-E (``ViTEdgewise``, lowrank gates) through ``make_classifier_eval_step``.
+Ported so far: CIFAR ViT training and inference for A (``ViT_Baseline``), B
+(``ViT_MoP``) and E (``ViTEdgewise``, lowrank gates) through
+``make_classifier_train_step``, ``make_scanned_classifier_train_step`` and
+``make_classifier_eval_step``.
 """
 
-from .models import ViT_Baseline, ViT_MoP, ViTEdgewise
+from .models import ViT_Baseline, ViT_MoP, ViTEdgewise, set_generator
 from .ops import fused
-from .ops.preprocess import CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD
-from .parallel import cast_floats, make_classifier_eval_step
+from .ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
+                             cifar_eval_transform, cifar_train_augment,
+                             label_smoothing_onehot, random_crop, random_hflip)
+from .parallel import (cast_floats, make_classifier_eval_step, make_classifier_train_step,
+                       make_scanned_classifier_train_step)
 from .utils import load_jax_params, resolve_device
 
 __version__ = "0.1.0"
@@ -22,13 +27,21 @@ __all__ = [
     "ViT_Baseline",
     "ViT_MoP",
     "ViTEdgewise",
+    "set_generator",
     "fused",
     "CIFAR10_MEAN",
     "CIFAR10_STD",
     "CIFAR100_MEAN",
     "CIFAR100_STD",
+    "cifar_eval_transform",
+    "cifar_train_augment",
+    "label_smoothing_onehot",
+    "random_crop",
+    "random_hflip",
     "cast_floats",
     "make_classifier_eval_step",
+    "make_classifier_train_step",
+    "make_scanned_classifier_train_step",
     "load_jax_params",
     "resolve_device",
 ]

@@ -31,41 +31,10 @@ namespace mop {
 constexpr int kMaxN = kTile;
 constexpr int kMaxDk = 2 * kTile;
 
-struct Tile {
-  float v[4][4];
-};
-
 // (b, h, view, row) element strides of qs, ks and vs, then (b, h, row) of out.
 struct Strides {
   long long s[15];
 };
-
-// acc = X Y over K for rows 4ty+i and columns c0 + tx + 16j; out-of-range
-// rows and columns read the last valid one and are never written.
-__device__ __forceinline__ void mm_nn(const float* X, int ldx, const float* Y, int ldy,
-                                      int K, int rows, int cols, int c0, Tile& t) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  int ri[4], ci[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) ri[i] = min(4 * ty + i, rows - 1) * ldx;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ci[j] = min(c0 + tx + 16 * j, cols - 1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t.v[i][j] = 0.f;
-  for (int kk = 0; kk < K; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = X[ri[i] + kk];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Y[kk * ldy + ci[j]];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t.v[i][j] = fmaf(a[i], b[j], t.v[i][j]);
-  }
-}
 
 // acc = X Y^T over K (both row-major with K columns).
 __device__ __forceinline__ void mm_nt(const float* X, const float* Y, int ld, int K,

@@ -13,6 +13,7 @@ from .components import (
     ViewsLinear,
     ViTEncoder,
 )
+from .layers import Dropout, set_generator
 from .vit_baseline import ViT_Baseline
 from .vit_mop import ViT_MoP
 from .vit_variants import ViTEdgewise
@@ -30,6 +31,8 @@ __all__ = [
     "MLP",
     "Block",
     "DropPath",
+    "Dropout",
+    "set_generator",
     "EdgewiseMSA",
     "EdgewiseGateHead",
 ]

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops import fused as ops_fused
-from .layers import Linear
+from .layers import Dropout, Linear
 
 Tensor = torch.Tensor
 
@@ -127,7 +127,7 @@ class EdgewiseMSA(nn.Module):
             gate_rank=gate_rank, gate_init=gate_init)
         self.chain_value_logit = nn.Parameter(torch.empty(()))
         self.proj = Linear(dim, dim, bias=False)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.init_own(None)
 
     def init_own(self, generator: Optional[torch.Generator]) -> None:

@@ -16,25 +16,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused as ops_fused
-from .layers import Conv, LayerNorm, Linear, gelu_tanh
+from .layers import Conv, Dropout, LayerNorm, Linear, RandomDrop, gelu_tanh
 
 Tensor = torch.Tensor
 
 
-class DropPath(nn.Module):
-    """Stochastic depth — drops the whole residual branch per sample."""
+class DropPath(RandomDrop):
+    """Stochastic depth — drops the whole residual branch per sample.
 
-    def __init__(self, drop_prob: float = 0.0):
-        super().__init__()
-        self.drop_prob = drop_prob
+    The per-sample mask is drawn from the explicit ``generator`` attribute
+    (see ``RandomDrop``), as the JAX module draws it from its ``dropout``
+    key; it never touches the global RNG."""
 
     def forward(self, x: Tensor) -> Tensor:
-        if self.drop_prob == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.drop_prob
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return self.drop(x, (x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 class PatchEmbed(nn.Module):
@@ -55,8 +50,8 @@ class PatchEmbed(nn.Module):
 
 class MSA(nn.Module):
     """Multi-head self-attention, fused QKV, bias-free; attention runs through
-    the flash kernel (K1) on the card. Attention dropout (a training feature)
-    is not ported yet."""
+    the flash kernel (K1) on the card. Attention dropout (which the flash
+    kernel has no site for) is not ported yet."""
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
                  proj_drop: float = 0.0):
@@ -66,7 +61,7 @@ class MSA(nn.Module):
         self.heads = heads
         self.qkv = Linear(dim, dim * 3, bias=False)
         self.proj = Linear(dim, dim, bias=False)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: Tensor) -> Tensor:
         b, n, d = x.shape
@@ -84,7 +79,7 @@ class MLP(nn.Module):
         hid = int(dim * mlp_ratio)
         self.fc1 = Linear(dim, hid, bias=False)
         self.fc2 = Linear(hid, dim, bias=False)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.drop(self.fc2(gelu_tanh(self.fc1(x))))

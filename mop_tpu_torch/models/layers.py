@@ -37,6 +37,47 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class RandomDrop(nn.Module):
+    """Base of the modules that zero part of their input in training
+    (``Dropout``, ``DropPath``): ``where(mask, x / keep, 0)`` with
+    ``P(mask) = keep = 1 - p``, as the JAX package's dropout. The mask comes
+    from the explicit ``generator`` attribute (set by ``set_generator``),
+    never from the global RNG. Identity at rate 0 or in eval mode."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def drop(self, x: Tensor, mask_shape) -> Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__}: training draws its mask from an explicit "
+                "torch.Generator on the input's device; attach one with "
+                "set_generator(model, generator) (the train steps do) or call model.eval()")
+        keep = 1.0 - self.p
+        mask = torch.rand(mask_shape, device=x.device, generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(RandomDrop):
+    """Elementwise dropout (see ``RandomDrop``)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.drop(x, x.shape)
+
+
+def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    """Attach ``generator`` to every ``RandomDrop`` module of ``model``
+    (``Dropout``, ``DropPath``), and return the model."""
+    for m in model.modules():
+        if isinstance(m, RandomDrop):
+            m.generator = generator
+    return model
+
+
 def gelu_tanh(x: Tensor) -> Tensor:
     """GELU with the tanh approximation."""
     return F.gelu(x, approximate="tanh")

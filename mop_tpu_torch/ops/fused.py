@@ -4,15 +4,20 @@ The port of ``mop_tpu/ops/fused.py``. Each public function takes the JAX
 function's arguments and layout:
 
 - ``flash_attention``: K1, single-view scaled-dot-product attention with an
-  online softmax (``csrc/flash_fwd.cu``).
+  online softmax (``csrc/flash_fwd.cu``). Its backward recomputes the scores
+  with plain PyTorch ops, as the JAX package's ``_flash_bwd_rule`` does
+  through XLA.
 - ``fused_edgewise_lowrank_attention``: K2, the full E-mode lowrank pipeline
-  in one program per batch*head (``csrc/edgewise_lowrank_fwd.cu``).
+  in one program per batch*head (``csrc/edgewise_lowrank_fwd.cu``), and its
+  backward K2b (``csrc/edgewise_lowrank_bwd.cu``), which recomputes the
+  forward and applies the hand-derived VJP.
 
 The kernel is chosen by the tensors' device alone: a CUDA tensor launches the
 kernel or raises, a CPU tensor runs the ``*_plain`` version, which is also
 what the tests and ``chip_smoke.py`` hold the kernel against. Each wrapper
-counts its launches in its ``launches`` attribute. Only forward kernels
-exist so far: a CUDA call that would need a gradient raises.
+counts its launches in its ``launches`` attribute. Both ops are
+differentiable through a ``torch.autograd.Function`` that saves only its
+inputs, as the JAX ``custom_vjp`` rules do.
 """
 
 from __future__ import annotations
@@ -39,13 +44,6 @@ def _fn(lib_name: str, sym: str, argtypes, restype=ctypes.c_int):
     f.argtypes = argtypes
     f.restype = restype
     return f
-
-
-def _check_inference(name: str, *ts: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; run under torch.no_grad() "
-            "or torch.inference_mode()")
 
 
 def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
@@ -89,21 +87,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
-    """Blockwise fused attention over (B, H, N, dk) or (BH, N, dk) inputs.
-
-    K/V may have another length than Q. The causal mask is ``row >= col``,
-    as in the JAX kernel. On CUDA the output is a (B, H, N, dk) view of a
-    (B, N, H, dk) buffer, so merging the heads afterwards copies nothing.
-    """
-    squeeze = q.dim() == 3
-    if squeeze:
-        q, k, v = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
-    if not q.is_cuda:
-        out = flash_attention_plain(q, k, v, causal)
-        return out[0] if squeeze else out
-    _check_inference("flash_attention", q, k, v)
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> torch.Tensor:
+    """Launch K1 on (B, H, N, dk) CUDA inputs; the output is a (B, H, N, dk)
+    view of a (B, N, H, dk) buffer."""
     _check_cuda_inputs("flash_attention", q, k, v)
     b, h, n, dk = q.shape
     n_kv = k.shape[2]
@@ -122,6 +109,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 1.0 / math.sqrt(dk), _stream(q.device))
     _raise_on(rc, "flash_attention")
     flash_attention.launches += 1
+    return out
+
+
+def _flash_bwd_recompute(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor, causal: bool):
+    """K1's backward, as the JAX package's ``_flash_bwd_rule``: rebuild the
+    fp32 scores and softmax with plain ops and apply their VJP. Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    dk = q.shape[-1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(dk)
+    if causal:
+        n, m = s.shape[-2:]
+        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    a = torch.softmax(s, -1)
+    dv = torch.matmul(a.transpose(-1, -2), dof)
+    da = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = a * (da - (da * a).sum(-1, keepdim=True)) / math.sqrt(dk)
+    dq = torch.matmul(ds, kf)
+    dkey = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dkey.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (``fwd``: the kernel or its plain version) with the
+    recompute backward; saves only q, k and v."""
+
+    @staticmethod
+    def forward(ctx, fwd, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return fwd(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (None, *_flash_bwd_recompute(q, k, v, do, ctx.causal), None)
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Blockwise fused attention over (B, H, N, dk) or (BH, N, dk) inputs.
+
+    K/V may have another length than Q. The causal mask is ``row >= col``,
+    as in the JAX kernel. On CUDA the output is a (B, H, N, dk) view of a
+    (B, N, H, dk) buffer, so merging the heads afterwards copies nothing.
+    Differentiable: the backward recomputes the scores (``_flash_bwd_recompute``).
+    """
+    squeeze = q.dim() == 3
+    if squeeze:
+        q, k, v = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
+    fwd = _flash_fwd_cuda if q.is_cuda else flash_attention_plain
+    if _needs_grad(q, k, v):
+        out = _FlashAttention.apply(fwd, q, k, v, causal)
+    else:
+        out = fwd(q, k, v, causal)
     return out[0] if squeeze else out
 
 
@@ -139,11 +187,15 @@ def fused_edgewise_lowrank_attention_plain(
     """The E-mode lowrank pipeline of ``_edgewise_math`` + ``_edgewise_output``
     over (B, H, V, N, dk) inputs, step for step: products in fp32 on operands
     cast to the input dtype where the JAX kernel casts them, softmaxes, gate
-    head and logit algebra in fp32. Returns (B, H, N, dk) in the input dtype."""
+    head and logit algebra in fp32. Returns (B, H, N, dk) in the input dtype.
+
+    The weights and chain_w may also carry per-program leading (B, H) axes
+    (biases as (B, H, 1, 4r), chain_w as (B, H, 1, 1)), which the plain
+    backward uses to get per-program weight grads."""
     cdt = qs.dtype
     f32 = torch.float32
     nv, dk = qs.shape[2], qs.shape[-1]
-    r = wrow.shape[1] // 4
+    r = wrow.shape[-1] // 4
 
     def c(x):  # the compute-dtype cast before a product
         return x.to(cdt).to(f32)
@@ -207,26 +259,15 @@ def edgewise_lowrank_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int
     return int(fn(n_views, n, dk, rank))
 
 
-def fused_edgewise_lowrank_attention(
-    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
-    beta_not: float, chain_w: Union[torch.Tensor, float],
-) -> torch.Tensor:
-    """Fully fused E-mode lowrank attention, forward.
+def edgewise_lowrank_bwd_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int:
+    """Shared memory one K2b program needs (the kernel's own count)."""
+    fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd_smem_bytes",
+             [_I, _I, _I, _I], ctypes.c_longlong)
+    return int(fn(n_views, n, dk, rank))
 
-    qs/ks/vs: (B, H, V, N, dk) per-view tensors (any strides with a contiguous
-    feature axis); wrow/wcol: (2V+2, 4r) gate-head kernels; brow/bcol: (4r,);
-    chain_w: the sigmoid'd chain-value weight. Returns (B, H, N, dk). On CUDA
-    it supports 2 <= V, N <= 64, dk <= 128 within the card's shared memory
-    and raises outside them; the output is a view of a (B, N, H, dk) buffer.
-    """
-    if not qs.is_cuda:
-        return fused_edgewise_lowrank_attention_plain(
-            qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
-    name = "fused_edgewise_lowrank_attention"
-    w_t = torch.as_tensor(chain_w, dtype=torch.float32, device=qs.device).reshape(1)
-    _check_inference(name, qs, ks, vs, wrow, brow, wcol, bcol, w_t)
-    _check_cuda_inputs(name, qs, ks, vs)
+
+def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_fn):
+    """(B, H, V, N, dk, r) of a K2 / K2b call; raises outside the kernel's shapes."""
     b, h, nv, n, dk = qs.shape
     if ks.shape != qs.shape or vs.shape != qs.shape:
         raise ValueError(f"{name}: shapes {qs.shape}, {ks.shape}, {vs.shape}")
@@ -236,15 +277,34 @@ def fused_edgewise_lowrank_attention(
         raise ValueError(f"{name}: gate-head shapes {wrow.shape}, {brow.shape}, "
                          f"{wcol.shape}, {bcol.shape} for {nv} views")
     rank = c4 // 4
-    if nv < 2 or n > 64 or dk > 128 or rank < 1:
+    if nv < 2 or nv > max_views or n > 64 or dk > 128 or rank < 1:
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} outside the "
-                         "kernel's shapes (2 <= V, N <= 64, dk <= 128, r >= 1)")
-    smem = edgewise_lowrank_smem_bytes(nv, n, dk, rank)
+                         f"kernel's shapes (2 <= V <= {max_views}, N <= 64, dk <= 128, "
+                         "r >= 1)")
+    smem = smem_fn(nv, n, dk, rank)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} needs {smem} "
                          f"bytes of shared memory, more than {MAX_SMEM_BYTES}")
-    ws = [t.detach().to(device=qs.device, dtype=torch.float32).contiguous()
-          for t in (wrow, brow, wcol, bcol)]
+    return b, h, nv, n, dk, rank
+
+
+def _fp32_weights(device, *ts):
+    return [t.detach().to(device=device, dtype=torch.float32).contiguous() for t in ts]
+
+
+def _chain_w_tensor(chain_w, device) -> torch.Tensor:
+    if isinstance(chain_w, torch.Tensor):
+        return chain_w
+    return torch.tensor(float(chain_w), dtype=torch.float32, device=device)
+
+
+def _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w):
+    """Launch K2 on CUDA inputs; the output is a view of a (B, N, H, dk) buffer."""
+    name = "fused_edgewise_lowrank_attention"
+    _check_cuda_inputs(name, qs, ks, vs)
+    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
+                                             1 << 30, edgewise_lowrank_smem_bytes)
+    ws = _fp32_weights(qs.device, wrow, brow, wcol, bcol, chain_w.reshape(1))
     out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=qs.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 15)(
         *qs.stride()[:4], *ks.stride()[:4], *vs.stride()[:4], *out.stride()[:3])
@@ -253,7 +313,7 @@ def fused_edgewise_lowrank_attention(
               _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
     with torch.cuda.device(qs.device):
         rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                out.data_ptr(), *(t.data_ptr() for t in ws), w_t.data_ptr(),
+                out.data_ptr(), *(t.data_ptr() for t in ws),
                 b, h, nv, n, dk, rank, strides, float(beta_not),
                 1.0 / math.sqrt(dk), _stream(qs.device))
     _raise_on(rc, name)
@@ -261,9 +321,157 @@ def fused_edgewise_lowrank_attention(
     return out
 
 
+def fused_edgewise_lowrank_attention_bwd_plain(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float], dy: torch.Tensor,
+):
+    """K2b's plain version: the VJP of ``fused_edgewise_lowrank_attention_plain``
+    by ``torch.autograd.grad``, in the layout the kernel writes.
+
+    Returns (dq, dk, dv) as (B, H, V, N, dk) in the input dtype, then the
+    fp32 per-program grads dwrow (BH, C, 4r), dbrow (BH, 1, 4r), dwcol,
+    dbcol and dchain (BH,). The weights enter in fp32, as the kernel reads
+    them; each program gets its own copy so its grads stay apart.
+    """
+    b, h = qs.shape[:2]
+    bh = b * h
+    f32 = torch.float32
+
+    def per_program(t, shape):
+        t = t.detach().to(f32).reshape(shape)
+        return t.expand(b, h, *shape[2:]).clone().requires_grad_()
+
+    c, c4 = wrow.shape
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (qs, ks, vs))
+        ws = (per_program(wrow, (1, 1, c, c4)), per_program(brow, (1, 1, 1, c4)),
+              per_program(wcol, (1, 1, c, c4)), per_program(bcol, (1, 1, 1, c4)),
+              per_program(_chain_w_tensor(chain_w, qs.device), (1, 1, 1, 1)))
+        y = fused_edgewise_lowrank_attention_plain(q, k, v, *ws[:4], beta_not, ws[4])
+        grads = torch.autograd.grad(y, (q, k, v, *ws), dy)
+    dq, dk, dv = (g.contiguous() for g in grads[:3])
+    dwr, dbr, dwc, dbc, dch = grads[3:]
+    return (dq, dk, dv, dwr.reshape(bh, c, c4), dbr.reshape(bh, 1, c4),
+            dwc.reshape(bh, c, c4), dbc.reshape(bh, 1, c4), dch.reshape(bh))
+
+
+def fused_edgewise_lowrank_attention_bwd(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float], dy: torch.Tensor,
+):
+    """K2b: the backward of ``fused_edgewise_lowrank_attention`` for the
+    cotangent ``dy`` (B, H, N, dk), with the per-program outputs of
+    ``fused_edgewise_lowrank_attention_bwd_plain``.
+
+    On CUDA it supports 2 <= V <= 8, N <= 64, dk <= 128 within the card's
+    shared memory and raises outside them. q/k/v and dy may have any strides
+    with a contiguous feature axis; dq/dk/dv come back contiguous. The kernel
+    works in a per-program fp32 workspace in device memory (about 450 KB per
+    program at V = 5, N = 64, dk = 56), allocated here for each call.
+    """
+    if not qs.is_cuda:
+        return fused_edgewise_lowrank_attention_bwd_plain(
+            qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w, dy)
+    name = "fused_edgewise_lowrank_attention_bwd"
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    _check_cuda_inputs(name, qs, ks, vs, dy)
+    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
+                                             8, edgewise_lowrank_bwd_smem_bytes)
+    if dy.shape != (b, h, n, dk):
+        raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
+    dev, bh, c, c4 = qs.device, b * h, 2 * nv + 2, 4 * rank
+    w_t = _chain_w_tensor(chain_w, dev)
+    ws = _fp32_weights(dev, wrow, brow, wcol, bcol, w_t.reshape(1))
+    dq, dkey, dv = (torch.empty(b, h, nv, n, dk, dtype=qs.dtype, device=dev)
+                    for _ in range(3))
+    f32 = torch.float32
+    dws = (torch.empty(bh, c, c4, dtype=f32, device=dev),
+           torch.empty(bh, 1, c4, dtype=f32, device=dev),
+           torch.empty(bh, c, c4, dtype=f32, device=dev),
+           torch.empty(bh, 1, c4, dtype=f32, device=dev),
+           torch.empty(bh, dtype=f32, device=dev))
+    ws_fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd_ws_floats",
+                [_I, _I, _I], ctypes.c_longlong)
+    workspace = torch.empty(bh * int(ws_fn(nv, n, dk)), dtype=f32, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *qs.stride()[:4], *ks.stride()[:4], *vs.stride()[:4], *dy.stride()[:3])
+    fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd",
+             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+              _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                dy.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dv.data_ptr(),
+                *(t.data_ptr() for t in ws), *(t.data_ptr() for t in dws),
+                workspace.data_ptr(), b, h, nv, n, dk, rank, strides, float(beta_not),
+                1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    fused_edgewise_lowrank_attention_bwd.launches += 1
+    return (dq, dkey, dv, *dws)
+
+
+fused_edgewise_lowrank_attention_bwd.launches = 0
+
+
+class EdgewiseLowrankFunction(torch.autograd.Function):
+    """K2 with its backward K2b, as the JAX package's ``_edgewise_custom_op``.
+
+    ``fwd`` and ``bwd`` are the launchers (the kernels on the card, or their
+    plain versions). Only the inputs are saved; the backward recomputes the
+    rest. The per-program weight and chain-weight grads are summed here with
+    ``torch.sum`` (deterministic, no atomics), and every grad comes back in
+    its input's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, beta_not, qs, ks, vs, wrow, brow, wcol, bcol, chain_w):
+        ctx.save_for_backward(qs, ks, vs, wrow, brow, wcol, bcol, chain_w)
+        ctx.bwd, ctx.beta_not = bwd, beta_not
+        return fwd(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        qs, ks, vs, wrow, brow, wcol, bcol, chain_w = ctx.saved_tensors
+        dq, dk, dv, dwr, dbr, dwc, dbc, dch = ctx.bwd(
+            qs, ks, vs, wrow, brow, wcol, bcol, ctx.beta_not, chain_w, dy)
+        return (None, None, None, dq, dk, dv,
+                torch.sum(dwr, 0).to(wrow.dtype), torch.sum(dbr, (0, 1)).to(brow.dtype),
+                torch.sum(dwc, 0).to(wcol.dtype), torch.sum(dbc, (0, 1)).to(bcol.dtype),
+                torch.sum(dch).to(chain_w.dtype).reshape(chain_w.shape))
+
+
+def fused_edgewise_lowrank_attention(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """Fully fused E-mode lowrank attention, differentiable end to end.
+
+    qs/ks/vs: (B, H, V, N, dk) per-view tensors (any strides with a contiguous
+    feature axis); wrow/wcol: (2V+2, 4r) gate-head kernels; brow/bcol: (4r,);
+    chain_w: the sigmoid'd chain-value weight. Returns (B, H, N, dk). On CUDA
+    the forward is K2 and the backward K2b; K2 supports 2 <= V, N <= 64,
+    dk <= 128 within the card's shared memory and raises outside them; the
+    output is a view of a (B, N, H, dk) buffer.
+    """
+    chain_w = _chain_w_tensor(chain_w, qs.device)
+    if qs.is_cuda:
+        fwd, bwd = _edgewise_fwd_cuda, fused_edgewise_lowrank_attention_bwd
+    else:
+        fwd, bwd = (fused_edgewise_lowrank_attention_plain,
+                    fused_edgewise_lowrank_attention_bwd_plain)
+    if _needs_grad(qs, ks, vs, wrow, brow, wcol, bcol, chain_w):
+        return EdgewiseLowrankFunction.apply(fwd, bwd, beta_not, qs, ks, vs, wrow, brow,
+                                             wcol, bcol, chain_w)
+    return fwd(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+
+
 fused_edgewise_lowrank_attention.launches = 0
 
-KERNELS = (flash_attention, fused_edgewise_lowrank_attention)
+KERNELS = (flash_attention, fused_edgewise_lowrank_attention,
+           fused_edgewise_lowrank_attention_bwd)
 
 
 def reset_launch_counts() -> None:
