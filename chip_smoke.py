@@ -11,21 +11,28 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version;
+   4b. K3 ``fused_edgewise_dense_attention`` against its plain version;
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
    (autograd through the plain forward), all eight grads, fp32 and bf16;
+   5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise;
 6. K1's autograd (kernel forward, recompute backward) against autograd
    through the plain version;
-7. the eval path: CIFAR-100 eval steps of the full-width 5M-parameter A, B
-   and E configurations and B at the bench.py config, batch 256, fp32, with
-   kernel launch counts and the logits held against the plain path;
+7. the eval path: CIFAR-100 eval steps of the full-width 5M-parameter A, B,
+   E (lowrank gates) and E_dense (the dense gate head) configurations and B
+   at the bench.py config, batch 256, fp32, with kernel launch counts and the
+   logits held against the plain path;
+   7b. gradients through the eval forward of E and E_dense (the edgewise
+   backward kernels), launches counted, grads held against the plain path;
 8. the train path: the bench.py recipe (augment, bf16 compute, AdamW 3e-3 /
-   0.05) for the same four configs at batch 256: launches per step, one
-   step's fp32 grads held against the plain path, 20 steps on one repeated
-   batch whose loss must fall, images/s of the scanned step (K = 20) with a
+   0.05) for the same configs at batch 256: launches per step, one step's
+   fp32 grads held against the plain path, 20 steps on one repeated batch
+   whose loss must fall, images/s of the scanned step (K = 20) with a
    torch.profiler breakdown, and an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one, and each model's eval
-   images/s with a torch.profiler breakdown of its device time.
+   bound and one library call where there is one; one E_dense attention
+   layer's bf16 forward and backward through its eval route (K3, K3b) and
+   its train route (composed); and each model's eval images/s with a
+   torch.profiler breakdown of its device time.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import torch
 from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ViT_Baseline, ViT_MoP, ViTEdgewise,
                            make_classifier_eval_step, make_classifier_train_step,
                            make_scanned_classifier_train_step)
+from mop_tpu_torch.models import EdgewiseMSA
+from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
 from mop_tpu_torch.ops.preprocess import cifar_eval_transform
@@ -63,8 +72,8 @@ PEAK_BYTES = 3.35e12
 
 # Full-width configs of experiments/cifar100_ab5_param_budgets.py at the 5M
 # target (A, B, E) and of bench.py (B at 224/6/4).
-# name -> (constructor(generator, **kw), {kernel: launches per forward}); a
-# train step adds one K2b launch per K2 launch.
+# name -> (constructor(generator, **kw), {kernel: launches per forward});
+# see expected() for the launches of a train step and of an eval gradient.
 MODELS = {
     "A": (lambda g, **kw: ViT_Baseline(dim=224, depth=8, heads=4, n_classes=N_CLASSES,
                                        generator=g, **kw), {"flash_attention": 8}),
@@ -78,7 +87,19 @@ MODELS = {
                                       gate_rank=4, gate_init="mix5", mlp_ratio=4.0,
                                       generator=g, **kw),
           {"fused_edgewise_lowrank_attention": 4}),
+    # E with the reference's default dense gate head (4,869,524 params).
+    "E_dense": (lambda g, **kw: ViTEdgewise(dim=224, depth=4, heads=4, n_classes=N_CLASSES,
+                                            n_views=5, share_qkv=False, gate_mode="dense",
+                                            gate_init="neutral", mlp_ratio=4.0, generator=g,
+                                            **kw),
+                {"fused_edgewise_dense_attention": 4}),
 }
+K2B, K3B = "fused_edgewise_lowrank_attention_bwd", "fused_edgewise_dense_attention_bwd"
+# The backward kernel of each forward kernel with one.
+BWD = {"fused_edgewise_lowrank_attention": K2B, "fused_edgewise_dense_attention": K3B}
+# Forward kernels that a train step does not run: as in the JAX package, the
+# dense head trains through the composed path.
+EVAL_ONLY = {"fused_edgewise_dense_attention"}
 
 failures = []
 
@@ -162,59 +183,100 @@ def flash_cost(bh, n, n_kv, dk, dtype):
     return 4 * bh * n * n_kv * dk, esize * bh * dk * (2 * n + 2 * n_kv)
 
 
+def _score_flops(nv, n, dk):
+    """Flops of one edgewise program's score maps, both chains and the value
+    transport: what either gate head adds to is the rest of the mix."""
+    return (nv * 2 * n * n * dk            # S_i
+            + 2 * (nv - 1) * 2 * n ** 3     # forward and backward chains
+            + (nv - 1) * 2 * n * n * dk)    # value transport
+
+
 def _edgewise_mix_flops(nv, n, dk, r):
     """Flops of one program of K2's forward up to the output products: the
     part that K2b recomputes."""
     c = 2 * nv + 2
-    return (nv * 2 * n * n * dk            # S_i
-            + 2 * (nv - 1) * 2 * n ** 3     # forward and backward chains
+    return (_score_flops(nv, n, dk)
             + 2 * 2 * n * c * 4 * r         # rank factors
-            + 4 * 2 * n * n * r             # gates
-            + (nv - 1) * 2 * n * n * dk)    # value transport
+            + 4 * 2 * n * n * r)            # gates
 
 
-def _edgewise_fwd_flops(nv, n, dk, r):
-    """Flops of one program of K2's forward, counted from its products."""
-    return _edgewise_mix_flops(nv, n, dk, r) + 2 * 2 * n * n * dk  # att v_0, A_0 transport
+def _dense_mix_flops(nv, n, dk):
+    """The same for K3 and K3b: the per-edge head's C -> 16 -> 4 products."""
+    return _score_flops(nv, n, dk) + n * n * 2 * F.DENSE_HIDDEN * (2 * nv + 2 + 4)
+
+
+def _output_flops(n, dk):
+    return 2 * 2 * n * n * dk  # att v_0, A_0 transport
+
+
+def _bwd_flops(nv, n, dk):
+    """Backward products of one program that both gate heads share; dw =
+    <Ac_0, dAc_0> / w is elementwise."""
+    nd = 2 * n * n * dk  # one N x N by N x dk product
+    return (4 * nd                           # dv_0, d att, dAc_0, dP_1
+            + 2 * n * n                      # dw
+            + (nv - 1) * 2 * nd              # dAc_i and dP_{i+1} down the transport
+            + 2 * 2 * (nv - 1) * 2 * n ** 3  # both chains, two products per link
+            + nv * 2 * nd)                   # dq_i, dk_i
 
 
 def edgewise_cost(bh, nv, n, dk, r, dtype):
     esize = torch.finfo(dtype).bits // 8
     c = 2 * nv + 2
     nbytes = esize * bh * dk * n * (3 * nv + 1) + 4 * (2 * c * 4 * r + 2 * 4 * r + 1)
-    return bh * _edgewise_fwd_flops(nv, n, dk, r), nbytes
+    return bh * (_edgewise_mix_flops(nv, n, dk, r) + _output_flops(n, dk)), nbytes
 
 
 def edgewise_bwd_cost(bh, nv, n, dk, r, dtype):
     """K2b: the recompute up to the output products (y itself is never
-    rebuilt), plus every product the backward needs; dw = <Ac_0, dAc_0> / w is
-    elementwise. Bytes are the inputs, dy, the weights, and the grads
-    (per-program weight grads) written."""
+    rebuilt), plus every product the backward needs. Bytes are the inputs,
+    dy, the weights, and the grads (per-program weight grads) written."""
     esize = torch.finfo(dtype).bits // 8
     c = 2 * nv + 2
-    nd = 2 * n * n * dk  # one N x N by N x dk product
-    bwd = (4 * nd                           # dv_0, d att, dAc_0, dP_1
-           + 2 * n * n                      # dw
-           + (nv - 1) * 2 * nd              # dAc_i and dP_{i+1} down the transport
-           + 4 * 2 * 2 * n * n * r          # da_c, db_c
-           + 2 * 2 * 2 * n * c * 4 * r      # dwrow, dwcol, d row_feat, d col_feat
-           + 2 * 2 * (nv - 1) * 2 * n ** 3  # both chains, two products per link
-           + nv * 2 * nd)                   # dq_i, dk_i
+    gate_bwd = (4 * 2 * 2 * n * n * r          # da_c, db_c
+                + 2 * 2 * 2 * n * c * 4 * r)    # dwrow, dwcol, d row_feat, d col_feat
     w_floats = 2 * c * 4 * r + 2 * 4 * r + 1
     nbytes = (esize * bh * dk * n * (6 * nv + 1) + 4 * w_floats + 4 * bh * w_floats)
-    return bh * (_edgewise_mix_flops(nv, n, dk, r) + bwd), nbytes
+    return bh * (_edgewise_mix_flops(nv, n, dk, r) + _bwd_flops(nv, n, dk) + gate_bwd), nbytes
+
+
+def _dense_w_floats(nv):
+    hd = F.DENSE_HIDDEN
+    return (2 * nv + 2) * hd + hd + hd * 4 + 4 + 1  # w1, b1, w2, b2, chain_w
+
+
+def edgewise_dense_cost(bh, nv, n, dk, dtype):
+    """K3: its products, the per-edge head included; inputs read and the
+    output written once."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * bh * dk * n * (3 * nv + 1) + 4 * _dense_w_floats(nv)
+    return bh * (_dense_mix_flops(nv, n, dk) + _output_flops(n, dk)), nbytes
+
+
+def edgewise_dense_bwd_cost(bh, nv, n, dk, dtype):
+    """K3b: the recompute up to the output products, the shared backward
+    products, and the head's backward per edge (dhid = w2 dz, dw2, dw1 and
+    dfeat = w1 dpre); counted as edgewise_bwd_cost."""
+    esize = torch.finfo(dtype).bits // 8
+    head_bwd = n * n * 2 * F.DENSE_HIDDEN * (2 * (2 * nv + 2) + 8)
+    w_floats = _dense_w_floats(nv)
+    nbytes = (esize * bh * dk * n * (6 * nv + 1) + 4 * w_floats + 4 * bh * w_floats)
+    return bh * (_dense_mix_flops(nv, n, dk) + _bwd_flops(nv, n, dk) + head_bwd), nbytes
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Route the models through the kernels' plain versions (the reference)."""
-    saved = F.flash_attention, F.fused_edgewise_lowrank_attention
-    F.flash_attention = F.flash_attention_plain
-    F.fused_edgewise_lowrank_attention = F.fused_edgewise_lowrank_attention_plain
+    names = ("flash_attention", "fused_edgewise_lowrank_attention",
+             "fused_edgewise_dense_attention")
+    saved = [getattr(F, n) for n in names]
+    for n in names:
+        setattr(F, n, getattr(F, n + "_plain"))
     try:
         yield
     finally:
-        F.flash_attention, F.fused_edgewise_lowrank_attention = saved
+        for n, f in zip(names, saved):
+            setattr(F, n, f)
 
 
 def cuda_generator(seed):
@@ -238,6 +300,16 @@ def edgewise_inputs(g, bh_shape, nv, n, dk, r, dtype):
     return (qs, ks, vs, rn(c, 4 * r) * 0.3, torch.linspace(-0.5, 0.5, 4 * r, device="cuda"),
             rn(c, 4 * r) * 0.3, torch.linspace(0.5, -0.5, 4 * r, device="cuda"), 0.5,
             torch.tensor(0.4, device="cuda"))
+
+
+def dense_inputs(g, bh_shape, nv, n, dk, dtype):
+    def rn(*s):
+        return torch.randn(*s, device="cuda", generator=g)
+    qs, ks, vs = (rn(*bh_shape, nv, n, dk).to(dtype) for _ in range(3))
+    return (qs, ks, vs, rn(2 * nv + 2, F.DENSE_HIDDEN) * 0.3,
+            torch.linspace(-0.5, 0.5, F.DENSE_HIDDEN, device="cuda"),
+            rn(F.DENSE_HIDDEN, 4) * 0.5, torch.tensor([-1.0, 0.5, -0.5, 1.0], device="cuda"),
+            0.5, torch.tensor(0.4, device="cuda"))
 
 
 def main() -> int:
@@ -266,9 +338,12 @@ def main() -> int:
     say(f"[2 build] {len(libs)} kernels from mop_tpu_torch/csrc in {time.time() - t0:.1f} s")
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    # The dense head's phases draw from their own generator, so that the
+    # other phases see the same inputs as before they were added.
+    gd = torch.Generator(device="cuda").manual_seed(3)
 
-    def rn(*s, dtype=torch.float32):
-        return torch.randn(*s, device="cuda", generator=g).to(dtype)
+    def rn(*s, dtype=torch.float32, gen=g):
+        return torch.randn(*s, device="cuda", generator=gen).to(dtype)
 
     errs = {}
     say("[3 K1 flash_attention vs plain]")
@@ -304,9 +379,25 @@ def main() -> int:
                 F.fused_edgewise_lowrank_attention(*args),
                 F.fused_edgewise_lowrank_attention_plain(*args), 2e-5, 2e-4)
 
+        say("[4b K3 fused_edgewise_dense_attention vs plain]")
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+            args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
+            err = compare(f"(256, 4, 5, 64, 56) {dtype}", F.fused_edgewise_dense_attention(*args),
+                          F.fused_edgewise_dense_attention_plain(*args), atol, rtol)
+            errs.setdefault("fused_edgewise_dense_attention", err)
+        args = dense_inputs(gd, (256, 4), 5, 64, 56, torch.float32)
+        qkv = rn(256, 64, 5, 3, 4, 56, gen=gd).permute(3, 0, 4, 2, 1, 5)
+        args = (*qkv, *args[3:])
+        compare("strided view inputs (256, 4, 5, 64, 56) float32",
+                F.fused_edgewise_dense_attention(*args),
+                F.fused_edgewise_dense_attention_plain(*args), 2e-5, 2e-4)
+        args = dense_inputs(gd, (2, 2), 2, 40, 100, torch.float32)
+        compare("(2, 2, 2, 40, 100) float32", F.fused_edgewise_dense_attention(*args),
+                F.fused_edgewise_dense_attention_plain(*args), 2e-5, 2e-4)
+
     say("[5 K2b fused_edgewise_lowrank_attention_bwd vs plain backward]")
     grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
-    k2b = "fused_edgewise_lowrank_attention_bwd"
+    k2b = K2B
     errs[k2b] = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, dtype)
@@ -339,6 +430,36 @@ def main() -> int:
     for gname, a, b in zip(grad_names, got, want):
         compare(f"strided view inputs float32 {gname}", a, b, 2e-4, 2e-3)
 
+    say("[5b K3b fused_edgewise_dense_attention_bwd vs plain backward]")
+    dense_names = ("dq", "dk", "dv", "dw1", "db1", "dw2", "db2", "dchain")
+    errs[K3B] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
+        dy = rn(256, 4, 64, 56, dtype=dtype, gen=gd)
+        got = F.fused_edgewise_dense_attention_bwd(*args, dy)
+        want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
+        for gname, a, b in zip(dense_names, got, want):
+            label = f"(256, 4, 5, 64, 56) {dtype} {gname}"
+            if dtype == torch.float32:
+                errs[K3B] = max(errs[K3B], compare(label, a, b, 2e-4, 2e-3))
+            else:
+                compare_rel(label, a, b, BF16_GRAD_FRAC)
+    # Off the main shape: two views, N < 64 with dk > 64 (two column tiles).
+    args = dense_inputs(gd, (2, 2), 2, 40, 100, torch.float32)
+    dy = rn(2, 2, 40, 100, gen=gd)
+    got = F.fused_edgewise_dense_attention_bwd(*args, dy)
+    want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
+    for gname, a, b in zip(dense_names, got, want):
+        compare(f"(2, 2, 2, 40, 100) float32 {gname}", a, b, 2e-4, 2e-3)
+    args = dense_inputs(gd, (256, 4), 5, 64, 56, torch.float32)
+    qkv = rn(256, 64, 5, 3, 4, 56, gen=gd).permute(3, 0, 4, 2, 1, 5)
+    args = (*qkv, *args[3:])
+    dy = rn(256, 64, 4, 56, gen=gd).transpose(1, 2)
+    got = F.fused_edgewise_dense_attention_bwd(*args, dy)
+    want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
+    for gname, a, b in zip(dense_names, got, want):
+        compare(f"strided view inputs float32 {gname}", a, b, 2e-4, 2e-3)
+
     say("[6 K1 autograd (kernel forward, recompute backward) vs plain autograd]")
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (rn(256, 4, 64, 56, dtype=dtype).requires_grad_() for _ in range(3))
@@ -359,11 +480,16 @@ def main() -> int:
     valid = torch.ones(BATCH, device="cuda")
     launches = {f.__name__: 0 for f in F.KERNELS}
 
-    def expected(per_fwd, train):
+    def expected(per_fwd, mode):
+        """Launches of an "eval" forward, a "train" step or an "eval_grad"
+        (a gradient through the eval forward)."""
         want = {k: 0 for k in launches}
-        want.update(per_fwd)
-        if train and "fused_edgewise_lowrank_attention" in per_fwd:
-            want[k2b] = per_fwd["fused_edgewise_lowrank_attention"]
+        for k, n in per_fwd.items():
+            if mode == "train" and k in EVAL_ONLY:
+                continue
+            want[k] = n
+            if mode != "eval" and k in BWD:
+                want[BWD[k]] = n
         return want
 
     def counted(fn):
@@ -384,7 +510,7 @@ def main() -> int:
         (correct, n_valid), counts = counted(lambda: step(x_u8, y, valid))
         say(f"  {name}: {n_params} params, correct {correct.item():.0f} / {n_valid.item():.0f}, "
             f"launches {counts}")
-        check(counts == expected(per_fwd, False), f"{name}: launches per forward {per_fwd}")
+        check(counts == expected(per_fwd, "eval"), f"{name}: launches per forward {per_fwd}")
         check(n_valid.item() == BATCH and 0 <= correct.item() <= BATCH,
               f"{name}: eval counts in range")
         with torch.inference_mode():
@@ -394,6 +520,31 @@ def main() -> int:
                 ref = model(x)
         check(tuple(logits.shape) == (BATCH, N_CLASSES), f"{name}: logits shape")
         compare(f"{name}: logits kernel path vs plain path", logits, ref, 2e-5, 2e-4)
+
+    say(f"[7b gradient through the eval forward] batch {BATCH}, fp32")
+    x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
+    for name, (_, per_fwd) in MODELS.items():
+        if not any(k in BWD for k in per_fwd):
+            continue
+        model = models[name].eval()
+        params = list(model.parameters())
+
+        def eval_grads():
+            loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+            return torch.autograd.grad(loss, params)
+
+        got, counts = counted(eval_grads)
+        check(counts == expected(per_fwd, "eval_grad"),
+              f"{name}: launches of one gradient through the eval forward {counts}")
+        with plain_kernels():
+            want = eval_grads()
+        worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(got, want))
+        check(worst <= 1e-3 and all(bool(torch.isfinite(t).all()) for t in got),
+              f"{name}: fp32 grads through the eval forward, kernel path vs plain path over "
+              f"{len(got)} tensors: worst max-abs error {worst:.2e} of the tensor's largest "
+              "grad (limit 1e-3)")
+        del got, want
 
     say(f"[8 train path] bench.py recipe at batch {BATCH}: augment, bf16 compute, "
         f"AdamW {LR} / {WD}")
@@ -418,7 +569,7 @@ def main() -> int:
         gen = cuda_generator(seed)
         step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD)
         _, counts = counted(lambda: step(x_u8, y, gen))
-        check(counts == expected(per_fwd, True), f"{name}: launches per train step {counts}")
+        check(counts == expected(per_fwd, "train"), f"{name}: launches per train step {counts}")
         scanned = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
                                                      unroll_steps=TRAIN_K)
         losses = scanned(x_u8.expand(TRAIN_K, -1, -1, -1, -1), y.expand(TRAIN_K, -1),
@@ -467,10 +618,45 @@ def main() -> int:
             f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
         if dtype == torch.float32:
             k2b_record = dict(
-                name=k2b, route="cuda", source="mop_tpu_torch/csrc/edgewise_lowrank_bwd.cu",
+                name=k2b, route="cuda", source="mop_tpu_torch/csrc/edgewise_bwd.cu",
                 replaces="mop_tpu/ops/fused.py:641", launches=launches[k2b],
                 max_abs_err=errs[k2b], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
+        dy = rn(256, 4, 64, 56, dtype=dtype, gen=gd)
+        ms = time_ms(lambda: F.fused_edgewise_dense_attention_bwd(*args, dy), iters=10)
+        plain = time_ms(lambda: F.fused_edgewise_dense_attention_bwd_plain(*args, dy),
+                        iters=5, reps=3)
+        bnd, by = bound_ms(*edgewise_dense_bwd_cost(1024, 5, 64, 56, dtype), dtype)
+        say(f"  K3b (256, 4, 5, 64, 56) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+        if dtype == torch.float32:
+            k3b_record = dict(
+                name=K3B, route="cuda", source="mop_tpu_torch/csrc/edgewise_bwd.cu",
+                replaces="mop_tpu/ops/fused.py:641", launches=launches[K3B],
+                max_abs_err=errs[K3B], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None)
+    # One E_dense attention layer at bf16, forward and backward, through the
+    # eval route (K3, K3b) and the train route (composed), in turns.
+    layer = init_params(EdgewiseMSA(224, 4, n_views=5, gate_mode="dense"),
+                        torch.Generator().manual_seed(9)).to("cuda", torch.bfloat16)
+    xl = rn(BATCH, 64, 224, dtype=torch.bfloat16, gen=gd).requires_grad_()
+    dyl = rn(BATCH, 64, 224, dtype=torch.bfloat16, gen=gd)
+    lparams = [xl, *layer.parameters()]
+
+    def layer_step():
+        torch.autograd.grad(layer(xl), lparams, dyl)
+
+    route_ms = {"eval": [], "train": []}
+    for mode in ("eval", "train", "train", "eval"):
+        layer.train(mode == "train")
+        route_ms[mode].append(time_ms(layer_step, iters=10, reps=3))
+    say("  E_dense EdgewiseMSA layer (224, 4 heads, 5 views) bf16 forward + backward, batch "
+        f"{BATCH}: eval route (K3 + K3b) {route_ms['eval'][0]:.4f} / {route_ms['eval'][1]:.4f} "
+        f"ms, train route (composed) {route_ms['train'][0]:.4f} / {route_ms['train'][1]:.4f} "
+        f"ms [{smi}]")
+    del layer, xl, dyl, lparams
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (rn(1024, 64, 56, dtype=dtype) for _ in range(3))
@@ -504,6 +690,22 @@ def main() -> int:
                     max_abs_err=errs["fused_edgewise_lowrank_attention"], ms=ms,
                     plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
         records.append(k2b_record)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
+            ms = time_ms(lambda: F.fused_edgewise_dense_attention(*args))
+            plain = time_ms(lambda: F.fused_edgewise_dense_attention_plain(*args))
+            bnd, by = bound_ms(*edgewise_dense_cost(1024, 5, 64, 56, dtype), dtype)
+            say(f"  K3 (256, 4, 5, 64, 56) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+            if dtype == torch.float32:
+                records.append(dict(
+                    name="fused_edgewise_dense_attention", route="cuda",
+                    source="mop_tpu_torch/csrc/edgewise_dense_fwd.cu",
+                    replaces="mop_tpu/ops/fused.py:628",
+                    launches=launches["fused_edgewise_dense_attention"],
+                    max_abs_err=errs["fused_edgewise_dense_attention"], ms=ms,
+                    plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
+        records.append(k3b_record)
         x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
         for name, model in models.items():
             ms = time_ms(lambda: model(x), iters=10)

@@ -77,7 +77,8 @@ class ViTEdgewise(_VariantViT):
     """Mode-E ViT: every block attends through ``EdgewiseMSA``.
 
     Built on ``device`` (the GPU unless given); ``generator`` seeds the
-    initialisation. Only the lowrank gate head is ported.
+    initialisation. Every gate head and lens bank of ``EdgewiseMSA`` is
+    ported; attention dropout is not, and no ViT uses it.
     """
 
     def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,

@@ -32,7 +32,8 @@ FLAGS = ["-O3", "-std=c++17", ARCH, "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "edgewise_lowrank_fwd": "edgewise_lowrank_fwd.cu",
-    "edgewise_lowrank_bwd": "edgewise_lowrank_bwd.cu",
+    "edgewise_dense_fwd": "edgewise_dense_fwd.cu",
+    "edgewise_bwd": "edgewise_bwd.cu",
 }
 
 _lock = threading.Lock()

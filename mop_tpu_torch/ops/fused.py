@@ -9,22 +9,27 @@ function's arguments and layout:
   through XLA.
 - ``fused_edgewise_lowrank_attention``: K2, the full E-mode lowrank pipeline
   in one program per batch*head (``csrc/edgewise_lowrank_fwd.cu``), and its
-  backward K2b (``csrc/edgewise_lowrank_bwd.cu``), which recomputes the
-  forward and applies the hand-derived VJP.
+  backward K2b, which recomputes the forward and applies the hand-derived
+  VJP (``csrc/edgewise_bwd.cu``).
+- ``fused_edgewise_dense_attention``: K3, the E-mode pipeline with the dense
+  per-edge gate head (``csrc/edgewise_dense_fwd.cu``), and its backward K3b,
+  the same backward kernel templated on the dense head.
 
 The kernel is chosen by the tensors' device alone: a CUDA tensor launches the
 kernel or raises, a CPU tensor runs the ``*_plain`` version, which is also
 what the tests and ``chip_smoke.py`` hold the kernel against. Each wrapper
-counts its launches in its ``launches`` attribute. Both ops are
-differentiable through a ``torch.autograd.Function`` that saves only its
-inputs, as the JAX ``custom_vjp`` rules do.
+counts its launches in its ``launches`` attribute. The ops are
+differentiable through ``torch.autograd.Function``s that save only their
+inputs, as the JAX ``custom_vjp`` rules do; both edgewise ops share one
+(``EdgewiseFunction``) over a flat weight list, as the JAX package's
+``_edgewise_custom_op``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -176,26 +181,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-# ------------------------ K2: edgewise lowrank ---------------------------
+# ------------------ K2, K3: edgewise lowrank and dense -------------------
 
 
-def fused_edgewise_lowrank_attention_plain(
-    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
-    beta_not: float, chain_w: Union[torch.Tensor, float],
-) -> torch.Tensor:
-    """The E-mode lowrank pipeline of ``_edgewise_math`` + ``_edgewise_output``
-    over (B, H, V, N, dk) inputs, step for step: products in fp32 on operands
-    cast to the input dtype where the JAX kernel casts them, softmaxes, gate
-    head and logit algebra in fp32. Returns (B, H, N, dk) in the input dtype.
-
-    The weights and chain_w may also carry per-program leading (B, H) axes
-    (biases as (B, H, 1, 4r), chain_w as (B, H, 1, 1)), which the plain
-    backward uses to get per-program weight grads."""
+def _edgewise_maps(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor):
+    """The score algebra both gate heads share, over (B, H, V, N, dk) inputs:
+    the fp32 score maps S_i, the softmaxes cast to the compute dtype Ac_i,
+    log(c_fwd + 1e-6), log(c_bwd + 1e-6) and v in fp32. Products in fp32 on
+    operands cast to the input dtype where the JAX kernel casts them."""
     cdt = qs.dtype
     f32 = torch.float32
     nv, dk = qs.shape[2], qs.shape[-1]
-    r = wrow.shape[-1] // 4
 
     def c(x):  # the compute-dtype cast before a product
         return x.to(cdt).to(f32)
@@ -214,20 +210,17 @@ def fused_edgewise_lowrank_attention_plain(
         c_bwd = ac[-1] @ ac[-2]
         for i in range(nv - 3, -1, -1):
             c_bwd = c(c_bwd) @ ac[i]
-    log_cf = torch.log(c_fwd + 1e-6)
-    log_cb = torch.log(c_bwd + 1e-6)
+    return s_list, ac, torch.log(c_fwd + 1e-6), torch.log(c_bwd + 1e-6), v
 
-    # Channel order [S_1..S_V, S_1^T..S_V^T, logC_fwd, logC_bwd]; the row mean
-    # of S^T is the column mean of S.
-    rows = [s.mean(-1) for s in s_list]
-    cols = [s.mean(-2) for s in s_list]
-    row_feat = torch.stack(rows + cols + [log_cf.mean(-1), log_cb.mean(-1)], -1)
-    col_feat = torch.stack(cols + rows + [log_cf.mean(-2), log_cb.mean(-2)], -1)
-    a_fac = row_feat @ wrow.to(f32) + brow.to(f32)
-    b_fac = col_feat @ wcol.to(f32) + bcol.to(f32)
-    g = [torch.sigmoid(a_fac[..., j * r:(j + 1) * r]
-                       @ b_fac[..., j * r:(j + 1) * r].transpose(-1, -2))
-         for j in range(4)]
+
+def _edgewise_output_plain(s_list, ac, g, log_cf, v, beta_not, chain_w, cdt):
+    """``_edgewise_output``: the gated logit mix with the four gate maps g,
+    the final softmax, and y = c(att) v_0 + w Ac_0 (Ac_1 (... v_{V-1}))."""
+    f32 = torch.float32
+    nv = len(s_list)
+
+    def c(x):
+        return x.to(cdt).to(f32)
 
     s1 = s_list[0]
     s_sum = s1
@@ -247,9 +240,93 @@ def fused_edgewise_lowrank_attention_plain(
     transport = v[:, :, nv - 1]
     for i in range(nv - 1, 0, -1):
         transport = ac[i] @ c(transport)
-    w = torch.as_tensor(chain_w, dtype=f32, device=qs.device)
+    w = torch.as_tensor(chain_w, dtype=f32, device=v.device)
     y = c(att) @ v[:, :, 0] + w * (ac[0] @ c(transport))
     return y.to(cdt)
+
+
+def fused_edgewise_lowrank_attention_plain(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """The E-mode lowrank pipeline of ``_edgewise_math`` + ``_edgewise_output``
+    over (B, H, V, N, dk) inputs, step for step: products in fp32 on operands
+    cast to the input dtype where the JAX kernel casts them, softmaxes, gate
+    head and logit algebra in fp32. Returns (B, H, N, dk) in the input dtype.
+
+    The weights and chain_w may also carry per-program leading (B, H) axes
+    (biases as (B, H, 1, 4r), chain_w as (B, H, 1, 1)), which the plain
+    backward uses to get per-program weight grads."""
+    f32 = torch.float32
+    r = wrow.shape[-1] // 4
+    s_list, ac, log_cf, log_cb, v = _edgewise_maps(qs, ks, vs)
+
+    # Channel order [S_1..S_V, S_1^T..S_V^T, logC_fwd, logC_bwd]; the row mean
+    # of S^T is the column mean of S.
+    rows = [s.mean(-1) for s in s_list]
+    cols = [s.mean(-2) for s in s_list]
+    row_feat = torch.stack(rows + cols + [log_cf.mean(-1), log_cb.mean(-1)], -1)
+    col_feat = torch.stack(cols + rows + [log_cf.mean(-2), log_cb.mean(-2)], -1)
+    a_fac = row_feat @ wrow.to(f32) + brow.to(f32)
+    b_fac = col_feat @ wcol.to(f32) + bcol.to(f32)
+    g = [torch.sigmoid(a_fac[..., j * r:(j + 1) * r]
+                       @ b_fac[..., j * r:(j + 1) * r].transpose(-1, -2))
+         for j in range(4)]
+    return _edgewise_output_plain(s_list, ac, g, log_cf, v, beta_not, chain_w, qs.dtype)
+
+
+def fused_edgewise_dense_attention_plain(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """The E-mode dense-gate pipeline of ``_edgewise_dense_math`` +
+    ``_edgewise_output`` over (B, H, V, N, dk) inputs: the per-edge feature
+    stack [S_1..S_V, S_1^T..S_V^T, logC_fwd, logC_bwd] in fp32, the 1x1 head
+    w1 (C, 16) -> tanh GELU -> w2 (16, 4) -> sigmoid in fp32, then the gated
+    mix and the value transport as the lowrank version. Returns (B, H, N, dk)
+    in the input dtype.
+
+    The weights may also carry per-program leading (B, H, 1) axes (w1 as
+    (B, H, 1, C, 16), b1 as (B, H, 1, 1, 16)), and chain_w (B, H, 1, 1),
+    which the plain backward uses to get per-program weight grads."""
+    f32 = torch.float32
+    s_list, ac, log_cf, log_cb, v = _edgewise_maps(qs, ks, vs)
+    feat = torch.stack(s_list + [s.transpose(-1, -2) for s in s_list] + [log_cf, log_cb], -1)
+    hid = torch.nn.functional.gelu(feat @ w1.to(f32) + b1.to(f32), approximate="tanh")
+    g = torch.sigmoid(hid @ w2.to(f32) + b2.to(f32)).unbind(-1)
+    return _edgewise_output_plain(s_list, ac, g, log_cf, v, beta_not, chain_w, qs.dtype)
+
+
+def _edgewise_bwd_plain(fwd_plain, lead: int, qs, ks, vs, weights, beta_not, chain_w, dy):
+    """A plain backward kernel's version: the VJP of ``fwd_plain`` by
+    ``torch.autograd.grad``, in the layout the kernels write.
+
+    Returns (dq, dk, dv) as (B, H, V, N, dk) in the input dtype, then the fp32
+    per-program grad of each weight, (BH, *shape) for a matrix and (BH, 1, n)
+    for a bias, and dchain (BH,). The weights enter in fp32, as the kernels
+    read them; each program gets its own copy (with ``lead`` singleton axes
+    after (B, H)) so its grads stay apart."""
+    b, h = qs.shape[:2]
+    f32 = torch.float32
+
+    def shape_of(w):
+        return tuple(w.shape) if w.dim() == 2 else (1, w.shape[0])
+
+    def per_program(t, shape):
+        t = t.detach().to(f32).reshape(1, 1, *shape)
+        return t.expand(b, h, *shape).clone().requires_grad_()
+
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (qs, ks, vs))
+        ws = [per_program(w, (1,) * lead + shape_of(w)) for w in weights]
+        cw = per_program(_chain_w_tensor(chain_w, qs.device), (1, 1))
+        y = fwd_plain(q, k, v, *ws, beta_not, cw)
+        grads = torch.autograd.grad(y, (q, k, v, *ws, cw), dy)
+    dq, dk, dv = (g.contiguous() for g in grads[:3])
+    dws = [g.reshape(b * h, *shape_of(w)) for g, w in zip(grads[3:-1], weights)]
+    return (dq, dk, dv, *dws, grads[-1].reshape(b * h))
 
 
 def edgewise_lowrank_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int:
@@ -261,9 +338,29 @@ def edgewise_lowrank_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int
 
 def edgewise_lowrank_bwd_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int:
     """Shared memory one K2b program needs (the kernel's own count)."""
-    fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd_smem_bytes",
-             [_I, _I, _I, _I], ctypes.c_longlong)
-    return int(fn(n_views, n, dk, rank))
+    fn = _fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [_I, _I, _I, _I, _I],
+             ctypes.c_longlong)
+    return int(fn(n_views, n, dk, rank, 0))
+
+
+def edgewise_dense_smem_bytes(n_views: int, n: int, dk: int) -> int:
+    """Shared memory one K3 program needs (the kernel's own count)."""
+    fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [_I, _I, _I],
+             ctypes.c_longlong)
+    return int(fn(n_views, n, dk))
+
+
+def edgewise_dense_bwd_smem_bytes(n_views: int, n: int, dk: int) -> int:
+    """Shared memory one K3b program needs (the kernel's own count)."""
+    fn = _fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [_I, _I, _I, _I, _I],
+             ctypes.c_longlong)
+    return int(fn(n_views, n, dk, 1, 1))
+
+
+def _check_smem(name, smem, nv, n, dk):
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: V={nv}, N={n}, dk={dk} needs {smem} bytes of shared "
+                         f"memory, more than {MAX_SMEM_BYTES}")
 
 
 def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_fn):
@@ -281,11 +378,29 @@ def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_f
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} outside the "
                          f"kernel's shapes (2 <= V <= {max_views}, N <= 64, dk <= 128, "
                          "r >= 1)")
-    smem = smem_fn(nv, n, dk, rank)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} needs {smem} "
-                         f"bytes of shared memory, more than {MAX_SMEM_BYTES}")
+    _check_smem(f"{name} (r={rank})", smem_fn(nv, n, dk, rank), nv, n, dk)
     return b, h, nv, n, dk, rank
+
+
+DENSE_HIDDEN = 16  # the dense gate head's hidden width, fixed in the kernels
+
+
+def _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2, smem_fn):
+    """(B, H, V, N, dk) of a K3 / K3b call; raises outside the kernels' shapes."""
+    b, h, nv, n, dk = qs.shape
+    if ks.shape != qs.shape or vs.shape != qs.shape:
+        raise ValueError(f"{name}: shapes {qs.shape}, {ks.shape}, {vs.shape}")
+    hd = DENSE_HIDDEN
+    if (w1.shape != (2 * nv + 2, hd) or b1.shape != (hd,) or w2.shape != (hd, 4)
+            or b2.shape != (4,)):
+        raise ValueError(f"{name}: gate-head shapes {w1.shape}, {b1.shape}, {w2.shape}, "
+                         f"{b2.shape} for {nv} views (the kernels take a 2V+2 -> {hd} -> 4 "
+                         "head)")
+    if nv < 2 or nv > 8 or n > 64 or dk > 128:
+        raise ValueError(f"{name}: V={nv}, N={n}, dk={dk} outside the kernel's shapes "
+                         "(2 <= V <= 8, N <= 64, dk <= 128)")
+    _check_smem(name, smem_fn(nv, n, dk), nv, n, dk)
+    return b, h, nv, n, dk
 
 
 def _fp32_weights(device, *ts):
@@ -298,6 +413,13 @@ def _chain_w_tensor(chain_w, device) -> torch.Tensor:
     return torch.tensor(float(chain_w), dtype=torch.float32, device=device)
 
 
+def _in_strides(qs, ks, vs, last):
+    """The 15 element strides the edgewise kernels take: (b, h, view, row) of
+    qs, ks and vs, then (b, h, row) of ``last`` (the output or dy)."""
+    return (ctypes.c_longlong * 15)(
+        *qs.stride()[:4], *ks.stride()[:4], *vs.stride()[:4], *last.stride()[:3])
+
+
 def _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w):
     """Launch K2 on CUDA inputs; the output is a view of a (B, N, H, dk) buffer."""
     name = "fused_edgewise_lowrank_attention"
@@ -306,19 +428,70 @@ def _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w):
                                              1 << 30, edgewise_lowrank_smem_bytes)
     ws = _fp32_weights(qs.device, wrow, brow, wcol, bcol, chain_w.reshape(1))
     out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=qs.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 15)(
-        *qs.stride()[:4], *ks.stride()[:4], *vs.stride()[:4], *out.stride()[:3])
     fn = _fn("edgewise_lowrank_fwd", "mop_edgewise_lowrank_fwd",
              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
     with torch.cuda.device(qs.device):
         rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
                 out.data_ptr(), *(t.data_ptr() for t in ws),
-                b, h, nv, n, dk, rank, strides, float(beta_not),
+                b, h, nv, n, dk, rank, _in_strides(qs, ks, vs, out), float(beta_not),
                 1.0 / math.sqrt(dk), _stream(qs.device))
     _raise_on(rc, name)
     fused_edgewise_lowrank_attention.launches += 1
     return out
+
+
+def _dense_fwd_cuda(qs, ks, vs, w1, b1, w2, b2, beta_not, chain_w):
+    """Launch K3 on CUDA inputs; the output is a view of a (B, N, H, dk) buffer.
+    The kernel keeps its maps in a per-program fp32 workspace in device
+    memory (about 450 KB a program at V = 5, N = 64, dk = 56), allocated here."""
+    name = "fused_edgewise_dense_attention"
+    _check_cuda_inputs(name, qs, ks, vs)
+    b, h, nv, n, dk = _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2,
+                                    edgewise_dense_smem_bytes)
+    dev = qs.device
+    ws = _fp32_weights(dev, w1, b1, w2, b2, chain_w.reshape(1))
+    out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=dev).transpose(1, 2)
+    ws_fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_ws_floats", [_I, _I, _I],
+                ctypes.c_longlong)
+    workspace = torch.empty(b * h * int(ws_fn(nv, n, dk)), dtype=torch.float32, device=dev)
+    fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_fwd",
+             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                out.data_ptr(), *(t.data_ptr() for t in ws), workspace.data_ptr(),
+                b, h, nv, n, dk, _in_strides(qs, ks, vs, out), float(beta_not),
+                1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    fused_edgewise_dense_attention.launches += 1
+    return out
+
+
+def _edgewise_bwd_cuda(name, sym, qs, ks, vs, weights, beta_not, chain_w, dy, dims):
+    """Launch the backward kernel ``sym`` of ``csrc/edgewise_bwd.cu`` (K2b or
+    K3b) on CUDA inputs whose shapes the caller has checked; ``dims`` are the
+    kernel's int arguments after the pointers. Returns (dq, dk, dv) and the
+    fp32 per-program grads of each weight and of chain_w."""
+    b, h, nv, n, dk = qs.shape
+    dev, bh, f32 = qs.device, b * h, torch.float32
+    ws = _fp32_weights(dev, *weights, _chain_w_tensor(chain_w, dev).reshape(1))
+    dq, dkey, dv = (torch.empty(b, h, nv, n, dk, dtype=qs.dtype, device=dev)
+                    for _ in range(3))
+    dws = [torch.empty(bh, *(w.shape if w.dim() == 2 else (1, w.shape[0])), dtype=f32,
+                       device=dev) for w in weights]
+    dws.append(torch.empty(bh, dtype=f32, device=dev))
+    ws_fn = _fn("edgewise_bwd", "mop_edgewise_bwd_ws_floats", [_I, _I, _I], ctypes.c_longlong)
+    workspace = torch.empty(bh * int(ws_fn(nv, n, dk)), dtype=f32, device=dev)
+    fn = _fn("edgewise_bwd", sym, [_I] + [_P] * 18 + [_I] * len(dims) + [_P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                dy.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dv.data_ptr(),
+                *(t.data_ptr() for t in ws), *(t.data_ptr() for t in dws),
+                workspace.data_ptr(), *dims, _in_strides(qs, ks, vs, dy), float(beta_not),
+                1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    return (dq, dkey, dv, *dws)
 
 
 def fused_edgewise_lowrank_attention_bwd_plain(
@@ -331,29 +504,10 @@ def fused_edgewise_lowrank_attention_bwd_plain(
 
     Returns (dq, dk, dv) as (B, H, V, N, dk) in the input dtype, then the
     fp32 per-program grads dwrow (BH, C, 4r), dbrow (BH, 1, 4r), dwcol,
-    dbcol and dchain (BH,). The weights enter in fp32, as the kernel reads
-    them; each program gets its own copy so its grads stay apart.
+    dbcol and dchain (BH,).
     """
-    b, h = qs.shape[:2]
-    bh = b * h
-    f32 = torch.float32
-
-    def per_program(t, shape):
-        t = t.detach().to(f32).reshape(shape)
-        return t.expand(b, h, *shape[2:]).clone().requires_grad_()
-
-    c, c4 = wrow.shape
-    with torch.enable_grad():
-        q, k, v = (t.detach().requires_grad_() for t in (qs, ks, vs))
-        ws = (per_program(wrow, (1, 1, c, c4)), per_program(brow, (1, 1, 1, c4)),
-              per_program(wcol, (1, 1, c, c4)), per_program(bcol, (1, 1, 1, c4)),
-              per_program(_chain_w_tensor(chain_w, qs.device), (1, 1, 1, 1)))
-        y = fused_edgewise_lowrank_attention_plain(q, k, v, *ws[:4], beta_not, ws[4])
-        grads = torch.autograd.grad(y, (q, k, v, *ws), dy)
-    dq, dk, dv = (g.contiguous() for g in grads[:3])
-    dwr, dbr, dwc, dbc, dch = grads[3:]
-    return (dq, dk, dv, dwr.reshape(bh, c, c4), dbr.reshape(bh, 1, c4),
-            dwc.reshape(bh, c, c4), dbc.reshape(bh, 1, c4), dch.reshape(bh))
+    return _edgewise_bwd_plain(fused_edgewise_lowrank_attention_plain, 0, qs, ks, vs,
+                               (wrow, brow, wcol, bcol), beta_not, chain_w, dy)
 
 
 def fused_edgewise_lowrank_attention_bwd(
@@ -382,64 +536,97 @@ def fused_edgewise_lowrank_attention_bwd(
                                              8, edgewise_lowrank_bwd_smem_bytes)
     if dy.shape != (b, h, n, dk):
         raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
-    dev, bh, c, c4 = qs.device, b * h, 2 * nv + 2, 4 * rank
-    w_t = _chain_w_tensor(chain_w, dev)
-    ws = _fp32_weights(dev, wrow, brow, wcol, bcol, w_t.reshape(1))
-    dq, dkey, dv = (torch.empty(b, h, nv, n, dk, dtype=qs.dtype, device=dev)
-                    for _ in range(3))
-    f32 = torch.float32
-    dws = (torch.empty(bh, c, c4, dtype=f32, device=dev),
-           torch.empty(bh, 1, c4, dtype=f32, device=dev),
-           torch.empty(bh, c, c4, dtype=f32, device=dev),
-           torch.empty(bh, 1, c4, dtype=f32, device=dev),
-           torch.empty(bh, dtype=f32, device=dev))
-    ws_fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd_ws_floats",
-                [_I, _I, _I], ctypes.c_longlong)
-    workspace = torch.empty(bh * int(ws_fn(nv, n, dk)), dtype=f32, device=dev)
-    strides = (ctypes.c_longlong * 15)(
-        *qs.stride()[:4], *ks.stride()[:4], *vs.stride()[:4], *dy.stride()[:3])
-    fn = _fn("edgewise_lowrank_bwd", "mop_edgewise_lowrank_bwd",
-             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-              _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
-    with torch.cuda.device(dev):
-        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                dy.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dv.data_ptr(),
-                *(t.data_ptr() for t in ws), *(t.data_ptr() for t in dws),
-                workspace.data_ptr(), b, h, nv, n, dk, rank, strides, float(beta_not),
-                1.0 / math.sqrt(dk), _stream(dev))
-    _raise_on(rc, name)
+    out = _edgewise_bwd_cuda(name, "mop_edgewise_lowrank_bwd", qs, ks, vs,
+                             (wrow, brow, wcol, bcol), beta_not, chain_w, dy,
+                             (b, h, nv, n, dk, rank))
     fused_edgewise_lowrank_attention_bwd.launches += 1
-    return (dq, dkey, dv, *dws)
+    return out
 
 
 fused_edgewise_lowrank_attention_bwd.launches = 0
 
 
-class EdgewiseLowrankFunction(torch.autograd.Function):
-    """K2 with its backward K2b, as the JAX package's ``_edgewise_custom_op``.
+def fused_edgewise_dense_attention_bwd_plain(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float], dy: torch.Tensor,
+):
+    """K3b's plain version: the VJP of ``fused_edgewise_dense_attention_plain``
+    by ``torch.autograd.grad``, in the layout the kernel writes.
+
+    Returns (dq, dk, dv) as (B, H, V, N, dk) in the input dtype, then the
+    fp32 per-program grads dw1 (BH, C, 16), db1 (BH, 1, 16), dw2 (BH, 16, 4),
+    db2 (BH, 1, 4) and dchain (BH,).
+    """
+    return _edgewise_bwd_plain(fused_edgewise_dense_attention_plain, 1, qs, ks, vs,
+                               (w1, b1, w2, b2), beta_not, chain_w, dy)
+
+
+def fused_edgewise_dense_attention_bwd(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float], dy: torch.Tensor,
+):
+    """K3b: the backward of ``fused_edgewise_dense_attention`` for the
+    cotangent ``dy`` (B, H, N, dk), with the per-program outputs of
+    ``fused_edgewise_dense_attention_bwd_plain``.
+
+    On CUDA it supports 2 <= V <= 8, N <= 64, dk <= 128 and a 2V+2 -> 16 -> 4
+    head, and raises outside them; strides and workspace as K2b's.
+    """
+    if not qs.is_cuda:
+        return fused_edgewise_dense_attention_bwd_plain(
+            qs, ks, vs, w1, b1, w2, b2, beta_not, chain_w, dy)
+    name = "fused_edgewise_dense_attention_bwd"
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    _check_cuda_inputs(name, qs, ks, vs, dy)
+    b, h, nv, n, dk = _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2,
+                                    edgewise_dense_bwd_smem_bytes)
+    if dy.shape != (b, h, n, dk):
+        raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
+    out = _edgewise_bwd_cuda(name, "mop_edgewise_dense_bwd", qs, ks, vs, (w1, b1, w2, b2),
+                             beta_not, chain_w, dy, (b, h, nv, n, dk))
+    fused_edgewise_dense_attention_bwd.launches += 1
+    return out
+
+
+fused_edgewise_dense_attention_bwd.launches = 0
+
+
+class EdgewiseFunction(torch.autograd.Function):
+    """An edgewise forward with its backward over a flat weight list, as the
+    JAX package's ``_edgewise_custom_op``: K2 with K2b, or K3 with K3b.
 
     ``fwd`` and ``bwd`` are the launchers (the kernels on the card, or their
-    plain versions). Only the inputs are saved; the backward recomputes the
-    rest. The per-program weight and chain-weight grads are summed here with
+    plain versions), called as ``fwd(qs, ks, vs, *weights, beta_not,
+    chain_w)``. Only the inputs are saved; the backward recomputes the rest.
+    The per-program weight and chain-weight grads are summed here with
     ``torch.sum`` (deterministic, no atomics), and every grad comes back in
     its input's dtype.
     """
 
     @staticmethod
-    def forward(ctx, fwd, bwd, beta_not, qs, ks, vs, wrow, brow, wcol, bcol, chain_w):
-        ctx.save_for_backward(qs, ks, vs, wrow, brow, wcol, bcol, chain_w)
+    def forward(ctx, fwd, bwd, beta_not, qs, ks, vs, chain_w, *weights):
+        ctx.save_for_backward(qs, ks, vs, chain_w, *weights)
         ctx.bwd, ctx.beta_not = bwd, beta_not
-        return fwd(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+        return fwd(qs, ks, vs, *weights, beta_not, chain_w)
 
     @staticmethod
     def backward(ctx, dy):
-        qs, ks, vs, wrow, brow, wcol, bcol, chain_w = ctx.saved_tensors
-        dq, dk, dv, dwr, dbr, dwc, dbc, dch = ctx.bwd(
-            qs, ks, vs, wrow, brow, wcol, bcol, ctx.beta_not, chain_w, dy)
+        qs, ks, vs, chain_w, *weights = ctx.saved_tensors
+        dq, dk, dv, *dws, dch = ctx.bwd(qs, ks, vs, *weights, ctx.beta_not, chain_w, dy)
+        sums = [torch.sum(g, 0 if w.dim() > 1 else (0, 1)).to(w.dtype)
+                for w, g in zip(weights, dws)]
         return (None, None, None, dq, dk, dv,
-                torch.sum(dwr, 0).to(wrow.dtype), torch.sum(dbr, (0, 1)).to(brow.dtype),
-                torch.sum(dwc, 0).to(wcol.dtype), torch.sum(dbc, (0, 1)).to(bcol.dtype),
-                torch.sum(dch).to(chain_w.dtype).reshape(chain_w.shape))
+                torch.sum(dch).to(chain_w.dtype).reshape(chain_w.shape), *sums)
+
+
+def _edgewise_op(fwd, bwd, qs, ks, vs, weights, beta_not, chain_w):
+    chain_w = _chain_w_tensor(chain_w, qs.device)
+    if _needs_grad(qs, ks, vs, chain_w, *weights):
+        return EdgewiseFunction.apply(fwd, bwd, beta_not, qs, ks, vs, chain_w, *weights)
+    return fwd(qs, ks, vs, *weights, beta_not, chain_w)
 
 
 def fused_edgewise_lowrank_attention(
@@ -456,22 +643,51 @@ def fused_edgewise_lowrank_attention(
     dk <= 128 within the card's shared memory and raises outside them; the
     output is a view of a (B, N, H, dk) buffer.
     """
-    chain_w = _chain_w_tensor(chain_w, qs.device)
     if qs.is_cuda:
         fwd, bwd = _edgewise_fwd_cuda, fused_edgewise_lowrank_attention_bwd
     else:
         fwd, bwd = (fused_edgewise_lowrank_attention_plain,
                     fused_edgewise_lowrank_attention_bwd_plain)
-    if _needs_grad(qs, ks, vs, wrow, brow, wcol, bcol, chain_w):
-        return EdgewiseLowrankFunction.apply(fwd, bwd, beta_not, qs, ks, vs, wrow, brow,
-                                             wcol, bcol, chain_w)
-    return fwd(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+    return _edgewise_op(fwd, bwd, qs, ks, vs, (wrow, brow, wcol, bcol), beta_not, chain_w)
 
 
 fused_edgewise_lowrank_attention.launches = 0
 
+
+def fused_edgewise_dense_attention(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float],
+    wk3: Optional[torch.Tensor] = None, bk3: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fully fused E-mode dense-gate attention, differentiable end to end.
+
+    qs/ks/vs: (B, H, V, N, dk) per-view tensors (any strides with a contiguous
+    feature axis); w1/b1: the 1x1 input conv as a (2V+2, 16) matmul and its
+    bias; w2/b2: the 1x1 output head (16, 4) and its bias; chain_w: the
+    sigmoid'd chain-value weight. Returns (B, H, N, dk). On CUDA the forward
+    is K3 and the backward K3b, for 2 <= V <= 8, N <= 64, dk <= 128 (they
+    raise outside them); the output is a view of a (B, N, H, dk) buffer.
+
+    The 3x3 mid conv of ``use_k3`` (wk3/bk3) has no fused form, as in the JAX
+    package, whose op returns None for it so that the caller composes; here
+    the caller composes without calling the op, which raises if given wk3.
+    """
+    if wk3 is not None or bk3 is not None:
+        raise ValueError("fused_edgewise_dense_attention: the use_k3 mid conv has no fused "
+                         "kernel; EdgewiseMSA composes that head")
+    if qs.is_cuda:
+        fwd, bwd = _dense_fwd_cuda, fused_edgewise_dense_attention_bwd
+    else:
+        fwd, bwd = fused_edgewise_dense_attention_plain, fused_edgewise_dense_attention_bwd_plain
+    return _edgewise_op(fwd, bwd, qs, ks, vs, (w1, b1, w2, b2), beta_not, chain_w)
+
+
+fused_edgewise_dense_attention.launches = 0
+
 KERNELS = (flash_attention, fused_edgewise_lowrank_attention,
-           fused_edgewise_lowrank_attention_bwd)
+           fused_edgewise_lowrank_attention_bwd, fused_edgewise_dense_attention,
+           fused_edgewise_dense_attention_bwd)
 
 
 def reset_launch_counts() -> None:

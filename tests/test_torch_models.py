@@ -31,6 +31,9 @@ MODELS = {
                                        gate_init="and", share_qkv=True),
                  lambda **d: P.ViTEdgewise(**SMALL, n_views=3, gate_mode="lowrank",
                                            gate_rank=2, gate_init="and", share_qkv=True, **d)),
+    "E_dense": (lambda: J.ViTEdgewise(**SMALL, n_views=3, gate_mode="dense", gate_init="and"),
+                lambda **d: P.ViTEdgewise(**SMALL, n_views=3, gate_mode="dense",
+                                          gate_init="and", **d)),
 }
 
 
@@ -111,6 +114,12 @@ FULL = {
           lambda: P.ViTEdgewise(dim=224, depth=4, heads=4, n_classes=100, **E_KW,
                                 device="cpu"),
           4_870_084),
+    # The reference's default E head: E_KW with gate_mode="dense", neutral init.
+    "E_dense": (lambda: J.ViTEdgewise(dim=224, depth=4, heads=4, n_classes=100, n_views=5,
+                                      gate_mode="dense"),
+                lambda: P.ViTEdgewise(dim=224, depth=4, heads=4, n_classes=100, n_views=5,
+                                      gate_mode="dense", device="cpu"),
+                4_869_524),
 }
 
 
@@ -176,9 +185,7 @@ def test_drop_path_drops_whole_samples_in_training_only():
 @pytest.mark.parametrize("ctor", [
     lambda: P.ViT_MoP(**SMALL, use_moe=True, device="cpu"),
     lambda: P.models.MSA(32, 4, attn_drop=0.1),
-    lambda: EdgewiseMSA(32, 4, gate_mode="dense"),
-    lambda: EdgewiseMSA(32, 4, gate_mode="lowrank", use_k3=True),
-    lambda: EdgewiseMSA(32, 4, gate_mode="lowrank", share_qkv=True, use_lens_bank=True),
+    lambda: EdgewiseMSA(32, 4, attn_drop=0.1),
 ])
 def test_unported_options_raise(ctor):
     with pytest.raises(NotImplementedError):
