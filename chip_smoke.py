@@ -12,27 +12,40 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 3. K1 ``flash_attention`` against its plain PyTorch version on the card;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version;
    4b. K3 ``fused_edgewise_dense_attention`` against its plain version;
+   4c. K4 ``fused_multihop_attention`` against its plain version: hops 3
+   and 2 with every gate on, fp32 and bf16, strided views, an off shape;
+   4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
+   shape, N = 512 and an off shape, fp32 and bf16, strided views;
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
    (autograd through the plain forward), all eight grads, fp32 and bf16;
    5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise;
 6. K1's autograd (kernel forward, recompute backward) against autograd
-   through the plain version;
+   through the plain version; 6b. K4's and K5's (kernel forward, recompute
+   backward) against autograd through their composed references;
 7. the eval path: CIFAR-100 eval steps of the full-width 5M-parameter A, B,
-   E (lowrank gates) and E_dense (the dense gate head) configurations and B
-   at the bench.py config, batch 256, fp32, with kernel launch counts and the
-   logits held against the plain path;
-   7b. gradients through the eval forward of E and E_dense (the edgewise
-   backward kernels), launches counted, grads held against the plain path;
+   E (lowrank gates) and E_dense (the dense gate head) configurations, B at
+   the bench.py config, and the 256/8/4 D (multi-hop, K4), Gated (two-hop,
+   K4) and C (cross-view, no kernel) ViTs of the experiments, batch 256,
+   fp32, with kernel launch counts and the logits held against the plain
+   path;
+   7b. gradients through the eval forward of E, E_dense (the edgewise
+   backward kernels) and D (K4's recompute backward), launches counted,
+   grads held against the plain path;
+   7c. the Quartet LM at the reference's comparison config (8 layers, 8
+   heads, 640 wide, block 256, vocab 8192): one eval forward with targets
+   at 64 sequences of 256 tokens, K5 launches (8, and 0 with
+   ``need_weights`` or ``causal_std``), logits and loss held against the
+   plain path;
 8. the train path: the bench.py recipe (augment, bf16 compute, AdamW 3e-3 /
-   0.05) for the same configs at batch 256: launches per step, one step's
+   0.05) for the ViT configs at batch 256: launches per step, one step's
    fp32 grads held against the plain path, 20 steps on one repeated batch
    whose loss must fall, images/s of the scanned step (K = 20) with a
    torch.profiler breakdown, and an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
    bound and one library call where there is one; one E_dense attention
    layer's bf16 forward and backward through its eval route (K3, K3b) and
-   its train route (composed); and each model's eval images/s with a
-   torch.profiler breakdown of its device time.
+   its train route (composed); each ViT's eval images/s and the LM's eval
+   forward, with a torch.profiler breakdown of their device time.
 """
 
 from __future__ import annotations
@@ -47,9 +60,10 @@ import time
 
 import torch
 
-from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ViT_Baseline, ViT_MoP, ViTEdgewise,
-                           make_classifier_eval_step, make_classifier_train_step,
-                           make_scanned_classifier_train_step)
+from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, TransformerConfig, ViT_Baseline,
+                           ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated, ViTMultiHop,
+                           create_gpt_quartet, make_classifier_eval_step,
+                           make_classifier_train_step, make_scanned_classifier_train_step)
 from mop_tpu_torch.models import EdgewiseMSA
 from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
@@ -93,13 +107,34 @@ MODELS = {
                                             gate_init="neutral", mlp_ratio=4.0, generator=g,
                                             **kw),
                 {"fused_edgewise_dense_attention": 4}),
+    # The C/D ViTs at the defaults of experiments/cifar100_multihop_gates.py,
+    # cifar100_twohop_gates.py and cifar100_crossview_mixer.py (256/8/4).
+    "D": (lambda g, **kw: ViTMultiHop(dim=256, depth=8, heads=4, n_classes=N_CLASSES, hops=3,
+                                      beta_not=0.5, generator=g, **kw),
+          {"fused_multihop_attention": 8}),
+    "Gated": (lambda g, **kw: ViTGated(dim=256, depth=8, heads=4, n_classes=N_CLASSES,
+                                       beta_not=0.5, generator=g, **kw),
+              {"fused_multihop_attention": 8}),
+    "C": (lambda g, **kw: ViTCrossView(dim=256, depth=8, heads=4, n_classes=N_CLASSES,
+                                       use_transpose_cues=False, generator=g, **kw), {}),
 }
 K2B, K3B = "fused_edgewise_lowrank_attention_bwd", "fused_edgewise_dense_attention_bwd"
+K4, K5 = "fused_multihop_attention", "fused_quartet_attention"
 # The backward kernel of each forward kernel with one.
 BWD = {"fused_edgewise_lowrank_attention": K2B, "fused_edgewise_dense_attention": K3B}
 # Forward kernels that a train step does not run: as in the JAX package, the
-# dense head trains through the composed path.
-EVAL_ONLY = {"fused_edgewise_dense_attention"}
+# dense head and the C/D variants train through the composed path.
+EVAL_ONLY = {"fused_edgewise_dense_attention", K4}
+# Models whose eval forward phase 7b differentiates.
+EVAL_GRAD = ("E", "E_dense", "D")
+# The Quartet LM: mop_tpu's ComparisonConfig (gpt_comparison.py) at the
+# vocab and batch of tools/bench_lm.py.
+LM_CONFIG = dict(n_layer=8, n_head=8, n_embd=640, dropout=0.1, block_size=256)
+LM_VOCAB, LM_BATCH = 8192, 64
+# mop_tpu's parameter count of create_gpt_quartet at that config
+# (tests/test_torch_quartet.py holds the port's count to it).
+LM_JAX_PARAMS = 51303696
+MULTIHOP_GATES = dict(base=0.9, and_=1.0, or_=0.5, not_=0.25, chain=0.75)
 
 failures = []
 
@@ -240,6 +275,24 @@ def edgewise_bwd_cost(bh, nv, n, dk, r, dtype):
     return bh * (_edgewise_mix_flops(nv, n, dk, r) + _bwd_flops(nv, n, dk) + gate_bwd), nbytes
 
 
+def multihop_cost(bh, n, dk, hops, dtype):
+    """K4: the two score maps, hops - 1 chain products (N^3 each), the
+    transport's hops - 1 products and A1 t, and att v1; six inputs read and
+    the output written once."""
+    esize = torch.finfo(dtype).bits // 8
+    nd = 2 * n * n * dk
+    flops = 2 * nd + (hops - 1) * 2 * n ** 3 + hops * nd + nd
+    return bh * flops, esize * bh * n * dk * 7 + 4
+
+
+def quartet_cost(bh, n, dk, dtype):
+    """K5: both full score maps (every column enters the statistics) and
+    the causal half of P V (row i has i + 1 live keys); five inputs read and
+    the output written once."""
+    esize = torch.finfo(dtype).bits // 8
+    return bh * (2 * 2 * n * n * dk + 2 * dk * n * (n + 1) // 2), esize * bh * n * dk * 6 + 8
+
+
 def _dense_w_floats(nv):
     hd = F.DENSE_HIDDEN
     return (2 * nv + 2) * hd + hd + hd * 4 + 4 + 1  # w1, b1, w2, b2, chain_w
@@ -268,7 +321,7 @@ def edgewise_dense_bwd_cost(bh, nv, n, dk, dtype):
 def plain_kernels():
     """Route the models through the kernels' plain versions (the reference)."""
     names = ("flash_attention", "fused_edgewise_lowrank_attention",
-             "fused_edgewise_dense_attention")
+             "fused_edgewise_dense_attention", K4, K5)
     saved = [getattr(F, n) for n in names]
     for n in names:
         setattr(F, n, getattr(F, n + "_plain"))
@@ -277,6 +330,11 @@ def plain_kernels():
     finally:
         for n, f in zip(names, saved):
             setattr(F, n, f)
+
+
+def launched(counts):
+    """The kernels of a launch count that ran, for printing."""
+    return {k: n for k, n in counts.items() if n}
 
 
 def cuda_generator(seed):
@@ -341,6 +399,7 @@ def main() -> int:
     # The dense head's phases draw from their own generator, so that the
     # other phases see the same inputs as before they were added.
     gd = torch.Generator(device="cuda").manual_seed(3)
+    gk = torch.Generator(device="cuda").manual_seed(4)  # likewise for K4, K5 and the LM
 
     def rn(*s, dtype=torch.float32, gen=g):
         return torch.randn(*s, device="cuda", generator=gen).to(dtype)
@@ -394,6 +453,45 @@ def main() -> int:
         args = dense_inputs(gd, (2, 2), 2, 40, 100, torch.float32)
         compare("(2, 2, 2, 40, 100) float32", F.fused_edgewise_dense_attention(*args),
                 F.fused_edgewise_dense_attention_plain(*args), 2e-5, 2e-4)
+
+        say("[4c K4 fused_multihop_attention vs plain] gates " + str(MULTIHOP_GATES))
+        for hops in (3, 2):
+            for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+                ins = [rn(256, 4, 64, 64, dtype=dtype, gen=gk) for _ in range(6)]
+                err = compare(f"(256, 4, 64, 64) hops {hops} {dtype}",
+                              F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
+                              F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, hops,
+                                                               0.4), atol, rtol)
+                if dtype == torch.float32:
+                    errs[K4] = max(errs.get(K4, 0.0), err)
+        # D's MultiHopMSA: strided q/k/v views of the two fused qkv outputs.
+        qkv = rn(256, 64, 2, 3, 4, 64, gen=gk).permute(2, 3, 0, 4, 1, 5)
+        ins = [qkv[p, i] for p in range(2) for i in range(3)]
+        compare("strided qkv views (256, 4, 64, 64) hops 3 float32",
+                F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, 3, 0.4),
+                F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, 3, 0.4), 2e-5, 2e-4)
+        for hops in (3, 4):
+            ins = [rn(2, 3, 40, 100, gen=gk) for _ in range(6)]
+            compare(f"(2, 3, 40, 100) hops {hops} float32",
+                    F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
+                    F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
+                    2e-5, 2e-4)
+
+        say("[4d K5 fused_quartet_attention vs plain] m 0.3, qscale 1.2")
+        for shape in ((64, 8, 256, 80), (2, 8, 512, 80)):
+            for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+                ins = [rn(*shape, dtype=dtype, gen=gk) for _ in range(5)]
+                err = compare(f"{shape} {dtype}", F.fused_quartet_attention(*ins, 0.3, 1.2),
+                              F.fused_quartet_attention_plain(*ins, 0.3, 1.2), atol, rtol)
+                if dtype == torch.float32:
+                    errs[K5] = max(errs.get(K5, 0.0), err)
+        # The LM's CausalSelfAttention: (B, H, T, dk) views of (B, T, C) projections.
+        ins = [rn(64, 256, 8, 80, gen=gk).transpose(1, 2) for _ in range(5)]
+        compare("strided views (64, 8, 256, 80) float32", F.fused_quartet_attention(*ins, 0.3, 1.2),
+                F.fused_quartet_attention_plain(*ins, 0.3, 1.2), 2e-5, 2e-4)
+        ins = [rn(2, 3, 100, 128, gen=gk) for _ in range(5)]
+        compare("(2, 3, 100, 128) float32", F.fused_quartet_attention(*ins, 0.3, 1.2),
+                F.fused_quartet_attention_plain(*ins, 0.3, 1.2), 2e-5, 2e-4)
 
     say("[5 K2b fused_edgewise_lowrank_attention_bwd vs plain backward]")
     grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
@@ -473,6 +571,32 @@ def main() -> int:
             else:
                 compare_rel(label, a, b, BF16_GRAD_FRAC)
 
+    say("[6b K4 and K5 autograd (kernel forward, recompute backward) vs autograd through "
+        "the composed reference]")
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = [rn(256, 4, 64, 64, dtype=dtype, gen=gk).requires_grad_() for _ in range(6)]
+        ins.append(torch.tensor(0.4, device="cuda", requires_grad=True))
+        dy = rn(256, 4, 64, 64, dtype=dtype, gen=gk)
+        outs = (F.fused_multihop_attention(*ins[:6], MULTIHOP_GATES, 0.5, 3, ins[6]),
+                F._multihop_reference(*ins, MULTIHOP_GATES, 0.5, 3))
+        got, want = (torch.autograd.grad(y, ins, dy) for y in outs)
+        ins = [rn(64, 8, 256, 80, dtype=dtype, gen=gk).requires_grad_() for _ in range(5)]
+        ins += [torch.tensor(x, device="cuda", requires_grad=True) for x in (0.3, 1.2)]
+        dy = rn(64, 8, 256, 80, dtype=dtype, gen=gk)
+        outs = (F.fused_quartet_attention(*ins), F._quartet_reference(*ins, 1e-5))
+        got5, want5 = (torch.autograd.grad(y, ins, dy) for y in outs)
+        for kname, a_s, b_s, names in (("K4", got, want, ("dq1", "dk1", "dv1", "dq2", "dk2",
+                                                         "dv2", "dchain")),
+                                       ("K5", got5, want5, ("dq", "dk", "dv", "dq2", "dk2",
+                                                            "dmixture", "dqscale"))):
+            for gname, a, b in zip(names, a_s, b_s):
+                label = f"{kname} {dtype} {gname}"
+                if dtype == torch.float32:
+                    compare(label, a, b, 2e-4, 2e-3)
+                else:
+                    compare_rel(label, a, b, BF16_GRAD_FRAC)
+    del ins, dy, outs, got, want, got5, want5
+
     say(f"[7 eval path] CIFAR-100 eval step, batch {BATCH}, fp32")
     x_u8 = torch.randint(0, 256, (BATCH, 3, 32, 32), dtype=torch.uint8, device="cuda",
                          generator=g)
@@ -509,7 +633,7 @@ def main() -> int:
         step = make_classifier_eval_step(model, CIFAR100_MEAN, CIFAR100_STD)
         (correct, n_valid), counts = counted(lambda: step(x_u8, y, valid))
         say(f"  {name}: {n_params} params, correct {correct.item():.0f} / {n_valid.item():.0f}, "
-            f"launches {counts}")
+            f"launches {launched(counts)}")
         check(counts == expected(per_fwd, "eval"), f"{name}: launches per forward {per_fwd}")
         check(n_valid.item() == BATCH and 0 <= correct.item() <= BATCH,
               f"{name}: eval counts in range")
@@ -523,9 +647,8 @@ def main() -> int:
 
     say(f"[7b gradient through the eval forward] batch {BATCH}, fp32")
     x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
-    for name, (_, per_fwd) in MODELS.items():
-        if not any(k in BWD for k in per_fwd):
-            continue
+    for name in EVAL_GRAD:
+        per_fwd = MODELS[name][1]
         model = models[name].eval()
         params = list(model.parameters())
 
@@ -535,7 +658,7 @@ def main() -> int:
 
         got, counts = counted(eval_grads)
         check(counts == expected(per_fwd, "eval_grad"),
-              f"{name}: launches of one gradient through the eval forward {counts}")
+              f"{name}: launches of one gradient through the eval forward {launched(counts)}")
         with plain_kernels():
             want = eval_grads()
         worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
@@ -545,6 +668,39 @@ def main() -> int:
               f"{len(got)} tensors: worst max-abs error {worst:.2e} of the tensor's largest "
               "grad (limit 1e-3)")
         del got, want
+
+    t_lm = LM_CONFIG["block_size"]
+    say(f"[7c Quartet LM] create_gpt_quartet({LM_VOCAB}, {LM_CONFIG}), eval forward with "
+        f"targets, {LM_BATCH} x {t_lm} tokens, fp32")
+    lm = create_gpt_quartet(LM_VOCAB, TransformerConfig(**LM_CONFIG),
+                            generator=torch.Generator().manual_seed(11)).eval()
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == LM_JAX_PARAMS,
+          f"LM: {n_params} params; mop_tpu's count for the same config {LM_JAX_PARAMS}")
+    idx = torch.randint(0, LM_VOCAB, (LM_BATCH, t_lm), device="cuda", generator=gk)
+    tgt = torch.randint(0, LM_VOCAB, (LM_BATCH, t_lm), device="cuda", generator=gk)
+    with torch.inference_mode():
+        (logits, loss), counts = counted(lambda: lm(idx, targets=tgt))
+        check(counts == expected({K5: LM_CONFIG["n_layer"]}, "eval"),
+              f"LM: launches per forward {launched(counts)}")
+        with plain_kernels():
+            ref_logits, ref_loss = lm(idx, targets=tgt)
+        check(tuple(logits.shape) == (LM_BATCH, t_lm, LM_VOCAB), "LM: logits shape")
+        compare("LM: logits kernel path vs plain path", logits, ref_logits, 2e-5, 2e-4)
+        compare("LM: loss kernel path vs plain path", loss, ref_loss, 2e-5, 2e-4)
+        # Random weights predict about uniformly over the vocabulary.
+        check(abs(loss.item() - math.log(LM_VOCAB)) < 0.5,
+              f"LM: loss {loss.item():.4f} near ln(vocab) {math.log(LM_VOCAB):.4f}")
+        del logits, ref_logits
+        x0 = rn(LM_BATCH, t_lm, LM_CONFIG["n_embd"], gen=gk)
+        (_, att), counts = counted(lambda: lm.blocks[0].attn(x0, need_weights=True))
+        check(counts[K5] == 0 and tuple(att.shape) == (LM_BATCH, 8, t_lm, t_lm),
+              f"LM: need_weights composes, K5 launches {counts[K5]}")
+        lm.config.causal_std = True
+        _, counts = counted(lambda: lm(idx, targets=tgt))
+        lm.config.causal_std = False
+        check(counts[K5] == 0, f"LM: causal_std composes, K5 launches {counts[K5]}")
+        del x0, att
 
     say(f"[8 train path] bench.py recipe at batch {BATCH}: augment, bf16 compute, "
         f"AdamW {LR} / {WD}")
@@ -569,7 +725,8 @@ def main() -> int:
         gen = cuda_generator(seed)
         step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD)
         _, counts = counted(lambda: step(x_u8, y, gen))
-        check(counts == expected(per_fwd, "train"), f"{name}: launches per train step {counts}")
+        check(counts == expected(per_fwd, "train"),
+              f"{name}: launches per train step {launched(counts)}")
         scanned = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
                                                      unroll_steps=TRAIN_K)
         losses = scanned(x_u8.expand(TRAIN_K, -1, -1, -1, -1), y.expand(TRAIN_K, -1),
@@ -706,6 +863,37 @@ def main() -> int:
                     max_abs_err=errs["fused_edgewise_dense_attention"], ms=ms,
                     plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
         records.append(k3b_record)
+        for dtype in (torch.float32, torch.bfloat16):
+            for hops in (3, 2):
+                ins = [rn(256, 4, 64, 64, dtype=dtype, gen=gk) for _ in range(6)]
+                ms = time_ms(lambda: F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops,
+                                                                0.4))
+                plain = time_ms(lambda: F.fused_multihop_attention_plain(
+                    *ins, MULTIHOP_GATES, 0.5, hops, 0.4), iters=10)
+                bnd, by = bound_ms(*multihop_cost(1024, 64, 64, hops, dtype), dtype)
+                say(f"  K4 (256, 4, 64, 64) hops {hops} {dtype}: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+                if dtype == torch.float32 and hops == 3:
+                    records.append(dict(
+                        name=K4, route="cuda", source="mop_tpu_torch/csrc/multihop_fwd.cu",
+                        replaces="mop_tpu/ops/fused.py:289", launches=launches[K4],
+                        max_abs_err=errs[K4], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=None))
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [rn(64, 8, 256, 80, dtype=dtype, gen=gk) for _ in range(5)]
+            ms = time_ms(lambda: F.fused_quartet_attention(*ins, 0.3, 1.2), iters=10)
+            plain = time_ms(lambda: F.fused_quartet_attention_plain(*ins, 0.3, 1.2), iters=5,
+                            reps=3)
+            bnd, by = bound_ms(*quartet_cost(512, 256, 80, dtype), dtype)
+            say(f"  K5 (64, 8, 256, 80) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+            if dtype == torch.float32:
+                records.append(dict(
+                    name=K5, route="cuda", source="mop_tpu_torch/csrc/quartet_fwd.cu",
+                    replaces="mop_tpu/ops/fused.py:888", launches=launches[K5],
+                    max_abs_err=errs[K5], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=None))
+        del ins
         x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
         for name, model in models.items():
             ms = time_ms(lambda: model(x), iters=10)
@@ -716,7 +904,16 @@ def main() -> int:
             top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:6])
             say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
                 f"(5 forwards, profiled); by kernel: {top}")
-    check(all(c > 0 for c in launches.values()), f"every kernel launched on the main path: {launches}")
+        ms = time_ms(lambda: lm(idx, targets=tgt), iters=3, reps=3)
+        say(f"  LM fp32 eval forward with loss, {LM_BATCH} x {t_lm} tokens: {ms:.3f} ms, "
+            f"{LM_BATCH * t_lm / ms * 1e3:.0f} tokens/s [{smi}]")
+        rows, wall_us = device_breakdown(lambda: lm(idx, targets=tgt), reps=2)
+        busy = sum(t for _, t in rows)
+        top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:6])
+        say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
+            f"(2 forwards, profiled); by kernel: {top}")
+    check(all(c > 0 for c in launches.values()),
+          f"every kernel launched on the main path: {launches}")
     say(f"total {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))

@@ -7,12 +7,18 @@ hand-written CUDA kernel under ``csrc/``, built with nvcc at first use
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
 Ported so far: CIFAR ViT training and inference for A (``ViT_Baseline``), B
-(``ViT_MoP``) and E (``ViTEdgewise``, lowrank gates) through
+(``ViT_MoP``), C (``ViTCrossView``), D (``ViTMultiHop``), the two-hop gated
+ViT (``ViTGated``) and E (``ViTEdgewise``, lowrank and dense gates) through
 ``make_classifier_train_step``, ``make_scanned_classifier_train_step`` and
-``make_classifier_eval_step``.
+``make_classifier_eval_step``; the Quartet and baseline causal LM
+(``TinyTransformerLM``, ``create_gpt_quartet``, ``create_gpt_baseline``)
+forward.
 """
 
-from .models import ViT_Baseline, ViT_MoP, ViTEdgewise, set_generator
+from .models import (CrossViewMixerMSA, DualPathMSA, EdgewiseMSA, MultiHopMSA, TinyTransformerLM,
+                     TransformerConfig, UnifiedMSA, ViT_Baseline, ViT_MoP, ViTCrossView,
+                     ViTEdgewise, ViTGated, ViTMultiHop, create_gpt_baseline,
+                     create_gpt_quartet, set_generator)
 from .ops import fused
 from .ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
                              cifar_eval_transform, cifar_train_augment,
@@ -27,6 +33,18 @@ __all__ = [
     "ViT_Baseline",
     "ViT_MoP",
     "ViTEdgewise",
+    "ViTCrossView",
+    "ViTMultiHop",
+    "ViTGated",
+    "CrossViewMixerMSA",
+    "MultiHopMSA",
+    "DualPathMSA",
+    "UnifiedMSA",
+    "EdgewiseMSA",
+    "TinyTransformerLM",
+    "TransformerConfig",
+    "create_gpt_baseline",
+    "create_gpt_quartet",
     "set_generator",
     "fused",
     "CIFAR10_MEAN",

@@ -94,4 +94,82 @@ __device__ __forceinline__ void mm_nn(const float* X, int ldx, const float* Y, i
   }
 }
 
+// acc = X Y^T over K (both row-major with K columns and `rows` rows).
+__device__ __forceinline__ void mm_nt(const float* X, const float* Y, int ld, int K, int rows,
+                                      Tile& t) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  int ri[4], ci[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ri[i] = min(4 * ty + i, rows - 1) * ld;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ci[j] = min(tx + 16 * j, rows - 1) * ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t.v[i][j] = 0.f;
+  for (int kk = 0; kk < K; ++kk) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = X[ri[i] + kk];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Y[ci[j] + kk];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t.v[i][j] = fmaf(a[i], b[j], t.v[i][j]);
+  }
+}
+
+// Store a tile (optionally rounded to T) into a row-major buffer.
+template <typename T>
+__device__ __forceinline__ void store(float* D, int ld, int rows, int cols, int c0,
+                                      const Tile& t, bool round) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (r < rows && c < cols) D[r * ld + c] = round ? rnd<T>(t.v[i][j]) : t.v[i][j];
+    }
+  }
+}
+
+// dst = an input (rows x cols, row stride rs, feature stride 1) times `mul`,
+// or its transpose. With mul != 1 the product is rounded to T, as the JAX
+// kernels scale q in the compute dtype.
+template <typename T>
+__device__ void stage_in(float* dst, int ldst, const T* src, long long rs, int rows, int cols,
+                         bool trans, float mul) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx - r * cols;
+    float x = to_f<T>(src[r * rs + c]);
+    if (mul != 1.f) x = rnd<T>(x * mul);
+    if (trans)
+      dst[c * ldst + r] = x;
+    else
+      dst[r * ldst + c] = x;
+  }
+}
+
+// Row softmax of an N x N map (N <= 64, row stride ld) into dst, which may be
+// M itself, rounded to T; one warp a row, each lane reading its two values
+// before any is written.
+template <typename T>
+__device__ void softmax_rows(const float* M, float* dst, int ld, int N) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < N; r += kThreads / 32) {
+    const float* row = M + r * ld;
+    const float x0 = lane < N ? row[lane] : -INFINITY;
+    const float x1 = lane + 32 < N ? row[lane + 32] : -INFINITY;
+    const float mx = warp_max(fmaxf(x0, x1));
+    const float e0 = lane < N ? expf(x0 - mx) : 0.f;
+    const float e1 = lane + 32 < N ? expf(x1 - mx) : 0.f;
+    const float sum = warp_sum(e0 + e1);
+    if (lane < N) dst[r * ld + lane] = rnd<T>(e0 / sum);
+    if (lane + 32 < N) dst[r * ld + lane + 32] = rnd<T>(e1 / sum);
+  }
+}
+
 }  // namespace mop

@@ -36,65 +36,6 @@ struct Strides {
   long long s[15];
 };
 
-// acc = X Y^T over K (both row-major with K columns).
-__device__ __forceinline__ void mm_nt(const float* X, const float* Y, int ld, int K,
-                                      int rows, Tile& t) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  int ri[4], ci[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) ri[i] = min(4 * ty + i, rows - 1) * ld;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ci[j] = min(tx + 16 * j, rows - 1) * ld;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t.v[i][j] = 0.f;
-  for (int kk = 0; kk < K; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = X[ri[i] + kk];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Y[ci[j] + kk];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t.v[i][j] = fmaf(a[i], b[j], t.v[i][j]);
-  }
-}
-
-// Store a tile (optionally rounded to T) into a row-major buffer.
-template <typename T>
-__device__ __forceinline__ void store(float* D, int ld, int rows, int cols, int c0,
-                                      const Tile& t, bool round) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (r < rows && c < cols) D[r * ld + c] = round ? rnd<T>(t.v[i][j]) : t.v[i][j];
-    }
-  }
-}
-
-// Row softmax of an N x N map in place, one warp per row; stored rounded to T.
-template <typename T>
-__device__ void softmax_rows(float* M, int ldm, int N) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < N; r += kThreads / 32) {
-    float* row = M + r * ldm;
-    const float x0 = lane < N ? row[lane] : -INFINITY;
-    const float x1 = lane + 32 < N ? row[lane + 32] : -INFINITY;
-    const float mx = warp_max(fmaxf(x0, x1));
-    const float e0 = lane < N ? expf(x0 - mx) : 0.f;
-    const float e1 = lane + 32 < N ? expf(x1 - mx) : 0.f;
-    const float sum = warp_sum(e0 + e1);
-    if (lane < N) row[lane] = rnd<T>(e0 / sum);
-    if (lane + 32 < N) row[lane + 32] = rnd<T>(e1 / sum);
-  }
-}
-
 // Row means of a map into rowf[r * C + ch] and column means into
 // colf[c * C + ch]. With ch_t >= 0 the same means also fill the transposed
 // channel ch_t: the row mean of S^T is the column mean of S.
@@ -190,7 +131,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_lowrank_fwd_kernel(
     }
     means(Ai, ldm, N, rowf, colf, C, vi, V + vi);
     __syncthreads();
-    softmax_rows<T>(Ai, ldm, N);
+    softmax_rows<T>(Ai, Ai, ldm, N);
   }
   __syncthreads();
 
@@ -270,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_lowrank_fwd_kernel(
     Ys[rr * ldd + c] = to_f<T>(vp[rr * st[11] + c]);
   }
   __syncthreads();
-  softmax_rows<T>(S0, ldm, N);
+  softmax_rows<T>(S0, S0, ldm, N);
   for (int i = V - 1; i >= 1; --i) {
     for (int c0 = 0; c0 < dk; c0 += kTile) {
       __syncthreads();

@@ -109,23 +109,6 @@ __device__ void stage(float* dst, int ldst, const float* src, int lds, int rows,
   }
 }
 
-// dst = an input (rows x dk, row stride rs, feature stride 1) times `mul`,
-// or its transpose. With mul != 1 the product is rounded to T, as the
-// forward scales q in the compute dtype.
-template <typename T>
-__device__ void stage_in(float* dst, int ldst, const T* src, long long rs, int rows, int cols,
-                         bool trans, float mul) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx - r * cols;
-    float x = to_f<T>(src[r * rs + c]);
-    if (mul != 1.f) x = rnd<T>(x * mul);
-    if (trans)
-      dst[c * ldst + r] = x;
-    else
-      dst[r * ldst + c] = x;
-  }
-}
-
 // D (=|+=) alpha * tile, optionally rounded to T after the scaling.
 template <typename T>
 __device__ __forceinline__ void put(float* D, int ld, int rows, int cols, int c0,
@@ -159,22 +142,6 @@ __device__ __forceinline__ void put_out(T* D, long long ld, int rows, int cols, 
       const int c = c0 + tx + 16 * j;
       if (r < rows && c < cols) D[r * ld + c] = from_f<T>(alpha * t.v[i][j]);
     }
-  }
-}
-
-// Row softmax of an N x N map (row stride ld) into dst, fp32, one warp a row.
-__device__ void softmax_rows(const float* M, float* dst, int ld, int N) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < N; r += kThreads / 32) {
-    const float* row = M + r * ld;
-    const float x0 = lane < N ? row[lane] : -INFINITY;
-    const float x1 = lane + 32 < N ? row[lane + 32] : -INFINITY;
-    const float mx = warp_max(fmaxf(x0, x1));
-    const float e0 = lane < N ? expf(x0 - mx) : 0.f;
-    const float e1 = lane + 32 < N ? expf(x1 - mx) : 0.f;
-    const float sum = warp_sum(e0 + e1);
-    if (lane < N) dst[r * ld + lane] = e0 / sum;
-    if (lane + 32 < N) dst[r * ld + lane + 32] = e1 / sum;
   }
 }
 
@@ -364,7 +331,7 @@ __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, 
     put<T>(p.S(vi), N, N, N, 0, t, 1.f, false, false);
     __syncthreads();
     if constexpr (!Gate::kDense) means(p.S(vi), N, N, gate.rowf, gate.colf, C, vi, V + vi, false);
-    softmax_rows(p.S(vi), p.A(vi), N, N);
+    softmax_rows<float>(p.S(vi), p.A(vi), N, N);
   }
   // Chains: each partial product is stored unrounded (the last one feeds the
   // log) and rounded when it is read as the next product's operand.
@@ -429,7 +396,7 @@ __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, 
     p.ATT()[idx] = smix;
   }
   __syncthreads();
-  softmax_rows(p.ATT(), p.ATT(), N, N);
+  softmax_rows<float>(p.ATT(), p.ATT(), N, N);
   // Transport: P_{V-1} = Ac_{V-1} v_{V-1}, P_i = Ac_i c(P_{i+1}), stored rounded.
   for (int i = V - 1; i >= 1; --i) {
     __syncthreads();

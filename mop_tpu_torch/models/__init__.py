@@ -1,7 +1,15 @@
-"""Models of the PyTorch port: the CIFAR ViTs A (baseline), B (MoP) and E
-(edgewise-gated attention) with their components."""
+"""Models of the PyTorch port: the CIFAR ViTs A (baseline), B (MoP), C
+(cross-view), D (multi-hop), the two-hop gated ViT and E (edgewise-gated
+attention), the attention-variant zoo, and the Quartet / baseline causal LM."""
 
-from .attention_variants import EdgewiseGateHead, EdgewiseMSA
+from .attention_variants import (
+    BaselineMSA,
+    CrossViewMixerMSA,
+    EdgewiseGateHead,
+    EdgewiseMSA,
+    MultiHopMSA,
+    UnifiedMSA,
+)
 from .components import (
     MLP,
     MSA,
@@ -13,15 +21,25 @@ from .components import (
     ViewsLinear,
     ViTEncoder,
 )
-from .layers import Dropout, set_generator
+from .layers import Dropout, Embedding, set_generator
+from .quartet_attn_patch import (
+    CausalSelfAttention,
+    TinyTransformerLM,
+    TransformerConfig,
+    create_gpt_baseline,
+    create_gpt_quartet,
+)
 from .vit_baseline import ViT_Baseline
 from .vit_mop import ViT_MoP
-from .vit_variants import ViTEdgewise
+from .vit_variants import DualPathMSA, ViTCrossView, ViTEdgewise, ViTGated, ViTMultiHop
 
 __all__ = [
     "ViT_MoP",
     "ViT_Baseline",
     "ViTEdgewise",
+    "ViTCrossView",
+    "ViTMultiHop",
+    "ViTGated",
     "ViewsLinear",
     "Kernels3",
     "FuseExcInh",
@@ -32,7 +50,18 @@ __all__ = [
     "Block",
     "DropPath",
     "Dropout",
+    "Embedding",
     "set_generator",
+    "BaselineMSA",
+    "CrossViewMixerMSA",
+    "MultiHopMSA",
+    "DualPathMSA",
+    "UnifiedMSA",
     "EdgewiseMSA",
     "EdgewiseGateHead",
+    "TransformerConfig",
+    "CausalSelfAttention",
+    "TinyTransformerLM",
+    "create_gpt_baseline",
+    "create_gpt_quartet",
 ]

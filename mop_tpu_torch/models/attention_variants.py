@@ -1,18 +1,31 @@
-"""Edgewise-gated attention (mode E), in PyTorch.
+"""Attention variants A/B/C/D/E, in PyTorch.
 
-The port of the E-mode part of ``mop_tpu/models/attention_variants.py``: the
-lowrank and dense gate heads (the dense one with its optional 3x3 mid conv,
-``use_k3``) and ``EdgewiseMSA`` with and without ``share_qkv`` and with the
-S-channel and Q/K lens banks. Parameter names follow the torch reference
-(``qkv_list.i``, ``edge_head.row_proj`` as a 1x1 Conv1d, ``edge_head.conv1``
-/ ``mid3`` / ``conv2`` as Conv2d, ``q_lens.i``, ``lens_bank.i``).
+The port of ``mop_tpu/models/attention_variants.py``:
+
+- ``BaselineMSA`` (A/B): the flash-kernel ``MSA``; a mask composes.
+- ``CrossViewMixerMSA`` (C): two views bound by a learnable 2x2 mixer, with
+  transpose cues and the per-key prior (anchors ``fixed``,
+  ``argmax_row_sum``, ``none``); composed, no kernel, as in JAX.
+- ``MultiHopMSA`` (D): dual-path logits with the gated multi-hop chain and
+  its value transport; its eval forward without a mask is the fused K4, its
+  train forward (or a masked one) the composed path, as in JAX.
+- ``EdgewiseMSA`` (E): the lowrank and dense gate heads (the dense one with
+  its optional 3x3 mid conv, ``use_k3``), with and without ``share_qkv``
+  and with the S-channel and Q/K lens banks.
+- ``UnifiedMSA``: the A/B/C/D/E switch.
+
+Parameter names follow the torch reference (``qkv_list.i``, ``qkv1``,
+``qkv2``, ``mix``, ``chain_value_logit``, ``edge_head.row_proj`` as a 1x1
+Conv1d, ``edge_head.conv1`` / ``mid3`` / ``conv2`` as Conv2d, ``q_lens.i``,
+``lens_bank.i``).
 
 ``EdgewiseMSA`` picks its route as the JAX module's ``fused_ok`` does, from
 its configuration and its mode alone: the lowrank head runs the fused K2
 (K2b backward), the dense head without ``use_k3`` runs the fused K3 (K3b
 backward) in eval mode, and every other case (dense in training, ``use_k3``,
 any lens bank) the composed path of plain ops, which is what the JAX package
-computes for it. Attention dropout is not ported and raises.
+computes for it. Its attention dropout is not ported and raises; C and D
+draw theirs from the explicit generator of ``Dropout``.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from torch import nn
 
 from ..ops import attention as A
 from ..ops import fused as ops_fused
+from .components import MSA
 from .layers import Dropout, Linear, gelu_tanh
 
 Tensor = torch.Tensor
@@ -295,3 +309,192 @@ class EdgewiseMSA(nn.Module):
         else:
             y = self._composed(x, qs, ks, vs, w)
         return self.proj_drop(self.proj(_merge_heads(y)))
+
+
+class BaselineMSA(MSA):
+    """Mode A/B: standard MSA through the flash kernel (K1); with an
+    ``attn_mask`` (0 = masked) the composed masked softmax instead, as the
+    JAX ``BaselineMSA``."""
+
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
+        if attn_mask is None:
+            return super().forward(x)
+        q, k, v = _qkv(x, self.heads, self.qkv)
+        att = A.masked_softmax(A.scaled_scores(q, k), attn_mask)
+        y = att.to(v.dtype) @ v
+        return self.proj_drop(self.proj(_merge_heads(y)))
+
+
+class CrossViewMixerMSA(nn.Module):
+    """Mode C: cross-view binding with a learnable 2x2 mixer over
+    [S1, S1->2; S2->1, S2], transpose cues and an optional per-key prior
+    sharpened by the anchor row k* of A2 (``fixed``: ``fixed_k_star``
+    clamped to the sequence; ``argmax_row_sum``: the row of largest sum;
+    anything else: row 0). Composed: the JAX package has no kernel for it."""
+
+    def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, use_transpose_cues: bool = True, t1: float = 0.0,
+                 t2: float = 0.0, enable_per_key_prior: bool = False, prior_weight: float = 0.5,
+                 anchor_mode: str = "argmax_row_sum", fixed_k_star: int = 0):
+        super().__init__()
+        self.heads = heads
+        self.use_transpose_cues = use_transpose_cues
+        self.t1, self.t2 = t1, t2
+        self.enable_per_key_prior = enable_per_key_prior
+        self.prior_weight = prior_weight
+        self.anchor_mode = anchor_mode
+        self.fixed_k_star = fixed_k_star
+        self.qkv1 = Linear(dim, dim * 3, bias=False)
+        self.qkv2 = Linear(dim, dim * 3, bias=False)
+        self.mix = nn.Parameter(torch.empty(2, 2))
+        self.attn_drop = Dropout(attn_drop)
+        self.proj = Linear(dim, dim, bias=False)
+        self.proj_drop = Dropout(proj_drop)
+        self.init_own(None)
+
+    def init_own(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            self.mix.copy_(torch.eye(2))
+
+    def _anchor(self, a2: Tensor) -> Tensor:
+        """Row k* of A2 per (batch, head), as (B, H, 1, N)."""
+        b, h, n, _ = a2.shape
+        if self.anchor_mode == "fixed":
+            k_star = torch.full((b, h), max(0, min(n - 1, self.fixed_k_star)), device=a2.device)
+        elif self.anchor_mode == "argmax_row_sum":
+            k_star = a2.sum(-1).argmax(-1)
+        else:
+            k_star = torch.zeros(b, h, dtype=torch.long, device=a2.device)
+        return torch.gather(a2, 2, k_star[:, :, None, None].expand(b, h, 1, n))
+
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
+        h = self.heads
+        q1, k1, v1 = _qkv(x, h, self.qkv1)
+        q2, k2, _ = _qkv(x, h, self.qkv2)
+        s1, s2 = A.scaled_scores(q1, k1), A.scaled_scores(q2, k2)
+        s12, s21 = A.scaled_scores(q1, k2), A.scaled_scores(q2, k1)
+        mix = self.mix
+        s = mix[0, 0] * s1 + mix[0, 1] * s12 + mix[1, 0] * s21 + mix[1, 1] * s2
+        if self.use_transpose_cues:
+            if self.t1 != 0.0:
+                s = s + self.t1 * s1.transpose(-2, -1)
+            if self.t2 != 0.0:
+                s = s + self.t2 * s2.transpose(-2, -1)
+        att = A.masked_softmax(s, attn_mask)
+        if self.enable_per_key_prior and self.prior_weight > 0.0:
+            a1 = A.masked_softmax(s1, attn_mask)
+            a2 = A.masked_softmax(s2, attn_mask)
+            a_sharp = a1 * self._anchor(a2)  # row k* of A2 broadcast over the queries
+            a_sharp = a_sharp / (a_sharp.sum(-1, keepdim=True) + 1e-9)
+            att = (1.0 - self.prior_weight) * att + self.prior_weight * a_sharp
+        y = self.attn_drop(att).to(v1.dtype) @ v1
+        return self.proj_drop(self.proj(_merge_heads(y)))
+
+
+def _default_gates(gates: Optional[dict]) -> dict:
+    return dict(gates) if gates else dict(and_=1.0, or_=0.0, not_=0.0, chain=0.0, base=1.0)
+
+
+class MultiHopMSA(nn.Module):
+    """Mode D: dual-path logits with gated multi-hop composition
+    C = A1 A2^(hops-1) and the value transport along the chain,
+    ``y = att v1 + sigmoid(chain_value_logit) A1 A2^(hops-1) v2``.
+
+    The eval forward without a mask is the fused K4 with ``base`` forced to
+    1 (the JAX module's choice); training or a mask runs the composed path,
+    whose mix (``multihop_logit_mix``) has no base term, as in JAX.
+    """
+
+    def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, beta_not: float = 0.5,
+                 gates: Optional[dict] = None, hops: int = 3):
+        super().__init__()
+        if hops < 2:
+            raise ValueError(f"MultiHopMSA: hops={hops}, at least 2")
+        self.heads = heads
+        self.beta_not = beta_not
+        self.gates = _default_gates(gates)
+        self.hops = hops
+        self.qkv1 = Linear(dim, dim * 3, bias=False)
+        self.qkv2 = Linear(dim, dim * 3, bias=False)
+        self.chain_value_logit = nn.Parameter(torch.empty(()))
+        self.attn_drop = Dropout(attn_drop)
+        self.proj = Linear(dim, dim, bias=False)
+        self.proj_drop = Dropout(proj_drop)
+        self.init_own(None)
+
+    def init_own(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            self.chain_value_logit.fill_(-2.0)
+
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
+        h = self.heads
+        q1, k1, v1 = _qkv(x, h, self.qkv1)
+        q2, k2, v2 = _qkv(x, h, self.qkv2)
+        w = torch.sigmoid(self.chain_value_logit)
+        if attn_mask is None and not self.training:
+            y = ops_fused.fused_multihop_attention(
+                q1, k1, v1, q2, k2, v2, gates={**self.gates, "base": 1.0},
+                beta_not=self.beta_not, hops=self.hops, chain_w=w)
+        else:
+            s1 = A.apply_mask(A.scaled_scores(q1, k1), attn_mask)
+            s2 = A.apply_mask(A.scaled_scores(q2, k2), attn_mask)
+            a1, a2 = torch.softmax(s1, -1), torch.softmax(s2, -1)
+            c_fwd = A.chain_product([a1] + [a2] * (self.hops - 1))
+            smix = A.multihop_logit_mix(s1, s2, c_fwd, self.gates, self.beta_not)
+            att = self.attn_drop(A.masked_softmax(smix, attn_mask))
+            transport = v2
+            for _ in range(self.hops - 1):
+                transport = a2.to(v2.dtype) @ transport
+            y = att.to(v1.dtype) @ v1 + w * (a1.to(v2.dtype) @ transport)
+        return self.proj_drop(self.proj(_merge_heads(y)))
+
+
+class UnifiedMSA(nn.Module):
+    """The A/B/C/D/E switch: ``impl`` is the mode's module, built from the
+    kwargs that mode reads (E's lens-bank kwargs included). Only A-D take an
+    ``attn_mask`` in the port; E raises on one."""
+
+    def __init__(self, mode: str, dim: int, heads: int = 4, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, use_transpose_cues: bool = True, t1: float = 0.0,
+                 t2: float = 0.0, enable_per_key_prior: bool = False, prior_weight: float = 0.5,
+                 anchor_mode: str = "argmax_row_sum", fixed_k_star: int = 0,
+                 beta_not: float = 0.5, gates: Optional[dict] = None, hops: int = 3,
+                 use_k3: bool = False, n_views: int = 2, share_qkv: bool = False,
+                 gate_mode: str = "dense", gate_rank: int = 4, gate_init: str = "neutral",
+                 use_lens_bank: bool = False, lens_kernel_size: int = 3,
+                 lens_dilations: Optional[Tuple[int, ...]] = None,
+                 use_lens_bank_qk: bool = False, lens_qk_kernel_size: int = 3,
+                 lens_qk_dilations: Optional[Tuple[int, ...]] = None,
+                 lens_qk_causal: bool = False):
+        super().__init__()
+        mode = str(mode).upper()
+        self.mode = mode
+        if mode in ("A", "B"):
+            self.impl = BaselineMSA(dim, heads, attn_drop, proj_drop)
+        elif mode == "C":
+            self.impl = CrossViewMixerMSA(
+                dim, heads, attn_drop, proj_drop, use_transpose_cues=use_transpose_cues, t1=t1,
+                t2=t2, enable_per_key_prior=enable_per_key_prior, prior_weight=prior_weight,
+                anchor_mode=anchor_mode, fixed_k_star=fixed_k_star)
+        elif mode == "D":
+            self.impl = MultiHopMSA(dim, heads, attn_drop, proj_drop, beta_not=beta_not,
+                                    gates=gates, hops=hops)
+        elif mode == "E":
+            self.impl = EdgewiseMSA(
+                dim, heads, attn_drop, proj_drop, beta_not=beta_not, use_k3=use_k3,
+                n_views=n_views, share_qkv=share_qkv, gate_mode=gate_mode, gate_rank=gate_rank,
+                gate_init=gate_init, use_lens_bank=use_lens_bank,
+                lens_kernel_size=lens_kernel_size, lens_dilations=lens_dilations,
+                use_lens_bank_qk=use_lens_bank_qk, lens_qk_kernel_size=lens_qk_kernel_size,
+                lens_qk_dilations=lens_qk_dilations, lens_qk_causal=lens_qk_causal)
+        else:
+            raise ValueError(f"Unknown attention mode: {mode}")
+
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
+        if attn_mask is None:
+            return self.impl(x)
+        if self.mode == "E":
+            raise NotImplementedError("UnifiedMSA: EdgewiseMSA takes no attention mask in the "
+                                      "port yet")
+        return self.impl(x, attn_mask)

@@ -78,6 +78,22 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.
     return model
 
 
+class Embedding(nn.Embedding):
+    """Embedding table with normal(0.02) init (the JAX ``Embedding``'s);
+    ``attend`` is the tied head, ``x @ table.T``."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__(num_embeddings, features)
+        self.init_own(None)
+
+    def init_own(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            nn.init.normal_(self.weight, 0.0, 0.02, generator=generator)
+
+    def attend(self, x: Tensor) -> Tensor:
+        return x @ self.weight.t()
+
+
 def gelu_tanh(x: Tensor) -> Tensor:
     """GELU with the tanh approximation."""
     return F.gelu(x, approximate="tanh")

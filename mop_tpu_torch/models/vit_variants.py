@@ -1,5 +1,6 @@
 """ViT model wrappers around the attention variants, in PyTorch — the port of
-``mop_tpu/models/vit_variants.py`` for mode E.
+``mop_tpu/models/vit_variants.py``: ``DualPathMSA`` and the C, D, E and
+two-hop gated ViTs.
 
 Patchify + learned pos + pre-LN blocks with the given MSA + final LN +
 mean-pool + bias-free head. The JAX package names block i's MSA
@@ -13,12 +14,66 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..ops import attention as A
+from ..ops import fused as ops_fused
 from ..utils.device import resolve_device
-from .attention_variants import EdgewiseMSA
+from .attention_variants import (CrossViewMixerMSA, EdgewiseMSA, MultiHopMSA, _default_gates,
+                                 _merge_heads, _qkv)
 from .components import MLP, DropPath, PatchEmbed, drop_path_schedule
-from .layers import LayerNorm, Linear, init_params
+from .layers import Dropout, LayerNorm, Linear, init_params
 
 Tensor = torch.Tensor
+Device = Optional[Union[str, torch.device]]
+
+
+class DualPathMSA(nn.Module):
+    """Two-hop dual-path MSA with fixed scalar logic gates. Unlike
+    ``MultiHopMSA`` the base path is scaled by ``gates["base"]``, and the
+    composed path reads every gate by key.
+
+    The eval forward without a mask is K4 with hops 2 and the gates as
+    given; training or a mask runs the composed path, as in JAX.
+    """
+
+    def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, beta_not: float = 0.5, gates: Optional[dict] = None):
+        super().__init__()
+        self.heads = heads
+        self.beta_not = beta_not
+        self.gates = _default_gates(gates)
+        self.qkv1 = Linear(dim, dim * 3, bias=False)
+        self.qkv2 = Linear(dim, dim * 3, bias=False)
+        self.chain_value_logit = nn.Parameter(torch.empty(()))
+        self.attn_drop = Dropout(attn_drop)
+        self.proj = Linear(dim, dim, bias=False)
+        self.proj_drop = Dropout(proj_drop)
+        self.init_own(None)
+
+    def init_own(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            self.chain_value_logit.fill_(-2.0)
+
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
+        h, g = self.heads, self.gates
+        q1, k1, v1 = _qkv(x, h, self.qkv1)
+        q2, k2, v2 = _qkv(x, h, self.qkv2)
+        w = torch.sigmoid(self.chain_value_logit)
+        if attn_mask is None and not self.training:
+            y = ops_fused.fused_multihop_attention(q1, k1, v1, q2, k2, v2, gates=g,
+                                                   beta_not=self.beta_not, hops=2, chain_w=w)
+        else:
+            s1, s2 = A.scaled_scores(q1, k1), A.scaled_scores(q2, k2)
+            a1, a2 = A.masked_softmax(s1, attn_mask), A.masked_softmax(s2, attn_mask)
+            c_right = A.chain_product([a1, a2])
+            smix = g["base"] * s1
+            smix = smix + g["and_"] * s2
+            smix = smix + g["or_"] * (A.lse_pair(s1, s2) - s1)
+            smix = smix - g["not_"] * (self.beta_not * s2)
+            smix = smix + g["chain"] * torch.log(c_right + 1e-6)
+            att = self.attn_drop(A.masked_softmax(smix, attn_mask))
+            y_chain = a1.to(v2.dtype) @ (a2.to(v2.dtype) @ v2)
+            y = att.to(v1.dtype) @ v1 + w * y_chain
+        return self.proj_drop(self.proj(_merge_heads(y)))
 
 
 class _VariantBlock(nn.Module):
@@ -45,7 +100,7 @@ class _VariantViT(nn.Module):
     def __init__(self, make_msa: Callable[[], nn.Module], dim: int = 256, depth: int = 6,
                  heads: int = 4, n_classes: int = 100, mlp_ratio: float = 4.0,
                  drop: float = 0.0, drop_path: float = 0.1, patch: int = 4,
-                 num_tokens: int = 64, device: Optional[Union[str, torch.device]] = None,
+                 num_tokens: int = 64, device: Device = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -90,8 +145,7 @@ class ViTEdgewise(_VariantViT):
                  lens_kernel_size: int = 3, lens_dilations: Optional[Tuple[int, ...]] = None,
                  use_lens_bank_qk: bool = False, lens_qk_kernel_size: int = 3,
                  lens_qk_dilations: Optional[Tuple[int, ...]] = None,
-                 lens_qk_causal: bool = False,
-                 device: Optional[Union[str, torch.device]] = None,
+                 lens_qk_causal: bool = False, device: Device = None,
                  generator: Optional[torch.Generator] = None):
         def make_msa():
             return EdgewiseMSA(
@@ -101,6 +155,65 @@ class ViTEdgewise(_VariantViT):
                 lens_kernel_size=lens_kernel_size, lens_dilations=lens_dilations,
                 use_lens_bank_qk=use_lens_bank_qk, lens_qk_kernel_size=lens_qk_kernel_size,
                 lens_qk_dilations=lens_qk_dilations, lens_qk_causal=lens_qk_causal)
+
+        super().__init__(make_msa, dim=dim, depth=depth, heads=heads, n_classes=n_classes,
+                         mlp_ratio=mlp_ratio, drop=drop, drop_path=drop_path, patch=patch,
+                         num_tokens=num_tokens, device=device, generator=generator)
+
+
+class ViTCrossView(_VariantViT):
+    """Mode-C ViT: every block attends through ``CrossViewMixerMSA``
+    (composed; no kernel). Built on ``device`` (the GPU unless given);
+    ``generator`` seeds the initialisation."""
+
+    def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,
+                 n_classes: int = 100, mlp_ratio: float = 4.0, drop: float = 0.0,
+                 drop_path: float = 0.1, patch: int = 4, num_tokens: int = 64,
+                 use_transpose_cues: bool = True, t1: float = 0.0, t2: float = 0.0,
+                 enable_per_key_prior: bool = False, prior_weight: float = 0.5,
+                 anchor_mode: str = "argmax_row_sum", fixed_k_star: int = 0,
+                 device: Device = None, generator: Optional[torch.Generator] = None):
+        def make_msa():
+            return CrossViewMixerMSA(
+                dim, heads, 0.0, drop, use_transpose_cues=use_transpose_cues, t1=t1, t2=t2,
+                enable_per_key_prior=enable_per_key_prior, prior_weight=prior_weight,
+                anchor_mode=anchor_mode, fixed_k_star=fixed_k_star)
+
+        super().__init__(make_msa, dim=dim, depth=depth, heads=heads, n_classes=n_classes,
+                         mlp_ratio=mlp_ratio, drop=drop, drop_path=drop_path, patch=patch,
+                         num_tokens=num_tokens, device=device, generator=generator)
+
+
+class ViTMultiHop(_VariantViT):
+    """Mode-D ViT: every block attends through ``MultiHopMSA`` (K4 in eval
+    mode). Built on ``device`` (the GPU unless given); ``generator`` seeds
+    the initialisation."""
+
+    def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,
+                 n_classes: int = 100, mlp_ratio: float = 4.0, drop: float = 0.0,
+                 drop_path: float = 0.1, patch: int = 4, num_tokens: int = 64,
+                 beta_not: float = 0.5, gates: Optional[dict] = None, hops: int = 3,
+                 device: Device = None, generator: Optional[torch.Generator] = None):
+        def make_msa():
+            return MultiHopMSA(dim, heads, 0.0, drop, beta_not=beta_not, gates=gates, hops=hops)
+
+        super().__init__(make_msa, dim=dim, depth=depth, heads=heads, n_classes=n_classes,
+                         mlp_ratio=mlp_ratio, drop=drop, drop_path=drop_path, patch=patch,
+                         num_tokens=num_tokens, device=device, generator=generator)
+
+
+class ViTGated(_VariantViT):
+    """Two-hop dual-path gated ViT: every block attends through
+    ``DualPathMSA`` (K4 at hops 2 in eval mode). Built on ``device`` (the GPU
+    unless given); ``generator`` seeds the initialisation."""
+
+    def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,
+                 n_classes: int = 100, mlp_ratio: float = 4.0, drop: float = 0.0,
+                 drop_path: float = 0.1, patch: int = 4, num_tokens: int = 64,
+                 beta_not: float = 0.5, gates: Optional[dict] = None,
+                 device: Device = None, generator: Optional[torch.Generator] = None):
+        def make_msa():
+            return DualPathMSA(dim, heads, 0.0, drop, beta_not=beta_not, gates=gates)
 
         super().__init__(make_msa, dim=dim, depth=depth, heads=heads, n_classes=n_classes,
                          mlp_ratio=mlp_ratio, drop=drop, drop_path=drop_path, patch=patch,

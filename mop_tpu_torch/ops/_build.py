@@ -34,6 +34,8 @@ SOURCES = {
     "edgewise_lowrank_fwd": "edgewise_lowrank_fwd.cu",
     "edgewise_dense_fwd": "edgewise_dense_fwd.cu",
     "edgewise_bwd": "edgewise_bwd.cu",
+    "multihop_fwd": "multihop_fwd.cu",
+    "quartet_fwd": "quartet_fwd.cu",
 }
 
 _lock = threading.Lock()

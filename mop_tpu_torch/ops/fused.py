@@ -14,6 +14,14 @@ function's arguments and layout:
 - ``fused_edgewise_dense_attention``: K3, the E-mode pipeline with the dense
   per-edge gate head (``csrc/edgewise_dense_fwd.cu``), and its backward K3b,
   the same backward kernel templated on the dense head.
+- ``fused_multihop_attention``: K4, the D-mode / two-hop dual-path pipeline
+  (both score maps and softmaxes, the chain A1 A2^(hops-1), the gated mix,
+  the final softmax and both value products) in one program per batch*head
+  (``csrc/multihop_fwd.cu``). Its backward recomputes through the composed
+  reference with plain ops, as the JAX op's.
+- ``fused_quartet_attention``: K5, the Quartet LM's causal attention with
+  both score maps standardized per row over every column
+  (``csrc/quartet_fwd.cu``); backward as K4's.
 
 The kernel is chosen by the tensors' device alone: a CUDA tensor launches the
 kernel or raises, a CPU tensor runs the ``*_plain`` version, which is also
@@ -34,6 +42,7 @@ from typing import Optional, Union
 import torch
 
 from . import _build
+from . import attention as A
 
 # Shared memory one block may take on the H100 (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -321,7 +330,7 @@ def _edgewise_bwd_plain(fwd_plain, lead: int, qs, ks, vs, weights, beta_not, cha
     with torch.enable_grad():
         q, k, v = (t.detach().requires_grad_() for t in (qs, ks, vs))
         ws = [per_program(w, (1,) * lead + shape_of(w)) for w in weights]
-        cw = per_program(_chain_w_tensor(chain_w, qs.device), (1, 1))
+        cw = per_program(_scalar_tensor(chain_w, qs.device), (1, 1))
         y = fwd_plain(q, k, v, *ws, beta_not, cw)
         grads = torch.autograd.grad(y, (q, k, v, *ws, cw), dy)
     dq, dk, dv = (g.contiguous() for g in grads[:3])
@@ -407,10 +416,12 @@ def _fp32_weights(device, *ts):
     return [t.detach().to(device=device, dtype=torch.float32).contiguous() for t in ts]
 
 
-def _chain_w_tensor(chain_w, device) -> torch.Tensor:
-    if isinstance(chain_w, torch.Tensor):
-        return chain_w
-    return torch.tensor(float(chain_w), dtype=torch.float32, device=device)
+def _scalar_tensor(x, device) -> torch.Tensor:
+    """A scalar argument (chain_w, the quartet mix) as a tensor: a tensor as
+    it is, a number as an fp32 0-dim tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
 
 
 def _in_strides(qs, ks, vs, last):
@@ -475,7 +486,7 @@ def _edgewise_bwd_cuda(name, sym, qs, ks, vs, weights, beta_not, chain_w, dy, di
     fp32 per-program grads of each weight and of chain_w."""
     b, h, nv, n, dk = qs.shape
     dev, bh, f32 = qs.device, b * h, torch.float32
-    ws = _fp32_weights(dev, *weights, _chain_w_tensor(chain_w, dev).reshape(1))
+    ws = _fp32_weights(dev, *weights, _scalar_tensor(chain_w, dev).reshape(1))
     dq, dkey, dv = (torch.empty(b, h, nv, n, dk, dtype=qs.dtype, device=dev)
                     for _ in range(3))
     dws = [torch.empty(bh, *(w.shape if w.dim() == 2 else (1, w.shape[0])), dtype=f32,
@@ -623,7 +634,7 @@ class EdgewiseFunction(torch.autograd.Function):
 
 
 def _edgewise_op(fwd, bwd, qs, ks, vs, weights, beta_not, chain_w):
-    chain_w = _chain_w_tensor(chain_w, qs.device)
+    chain_w = _scalar_tensor(chain_w, qs.device)
     if _needs_grad(qs, ks, vs, chain_w, *weights):
         return EdgewiseFunction.apply(fwd, bwd, beta_not, qs, ks, vs, chain_w, *weights)
     return fwd(qs, ks, vs, *weights, beta_not, chain_w)
@@ -685,9 +696,257 @@ def fused_edgewise_dense_attention(
 
 fused_edgewise_dense_attention.launches = 0
 
+
+# ----------------------- K4: multi-hop (dual-path) -----------------------
+
+MULTIHOP_MAX_N, MULTIHOP_MAX_DK = 64, 128
+
+
+def _gate_values(gates: dict):
+    """(base, and, or, not, chain) as the JAX kernel reads them: ``.get``
+    with its defaults."""
+    return (float(gates.get("base", 1.0)), float(gates.get("and_", 1.0)),
+            float(gates.get("or_", 0.0)), float(gates.get("not_", 0.0)),
+            float(gates.get("chain", 0.0)))
+
+
+def fused_multihop_attention_plain(
+    q1: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
+    q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
+    gates: dict, beta_not: float, hops: int, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """``_multihop_kernel`` over (..., N, dk) inputs, step for step: q * scale
+    rounded to the compute dtype, fp32 scores, the softmaxes cast to the
+    compute dtype (A1c, A2c), C = A1c A2c with the chain recast before each
+    further hop, the gated mix in fp32 (``base`` scales S1), the final
+    softmax, the transport from v2 recast at each hop, and
+    y = c(att) v1 + w A1c c(transport) in fp32, cast once."""
+    cdt, f32 = q1.dtype, torch.float32
+
+    def c(x):  # the compute-dtype cast before a product
+        return x.to(cdt).to(f32)
+
+    sc = torch.tensor(1.0 / math.sqrt(q1.shape[-1]), dtype=cdt)
+    s1 = (q1 * sc).to(f32) @ k1.to(f32).transpose(-1, -2)
+    s2 = (q2 * sc).to(f32) @ k2.to(f32).transpose(-1, -2)
+    a1c, a2c = c(torch.softmax(s1, -1)), c(torch.softmax(s2, -1))
+    c_fwd = a1c @ a2c
+    for _ in range(max(0, hops - 2)):
+        c_fwd = c(c_fwd) @ a2c
+    base, g_and, g_or, g_not, g_chain = _gate_values(gates)
+    smix = base * s1
+    smix = smix + g_and * s2
+    smix = smix + g_or * (torch.logaddexp(s1, s2) - s1)
+    smix = smix - g_not * (beta_not * s2)
+    smix = smix + g_chain * torch.log(c_fwd + 1e-6)
+    att = torch.softmax(smix, -1)
+    transport = v2.to(f32)
+    for _ in range(max(0, hops - 1)):
+        transport = a2c @ c(transport)
+    w = torch.as_tensor(chain_w, dtype=f32, device=q1.device)
+    y = c(att) @ v1.to(f32) + w * (a1c @ c(transport))
+    return y.to(cdt)
+
+
+def _multihop_reference(q1, k1, v1, q2, k2, v2, chain_w, gates, beta_not, hops):
+    """The JAX op's composed ``reference`` (what its backward differentiates):
+    fp32 scores and softmaxes, the chain in fp32, ``multihop_logit_mix`` plus
+    (base - 1) S1, and the value products."""
+    s1, s2 = A.scaled_scores(q1, k1), A.scaled_scores(q2, k2)
+    a1, a2 = torch.softmax(s1, -1), torch.softmax(s2, -1)
+    c_fwd = A.chain_product([a1] + [a2] * (hops - 1))
+    smix = A.multihop_logit_mix(s1, s2, c_fwd, gates, beta_not)
+    base = gates.get("base", 1.0)
+    if base != 1.0:
+        smix = smix + (base - 1.0) * s1
+    a = torch.softmax(smix, -1)
+    transport = v2.float()
+    for _ in range(max(0, hops - 1)):
+        transport = a2 @ transport
+    y_chain = a1 @ transport
+    out = (a.to(v1.dtype) @ v1).float() + chain_w * y_chain
+    return out.to(q1.dtype)
+
+
+def _multihop_fwd_cuda(q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w):
+    """Launch K4 on (B, H, N, dk) CUDA inputs; the output is a (B, H, N, dk)
+    view of a (B, N, H, dk) buffer."""
+    name = "fused_multihop_attention"
+    ins = (q1, k1, v1, q2, k2, v2)
+    _check_cuda_inputs(name, *ins)
+    b, h, n, dk = q1.shape
+    if any(t.shape != q1.shape for t in ins):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ins]}")
+    if n > MULTIHOP_MAX_N or dk > MULTIHOP_MAX_DK or hops < 2:
+        raise ValueError(f"{name}: N={n}, dk={dk}, hops={hops} outside the kernel's shapes "
+                         f"(N <= {MULTIHOP_MAX_N}, dk <= {MULTIHOP_MAX_DK}, hops >= 2)")
+    dev = q1.device
+    w = _fp32_weights(dev, _scalar_tensor(chain_w, dev).reshape(1))[0]
+    out = torch.empty(b, n, h, dk, dtype=q1.dtype, device=dev).transpose(1, 2)
+    strides = (ctypes.c_longlong * 21)(*(s for t in (*ins, out) for s in t.stride()[:3]))
+    fn = _fn("multihop_fwd", "mop_multihop_fwd",
+             [_I] + [_P] * 8 + [_I] * 5 + [_P] + [_F] * 7 + [_P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in ins), out.data_ptr(),
+                w.data_ptr(), b, h, n, dk, int(hops), strides, *_gate_values(gates),
+                float(beta_not), 1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    fused_multihop_attention.launches += 1
+    return out
+
+
+class _RecomputeFunction(torch.autograd.Function):
+    """A fused forward ``fwd(*ins)`` (the kernel or its plain version) whose
+    backward is autograd through the composed reference ``ref(*ins)``, as
+    the JAX ops' recompute ``bwd_rule``s (K4, K5). Saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, fwd, ref, *ins):
+        ctx.save_for_backward(*ins)
+        ctx.ref = ref
+        return fwd(*ins)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(ctx.ref(*ins), ins, dy)
+        return (None, None, *grads)
+
+
+def fused_multihop_attention(
+    q1: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
+    q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
+    gates: dict, beta_not: float, hops: int, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """Fully fused D-mode attention over (B, H, N, dk) inputs:
+    ``softmax(mix(S1, S2, log C)) v1 + w A1 A2^(hops-1) v2`` with
+    C = A1 A2^(hops-1) and ``gates`` read with ``.get`` defaults (base 1,
+    and 1, or 0, not 0, chain 0); ``chain_w`` is the sigmoid'd chain-value
+    weight.
+
+    On CUDA the forward is K4 (``csrc/multihop_fwd.cu``) for N <= 64,
+    dk <= 128 and any hops >= 2 (it raises outside them); the inputs may have
+    any strides with a contiguous feature axis, and the output is a view of
+    a (B, N, H, dk) buffer. Differentiable: the backward recomputes through
+    the composed reference (``_multihop_reference``), as the JAX op's.
+    """
+    chain_w = _scalar_tensor(chain_w, q1.device)
+    gates = dict(gates)
+    fwd = _multihop_fwd_cuda if q1.is_cuda else fused_multihop_attention_plain
+    ins = (q1, k1, v1, q2, k2, v2, chain_w)
+    if _needs_grad(*ins):
+        return _RecomputeFunction.apply(
+            lambda *t: fwd(*t[:6], gates, beta_not, hops, t[6]),
+            lambda *t: _multihop_reference(*t, gates, beta_not, hops), *ins)
+    return fwd(q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w)
+
+
+fused_multihop_attention.launches = 0
+
+
+# ---------------------------- K5: quartet ----------------------------
+
+QUARTET_MAX_DK = 128
+
+
+def fused_quartet_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q2: torch.Tensor, k2: torch.Tensor,
+    mixture: Union[torch.Tensor, float], quartet_scale: Union[torch.Tensor, float],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """``_quartet_kernel`` over (..., N, dk) inputs: q * scale rounded to the
+    compute dtype, fp32 scores, each map standardized per row over every
+    column (unbiased variance, eps after the sqrt) before the causal mask,
+    ``(1 - m) S1n + m (S1n * S2n) qscale``, the causal mask, the softmax, and
+    the probabilities cast to the compute dtype before the value product."""
+    cdt, f32 = q.dtype, torch.float32
+    n, dk = q.shape[-2:]
+
+    def standardize(s):
+        mu = s.mean(-1, keepdim=True)
+        var = (s - mu).square().sum(-1, keepdim=True) / max(1, n - 1)
+        return (s - mu) / (torch.sqrt(var) + eps)
+
+    sc = torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
+    s1 = standardize((q * sc).to(f32) @ k.to(f32).transpose(-1, -2))
+    s2 = standardize((q2 * sc).to(f32) @ k2.to(f32).transpose(-1, -2))
+    m = torch.as_tensor(mixture, dtype=f32, device=q.device)
+    qs = torch.as_tensor(quartet_scale, dtype=f32, device=q.device)
+    scores = (1.0 - m) * s1 + m * (s1 * s2) * qs
+    keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    att = torch.softmax(scores.masked_fill(~keep, float("-inf")), -1)
+    return (att.to(cdt).to(f32) @ v.to(f32)).to(cdt)
+
+
+def _quartet_reference(q, k, v, q2, k2, mixture, quartet_scale, eps):
+    """The JAX ``_quartet_reference`` (what its backward differentiates)."""
+    n = q.shape[-2]
+    s1 = A.standardize_scores(A.scaled_scores(q, k), eps)
+    s2 = A.standardize_scores(A.scaled_scores(q2, k2), eps)
+    scores = (1.0 - mixture) * s1 + mixture * (s1 * s2) * quartet_scale
+    scores = A.apply_mask(scores, A.causal_mask(n, device=q.device))
+    a = torch.softmax(scores, -1)
+    return a.to(v.dtype) @ v
+
+
+def _quartet_fwd_cuda(q, k, v, q2, k2, mixture, quartet_scale, eps):
+    """Launch K5 on (B, H, N, dk) CUDA inputs; the output is a (B, H, N, dk)
+    view of a (B, N, H, dk) buffer."""
+    name = "fused_quartet_attention"
+    ins = (q, k, v, q2, k2)
+    _check_cuda_inputs(name, *ins)
+    b, h, n, dk = q.shape
+    if any(t.shape != q.shape for t in ins):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ins]}")
+    if dk > QUARTET_MAX_DK:
+        raise ValueError(f"{name}: dk={dk} outside the kernel's shapes (dk <= {QUARTET_MAX_DK})")
+    dev = q.device
+    mix = torch.stack(_fp32_weights(dev, *(_scalar_tensor(x, dev).reshape(())
+                                           for x in (mixture, quartet_scale))))
+    out = torch.empty(b, n, h, dk, dtype=q.dtype, device=dev).transpose(1, 2)
+    strides = (ctypes.c_longlong * 18)(*(s for t in (*ins, out) for s in t.stride()[:3]))
+    fn = _fn("quartet_fwd", "mop_quartet_fwd", [_I] + [_P] * 7 + [_I] * 4 + [_P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[q.dtype], *(t.data_ptr() for t in ins), out.data_ptr(),
+                mix.data_ptr(), b, h, n, dk, strides, float(eps), 1.0 / math.sqrt(dk),
+                _stream(dev))
+    _raise_on(rc, name)
+    fused_quartet_attention.launches += 1
+    return out
+
+
+def fused_quartet_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q2: torch.Tensor, k2: torch.Tensor,
+    mixture: Union[torch.Tensor, float], quartet_scale: Union[torch.Tensor, float],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Fused causal Quartet attention over (B, H, N, dk) inputs.
+
+    ``mixture`` is the sigmoid'd scalar gate m and ``quartet_scale`` the
+    learned scale, both read in fp32. On CUDA the forward is K5
+    (``csrc/quartet_fwd.cu``) for any N and dk <= 128 (it raises above);
+    the inputs may have any strides with a contiguous feature axis, and the
+    output is a view of a (B, N, H, dk) buffer. Differentiable: the backward
+    recomputes through the composed reference (``_quartet_reference``), as
+    the JAX op's.
+    """
+    mixture, quartet_scale = (_scalar_tensor(x, q.device).reshape(())
+                              for x in (mixture, quartet_scale))
+    fwd = _quartet_fwd_cuda if q.is_cuda else fused_quartet_attention_plain
+    ins = (q, k, v, q2, k2, mixture, quartet_scale)
+    if _needs_grad(*ins):
+        return _RecomputeFunction.apply(lambda *t: fwd(*t, eps),
+                                        lambda *t: _quartet_reference(*t, eps), *ins)
+    return fwd(*ins, eps)
+
+
+fused_quartet_attention.launches = 0
+
 KERNELS = (flash_attention, fused_edgewise_lowrank_attention,
            fused_edgewise_lowrank_attention_bwd, fused_edgewise_dense_attention,
-           fused_edgewise_dense_attention_bwd)
+           fused_edgewise_dense_attention_bwd, fused_multihop_attention,
+           fused_quartet_attention)
 
 
 def reset_launch_counts() -> None:

@@ -12,6 +12,17 @@ import mop_tpu.ops.attention as ja
 import mop_tpu_torch.models.attention_variants as tav
 import mop_tpu_torch.ops.attention as ta
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 N = 12
 

@@ -31,6 +31,17 @@ from mop_tpu_torch.models import EdgewiseMSA
 from mop_tpu_torch.utils.jax_weights import jax_state_dict, load_jax_params
 from tools.trajectory_parity import LR, MSA_CONFIG, MSA_KWARGS, WD, make_msa_batches
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 RTOL, ATOL = 2e-4, 2e-5  # forward (tests/test_golden_numerics.py)
 G_ATOL, G_RTOL = 1e-4, 1e-3  # grads (tests/test_ops.py's fused-backward tolerance)

@@ -14,6 +14,17 @@ from mop_tpu.parallel import make_mesh
 from mop_tpu.parallel import make_classifier_eval_step as jax_eval_step
 from mop_tpu_torch.utils.jax_weights import load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(dim=32, depth=2, heads=4, n_classes=10, drop_path=0.0)
 
 

@@ -10,6 +10,17 @@ from jax.experimental.pallas import tpu as pltpu
 import mop_tpu.ops.fused as JF
 import mop_tpu_torch.ops.fused as TF
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 2e-5
 
 

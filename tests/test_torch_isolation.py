@@ -33,7 +33,7 @@ def _imported_modules(path: Path):
 def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"mop_tpu_torch/__init__.py", "mop_tpu_torch/ops/fused.py",
-            "chip_smoke.py"} <= names
+            "mop_tpu_torch/models/quartet_attn_patch.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

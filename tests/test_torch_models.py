@@ -16,6 +16,17 @@ from mop_tpu.utils.torch_port import load_golden
 from mop_tpu_torch.models import EdgewiseMSA
 from mop_tpu_torch.utils.jax_weights import load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 RTOL, ATOL = 2e-4, 2e-5  # tests/test_golden_numerics.py
 

@@ -25,6 +25,17 @@ from mop_tpu_torch.utils.jax_weights import jax_state_dict, load_jax_params
 from tools.trajectory_parity import (CONFIGS, LR, MSA_CONFIG, MSA_KWARGS, WD, make_batches,
                                      make_msa_batches)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are small, and the lane's parallel
+    workers share the cores, which torch's spinning pool would oversubscribe."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 # tests/test_trajectory_parity.py: fp32 reduction-order drift compounds
 # through the optimizer state.
