@@ -17,19 +17,24 @@
 //      where a raw sum of squares would cancel;
 //   2. the key blocks up to the diagonal: S1 and S2 again, standardized,
 //      mixed and masked in registers, an online softmax with fp32
-//      statistics, and P V with P rounded to the compute dtype.
-// In fp32 the result is the TPU kernel's up to rounding. In bf16 the kernel
-// rounds the probabilities before they are normalised (as K1 does), the TPU
-// kernel after; both are within bf16's rounding of each other.
+//      statistics, and P V. In fp32 P V accumulates unnormalised
+//      probabilities and divides by the row sum at the end. In bf16 the TPU
+//      kernel rounds the normalised softmax to bf16 before P V, so this pass
+//      sweeps the causal blocks twice: first for each row's final max and
+//      sum, then for P V with P = rnd(exp(s - max) / sum).
+// In both dtypes the result is the TPU kernel's up to fp32 rounding.
 //
 // Bound on this card: at (BH, N, dk) = (512, 256, 80) the function needs the
 // full score maps for the statistics (2 x 2 N^2 dk flops) and the causal half
 // of P V, about 13.4 Gflop against 252 MB of inputs and output in fp32, so
 // it is bound by the fp32 FMA rate. The kernel computes the causal score
 // tiles twice (pass 2 recomputes them instead of keeping N x N maps) and
-// whole 64 x 64 tiles on the diagonal, about 1.55x that work. Products run
+// whole 64 x 64 tiles on the diagonal, about 1.55x that work (bf16's extra
+// sweep adds the causal score tiles a third time). Products run
 // on CUDA cores in true fp32, each thread owning a 4 x 4 register tile of the
 // 64 x 64 score tile.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace mop {
@@ -179,7 +184,10 @@ __global__ void __launch_bounds__(kThreads, 2) quartet_fwd_kernel(
     den2[i] = sqrtf(m22[i] / dof) + eps;
   }
 
-  // Pass 2: the key blocks up to the diagonal, online softmax and P V.
+  // Pass 2: the key blocks up to the diagonal, online softmax and P V. In
+  // bf16 a first sweep gets each row's final max and sum, so that the second
+  // rounds the normalised probabilities, where the TPU kernel rounds them.
+  constexpr bool kNormFirst = !std::is_same<T, float>::value;
   float mrun[4], l[4], acc[4][kOutCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -189,15 +197,19 @@ __global__ void __launch_bounds__(kThreads, 2) quartet_fwd_kernel(
     for (int c = 0; c < kOutCols; ++c) acc[i][c] = 0.f;
   }
   const int last = min(nkb - 1, (int)blockIdx.y);
+  for (int sweep = kNormFirst ? 0 : 1; sweep < 2; ++sweep)
   for (int kb = 0; kb <= last; ++kb) {
+    const bool stats_only = sweep == 0, normalised = kNormFirst && sweep == 1;
     const int k0 = kb * kTile;
     __syncthreads();  // the previous block is done with V and P
     load_rows<T>(K1s, ld, kp, st[5], k0, N, dk, 1.f);
     load_rows<T>(K2s, ld, k2p, st[14], k0, N, dk, 1.f);
     __syncthreads();
     scores(Q1s, K1s, Q2s, K2s, ld, dk, s1, s2);
-    __syncthreads();  // every thread is done with k's block
-    load_rows<T>(K1s, ld, vp, st[8], k0, N, dk, 1.f);
+    if (!stats_only) {
+      __syncthreads();  // every thread is done with k's block
+      load_rows<T>(K1s, ld, vp, st[8], k0, N, dk, 1.f);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
@@ -212,6 +224,12 @@ __global__ void __launch_bounds__(kThreads, 2) quartet_fwd_kernel(
         s1[i][j] = x;
         mx = fmaxf(mx, x);
       }
+      if (normalised) {  // mrun and l are the row's final max and sum
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Ps[(4 * ty + i) * ldp + tx + 16 * j] = rnd<T>(expf(s1[i][j] - mrun[i]) / l[i]);
+        continue;
+      }
       mx = half_max(mx);
       const float m_new = fmaxf(mrun[i], mx);
       const float m_safe = isfinite(m_new) ? m_new : 0.f;
@@ -221,13 +239,14 @@ __global__ void __launch_bounds__(kThreads, 2) quartet_fwd_kernel(
       for (int j = 0; j < 4; ++j) {
         const float pr = expf(s1[i][j] - m_safe);
         rs += pr;
-        Ps[(4 * ty + i) * ldp + tx + 16 * j] = rnd<T>(pr);
+        if (!stats_only) Ps[(4 * ty + i) * ldp + tx + 16 * j] = rnd<T>(pr);
       }
       l[i] = l[i] * alpha + half_sum(rs);
       mrun[i] = m_new;
 #pragma unroll
       for (int c = 0; c < kOutCols; ++c) acc[i][c] *= alpha;
     }
+    if (stats_only) continue;
     __syncthreads();
     for (int mm = 0; mm < kTile; ++mm) {
       float pr[4];
@@ -249,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 2) quartet_fwd_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= N) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = kNormFirst ? 1.f : fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOutCols; ++c) {
       const int col = tx + 16 * c;

@@ -434,20 +434,26 @@ class MultiHopMSA(nn.Module):
         w = torch.sigmoid(self.chain_value_logit)
         if attn_mask is None and not self.training:
             y = ops_fused.fused_multihop_attention(
-                q1, k1, v1, q2, k2, v2, gates={**self.gates, "base": 1.0},
+                q1, k1, v1, q2, k2, v2, gates=self._kernel_gates(),
                 beta_not=self.beta_not, hops=self.hops, chain_w=w)
         else:
-            s1 = A.apply_mask(A.scaled_scores(q1, k1), attn_mask)
-            s2 = A.apply_mask(A.scaled_scores(q2, k2), attn_mask)
-            a1, a2 = torch.softmax(s1, -1), torch.softmax(s2, -1)
-            c_fwd = A.chain_product([a1] + [a2] * (self.hops - 1))
-            smix = A.multihop_logit_mix(s1, s2, c_fwd, self.gates, self.beta_not)
-            att = self.attn_drop(A.masked_softmax(smix, attn_mask))
-            transport = v2
-            for _ in range(self.hops - 1):
-                transport = a2.to(v2.dtype) @ transport
-            y = att.to(v1.dtype) @ v1 + w * (a1.to(v2.dtype) @ transport)
+            y = self._composed(q1, k1, v1, q2, k2, v2, w, attn_mask)
         return self.proj_drop(self.proj(_merge_heads(y)))
+
+    def _kernel_gates(self) -> dict:
+        return {**self.gates, "base": 1.0}
+
+    def _composed(self, q1, k1, v1, q2, k2, v2, w, attn_mask):
+        s1 = A.apply_mask(A.scaled_scores(q1, k1), attn_mask)
+        s2 = A.apply_mask(A.scaled_scores(q2, k2), attn_mask)
+        a1, a2 = torch.softmax(s1, -1), torch.softmax(s2, -1)
+        c_fwd = A.chain_product([a1] + [a2] * (self.hops - 1))
+        smix = A.multihop_logit_mix(s1, s2, c_fwd, self.gates, self.beta_not)
+        att = self.attn_drop(A.masked_softmax(smix, attn_mask))
+        transport = v2
+        for _ in range(self.hops - 1):
+            transport = a2.to(v2.dtype) @ transport
+        return att.to(v1.dtype) @ v1 + w * (a1.to(v2.dtype) @ transport)
 
 
 class UnifiedMSA(nn.Module):

@@ -15,21 +15,19 @@ import torch
 from torch import nn
 
 from ..ops import attention as A
-from ..ops import fused as ops_fused
 from ..utils.device import resolve_device
-from .attention_variants import (CrossViewMixerMSA, EdgewiseMSA, MultiHopMSA, _default_gates,
-                                 _merge_heads, _qkv)
+from .attention_variants import CrossViewMixerMSA, EdgewiseMSA, MultiHopMSA
 from .components import MLP, DropPath, PatchEmbed, drop_path_schedule
-from .layers import Dropout, LayerNorm, Linear, init_params
+from .layers import LayerNorm, Linear, init_params
 
 Tensor = torch.Tensor
 Device = Optional[Union[str, torch.device]]
 
 
-class DualPathMSA(nn.Module):
-    """Two-hop dual-path MSA with fixed scalar logic gates. Unlike
-    ``MultiHopMSA`` the base path is scaled by ``gates["base"]``, and the
-    composed path reads every gate by key.
+class DualPathMSA(MultiHopMSA):
+    """Two-hop dual-path MSA with fixed scalar logic gates: ``MultiHopMSA``
+    at hops 2, except that the base path is scaled by ``gates["base"]`` and
+    the composed path reads every gate by key.
 
     The eval forward without a mask is K4 with hops 2 and the gates as
     given; training or a mask runs the composed path, as in JAX.
@@ -37,43 +35,25 @@ class DualPathMSA(nn.Module):
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, beta_not: float = 0.5, gates: Optional[dict] = None):
-        super().__init__()
-        self.heads = heads
-        self.beta_not = beta_not
-        self.gates = _default_gates(gates)
-        self.qkv1 = Linear(dim, dim * 3, bias=False)
-        self.qkv2 = Linear(dim, dim * 3, bias=False)
-        self.chain_value_logit = nn.Parameter(torch.empty(()))
-        self.attn_drop = Dropout(attn_drop)
-        self.proj = Linear(dim, dim, bias=False)
-        self.proj_drop = Dropout(proj_drop)
-        self.init_own(None)
+        super().__init__(dim, heads, attn_drop, proj_drop, beta_not=beta_not, gates=gates,
+                         hops=2)
 
-    def init_own(self, generator: Optional[torch.Generator]) -> None:
-        with torch.no_grad():
-            self.chain_value_logit.fill_(-2.0)
+    def _kernel_gates(self) -> dict:
+        return self.gates
 
-    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
-        h, g = self.heads, self.gates
-        q1, k1, v1 = _qkv(x, h, self.qkv1)
-        q2, k2, v2 = _qkv(x, h, self.qkv2)
-        w = torch.sigmoid(self.chain_value_logit)
-        if attn_mask is None and not self.training:
-            y = ops_fused.fused_multihop_attention(q1, k1, v1, q2, k2, v2, gates=g,
-                                                   beta_not=self.beta_not, hops=2, chain_w=w)
-        else:
-            s1, s2 = A.scaled_scores(q1, k1), A.scaled_scores(q2, k2)
-            a1, a2 = A.masked_softmax(s1, attn_mask), A.masked_softmax(s2, attn_mask)
-            c_right = A.chain_product([a1, a2])
-            smix = g["base"] * s1
-            smix = smix + g["and_"] * s2
-            smix = smix + g["or_"] * (A.lse_pair(s1, s2) - s1)
-            smix = smix - g["not_"] * (self.beta_not * s2)
-            smix = smix + g["chain"] * torch.log(c_right + 1e-6)
-            att = self.attn_drop(A.masked_softmax(smix, attn_mask))
-            y_chain = a1.to(v2.dtype) @ (a2.to(v2.dtype) @ v2)
-            y = att.to(v1.dtype) @ v1 + w * y_chain
-        return self.proj_drop(self.proj(_merge_heads(y)))
+    def _composed(self, q1, k1, v1, q2, k2, v2, w, attn_mask):
+        g = self.gates
+        s1, s2 = A.scaled_scores(q1, k1), A.scaled_scores(q2, k2)
+        a1, a2 = A.masked_softmax(s1, attn_mask), A.masked_softmax(s2, attn_mask)
+        c_right = A.chain_product([a1, a2])
+        smix = g["base"] * s1
+        smix = smix + g["and_"] * s2
+        smix = smix + g["or_"] * (A.lse_pair(s1, s2) - s1)
+        smix = smix - g["not_"] * (self.beta_not * s2)
+        smix = smix + g["chain"] * torch.log(c_right + 1e-6)
+        att = self.attn_drop(A.masked_softmax(smix, attn_mask))
+        y_chain = a1.to(v2.dtype) @ (a2.to(v2.dtype) @ v2)
+        return att.to(v1.dtype) @ v1 + w * y_chain
 
 
 class _VariantBlock(nn.Module):

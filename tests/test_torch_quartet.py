@@ -281,19 +281,22 @@ def test_lm_defaults_to_the_gpu(monkeypatch):
 
 def test_comparison_config_param_counts_match_jax():
     """The reference comparison config (8 layers, 8 heads, 640 wide, block
-    256) at vocab 8192, as chip_smoke.py runs it (built on the meta device)."""
+    256) at vocab 8192, as chip_smoke.py runs it (built on the meta device).
+    The quartet count is also chip_smoke.py's ``LM_JAX_PARAMS``."""
     c = ComparisonConfig()
     cfg = dict(n_layer=c.n_layer, n_head=c.n_head, n_embd=c.n_embd, dropout=c.dropout,
                block_size=c.block_size, bias=c.bias)
-    for jfac, pfac in ((J.create_gpt_quartet, PM.create_gpt_quartet),
-                       (J.create_gpt_baseline, PM.create_gpt_baseline)):
+    counts = {}
+    for name, jfac, pfac in (("quartet", J.create_gpt_quartet, PM.create_gpt_quartet),
+                             ("baseline", J.create_gpt_baseline, PM.create_gpt_baseline)):
         jm = jfac(8192, J.TransformerConfig(**cfg))
         shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
                                                 jnp.zeros((1, 16), jnp.int32)))
-        want = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+        counts[name] = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
         with torch.device("meta"):
             model = pfac(8192, PM.TransformerConfig(**cfg), device="meta")
-        assert sum(p.numel() for p in model.parameters()) == want
+        assert sum(p.numel() for p in model.parameters()) == counts[name]
+    assert counts["quartet"] == 51303696
 
 
 # ------------------------------ (c) goldens ------------------------------
