@@ -8,8 +8,13 @@ Run from the repository root with no arguments:
 Phases, one line each (a failed phase makes the script exit non-zero):
 
 1. the device, with ``nvidia-smi``'s name and power limit;
-2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc;
-3. K1 ``flash_attention`` against its plain PyTorch version on the card;
+2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc,
+   print each kernel's registers and spills, and hold the Python byte
+   counts the wrappers launch with (K1's, K2b's and K3b's shared memory,
+   K2b's and K3b's workspace) to the libraries' own;
+3. K1 ``flash_attention`` against its plain PyTorch version on the card:
+   fp32 and bf16 at the path shape, at B's strided dk-54 views, causal,
+   ragged and long (N 1500, several key blocks) cases;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version;
    4b. K3 ``fused_edgewise_dense_attention`` against its plain version;
    4c. K4 ``fused_multihop_attention`` against its plain version: hops 3
@@ -17,7 +22,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
    shape, N = 512 and an off shape, fp32 and bf16, strided views;
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
-   (autograd through the plain forward), all eight grads, fp32 and bf16;
+   (autograd through the plain forward), all eight grads, fp32 and bf16, at
+   the path shape, off shapes (dk > 64 too) and the strided view inputs;
    5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise;
 6. K1's autograd (kernel forward, recompute backward) against autograd
    through the plain version; 6b. K4's and K5's (kernel forward, recompute
@@ -42,7 +48,9 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    whose loss must fall, images/s of the scanned step (K = 20) with a
    torch.profiler breakdown, and an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one; one E_dense attention
+   bound and one library call where there is one (K1 and K2b in bf16 too,
+   and K1's and sdpa's time replayed from a CUDA graph, without the host's
+   launch path); one E_dense attention
    layer's bf16 forward and backward through its eval route (K3, K3b) and
    its train route (composed); each ViT's eval images/s and the LM's eval
    forward, with a torch.profiler breakdown of their device time.
@@ -75,10 +83,11 @@ N_CLASSES = 100
 TRAIN_K = 20  # scanned steps per call, as bench.py's SCAN_STEPS
 TRAIN_WINDOWS = 5  # timed scanned calls per config
 LR, WD = 3e-3, 0.05  # bench.py's AdamW
-# bf16 grads, kernel vs plain: their rounding points differ (the plain
-# backward rounds each cotangent where autograd meets a cast, the kernel
-# keeps cotangents in fp32), so each grad is held to this fraction of its
-# largest magnitude.
+# bf16 grads, kernel vs plain: both round a cotangent where it passes back
+# through a cast, but the kernel's products sum in another order on the
+# tensor cores and split the fp32 cotangents into two bf16 terms, which can
+# flip a rounding; each grad is held to this fraction of its largest
+# magnitude.
 BF16_GRAD_FRAC = 2e-2
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 off the tensor cores
@@ -205,6 +214,25 @@ def device_breakdown(fn, reps=5):
     rows = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
                    if e.self_device_time_total > 0), key=lambda kv: -kv[1])
     return rows, wall_us
+
+
+def graph_ms(fn, calls=20):
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph and replayed, timed by CUDA events. It leaves out the host's
+    launch path, which sets the time of a small kernel called back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as capture asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters=5) / calls
+    del graph
+    return ms
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -373,6 +401,31 @@ def dense_inputs(g, bh_shape, nv, n, dk, dtype):
             0.5, torch.tensor(0.4, device="cuda"))
 
 
+def check_byte_counts():
+    """The shared-memory and workspace bytes the Python wrappers size their
+    checks and allocations by, against the kernels' own counts."""
+    import ctypes
+
+    i_ = ctypes.c_int
+    flash = F._fn("flash_fwd", "mop_flash_smem_bytes", [i_, i_], ctypes.c_longlong)
+    smem = F._fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [i_] * 6, ctypes.c_longlong)
+    ws = F._fn("edgewise_bwd", "mop_edgewise_bwd_ws_bytes", [i_] * 4, ctypes.c_longlong)
+    bad = []
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dk in (1, 54, 56, 80, 128):
+            if F.flash_smem_bytes(dtype, dk) != flash(code, dk):
+                bad.append(("K1", dtype, dk))
+        for nv, n, dk, r in ((5, 64, 56, 4), (2, 16, 8, 1), (3, 40, 100, 2), (8, 64, 128, 4),
+                             (2, 1, 1, 1), (4, 33, 54, 2)):
+            for dense in (False, True):
+                if F.edgewise_bwd_smem_bytes(dtype, nv, n, dk, r, dense) != smem(
+                        code, nv, n, dk, r, int(dense)):
+                    bad.append(("smem", dtype, nv, n, dk, r, dense))
+            if F.edgewise_bwd_ws_bytes(dtype, nv, n, dk) != ws(code, nv, n, dk):
+                bad.append(("ws", dtype, nv, n, dk))
+    check(not bad, f"Python byte counts equal the kernels' own {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
@@ -397,6 +450,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         say(f"  {name}: {' | '.join(regs)}")
     say(f"[2 build] {len(libs)} kernels from mop_tpu_torch/csrc in {time.time() - t0:.1f} s")
+    check_byte_counts()
 
     g = torch.Generator(device="cuda").manual_seed(0)
     # The dense head's phases draw from their own generator, so that the
@@ -425,6 +479,24 @@ def main() -> int:
         q, k, v = rn(64, 64, 54), rn(64, 100, 54), rn(64, 100, 54)
         compare("ragged kv q (64, 64, 54) kv (64, 100, 54) float32",
                 F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v), 2e-5, 0.0)
+        # bf16 at the same strided, causal and ragged cases; then a long
+        # sequence whose key blocks stream through the copy ring.
+        bf = torch.bfloat16
+        q, k, v = rn(256, 64, 3, 4, 54, dtype=bf).permute(2, 0, 3, 1, 4)
+        compare(f"strided qkv views (256, 4, 64, 54) bfloat16, {F.copy_width((q, k, v), 54)}-byte "
+                "copies", F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v), 5e-2, 5e-2)
+        q, k, v = (rn(64, 200, 56, dtype=bf) for _ in range(3))
+        compare("causal (64, 200, 56) bfloat16", F.flash_attention(q, k, v, causal=True),
+                F.flash_attention_plain(q, k, v, causal=True), 5e-2, 5e-2)
+        q, k, v = rn(64, 64, 54, dtype=bf), rn(64, 100, 54, dtype=bf), rn(64, 100, 54, dtype=bf)
+        compare("ragged kv q (64, 64, 54) kv (64, 100, 54) bfloat16", F.flash_attention(q, k, v),
+                F.flash_attention_plain(q, k, v), 5e-2, 5e-2)
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (bf, 5e-2, 5e-2)):
+            q, k, v = (rn(4, 2, 1500, 64, dtype=dtype) for _ in range(3))
+            for causal in (False, True):
+                compare(f"(4, 2, 1500, 64) causal={causal} {dtype}",
+                        F.flash_attention(q, k, v, causal=causal),
+                        F.flash_attention_plain(q, k, v, causal=causal), atol, rtol)
 
         say("[4 K2 fused_edgewise_lowrank_attention vs plain]")
         for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
@@ -535,6 +607,25 @@ def main() -> int:
     want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
     for gname, a, b in zip(grad_names, got, want):
         compare(f"strided view inputs float32 {gname}", a, b, 2e-4, 2e-3)
+    # bf16 off the main shape (two column tiles at dk > 64; N and dk not
+    # multiples of 16 or 8) and at the strided view inputs.
+    bf = torch.bfloat16
+    for bh_shape, nv, n, dk, r in (((2, 2), 2, 16, 8, 1), ((2, 2), 3, 40, 100, 2),
+                                   ((2, 3), 4, 33, 54, 2)):
+        args = edgewise_inputs(g, bh_shape, nv, n, dk, r, bf)
+        dy = rn(*bh_shape, n, dk, dtype=bf)
+        got = F.fused_edgewise_lowrank_attention_bwd(*args, dy)
+        want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+        for gname, a, b in zip(grad_names, got, want):
+            compare_rel(f"{(*bh_shape, nv, n, dk)} r={r} bfloat16 {gname}", a, b, BF16_GRAD_FRAC)
+    args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, bf)
+    qkv = rn(256, 64, 5, 3, 4, 56, dtype=bf).permute(3, 0, 4, 2, 1, 5)
+    args = (*qkv, *args[3:])
+    dy = rn(256, 64, 4, 56, dtype=bf).transpose(1, 2)
+    got = F.fused_edgewise_lowrank_attention_bwd(*args, dy)
+    want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+    for gname, a, b in zip(grad_names, got, want):
+        compare_rel(f"strided view inputs bfloat16 {gname}", a, b, BF16_GRAD_FRAC)
 
     say("[5b K3b fused_edgewise_dense_attention_bwd vs plain backward]")
     dense_names = ("dq", "dk", "dv", "dw1", "db1", "dw2", "db2", "dchain")
@@ -787,6 +878,9 @@ def main() -> int:
                 replaces="mop_tpu/ops/fused.py:641", launches=launches[k2b],
                 max_abs_err=errs[k2b], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None)
+        else:  # E's train step runs the bf16 instantiation
+            k2b_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                      library_ms=None)
     for dtype in (torch.float32, torch.bfloat16):
         args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
         dy = rn(256, 4, 64, 56, dtype=dtype, gen=gd)
@@ -828,17 +922,28 @@ def main() -> int:
             ms = time_ms(lambda: F.flash_attention(q, k, v))
             plain = time_ms(lambda: F.flash_attention_plain(q, k, v))
             q4, k4, v4 = (t.view(256, 4, 64, 56) for t in (q, k, v))
-            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+
+            lib = time_ms(sdpa)
+            dev = graph_ms(lambda: F.flash_attention(q, k, v))
+            lib_dev = graph_ms(sdpa)
             bnd, by = bound_ms(*flash_cost(1024, 64, 64, 56, dtype), dtype)
             say(f"  K1 (1024, 64, 56) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{smi}]")
+                f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}); in a CUDA graph kernel "
+                f"{dev:.4f} ms, sdpa {lib_dev:.4f} ms [{smi}]")
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                       device_ms=dev, library_device_ms=lib_dev)
             if dtype == torch.float32:
-                records.append(dict(
+                k1_record = dict(
                     name="flash_attention", route="cuda",
                     source="mop_tpu_torch/csrc/flash_fwd.cu",
                     replaces="mop_tpu/ops/fused.py:109", launches=launches["flash_attention"],
-                    max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain,
-                    bound_ms=bnd, bound_by=by, library_ms=lib))
+                    max_abs_err=errs["flash_attention"], **row)
+                records.append(k1_record)
+            else:  # the train steps run K1 in bf16
+                k1_record["bf16"] = row
         for dtype in (torch.float32, torch.bfloat16):
             args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, dtype)
             ms = time_ms(lambda: F.fused_edgewise_lowrank_attention(*args))

@@ -1,9 +1,12 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel stores its operands in fp32 (shared memory or registers) and
-// accumulates in fp32. For bf16 inputs, `rnd<T>` rounds an fp32 value to the
-// input's precision at exactly the places where the JAX kernels cast to the
-// compute dtype, so the bf16 results follow the reference's rounding points.
+// The CUDA-core kernels store their operands in fp32 (shared memory or
+// registers) and accumulate in fp32; for bf16 inputs, `rnd<T>` rounds an
+// fp32 value to the input's precision at exactly the places where the JAX
+// kernels cast to the compute dtype, so the bf16 results follow the
+// reference's rounding points. The tensor-core paths (K1's and K2b's bf16)
+// keep bf16 operands in shared memory and use the `cp.async`, `ldmatrix`
+// and `mma.sync` helpers below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -150,6 +153,132 @@ __device__ void stage_in(float* dst, int ldst, const T* src, long long rs, int r
       dst[c * ldst + r] = x;
     else
       dst[r * ldst + c] = x;
+  }
+}
+
+// ------------------- asynchronous copies and tensor cores -------------------
+//
+// The bf16 products of K1 and K2b run on the tensor cores with
+// `mma.sync.m16n8k16` (bf16 operands, fp32 accumulation). Their operands sit
+// in shared memory in bf16, row-major with a row stride of a multiple of 8
+// elements plus 8 (16-byte aligned rows, and the eight rows one `ldmatrix`
+// phase reads fall in distinct banks); `ldmatrix` with or without `.trans`
+// reads either layout of either operand, so nothing is transposed on the way
+// in. Device memory reaches shared memory by `cp.async`, whose width the
+// caller picks from the alignment of the source (16, 8 or 4 bytes; a plain
+// load below 4).
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(kBytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most `kPending` of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <typename T, int kBytes>
+__device__ __forceinline__ void copy_rows_vec(T* dst, int ld, const T* src, long long rs,
+                                              int valid, int cols, int tid, int nthr) {
+  constexpr int kE = kBytes / (int)sizeof(T);  // elements per copy
+  const int per_row = cols / kE;
+  for (int idx = tid; idx < valid * per_row; idx += nthr) {
+    const int r = idx / per_row, c = (idx - r * per_row) * kE;
+    if constexpr (kBytes >= 4)
+      cp_async<kBytes>(dst + r * ld + c, src + r * rs + c);
+    else
+      dst[r * ld + c] = src[r * rs + c];
+  }
+}
+
+// Copy rows [0, valid) of a rows x cols block of T (row stride rs elements,
+// feature stride 1) into shared memory (row stride ld) with `vec`-byte
+// copies, and write zeros to columns [0, cols) of rows [valid, rows). The
+// caller commits and waits. `vec` divides cols * sizeof(T), the source
+// address and rs * sizeof(T).
+template <typename T>
+__device__ void copy_rows_async(T* dst, int ld, const T* src, long long rs, int rows, int valid,
+                                int cols, int vec, int tid, int nthr) {
+  switch (vec) {
+    case 16: copy_rows_vec<T, 16>(dst, ld, src, rs, valid, cols, tid, nthr); break;
+    case 8: copy_rows_vec<T, 8>(dst, ld, src, rs, valid, cols, tid, nthr); break;
+    case 4: copy_rows_vec<T, 4>(dst, ld, src, rs, valid, cols, tid, nthr); break;
+    default: copy_rows_vec<T, (int)sizeof(T)>(dst, ld, src, rs, valid, cols, tid, nthr);
+  }
+  for (int idx = tid; idx < (rows - valid) * cols; idx += nthr) {
+    const int r = valid + idx / cols, c = idx % cols;
+    dst[r * ld + c] = from_f<T>(0.f);
+  }
+}
+
+// Row stride, in elements, of a bf16 shared-memory operand with `cols`
+// columns: 16-byte rows, columns padded to a multiple of 16 (one k-step),
+// plus 8 so that the rows of one ldmatrix phase hit distinct banks.
+__host__ __device__ __forceinline__ int mma_ld(int cols) { return ((cols + 15) & ~15) + 8; }
+
+// Four 8x8 bf16 matrices; lane l gives the row address for matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b over one m16n8k16 step: bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values as one bf16x2 register, x in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// The A fragment (16 x 16, rows m0.., k k0..) of an operand X held in shared
+// memory as X itself ([m][k], trans false) or as its transpose ([k][m]).
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const __nv_bfloat16* X, int ld,
+                                       bool trans, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  if (!trans) {
+    ldsm_x4(a, X + (m0 + (lane & 15)) * ld + k0 + 8 * (lane >> 4));
+  } else {
+    ldsm_x4_t(a, X + (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + m0 + 8 * ((lane >> 3) & 1));
+  }
+}
+
+// The B fragments of two n-tiles (k k0.., n n0.. and n0 + 8..) of an operand
+// Y (K x N) held as Y itself ([k][n], trans false) or as its transpose
+// ([n][k]): b[0], b[1] for n-tile n0, b[2], b[3] for n0 + 8.
+__device__ __forceinline__ void load_b2(unsigned (&b)[4], const __nv_bfloat16* Y, int ld,
+                                        bool trans, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  if (!trans) {
+    ldsm_x4_t(b, Y + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4));
+  } else {
+    ldsm_x4(b, Y + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1));
   }
 }
 

@@ -1,6 +1,10 @@
 // Stages shared by the edgewise kernels that keep their N x N maps in a
-// per-program fp32 workspace in device memory: the backward K2b / K3b
-// (edgewise_bwd.cu) and the dense forward K3 (edgewise_dense_fwd.cu).
+// per-program workspace in device memory: the backward K2b / K3b
+// (edgewise_bwd.cu, both instantiations) and the dense forward K3
+// (edgewise_dense_fwd.cu). The gate heads, `lowrank_factors` and
+// `gated_mix` take any program type with the workspace accessors (`Prog`
+// here, the bf16 backward's `ProgTC`), and load an edge's V scores together
+// (`load_views`) before they use any.
 //
 // One CTA runs one (batch*head) program. `recompute_forward` rebuilds the
 // forward of `_edgewise_math` (lowrank gate head) or `_edgewise_dense_math`
@@ -232,8 +236,8 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
 
 // Channel c of the feature stack at edge e = (i, j), with et = (j, i):
 // [S_1..S_V at e, S_1..S_V at et (the transposed maps), log c_fwd, log c_bwd].
-template <typename T>
-__device__ __forceinline__ float dense_feature(const Prog<T>& p, int c, int e, int et) {
+template <class P>
+__device__ __forceinline__ float dense_feature(const P& p, int c, int e, int et) {
   if (c < p.V) return p.S(c)[e];
   if (c < 2 * p.V) return p.S(c - p.V)[et];
   return logf((c == 2 * p.V ? p.Fm(p.V - 1) : p.Bm(p.V - 1))[e] + 1e-6f);
@@ -248,8 +252,8 @@ struct DenseGate {
   int C;
 
   // The 16 pre-activations of edge e (transpose et).
-  template <typename T>
-  __device__ __forceinline__ void pre(const Prog<T>& p, int e, int et, float* x) const {
+  template <class P>
+  __device__ __forceinline__ void pre(const P& p, int e, int et, float* x) const {
 #pragma unroll
     for (int h = 0; h < kHidden; ++h) x[h] = b1[h];
 #pragma unroll
@@ -276,8 +280,8 @@ struct DenseGate {
     for (int c4 = 0; c4 < 4; ++c4) g[c4] = 1.f / (1.f + expf(-g[c4]));
   }
 
-  template <typename T>
-  __device__ __forceinline__ void operator()(const Prog<T>& p, int i, int j, float g[4]) const {
+  template <class P>
+  __device__ __forceinline__ void operator()(const P& p, int i, int j, float g[4]) const {
     float x[kHidden];
     pre(p, i * p.N + j, j * p.N + i, x);
     out(x, g);
@@ -304,6 +308,78 @@ __device__ inline DenseGate load_dense_gate(const Weights& w, int C, float* dst)
 // Floats of the dense head's shared-memory copy.
 __host__ __device__ inline int dense_gate_floats(int C) { return C * kHidden + kHidden + kHidden * 4 + 4; }
 
+// The lowrank head's pooled log-chain features and its rank factors
+// a = row_feat wrow + brow, b = col_feat wcol + bcol (the score channels'
+// means are taken as each S_i is formed). Ends without a barrier.
+template <class P>
+__device__ void lowrank_factors(const P& p, const LowrankGate& gate) {
+  const int V = p.V, N = p.N, C = 2 * V + 2;
+  const int r = gate.r, R4 = 4 * r;
+  means(p.Fm(V - 1), N, N, gate.rowf, gate.colf, C, 2 * V, -1, true);
+  means(p.Bm(V - 1), N, N, gate.rowf, gate.colf, C, 2 * V + 1, -1, true);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < N * R4; idx += kThreads) {
+    const int i = idx / R4, c = idx - i * R4;
+    float sa = 0.f, sb = 0.f;
+    for (int k = 0; k < C; ++k) {
+      sa = fmaf(gate.rowf[i * C + k], gate.wrow[k * R4 + c], sa);
+      sb = fmaf(gate.colf[i * C + k], gate.wcol[k * R4 + c], sb);
+    }
+    gate.af[idx] = sa + gate.brow[c];
+    gate.bf[idx] = sb + gate.bcol[c];
+  }
+}
+
+// The V score values of edge idx, all loads issued before any is used (the
+// views past V read nothing); kept in registers by the unrolled loops.
+template <class P>
+__device__ __forceinline__ void load_views(const P& p, int idx, float (&s)[kMaxViews]) {
+#pragma unroll
+  for (int c = 0; c < kMaxViews; ++c) s[c] = c < p.V ? p.S(c)[idx] : 0.f;
+}
+
+// The sum and the log-sum-exp over views 0..V-1 of s, in view order.
+__device__ __forceinline__ void view_stats(const float (&s)[kMaxViews], int V, float& ssum,
+                                           float& lse) {
+  float m = -INFINITY;
+  ssum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxViews; ++c)
+    if (c < V) {
+      m = fmaxf(m, s[c]);
+      ssum += s[c];
+    }
+  float l = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxViews; ++c)
+    if (c < V) l += expf(s[c] - m);
+  lse = m + logf(l);
+}
+
+// The gated logit mix of every edge into ATT (before its softmax).
+template <class P, class Gate>
+__device__ void gated_mix(const P& p, const Gate& gate, float beta_not) {
+  const int V = p.V, N = p.N, nn = p.nn;
+  const float n_others = (float)max(1, V - 1);
+  for (int idx = threadIdx.x; idx < nn; idx += kThreads) {
+    const int i = idx / N, j = idx - i * N;
+    float s[kMaxViews];
+    load_views(p, idx, s);
+    const float lf = logf(p.Fm(V - 1)[idx] + 1e-6f);
+    float g[4];
+    gate(p, i, j, g);
+    float ssum, lse;
+    view_stats(s, V, ssum, lse);
+    const float others = ssum - s[0];
+    float smix = s[0];
+    smix = smix + g[0] * others;
+    smix = smix + g[1] * (lse - s[0]);
+    smix = smix - g[2] * (beta_not * (others / n_others));
+    smix = smix + g[3] * lf;
+    p.ATT()[idx] = smix;
+  }
+}
+
 // ------------------------- the forward, recomputed -------------------------
 
 // Rebuild the forward into the workspace: S_i, A_i (fp32, unrounded), both
@@ -314,11 +390,10 @@ __host__ __device__ inline int dense_gate_floats(int C) { return C * kHidden + k
 template <typename T, class Gate>
 __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, float* Y, float* Z,
                                   float* W, float beta_not, float sc) {
-  const int V = p.V, N = p.N, dk = p.dk, nn = p.nn;
+  const int V = p.V, N = p.N, dk = p.dk;
   const long long* st = p.st;
   const int ldm = odd_stride(N), ldd = odd_stride(dk);
   const int C = 2 * V + 2;
-  const int tid = threadIdx.x;
   const int n_col_tiles = (dk + kTile - 1) / kTile;
   Tile t;
 
@@ -356,45 +431,10 @@ __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, 
   }
   __syncthreads();
   if constexpr (!Gate::kDense) {
-    const int r = gate.r, R4 = 4 * r;
-    means(p.Fm(V - 1), N, N, gate.rowf, gate.colf, C, 2 * V, -1, true);
-    means(p.Bm(V - 1), N, N, gate.rowf, gate.colf, C, 2 * V + 1, -1, true);
-    __syncthreads();
-    for (int idx = tid; idx < N * R4; idx += kThreads) {
-      const int i = idx / R4, c = idx - i * R4;
-      float sa = 0.f, sb = 0.f;
-      for (int k = 0; k < C; ++k) {
-        sa = fmaf(gate.rowf[i * C + k], gate.wrow[k * R4 + c], sa);
-        sb = fmaf(gate.colf[i * C + k], gate.wcol[k * R4 + c], sb);
-      }
-      gate.af[idx] = sa + gate.brow[c];
-      gate.bf[idx] = sb + gate.bcol[c];
-    }
+    lowrank_factors(p, gate);
     __syncthreads();
   }
-  const float n_others = (float)max(1, V - 1);
-  for (int idx = tid; idx < nn; idx += kThreads) {
-    const int i = idx / N, j = idx - i * N;
-    float g[4];
-    gate(p, i, j, g);
-    float s[kMaxViews];
-    float m = -INFINITY, ssum = 0.f;
-    for (int c = 0; c < V; ++c) {
-      s[c] = p.S(c)[idx];
-      m = fmaxf(m, s[c]);
-      ssum += s[c];
-    }
-    float l = 0.f;
-    for (int c = 0; c < V; ++c) l += expf(s[c] - m);
-    const float lse = m + logf(l);
-    const float others = ssum - s[0];
-    float smix = s[0];
-    smix = smix + g[0] * others;
-    smix = smix + g[1] * (lse - s[0]);
-    smix = smix - g[2] * (beta_not * (others / n_others));
-    smix = smix + g[3] * logf(p.Fm(V - 1)[idx] + 1e-6f);
-    p.ATT()[idx] = smix;
-  }
+  gated_mix(p, gate, beta_not);
   __syncthreads();
   softmax_rows<float>(p.ATT(), p.ATT(), N, N);
   // Transport: P_{V-1} = Ac_{V-1} v_{V-1}, P_i = Ac_i c(P_{i+1}), stored rounded.

@@ -53,10 +53,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+_FNS = {}
+
+
 def _fn(lib_name: str, sym: str, argtypes, restype=ctypes.c_int):
-    f = getattr(_build.load(lib_name), sym)
-    f.argtypes = argtypes
-    f.restype = restype
+    """The C entry point ``sym`` of a kernel library, typed once and kept."""
+    f = _FNS.get((lib_name, sym))
+    if f is None:
+        f = getattr(_build.load(lib_name), sym)
+        f.argtypes = argtypes
+        f.restype = restype
+        _FNS[(lib_name, sym)] = f
     return f
 
 
@@ -101,6 +108,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def copy_width(tensors, row_elems: int) -> int:
+    """The widest asynchronous copy, in bytes, that a kernel may use to bring
+    rows of ``row_elems`` elements of each tensor into shared memory: 16, 8
+    or 4 where that divides every address, every stride but the (unit)
+    feature one and the row's bytes, else the element size (plain loads).
+    B's strided q/k/v views at dk = 54 allow only 8 bytes in fp32 and 4 in
+    bf16."""
+    esize = tensors[0].element_size()
+    for w in (16, 8, 4):
+        if w >= esize and (row_elems * esize) % w == 0 and all(
+                t.data_ptr() % w == 0 and all(st * esize % w == 0 for st in t.stride()[:-1])
+                for t in tensors):
+            return w
+    return esize
+
+
+def _mma_ld(cols: int) -> int:
+    """Row stride (elements) of a bf16 tensor-core operand in shared memory:
+    ``mma_ld`` of ``csrc/common.cuh``."""
+    return ((cols + 15) & ~15) + 8
+
+
+def flash_smem_bytes(dtype: torch.dtype, dk: int) -> int:
+    """Shared memory one K1 block takes: two stages of Q, K and V (bf16 rows
+    padded for ``ldmatrix``, fp32 rows for float4 reads), plus fp32's P tile.
+    The kernel's own count, ``mop_flash_smem_bytes``."""
+    if dtype == torch.bfloat16:
+        return 6 * 64 * _mma_ld(dk) * 2
+    return 6 * 64 * (((dk + 7) & ~7) + 4) * 4 + 4 * 64 * 65
+
+
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
     """Launch K1 on (B, H, N, dk) CUDA inputs; the output is a (B, H, N, dk)
@@ -116,11 +154,11 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     fn = _fn("flash_fwd", "mop_flash_fwd",
-             [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P])
+             [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _I, _P])
     with torch.cuda.device(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), b, h, n, n_kv, dk, strides, int(causal),
-                1.0 / math.sqrt(dk), _stream(q.device))
+                1.0 / math.sqrt(dk), copy_width((q, k, v), dk), _stream(q.device))
     _raise_on(rc, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -345,13 +383,6 @@ def edgewise_lowrank_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int
     return int(fn(n_views, n, dk, rank))
 
 
-def edgewise_lowrank_bwd_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int:
-    """Shared memory one K2b program needs (the kernel's own count)."""
-    fn = _fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [_I, _I, _I, _I, _I],
-             ctypes.c_longlong)
-    return int(fn(n_views, n, dk, rank, 0))
-
-
 def edgewise_dense_smem_bytes(n_views: int, n: int, dk: int) -> int:
     """Shared memory one K3 program needs (the kernel's own count)."""
     fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [_I, _I, _I],
@@ -359,11 +390,43 @@ def edgewise_dense_smem_bytes(n_views: int, n: int, dk: int) -> int:
     return int(fn(n_views, n, dk))
 
 
-def edgewise_dense_bwd_smem_bytes(n_views: int, n: int, dk: int) -> int:
-    """Shared memory one K3b program needs (the kernel's own count)."""
-    fn = _fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [_I, _I, _I, _I, _I],
-             ctypes.c_longlong)
-    return int(fn(n_views, n, dk, 1, 1))
+def edgewise_bwd_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int,
+                            rank: int = 1, dense: bool = False) -> int:
+    """Shared memory one K2b (lowrank, ``rank``) or K3b (``dense``) program
+    takes; the kernels' own count, ``mop_edgewise_bwd_smem_bytes``.
+
+    fp32: three fp32 staging buffers, d smix and the four gate-logit
+    cotangents. bf16: seven bf16 operand buffers of 64 rows (which the gate
+    cotangents reuse once the products before them are done) and d smix.
+    Then the gate head's arrays: the lowrank factors and features, or the
+    dense head's weights and its block sums."""
+    ldm, c = n | 1, 2 * n_views + 2
+    if dtype == torch.bfloat16:
+        common = max(7 * 64 * _mma_ld(max(n, dk)) * 2, 16 * n * ldm) + 4 * n * ldm
+    else:
+        buf = max(n * ldm, n * (dk | 1), dk * ldm)
+        common = 4 * (3 * buf + 5 * n * ldm)
+    if dense:
+        k_red = (2 * 8 + 2) * 4 + 4 + 4 * 4  # the dense weight-grad sums of one group
+        return common + 4 * (c * DENSE_HIDDEN + DENSE_HIDDEN + 4 * DENSE_HIDDEN + 4
+                             + 9 * k_red)
+    return common + 4 * (4 * n * c + 16 * n * rank + 8)
+
+
+def edgewise_bwd_ws_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> int:
+    """Bytes of one K2b / K3b program's device-memory workspace; the kernels'
+    own count, ``mop_edgewise_bwd_ws_bytes``.
+
+    fp32: 5V - 1 maps of N x N and V - 1 transports of N x dk, all fp32.
+    bf16: the maps read in fp32 (S_i, A_i, F_{V-1}, B_{V-1}, att, dAc_i: 3V + 3
+    of N x N), then in bf16 the maps only read rounded (Ac_i, F_1..F_{V-2},
+    B_1..B_{V-2}: 3V - 4, rows padded to 8) and the transports P_i (V - 1 of
+    N x dk, rows padded to 8)."""
+    if dtype == torch.bfloat16:
+        nw, dw = (n + 7) & ~7, (dk + 7) & ~7
+        wf = ((3 * n_views + 3) * n * n + 3) & ~3
+        return 4 * wf + 2 * ((3 * n_views - 4) * n * nw + (n_views - 1) * n * dw)
+    return 4 * ((5 * n_views - 1) * n * n + (n_views - 1) * n * dk)
 
 
 def _check_smem(name, smem, nv, n, dk):
@@ -492,15 +555,15 @@ def _edgewise_bwd_cuda(name, sym, qs, ks, vs, weights, beta_not, chain_w, dy, di
     dws = [torch.empty(bh, *(w.shape if w.dim() == 2 else (1, w.shape[0])), dtype=f32,
                        device=dev) for w in weights]
     dws.append(torch.empty(bh, dtype=f32, device=dev))
-    ws_fn = _fn("edgewise_bwd", "mop_edgewise_bwd_ws_floats", [_I, _I, _I], ctypes.c_longlong)
-    workspace = torch.empty(bh * int(ws_fn(nv, n, dk)), dtype=f32, device=dev)
-    fn = _fn("edgewise_bwd", sym, [_I] + [_P] * 18 + [_I] * len(dims) + [_P, _F, _F, _P])
+    workspace = torch.empty(bh * edgewise_bwd_ws_bytes(qs.dtype, nv, n, dk), dtype=torch.uint8,
+                            device=dev)
+    fn = _fn("edgewise_bwd", sym, [_I] + [_P] * 18 + [_I] * len(dims) + [_P, _F, _F, _I, _P])
     with torch.cuda.device(dev):
         rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
                 dy.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dv.data_ptr(),
                 *(t.data_ptr() for t in ws), *(t.data_ptr() for t in dws),
                 workspace.data_ptr(), *dims, _in_strides(qs, ks, vs, dy), float(beta_not),
-                1.0 / math.sqrt(dk), _stream(dev))
+                1.0 / math.sqrt(dk), copy_width((qs, ks, vs, dy), dk), _stream(dev))
     _raise_on(rc, name)
     return (dq, dkey, dv, *dws)
 
@@ -533,8 +596,11 @@ def fused_edgewise_lowrank_attention_bwd(
     On CUDA it supports 2 <= V <= 8, N <= 64, dk <= 128 within the card's
     shared memory and raises outside them. q/k/v and dy may have any strides
     with a contiguous feature axis; dq/dk/dv come back contiguous. The kernel
-    works in a per-program fp32 workspace in device memory (about 450 KB per
-    program at V = 5, N = 64, dk = 56), allocated here for each call.
+    works in a per-program workspace in device memory
+    (``edgewise_bwd_ws_bytes``: 450,560 bytes per program in fp32 and 413,696
+    in bf16 at V = 5, N = 64, dk = 56), allocated here for each call. In bf16
+    its products run on the tensor cores and round their cotangents where
+    the plain backward does (``csrc/edgewise_bwd.cu``).
     """
     if not qs.is_cuda:
         return fused_edgewise_lowrank_attention_bwd_plain(
@@ -543,8 +609,9 @@ def fused_edgewise_lowrank_attention_bwd(
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
     _check_cuda_inputs(name, qs, ks, vs, dy)
-    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
-                                             8, edgewise_lowrank_bwd_smem_bytes)
+    b, h, nv, n, dk, rank = _edgewise_shapes(
+        name, qs, ks, vs, wrow, brow, wcol, bcol, 8,
+        lambda *shape: edgewise_bwd_smem_bytes(qs.dtype, *shape))
     if dy.shape != (b, h, n, dk):
         raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
     out = _edgewise_bwd_cuda(name, "mop_edgewise_lowrank_bwd", qs, ks, vs,
@@ -592,8 +659,9 @@ def fused_edgewise_dense_attention_bwd(
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
     _check_cuda_inputs(name, qs, ks, vs, dy)
-    b, h, nv, n, dk = _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2,
-                                    edgewise_dense_bwd_smem_bytes)
+    b, h, nv, n, dk = _dense_shapes(
+        name, qs, ks, vs, w1, b1, w2, b2,
+        lambda *shape: edgewise_bwd_smem_bytes(qs.dtype, *shape, dense=True))
     if dy.shape != (b, h, n, dk):
         raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
     out = _edgewise_bwd_cuda(name, "mop_edgewise_dense_bwd", qs, ks, vs, (w1, b1, w2, b2),
