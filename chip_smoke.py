@@ -9,13 +9,16 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 
 1. the device, with ``nvidia-smi``'s name and power limit;
 2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc,
-   print each kernel's registers and spills, and hold the Python byte
-   counts the wrappers launch with (K1's, K2b's and K3b's shared memory,
-   K2b's and K3b's workspace) to the libraries' own;
+   print each kernel's registers and spills (both K2 kernels and both K3b
+   instantiations among them, and whether K3b spills), and hold the Python byte counts the wrappers
+   launch with and the modules route by (K1's, K2's, K3's, K2b's and K3b's
+   shared memory, K2b's and K3b's workspace) to the libraries' own;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card:
    fp32 and bf16 at the path shape, at B's strided dk-54 views, causal,
    ragged and long (N 1500, several key blocks) cases;
-4. K2 ``fused_edgewise_lowrank_attention`` against its plain version;
+4. K2 ``fused_edgewise_lowrank_attention`` against its plain version: fp32
+   and bf16 at the path shape, off shapes (two and eight views, N < 64,
+   dk > 64) and strided views;
    4b. K3 ``fused_edgewise_dense_attention`` against its plain version;
    4c. K4 ``fused_multihop_attention`` against its plain version: hops 3
    and 2 with every gate on, fp32 and bf16, strided views, an off shape;
@@ -24,7 +27,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
    (autograd through the plain forward), all eight grads, fp32 and bf16, at
    the path shape, off shapes (dk > 64 too) and the strided view inputs;
-   5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise;
+   5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise, both dtypes at
+   the off shapes and the strided views;
 6. K1's autograd (kernel forward, recompute backward) against autograd
    through the plain version; 6b. K4's and K5's (kernel forward, recompute
    backward) against autograd through their composed references;
@@ -33,7 +37,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    the bench.py config, and the 256/8/4 D (multi-hop, K4), Gated (two-hop,
    K4) and C (cross-view, no kernel) ViTs of the experiments, batch 256,
    fp32, with kernel launch counts and the logits held against the plain
-   path;
+   path; an E, E_dense and D layer at N = 196 (224/16 images), beyond the
+   kernels' N, composes with no launch and matches its plain path;
    7b. gradients through the eval forward of E, E_dense (the edgewise
    backward kernels) and D (K4's recompute backward), launches counted,
    grads held against the plain path;
@@ -46,14 +51,15 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    0.05) for the ViT configs at batch 256: launches per step, one step's
    fp32 grads held against the plain path, 20 steps on one repeated batch
    whose loss must fall, images/s of the scanned step (K = 20) with a
-   torch.profiler breakdown, and an eval step after training;
+   torch.profiler breakdown (E_dense through its composed route too), and
+   an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one (K1 and K2b in bf16 too,
-   and K1's and sdpa's time replayed from a CUDA graph, without the host's
-   launch path); one E_dense attention
-   layer's bf16 forward and backward through its eval route (K3, K3b) and
-   its train route (composed); each ViT's eval images/s and the LM's eval
-   forward, with a torch.profiler breakdown of their device time.
+   bound and one library call where there is one (K1, K2, K2b, K3 and K3b in
+   bf16 too, and K1's and sdpa's time replayed from a CUDA graph, without
+   the host's launch path); one E_dense attention layer's bf16 forward and
+   backward in training through the kernel route (K3, K3b) and the composed
+   route, and which was faster; each ViT's eval images/s and the LM's
+   eval forward, with a torch.profiler breakdown of their device time.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,7 +79,7 @@ from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, TransformerConfig, ViT_B
                            ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated, ViTMultiHop,
                            create_gpt_quartet, make_classifier_eval_step,
                            make_classifier_train_step, make_scanned_classifier_train_step)
-from mop_tpu_torch.models import EdgewiseMSA
+from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
 from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
@@ -132,8 +139,9 @@ K4, K5 = "fused_multihop_attention", "fused_quartet_attention"
 # The backward kernel of each forward kernel with one.
 BWD = {"fused_edgewise_lowrank_attention": K2B, "fused_edgewise_dense_attention": K3B}
 # Forward kernels that a train step does not run: as in the JAX package, the
-# dense head and the C/D variants train through the composed path.
-EVAL_ONLY = {"fused_edgewise_dense_attention", K4}
+# C/D variants train through the composed path. (The dense E head trains
+# through K3 and K3b: phase 9 times both routes.)
+EVAL_ONLY = {K4}
 # Models whose eval forward phase 7b differentiates.
 EVAL_GRAD = ("E", "E_dense", "D")
 # The Quartet LM: mop_tpu's ComparisonConfig (gpt_comparison.py) at the
@@ -144,6 +152,20 @@ LM_VOCAB, LM_BATCH = 8192, 64
 # (tests/test_torch_quartet.py holds both mop_tpu's and the port's count to it).
 LM_JAX_PARAMS = 51303696
 MULTIHOP_GATES = dict(base=0.9, and_=1.0, or_=0.5, not_=0.25, chain=0.75)
+# K2's and K3b's checks off the main shape, ((B, H), V, N, dk, r): two and
+# eight views, N below 64 and odd, dk above 64 (two column tiles of every
+# N x dk product) and not a multiple of 8.
+K2_OFF_SHAPES = (((2, 2), 2, 16, 8, 1), ((2, 2), 3, 40, 100, 2), ((2, 3), 8, 33, 54, 2),
+                 ((2, 2), 8, 40, 100, 4))
+# The layers phase 7 runs above the kernels' N (224/16 images: 196 tokens),
+# E's, E_dense's and D's attention at their CIFAR widths.
+N_WIDE, BATCH_WIDE = 196, 32
+WIDE_LAYERS = {
+    "E": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="lowrank", gate_rank=4,
+                                   gate_init="mix5")),
+    "E_dense": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="dense")),
+    "D": (256, lambda: MultiHopMSA(256, 4, beta_not=0.5, hops=3)),
+}
 
 failures = []
 
@@ -363,6 +385,34 @@ def plain_kernels():
             setattr(F, n, f)
 
 
+@contextlib.contextmanager
+def composed_dense():
+    """Route the dense E head through its composed path, as ``EdgewiseMSA``
+    does where K3 and K3b do not take the shape: the other train route."""
+    saved = F.edgewise_dense_fits
+    F.edgewise_dense_fits = lambda *a: False
+    try:
+        yield
+    finally:
+        F.edgewise_dense_fits = saved
+
+
+def train_windows(scanned, xk, yk, gen):
+    """ms per step, images/s and the per-window rates of TRAIN_WINDOWS timed
+    scanned calls after a warm one."""
+    scanned(xk, yk, gen)
+    torch.cuda.synchronize()
+    dts = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        scanned(xk, yk, gen)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    n_steps = TRAIN_K * TRAIN_WINDOWS
+    return (sum(dts) / n_steps * 1e3, BATCH * n_steps / sum(dts),
+            [BATCH * TRAIN_K / t for t in dts])
+
+
 def launched(counts):
     """The kernels of a launch count that ran, for printing."""
     return {k: n for k, n in counts.items() if n}
@@ -401,13 +451,49 @@ def dense_inputs(g, bh_shape, nv, n, dk, dtype):
             0.5, torch.tensor(0.4, device="cuda"))
 
 
+def _kernel_label(mangled: str) -> str:
+    """A short name for a mangled kernel: its name and the template arguments
+    that tell the instantiations apart."""
+    m = re.match(r"_ZN3mop(\d+)", mangled)
+    if not m:
+        return mangled[:40]
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    tags = [t for t, key in (("float", "If"), ("bf16", "I13__nv_bfloat16"),
+                             ("lowrank", "LowrankGate"), ("dense", "DenseGate"))
+            if (rest.startswith(key) if key.startswith("I") else key in rest.split("Ev")[0])]
+    return f"{name}<{','.join(tags)}>" if tags else name
+
+
+def ptxas_report(log: str):
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas=-v`` output."""
+    out, label, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            label = _kernel_label(m.group(1))
+        elif "spill stores" in ln:
+            spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+        else:
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out.append(f"{label} {m.group(1)} registers, {spill}")
+    return out
+
+
 def check_byte_counts():
     """The shared-memory and workspace bytes the Python wrappers size their
-    checks and allocations by, against the kernels' own counts."""
+    checks and allocations by (and the modules route by), against the
+    kernels' own counts."""
     import ctypes
 
     i_ = ctypes.c_int
     flash = F._fn("flash_fwd", "mop_flash_smem_bytes", [i_, i_], ctypes.c_longlong)
+    k2 = F._fn("edgewise_lowrank_fwd", "mop_edgewise_lowrank_smem_bytes", [i_] * 5,
+               ctypes.c_longlong)
+    k3 = F._fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [i_] * 3,
+               ctypes.c_longlong)
     smem = F._fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [i_] * 6, ctypes.c_longlong)
     ws = F._fn("edgewise_bwd", "mop_edgewise_bwd_ws_bytes", [i_] * 4, ctypes.c_longlong)
     bad = []
@@ -416,13 +502,17 @@ def check_byte_counts():
             if F.flash_smem_bytes(dtype, dk) != flash(code, dk):
                 bad.append(("K1", dtype, dk))
         for nv, n, dk, r in ((5, 64, 56, 4), (2, 16, 8, 1), (3, 40, 100, 2), (8, 64, 128, 4),
-                             (2, 1, 1, 1), (4, 33, 54, 2)):
+                             (2, 1, 1, 1), (4, 33, 54, 2), (8, 40, 100, 4)):
+            if F.edgewise_lowrank_smem_bytes(dtype, nv, n, dk, r) != k2(code, nv, n, dk, r):
+                bad.append(("K2", dtype, nv, n, dk, r))
             for dense in (False, True):
                 if F.edgewise_bwd_smem_bytes(dtype, nv, n, dk, r, dense) != smem(
                         code, nv, n, dk, r, int(dense)):
                     bad.append(("smem", dtype, nv, n, dk, r, dense))
             if F.edgewise_bwd_ws_bytes(dtype, nv, n, dk) != ws(code, nv, n, dk):
                 bad.append(("ws", dtype, nv, n, dk))
+            if dtype == torch.float32 and F.edgewise_dense_smem_bytes(nv, n, dk) != k3(nv, n, dk):
+                bad.append(("K3", nv, n, dk))
     check(not bad, f"Python byte counts equal the kernels' own {bad}")
 
 
@@ -446,9 +536,12 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_all()
     for name, path in libs.items():
-        regs = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "spill" in ln]
-        say(f"  {name}: {' | '.join(regs)}")
+        report = ptxas_report(path.with_suffix(".log").read_text())
+        say(f"  {name}: {' | '.join(report)}")
+        if name == "edgewise_bwd":
+            k3b = [r for r in report if "dense" in r]
+            spills = not all(r.endswith("0 bytes spill stores, 0 bytes spill loads") for r in k3b)
+            say(f"    K3b (both instantiations) spills: {spills}")
     say(f"[2 build] {len(libs)} kernels from mop_tpu_torch/csrc in {time.time() - t0:.1f} s")
     check_byte_counts()
 
@@ -457,6 +550,7 @@ def main() -> int:
     # other phases see the same inputs as before they were added.
     gd = torch.Generator(device="cuda").manual_seed(3)
     gk = torch.Generator(device="cuda").manual_seed(4)  # likewise for K4, K5 and the LM
+    gn = torch.Generator(device="cuda").manual_seed(5)  # and for K2's and K3b's off shapes
 
     def rn(*s, dtype=torch.float32, gen=g):
         return torch.randn(*s, device="cuda", generator=gen).to(dtype)
@@ -512,6 +606,20 @@ def main() -> int:
         compare("strided view inputs (256, 4, 5, 64, 56) r=4 float32",
                 F.fused_edgewise_lowrank_attention(*args),
                 F.fused_edgewise_lowrank_attention_plain(*args), 2e-5, 2e-4)
+        # Off the main shape (two and eight views, N < 64 and odd, dk > 64:
+        # two column tiles) and bf16's strided views; from their own generator.
+        for bh_shape, nv, n, dk, r in K2_OFF_SHAPES:
+            for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+                args = edgewise_inputs(gn, bh_shape, nv, n, dk, r, dtype)
+                compare(f"{(*bh_shape, nv, n, dk)} r={r} {dtype}",
+                        F.fused_edgewise_lowrank_attention(*args),
+                        F.fused_edgewise_lowrank_attention_plain(*args), atol, rtol)
+        args = edgewise_inputs(gn, (256, 4), 5, 64, 56, 4, torch.bfloat16)
+        qkv = rn(256, 64, 5, 3, 4, 56, dtype=torch.bfloat16, gen=gn).permute(3, 0, 4, 2, 1, 5)
+        args = (*qkv, *args[3:])
+        compare(f"strided view inputs (256, 4, 5, 64, 56) r=4 bfloat16, "
+                f"{F.copy_width(qkv, 56)}-byte copies", F.fused_edgewise_lowrank_attention(*args),
+                F.fused_edgewise_lowrank_attention_plain(*args), 5e-2, 5e-2)
 
         say("[4b K3 fused_edgewise_dense_attention vs plain]")
         for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
@@ -656,6 +764,28 @@ def main() -> int:
     want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
     for gname, a, b in zip(dense_names, got, want):
         compare(f"strided view inputs float32 {gname}", a, b, 2e-4, 2e-3)
+    # The redesigned dense edge walk: both instantiations off the main shape
+    # (edge blocks cut by N, eight views) and bf16's strided inputs.
+    for bh_shape, nv, n, dk, _ in K2_OFF_SHAPES:
+        for dtype in (torch.float32, bf):
+            args = dense_inputs(gn, bh_shape, nv, n, dk, dtype)
+            dy = rn(*bh_shape, n, dk, dtype=dtype, gen=gn)
+            got = F.fused_edgewise_dense_attention_bwd(*args, dy)
+            want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
+            for gname, a, b in zip(dense_names, got, want):
+                label = f"{(*bh_shape, nv, n, dk)} {dtype} {gname}"
+                if dtype == torch.float32:
+                    compare(label, a, b, 2e-4, 2e-3)
+                else:
+                    compare_rel(label, a, b, BF16_GRAD_FRAC)
+    args = dense_inputs(gn, (256, 4), 5, 64, 56, bf)
+    qkv = rn(256, 64, 5, 3, 4, 56, dtype=bf, gen=gn).permute(3, 0, 4, 2, 1, 5)
+    args = (*qkv, *args[3:])
+    dy = rn(256, 64, 4, 56, dtype=bf, gen=gn).transpose(1, 2)
+    got = F.fused_edgewise_dense_attention_bwd(*args, dy)
+    want = F.fused_edgewise_dense_attention_bwd_plain(*args, dy)
+    for gname, a, b in zip(dense_names, got, want):
+        compare_rel(f"strided view inputs bfloat16 {gname}", a, b, BF16_GRAD_FRAC)
 
     say("[6 K1 autograd (kernel forward, recompute backward) vs plain autograd]")
     for dtype in (torch.float32, torch.bfloat16):
@@ -743,6 +873,35 @@ def main() -> int:
                 ref = model(x)
         check(tuple(logits.shape) == (BATCH, N_CLASSES), f"{name}: logits shape")
         compare(f"{name}: logits kernel path vs plain path", logits, ref, 2e-5, 2e-4)
+
+    say(f"  layers above the kernels' N: {N_WIDE} tokens (224/16 images), batch {BATCH_WIDE}, "
+        "fp32, eval forward and a train-mode gradient")
+    for lname, (dim, ctor) in WIDE_LAYERS.items():
+        layer = init_params(ctor(), torch.Generator().manual_seed(21)).to("cuda")
+        xw = rn(BATCH_WIDE, N_WIDE, dim, gen=gn)
+        lparams = [p for p in layer.parameters()]
+
+        def wide_grads():
+            xr = xw.clone().requires_grad_()
+            return torch.autograd.grad(layer.train()(xr).square().mean(), [xr, *lparams])
+
+        with torch.inference_mode():
+            y_w, counts = counted(lambda: layer.eval()(xw))
+            with plain_kernels():
+                ref_w = layer(xw)
+        check(not launched(counts) and tuple(y_w.shape) == (BATCH_WIDE, N_WIDE, dim),
+              f"{lname} at N {N_WIDE}: eval forward composes, launches {launched(counts)}")
+        compare(f"{lname} at N {N_WIDE}: eval output vs plain path", y_w, ref_w, 2e-5, 2e-4)
+        got, counts = counted(wide_grads)
+        with plain_kernels():
+            want = wide_grads()
+        worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(got, want))
+        check(not launched(counts) and worst <= 1e-3,
+              f"{lname} at N {N_WIDE}: train-mode gradient composes, launches "
+              f"{launched(counts)}; worst max-abs error {worst:.2e} of the tensor's largest grad "
+              "against the plain path (limit 1e-3)")
+        del layer, xw, y_w, ref_w, got, want
 
     say(f"[7b gradient through the eval forward] batch {BATCH}, fp32")
     x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
@@ -833,22 +992,19 @@ def main() -> int:
         check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
               f"{name}: loss over {TRAIN_K} steps on one batch {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}")
-        scanned(xk, yk, gen)
-        torch.cuda.synchronize()
         # The rate is every image over all the time of every timed window;
         # the per-window rates show the spread.
-        dts = []
-        for _ in range(TRAIN_WINDOWS):
-            t0 = time.perf_counter()
-            scanned(xk, yk, gen)
-            torch.cuda.synchronize()
-            dts.append(time.perf_counter() - t0)
-        dt = sum(dts)
-        n_steps = TRAIN_K * TRAIN_WINDOWS
+        if name == "E_dense":  # the composed train route first, in the same run
+            with composed_dense():
+                ms, rate, per = train_windows(scanned, xk, yk, gen)
+                rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
+            say(f"  {name} train step through the composed route: {ms:.3f} ms/step, {rate:.0f} "
+                f"images/s [per window {', '.join(f'{r:.0f}' for r in per)} images/s], device "
+                f"busy {100 * sum(t for _, t in rows) / wall_us:.1f}% [{smi}]")
+        ms, rate, per = train_windows(scanned, xk, yk, gen)
         say(f"  {name} train step, batch {BATCH} (scanned K={TRAIN_K}, {TRAIN_WINDOWS} windows "
-            f"in total): {dt / n_steps * 1e3:.3f} ms/step, {BATCH * n_steps / dt:.0f} images/s "
-            f"[per window {', '.join(f'{BATCH * TRAIN_K / t:.0f}' for t in dts)} images/s] "
-            f"[{smi}]")
+            f"in total): {ms:.3f} ms/step, {rate:.0f} images/s "
+            f"[per window {', '.join(f'{r:.0f}' for r in per)} images/s] [{smi}]")
         rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
         busy = sum(t for _, t in rows)
         top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:8])
@@ -896,10 +1052,13 @@ def main() -> int:
                 replaces="mop_tpu/ops/fused.py:641", launches=launches[K3B],
                 max_abs_err=errs[K3B], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None)
-    # One E_dense attention layer at bf16, forward and backward, through the
-    # eval route (K3, K3b) and the train route (composed), in turns.
+        else:  # E_dense's train step runs the bf16 instantiation
+            k3b_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                      library_ms=None)
+    # One E_dense attention layer at bf16, forward and backward in training
+    # mode, through the kernel route (K3, K3b) and the composed route, in turns.
     layer = init_params(EdgewiseMSA(224, 4, n_views=5, gate_mode="dense"),
-                        torch.Generator().manual_seed(9)).to("cuda", torch.bfloat16)
+                        torch.Generator().manual_seed(9)).to("cuda", torch.bfloat16).train()
     xl = rn(BATCH, 64, 224, dtype=torch.bfloat16, gen=gd).requires_grad_()
     dyl = rn(BATCH, 64, 224, dtype=torch.bfloat16, gen=gd)
     lparams = [xl, *layer.parameters()]
@@ -907,14 +1066,17 @@ def main() -> int:
     def layer_step():
         torch.autograd.grad(layer(xl), lparams, dyl)
 
-    route_ms = {"eval": [], "train": []}
-    for mode in ("eval", "train", "train", "eval"):
-        layer.train(mode == "train")
-        route_ms[mode].append(time_ms(layer_step, iters=10, reps=3))
+    route_ms = {"kernel": [], "composed": []}
+    for route in ("kernel", "composed", "composed", "kernel"):
+        with composed_dense() if route == "composed" else contextlib.nullcontext():
+            route_ms[route].append(time_ms(layer_step, iters=10, reps=3))
     say("  E_dense EdgewiseMSA layer (224, 4 heads, 5 views) bf16 forward + backward, batch "
-        f"{BATCH}: eval route (K3 + K3b) {route_ms['eval'][0]:.4f} / {route_ms['eval'][1]:.4f} "
-        f"ms, train route (composed) {route_ms['train'][0]:.4f} / {route_ms['train'][1]:.4f} "
-        f"ms [{smi}]")
+        f"{BATCH}: kernel route (K3 + K3b) {route_ms['kernel'][0]:.4f} / "
+        f"{route_ms['kernel'][1]:.4f} ms, composed route {route_ms['composed'][0]:.4f} / "
+        f"{route_ms['composed'][1]:.4f} ms [{smi}]")
+    say(f"    kernel route faster in both turns: "
+        f"{max(route_ms['kernel']) < min(route_ms['composed'])} (EdgewiseMSA trains the "
+        "dense head through the kernels)")
     del layer, xl, dyl, lparams
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
@@ -952,13 +1114,17 @@ def main() -> int:
             say(f"  K2 (256, 4, 5, 64, 56) r=4 {dtype}: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) [{smi}]")
             if dtype == torch.float32:
-                records.append(dict(
+                k2_record = dict(
                     name="fused_edgewise_lowrank_attention", route="cuda",
                     source="mop_tpu_torch/csrc/edgewise_lowrank_fwd.cu",
                     replaces="mop_tpu/ops/fused.py:628",
                     launches=launches["fused_edgewise_lowrank_attention"],
                     max_abs_err=errs["fused_edgewise_lowrank_attention"], ms=ms,
-                    plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
+                    plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+                records.append(k2_record)
+            else:  # E's train step runs the tensor-core kernel
+                k2_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=None)
         records.append(k2b_record)
         for dtype in (torch.float32, torch.bfloat16):
             args = dense_inputs(gd, (256, 4), 5, 64, 56, dtype)
@@ -968,13 +1134,17 @@ def main() -> int:
             say(f"  K3 (256, 4, 5, 64, 56) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
             if dtype == torch.float32:
-                records.append(dict(
+                k3_record = dict(
                     name="fused_edgewise_dense_attention", route="cuda",
                     source="mop_tpu_torch/csrc/edgewise_dense_fwd.cu",
                     replaces="mop_tpu/ops/fused.py:628",
                     launches=launches["fused_edgewise_dense_attention"],
                     max_abs_err=errs["fused_edgewise_dense_attention"], ms=ms,
-                    plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
+                    plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+                records.append(k3_record)
+            else:  # E_dense's train step runs it in bf16
+                k3_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=None)
         records.append(k3b_record)
         for dtype in (torch.float32, torch.bfloat16):
             for hops in (3, 2):

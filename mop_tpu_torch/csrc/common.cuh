@@ -4,9 +4,9 @@
 // registers) and accumulate in fp32; for bf16 inputs, `rnd<T>` rounds an
 // fp32 value to the input's precision at exactly the places where the JAX
 // kernels cast to the compute dtype, so the bf16 results follow the
-// reference's rounding points. The tensor-core paths (K1's and K2b's bf16)
-// keep bf16 operands in shared memory and use the `cp.async`, `ldmatrix`
-// and `mma.sync` helpers below.
+// reference's rounding points. The tensor-core paths (K1's, K2's and K2b's
+// bf16) keep bf16 operands in shared memory and use the `cp.async`,
+// `ldmatrix` and `mma.sync` helpers below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -279,6 +279,141 @@ __device__ __forceinline__ void load_b2(unsigned (&b)[4], const __nv_bfloat16* Y
     ldsm_x4_t(b, Y + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4));
   } else {
     ldsm_x4(b, Y + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1));
+  }
+}
+
+// ------------------- warp tiles of tensor-core products -------------------
+//
+// The bf16 products of K2 and K2b: eight warps tile a 64 x 64 output as 4 x 2
+// warp tiles of 16 x 32 (`MTile`), from bf16 operands in shared memory with
+// `mma_ld` rows zero-padded to a multiple of 16 in both dimensions.
+
+using bf16 = __nv_bfloat16;
+
+// The widest copy (16, 8, 4 or 2 bytes) of a 16-byte-aligned bf16 row of `cols`.
+__device__ __forceinline__ int row_vec(int cols) {
+  return (cols % 8 == 0) ? 16 : (cols % 4 == 0) ? 8 : (cols % 2 == 0) ? 4 : 2;
+}
+
+struct Op {
+  const bf16* p;
+  bool t;  // the buffer holds the operand's transpose
+};
+
+// A warp's 16 x 32 piece of a 64 x 64 product tile: four n-tiles of 8.
+struct MTile {
+  float v[4][4];
+};
+
+// t (+)= X Y over K for output rows < rows and columns [c0, c0 + 64) < cols;
+// X and Y are operands in buffers of row strides ldx and ldy.
+__device__ __forceinline__ void mma_mm(MTile& t, Op X, int ldx, Op Y, int ldy, int K, int rows,
+                                       int cols, int c0, bool acc) {
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 3), n0 = c0 + 32 * (warp >> 2);
+  if (!acc) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t.v[j][e] = 0.f;
+  }
+  if (m0 >= rows) return;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    unsigned a[4];
+    load_a(a, X.p, ldx, X.t, m0, k0);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      if (n0 + 16 * np < cols) {
+        unsigned b[4];
+        load_b2(b, Y.p, ldy, Y.t, k0, n0 + 16 * np);
+        mma_bf16(t.v[2 * np], a, b[0], b[1]);
+        mma_bf16(t.v[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The same with both operands in buffers of row stride ld.
+__device__ __forceinline__ void mma_mm(MTile& t, Op X, Op Y, int ld, int K, int rows, int cols,
+                                       int c0, bool acc) {
+  mma_mm(t, X, ld, Y, ld, K, rows, cols, c0, acc);
+}
+
+// f(row, col, value) for every element of t inside rows x cols.
+template <class F>
+__device__ __forceinline__ void for_tile(const MTile& t, int rows, int cols, int c0, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * (warp & 3) + (lane >> 2), cb = c0 + 32 * (warp >> 2) + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1), c = cb + 8 * j + (e & 1);
+      if (r < rows && c < cols) f(r, c, t.v[j][e]);
+    }
+}
+
+// f(r, c, x0, x1) for each pair of neighbouring columns c (even), c + 1 of t
+// whose first column lies inside rows x cols: a quad of lanes holds 8
+// neighbouring columns of a row, so paired stores fill whole sectors.
+template <class F>
+__device__ __forceinline__ void for_pairs(const MTile& t, int rows, int cols, int c0, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * (warp & 3) + (lane >> 2), cb = c0 + 32 * (warp >> 2) + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, c = cb + 8 * j;
+      if (r < rows && c < cols) f(r, c, t.v[j][2 * h], t.v[j][2 * h + 1]);
+    }
+}
+
+// Store x0 at p[0] and, if column c + 1 < cols, x1 at p[1]; as one vector
+// store when `vec` (p aligned to the pair).
+__device__ __forceinline__ void st2(float* p, int c, int cols, float x0, float x1, bool vec) {
+  if (vec && c + 1 < cols) {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+  } else {
+    p[0] = x0;
+    if (c + 1 < cols) p[1] = x1;
+  }
+}
+
+__device__ __forceinline__ void st2(bf16* p, int c, int cols, float x0, float x1, bool vec) {
+  if (vec && c + 1 < cols) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    p[0] = __float2bfloat16(x0);
+    if (c + 1 < cols) p[1] = __float2bfloat16(x1);
+  }
+}
+
+// Zero the padding of a rows x cols operand: columns [cols, c16) of rows
+// [0, r16) and rows [rows, r16) of columns [0, cols).
+__device__ void zero_pad(bf16* buf, int ld, int rows, int cols) {
+  const int r16 = (rows + 15) & ~15, c16 = (cols + 15) & ~15;
+  const bf16 z = __float2bfloat16(0.f);
+  const int pc = c16 - cols;
+  for (int idx = threadIdx.x; idx < r16 * pc; idx += kThreads)
+    buf[(idx / pc) * ld + cols + idx % pc] = z;
+  for (int idx = threadIdx.x; idx < (r16 - rows) * cols; idx += kThreads)
+    buf[(rows + idx / cols) * ld + idx % cols] = z;
+}
+
+// A bf16 rows x cols block from device memory by cp.async (the caller
+// commits and waits), its padding zeroed.
+__device__ __forceinline__ void stage_async(bf16* buf, int ld, const bf16* src, long long rs,
+                                            int rows, int cols, int vec) {
+  copy_rows_async(buf, ld, src, rs, rows, rows, cols, vec, threadIdx.x, kThreads);
+  zero_pad(buf, ld, rows, cols);
+}
+
+// buf = c(buf * mul), as the JAX math scales q in the compute dtype.
+__device__ void scale_rows(bf16* buf, int ld, int rows, int cols, float mul) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx - r * cols;
+    buf[r * ld + c] = __float2bfloat16(__bfloat162float(buf[r * ld + c]) * mul);
   }
 }
 

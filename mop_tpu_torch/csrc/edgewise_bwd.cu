@@ -57,15 +57,12 @@
 // 6. Score maps. dS_i += A_i * (dAc_i - rowsum(dAc_i * A_i)),
 //    dq_i = c(scale) dS_i k_i, dk_i = dS_i^T c(q_i * c(scale)).
 //
-// The dense stages 2-4 run as three passes, because an edge reads the
-// transposed scores S_c(j, i) that another edge's cotangent overwrites:
-//   a. per edge, the gates and the mix give dz, kept in shared memory;
-//   b. the weight grads, four hidden units at a time: each thread sums
-//      feat dpre, dpre and hid dz over its edges, then a fixed-order block
-//      reduction writes the program's dw1, db1, dw2 (and db2 = sum dz);
-//   c. per unordered pair {(i, j), (j, i)}, one thread recomputes both
-//      edges' heads and mix cotangents and writes dS at both places (and
-//      d c_fwd, d c_bwd), so the in-place update of S_c races with nothing.
+// The dense stages 2-4 visit each edge once (`dense_gate_backward`): the
+// edges are walked in pairs of 16 x 16 blocks {(bi, bj), (bj, bi)} whose
+// features are staged in shared memory, each edge writes its own dS share
+// to its block's dS tile and its transposed channels' share to the other
+// block's, and the pair's tiles overwrite S_c once both blocks are done; the
+// weight grads are fixed-order products over the edges.
 //
 // The state does not fit in shared memory: the backward needs about 5V maps
 // of N x N fp32 per program (about 400 KB at V = 5, N = 64) against the
@@ -90,237 +87,183 @@
 //   the transpose applied on the way in); an fp32 workspace of 5V - 1 maps
 //   and V - 1 transports (450,560 bytes a program at the main shape); one
 //   program an SM (162 KB of shared memory).
-// - bf16 (E's train step, `edgewise_bwd_tc_kernel` below): the products on
-//   the tensor cores from bf16 operands brought in by `cp.async`, the maps
-//   that are only read rounded kept in bf16 (413,696 bytes a program), and
-//   112 KB of shared memory, so two programs share an SM and their phases'
-//   waits overlap.
+// - bf16 (E's and E_dense's train steps, `edgewise_bwd_tc_kernel` below):
+//   the products on the tensor cores from bf16 operands brought in by
+//   `cp.async`, the maps that are only read rounded kept in bf16 (413,696
+//   bytes a program); with the lowrank head 112 KB of shared memory and at
+//   most 128 registers, so two programs share an SM and their phases' waits
+//   overlap; the dense head (82 KB) takes one program an SM, whose
+//   registers it needs not to spill.
 #include <algorithm>
 
 #include "edgewise_stages.cuh"
 
 namespace mop {
 
-constexpr int kGroup = 4;  // hidden units per pass of the dense weight-grad sums
-constexpr int kRed = kMaxC * kGroup + kGroup + 4 * kGroup;  // sums per group, at most
+// One edge's row in the dense walk's staging: dpre (16), hid (16), dz (4),
+// then its C features; an odd stride, so that a warp's rows fall in distinct banks.
+constexpr int kStDpre = 0, kStHid = kHidden, kStDz = 2 * kHidden, kStFeat = 2 * kHidden + 4;
+constexpr int kSt = kStFeat + kMaxC + 1;
 
-// Row i and column j >= i of the u-th entry of an N x N upper triangle
-// (diagonal included), rows in order.
-__device__ __forceinline__ void tri_index(int u, int N, int& i, int& j) {
-  const float b = 2.f * N + 1.f;
-  int r = (int)((b - sqrtf(b * b - 8.f * u)) * 0.5f);
-  r = max(0, min(r, N - 1));
-  while (r > 0 && r * N - r * (r - 1) / 2 > u) --r;
-  while (r + 1 < N && (r + 1) * N - (r + 1) * r / 2 <= u) ++r;
-  i = r;
-  j = r + (u - (r * N - r * (r - 1) / 2));
+// Floats of the dense edge walk's shared memory: a pair of edge blocks' tiles
+// (S_c, c_fwd, c_bwd), their dS tiles, and 256 edges' staging rows.
+__host__ __device__ inline int dense_scratch_floats(int V) {
+  return (4 * V + 4) * kET + kThreads * kSt;
 }
 
-// Sum each of `n` per-thread values over the block in a fixed order and
-// write sum k to out[k]. red holds kThreads / 32 * n floats.
-template <int n>
-__device__ __forceinline__ void block_sums(const float (&v)[n], float* red, float* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < n; ++k) {
-    const float s = warp_sum(v[k]);
-    if (lane == 0) red[warp * n + k] = s;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w * n + k];
-    out[k] = s;
-  }
-  __syncthreads();
-}
-
-// Dense stages 2-4 (passes a, b, c of the header). DSM holds d smix, DZ four
-// N x ldm maps; the per-program grads go to dw (dw1 C x 16, db1 16, dw2
-// 16 x 4, db2 4).
+// Dense stages 2-4: the mix and the head's backward at every edge, each edge
+// visited once. The edges are walked in pairs of 16 x 16 blocks {A = (bi, bj),
+// B = (bj, bi)}, bi <= bj: the pair's S_c, c_fwd and c_bwd tiles are staged in
+// scr (`stage_block`); each edge of A, then of B, reads its features from the
+// tiles (its two logs taken once), takes its head, gates, mix cotangents, dz,
+// dpre and dfeat = w1 dpre, stages its features, hid, dz and dpre in its row
+// for the weight grads, adds its own dS share (the mix's and its own
+// channels') to its block's dS tile and its transposed channels' share to the
+// other block's tile at (j, i) (a diagonal pair's to a spare tile); d c_fwd
+// and d c_bwd replace c_fwd and c_bwd at its own place. The pair's dS tiles
+// then overwrite S_c: only this pair reads or writes those places, so the
+// in-place update races with nothing. The weight grads are
+// fixed-order products over the edges: each warp sums its 32 edges of every
+// block (dw1 = feat^T dpre, db1 = sum dpre, dw2 = hid^T dz, db2 = sum dz) in
+// registers, a lane holding dw1[c][h] for its half's channels c and hidden
+// unit h, and the warps' sums are added in warp order at the end; no atomics.
 template <class P>
-__device__ void dense_gate_backward(const P& p, const DenseGate& gate, const float* DSM,
-                                    float* DZ, float* red, const Grads& dw, int bh,
-                                    float beta_not) {
-  const int V = p.V, N = p.N, nn = p.nn, C = gate.C;
+__device__ void dense_gate_backward(const P& p, const DenseGate& gate, const float* DSM, float* scr,
+                                    const Grads& dw, int bh, float beta_not) {
+  const int V = p.V, N = p.N, C = gate.C, nb = (N + kEB - 1) / kEB;
   const int ldm = odd_stride(N);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hb = lane >> 4, hl = lane & 15;  // the lane's half and hidden unit in the sums
+  const int r = tid >> 4, cc = tid & (kEB - 1);  // the thread's edge in a block
   const float n_others = (float)max(1, V - 1);
-
-  // a. dz of every edge.
-  for (int idx = tid; idx < nn; idx += kThreads) {
-    const int i = idx / N, j = idx - i * N;
-    const int o = i * ldm + j;
-    float g[4];
-    gate(p, i, j, g);
-    float m = -INFINITY, ssum = 0.f;
-    for (int c = 0; c < V; ++c) {
-      const float s = p.S(c)[idx];
-      m = fmaxf(m, s);
-      ssum += s;
-    }
-    float l = 0.f;
-    for (int c = 0; c < V; ++c) l += expf(p.S(c)[idx] - m);
-    const float lse = m + logf(l);
-    const float s0 = p.S(0)[idx];
-    const float others = ssum - s0;
-    const float lf = logf(p.Fm(V - 1)[idx] + 1e-6f);
-    const float d = DSM[o];
-    const float dg[4] = {d * others, d * (lse - s0), -d * beta_not * (others / n_others),
-                         d * lf};
+  float* TA = scr;                  // block A: S_c, c_fwd, c_bwd
+  float* TB = TA + (V + 2) * kET;   // block B
+  float* DA_ = TB + (V + 2) * kET;  // dS tiles of A, then of B
+  float* DB_ = DA_ + V * kET;
+  float* ST = DB_ + V * kET;        // the half's edges' dpre, hid, dz
+  float a1[kMaxC / 2], a2[2] = {0.f, 0.f}, a3 = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) DZ[c * N * ldm + o] = dg[c] * g[c] * (1.f - g[c]);
-  }
+  for (int m = 0; m < kMaxC / 2; ++m) a1[m] = 0.f;
+
+  for (int bi = 0; bi < nb; ++bi)
+    for (int bj = bi; bj < nb; ++bj) {
+      const bool diag = bi == bj;
+      __syncthreads();  // the last pair's tiles are written back
+      stage_block(p, TA, bi, bj, V + 2);
+      if (!diag) stage_block(p, TB, bj, bi, V + 2);
+      for (int idx = tid; idx < 2 * V * kET; idx += kThreads) DA_[idx] = 0.f;
+      for (int half = 0; half < (diag ? 1 : 2); ++half) {
+        float* X = half ? TB : TA;
+        const float* Y = diag ? TA : (half ? TA : TB);
+        // The edge's own dS share goes to its block's tile, its transposed
+        // channels' share to the other block's (for a diagonal pair, to the
+        // spare tile, added at the write-back): one writer per place.
+        float* DX = half ? DB_ : DA_;
+        float* DY = half ? DA_ : DB_;
+        const int b0 = half ? bj : bi, b1 = half ? bi : bj;
+        const int i = b0 * kEB + r, j = b1 * kEB + cc;
+        __syncthreads();  // staged, and the last half's rows are read
+        if (i < N && j < N) {
+          const int o = r * kEL + cc, ot = cc * kEL + r;
+          const float cf = X[V * kET + o], cb = X[(V + 1) * kET + o];
+          const float lf = logf(cf + 1e-6f), lb = logf(cb + 1e-6f);
+          // The features go to the edge's row (the weight grads read them
+          // there) and are read back one channel at a time.
+          float* row = ST + tid * kSt;
+          const float* fr = row + kStFeat;
+          for (int c = 0; c < C; ++c)
+            row[kStFeat + c] = c < 2 * V ? *feat_at(X, Y, V, c, r, cc) : (c == 2 * V ? lf : lb);
+          float x[kHidden], th[kHidden], g[4];
+          gate.head(fr, x, th, g);
+#pragma unroll
+          for (int h = 0; h < kHidden; ++h) row[kStHid + h] = 0.5f * x[h] * (1.f + th[h]);
+          float m = -INFINITY, ssum = 0.f, l = 0.f;  // view_stats over the row
+          for (int c = 0; c < V; ++c) {
+            m = fmaxf(m, fr[c]);
+            ssum += fr[c];
+          }
+          for (int c = 0; c < V; ++c) l += expf(fr[c] - m);
+          const float lse = m + logf(l);
+          const float others = ssum - fr[0];
+          const float d = DSM[i * ldm + j];
+          const float d_lse = d * g[1];
+          const float d_rest = d * (g[0] - g[2] * beta_not / n_others);
+          const float dg[4] = {d * others, d * (lse - fr[0]), -d * beta_not * (others / n_others),
+                               d * lf};
+          float dz[4];
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            dz[c4] = dg[c4] * g[c4] * (1.f - g[c4]);
+            row[kStDz + c4] = dz[c4];
+          }
+          gate.dpre(dz, th, x);  // x becomes dpre
+#pragma unroll
+          for (int h = 0; h < kHidden; ++h) row[kStDpre + h] = x[h];
+          // dfeat = w1 dpre: view c's own channel (with the mix's share) and
+          // its transposed channel, then the two logs.
+          for (int c = 0; c < V; ++c) {
+            const float mix = (c == 0 ? d * (1.f - g[1]) : d_rest) + d_lse * expf(fr[c] - lse);
+            DX[c * kET + o] += mix + gate.dot_w1(c, x);
+            DY[c * kET + ot] += gate.dot_w1(V + c, x);
+          }
+          const float dlf = d * g[3] + gate.dot_w1(2 * V, x);
+          const float dlb = gate.dot_w1(2 * V + 1, x);
+          p.Fm(V - 1)[i * N + j] = dlf / (cf + 1e-6f);
+          p.Bm(V - 1)[i * N + j] = dlb / (cb + 1e-6f);
+        }
+        __syncthreads();  // the half's rows are in place
+        // The weight grads over the half's edges: warp w takes edges 32w .. 32w + 31.
+        for (int e = 32 * warp; e < 32 * warp + 32; ++e) {
+          if (b0 * kEB + (e >> 4) >= N || b1 * kEB + (e & (kEB - 1)) >= N) continue;
+          const float* sr = ST + e * kSt;
+          const float dp = sr[kStDpre + hl], hd = sr[kStHid + hl];
+#pragma unroll
+          for (int m = 0; m < kMaxC / 2; ++m)
+            if (hb + 2 * m < C) a1[m] = fmaf(sr[kStFeat + hb + 2 * m], dp, a1[m]);
+          a2[0] = fmaf(hd, sr[kStDz + 2 * hb], a2[0]);
+          a2[1] = fmaf(hd, sr[kStDz + 2 * hb + 1], a2[1]);
+          a3 += hb == 0 ? dp : (hl < 4 ? sr[kStDz + hl] : 0.f);
+        }
+      }
+      __syncthreads();  // the pair's dS tiles are complete: they overwrite S_c
+      for (int idx = tid; idx < (diag ? 1 : 2) * V * kEB * kEB; idx += kThreads) {
+        const int t = idx >> 8, rr = (idx >> 4) & (kEB - 1), c = idx & (kEB - 1);
+        const int blk = t / V, ch = t - blk * V;
+        const int i = (blk ? bj : bi) * kEB + rr, j = (blk ? bi : bj) * kEB + c;
+        const float* D = DA_ + t * kET + rr * kEL + c;
+        if (i < N && j < N) p.S(ch)[i * N + j] = diag ? D[0] + D[V * kET] : D[0];
+      }
+    }
+
+  // Each warp's sums, then the program's grads as their sum in warp order:
+  // rows of [dw1 (C x 16), db1 (16), dw2 (16 x 4), db2 (4)].
+  const int n_out = C * kHidden + kHidden + 4 * kHidden + 4;
   __syncthreads();
-
-  // b. Weight grads, kGroup hidden units at a time.
-  float* out = dw.p[0] + (long long)bh * C * kHidden;
-  for (int h0 = 0; h0 < kHidden; h0 += kGroup) {
-    float acc[kRed];
+  float* pw = ST + warp * n_out;
 #pragma unroll
-    for (int k = 0; k < kRed; ++k) acc[k] = 0.f;
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int i = idx / N, j = idx - i * N;
-      const int o = i * ldm + j, et = j * N + i;
-      float f[kMaxC];
-      float x[kGroup];
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) x[u] = gate.b1[h0 + u];
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c) {
-        if (c < C) {
-          f[c] = dense_feature(p, c, idx, et);
-#pragma unroll
-          for (int u = 0; u < kGroup; ++u) x[u] = x[u] + f[c] * gate.w1[c * kHidden + h0 + u];
-        }
-      }
-      float dz[4];
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) dz[c4] = DZ[c4 * N * ldm + o];
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        float dh = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) dh = fmaf(gate.w2[(h0 + u) * 4 + c4], dz[c4], dh);
-        const float dpre = dh * gelu_tanh_grad(x[u]);
-        const float hid = gelu_tanh(x[u]);
-#pragma unroll
-        for (int c = 0; c < kMaxC; ++c)
-          if (c < C) acc[c * kGroup + u] = fmaf(f[c], dpre, acc[c * kGroup + u]);
-        acc[kMaxC * kGroup + u] += dpre;
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4)
-          acc[kMaxC * kGroup + kGroup + u * 4 + c4] = fmaf(hid, dz[c4],
-                                                         acc[kMaxC * kGroup + kGroup + u * 4 + c4]);
-      }
-    }
-    // red: the block's sums, then the program's grads in place.
-    float* sums = red + (kThreads / 32) * kRed;
-    block_sums(acc, red, sums);
-    for (int k = tid; k < C * kGroup; k += kThreads) {
-      const int c = k / kGroup, u = k - c * kGroup;
-      out[c * kHidden + h0 + u] = sums[k];
-    }
-    for (int u = tid; u < kGroup; u += kThreads) {
-      dw.p[1][(long long)bh * kHidden + h0 + u] = sums[kMaxC * kGroup + u];
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4)
-        dw.p[2][(long long)bh * kHidden * 4 + (h0 + u) * 4 + c4] =
-            sums[kMaxC * kGroup + kGroup + u * 4 + c4];
-    }
+  for (int m = 0; m < kMaxC / 2; ++m) {
+    const int c = hb + 2 * m;
+    if (c < C) pw[c * kHidden + hl] = a1[m];
   }
-  {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int idx = tid; idx < nn; idx += kThreads) {
-      const int o = (idx / N) * ldm + idx % N;
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) acc[c4] += DZ[c4 * N * ldm + o];
-    }
-    float* sums = red + (kThreads / 32) * kRed;
-    block_sums(acc, red, sums);
-    for (int c4 = tid; c4 < 4; c4 += kThreads) dw.p[3][(long long)bh * 4 + c4] = sums[c4];
-  }
-
-  // c. dS, d c_fwd and d c_bwd, one unordered pair of edges per step.
-  for (int u = tid; u < N * (N + 1) / 2; u += kThreads) {
-    int i, j;
-    tri_index(u, N, i, j);
-    const int ea = i * N + j, eb = j * N + i;
-    float dsa[kMaxViews], dsb[kMaxViews];  // dS at (i, j) and at (j, i)
-    float dcf[2], dcb[2];                  // d c_fwd, d c_bwd at ea, eb
-#pragma unroll
-    for (int c = 0; c < kMaxViews; ++c) dsa[c] = dsb[c] = 0.f;
-    const int sides = i == j ? 1 : 2;
-    for (int side = 0; side < sides; ++side) {
-      const int e = side ? eb : ea, et = side ? ea : eb;
-      const int o = (e / N) * ldm + e % N;
-      float* ds = side ? dsb : dsa;   // the edge's own place
-      float* dst = side ? dsa : dsb;  // its transpose's place
-      float x[kHidden], g[4];
-      gate.pre(p, e, et, x);
-      gate.out(x, g);
-      // The mix at e.
-      float s[kMaxViews];
-      float m = -INFINITY, ssum = 0.f;
-      for (int c = 0; c < V; ++c) {
-        s[c] = p.S(c)[e];
-        m = fmaxf(m, s[c]);
-        ssum += s[c];
-      }
-      float l = 0.f;
-      for (int c = 0; c < V; ++c) l += expf(s[c] - m);
-      const float lse = m + logf(l);
-      const float d = DSM[o];
-      const float d_lse = d * g[1];
-      const float d_rest = d * (g[0] - g[2] * beta_not / n_others);
-      for (int c = 0; c < V; ++c)
-        ds[c] += (c == 0 ? d * (1.f - g[1]) : d_rest) + d_lse * expf(s[c] - lse);
-      // The head at e.
-      float dz[4];
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) dz[c4] = DZ[c4 * N * ldm + o];
-#pragma unroll
-      for (int h = 0; h < kHidden; ++h) {
-        float dh = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) dh = fmaf(gate.w2[h * 4 + c4], dz[c4], dh);
-        x[h] = dh * gelu_tanh_grad(x[h]);  // x now holds dpre
-      }
-      float dlf = d * g[3];
-      float dlb = 0.f;
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c) {
-        if (c < C) {
-          float df = 0.f;
-#pragma unroll
-          for (int h = 0; h < kHidden; ++h) df = fmaf(gate.w1[c * kHidden + h], x[h], df);
-          if (c < V)
-            ds[c] += df;
-          else if (c < 2 * V)
-            dst[c - V] += df;
-          else if (c == 2 * V)
-            dlf += df;
-          else
-            dlb += df;
-        }
-      }
-      dcf[side] = dlf / (p.Fm(V - 1)[e] + 1e-6f);
-      dcb[side] = dlb / (p.Bm(V - 1)[e] + 1e-6f);
-    }
-    // Every read of this pair's places is done: write them.
-    if (sides == 1) {
-      for (int c = 0; c < V; ++c) p.S(c)[ea] = dsa[c] + dsb[c];
-    } else {
-      for (int c = 0; c < V; ++c) {
-        p.S(c)[ea] = dsa[c];
-        p.S(c)[eb] = dsb[c];
-      }
-    }
-    for (int side = 0; side < sides; ++side) {
-      const int e = side ? eb : ea;
-      p.Fm(V - 1)[e] = dcf[side];
-      p.Bm(V - 1)[e] = dcb[side];
-    }
+  pw[C * kHidden + kHidden + hl * 4 + 2 * hb] = a2[0];
+  pw[C * kHidden + kHidden + hl * 4 + 2 * hb + 1] = a2[1];
+  if (hb == 0)
+    pw[C * kHidden + hl] = a3;
+  else if (hl < 4)
+    pw[C * kHidden + 5 * kHidden + hl] = a3;
+  __syncthreads();
+  for (int k = tid; k < n_out; k += kThreads) {
+    float sum = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) sum += ST[w * n_out + k];
+    const int k1 = k - C * kHidden, k2 = k1 - kHidden, k3 = k2 - 4 * kHidden;
+    if (k1 < 0)
+      dw.p[0][(long long)bh * C * kHidden + k] = sum;
+    else if (k2 < 0)
+      dw.p[1][(long long)bh * kHidden + k1] = sum;
+    else if (k3 < 0)
+      dw.p[2][(long long)bh * 4 * kHidden + k2] = sum;
+    else
+      dw.p[3][(long long)bh * 4 + k3] = sum;
   }
 }
 
@@ -443,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
     const T* __restrict__ dy, T* __restrict__ dq, T* __restrict__ dkey, T* __restrict__ dv,
     Weights wts, Grads dw, float* __restrict__ workspace, int H, int V, int N, int dk, int r,
     Strides strides, float beta_not, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const long long* st = strides.s;
   const int ldm = odd_stride(N), ldd = odd_stride(dk);
   const int C = 2 * V + 2, R4 = 4 * r;
@@ -452,8 +395,10 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
   float* Y = X + nbuf;          // staged right operand
   float* Z = Y + nbuf;          // dy, then the running dP, dF and dB
   float* DSM = Z + nbuf;        // d att, then d smix
-  float* DZ = DSM + N * ldm;    // the four gate-logit cotangents
-  float* rest = DZ + 4 * N * ldm;
+  float* DZ = DSM + N * ldm;    // the four gate-logit cotangents, or the dense edge walk
+  // The dense head's weights are read four at a time: 16-byte aligned.
+  float* rest = Gate::kDense ? smem + round4(3 * nbuf + N * ldm + dense_scratch_floats(V))
+                             : DZ + 4 * N * ldm;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -478,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
   float *daf = nullptr, *dbf = nullptr, *drf = nullptr, *dcf = nullptr;
   if constexpr (Gate::kDense) {
     gate = load_dense_gate(wts, C, rest);
-    red = rest + dense_gate_floats(C);  // the block sums of the weight grads
+    red = rest + dense_gate_floats(C);  // one float per warp
   } else {
     rowf = rest;
     colf = rowf + N * C;
@@ -493,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
   }
 
   // ---------------- recompute the forward ----------------
-  recompute_forward<T>(p, gate, X, Y, Z, DSM, beta_not, sc);
+  recompute_forward<T>(p, gate, X, Y, Z, DSM, beta_not, sc, DZ);
   auto S = [&](int i) { return p.S(i); };
   auto A = [&](int i) { return p.A(i); };
   auto Fm = [&](int j) { return p.Fm(j); };
@@ -589,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
   __syncthreads();
   if constexpr (Gate::kDense) {
     // ------------- 2-4. the mix and the dense head, per edge -------------
-    dense_gate_backward(p, gate, DSM, DZ, red, dw, bh, beta_not);
+    dense_gate_backward(p, gate, DSM, DZ, dw, bh, beta_not);
   } else {
     lowrank_gate_backward(p, gate, DSM, DZ, daf, dbf, drf, dcf, wts, dw, bh, beta_not);
   }
@@ -670,7 +615,6 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_bwd_kernel(
 // dq_i and dk_i, enter their products as a two-term bf16 split (x = hi + lo,
 // hi = c(x), lo = c(x - hi)): two products, error about 2^-17 of |x|.
 
-using bf16 = __nv_bfloat16;
 constexpr int kNbuf = 7;  // bf16 operand buffers of 64 rows
 
 // One program's workspace in the bf16 backward: fp32 maps (row stride N),
@@ -708,99 +652,6 @@ __host__ __device__ inline long long tc_ws_bytes(int V, int N, int dk) {
   return 4 * tc_wf_floats(V, N) + 2 * ((3LL * V - 4) * N * nw + (V - 1LL) * N * dw);
 }
 
-// The widest copy (16, 8, 4 or 2 bytes) of a 16-byte-aligned bf16 row of `cols`.
-__device__ __forceinline__ int row_vec(int cols) {
-  return (cols % 8 == 0) ? 16 : (cols % 4 == 0) ? 8 : (cols % 2 == 0) ? 4 : 2;
-}
-
-struct Op {
-  const bf16* p;
-  bool t;  // the buffer holds the operand's transpose
-};
-
-// A warp's 16 x 32 piece of a 64 x 64 product tile: four n-tiles of 8.
-struct MTile {
-  float v[4][4];
-};
-
-// t (+)= X Y over K for output rows < rows and columns [c0, c0 + 64) < cols;
-// X and Y are operands in buffers of row stride ld.
-__device__ __forceinline__ void mma_mm(MTile& t, Op X, Op Y, int ld, int K, int rows, int cols,
-                                       int c0, bool acc) {
-  const int warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 3), n0 = c0 + 32 * (warp >> 2);
-  if (!acc) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t.v[j][e] = 0.f;
-  }
-  if (m0 >= rows) return;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    unsigned a[4];
-    load_a(a, X.p, ld, X.t, m0, k0);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      if (n0 + 16 * np < cols) {
-        unsigned b[4];
-        load_b2(b, Y.p, ld, Y.t, k0, n0 + 16 * np);
-        mma_bf16(t.v[2 * np], a, b[0], b[1]);
-        mma_bf16(t.v[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// f(row, col, value) for every element of t inside rows x cols.
-template <class F>
-__device__ __forceinline__ void for_tile(const MTile& t, int rows, int cols, int c0, F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * (warp & 3) + (lane >> 2), cb = c0 + 32 * (warp >> 2) + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + 8 * (e >> 1), c = cb + 8 * j + (e & 1);
-      if (r < rows && c < cols) f(r, c, t.v[j][e]);
-    }
-}
-
-// f(r, c, x0, x1) for each pair of neighbouring columns c (even), c + 1 of t
-// whose first column lies inside rows x cols: a quad of lanes holds 8
-// neighbouring columns of a row, so paired stores fill whole sectors.
-template <class F>
-__device__ __forceinline__ void for_pairs(const MTile& t, int rows, int cols, int c0, F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * (warp & 3) + (lane >> 2), cb = c0 + 32 * (warp >> 2) + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h, c = cb + 8 * j;
-      if (r < rows && c < cols) f(r, c, t.v[j][2 * h], t.v[j][2 * h + 1]);
-    }
-}
-
-// Store x0 at p[0] and, if column c + 1 < cols, x1 at p[1]; as one vector
-// store when `vec` (p aligned to the pair).
-__device__ __forceinline__ void st2(float* p, int c, int cols, float x0, float x1, bool vec) {
-  if (vec && c + 1 < cols) {
-    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-  } else {
-    p[0] = x0;
-    if (c + 1 < cols) p[1] = x1;
-  }
-}
-
-__device__ __forceinline__ void st2(bf16* p, int c, int cols, float x0, float x1, bool vec) {
-  if (vec && c + 1 < cols) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-  } else {
-    p[0] = __float2bfloat16(x0);
-    if (c + 1 < cols) p[1] = __float2bfloat16(x1);
-  }
-}
-
 // D += t over an N x N tile (columns from 0) inside rows x cols, every old
 // value loaded before any is stored; pairs as float2 when `vec`.
 __device__ __forceinline__ void add_tile(float* D, int ld, const MTile& t, int rows, int cols,
@@ -824,26 +675,6 @@ __device__ __forceinline__ void add_tile(float* D, int ld, const MTile& t, int r
         st2(D + r * ld + c, c, cols, old[j][2 * h] + t.v[j][2 * h],
             old[j][2 * h + 1] + t.v[j][2 * h + 1], vec);
     }
-}
-
-// Zero the padding of a rows x cols operand: columns [cols, c16) of rows
-// [0, r16) and rows [rows, r16) of columns [0, cols).
-__device__ void zero_pad(bf16* buf, int ld, int rows, int cols) {
-  const int r16 = (rows + 15) & ~15, c16 = (cols + 15) & ~15;
-  const bf16 z = __float2bfloat16(0.f);
-  const int pc = c16 - cols;
-  for (int idx = threadIdx.x; idx < r16 * pc; idx += kThreads)
-    buf[(idx / pc) * ld + cols + idx % pc] = z;
-  for (int idx = threadIdx.x; idx < (r16 - rows) * cols; idx += kThreads)
-    buf[(rows + idx / cols) * ld + idx % cols] = z;
-}
-
-// A bf16 rows x cols block from device memory by cp.async (the caller
-// commits and waits), its padding zeroed.
-__device__ __forceinline__ void stage_async(bf16* buf, int ld, const bf16* src, long long rs,
-                                            int rows, int cols, int vec) {
-  copy_rows_async(buf, ld, src, rs, rows, rows, cols, vec, threadIdx.x, kThreads);
-  zero_pad(buf, ld, rows, cols);
 }
 
 // An fp32 map rounded to bf16 (hi), and with lo the rest rounded (lo = c(x - hi)).
@@ -871,14 +702,6 @@ __device__ void stage_round(bf16* hi, bf16* lo, int ld, const float* src, int ld
   }
   zero_pad(hi, ld, rows, cols);
   if (lo) zero_pad(lo, ld, rows, cols);
-}
-
-// buf = c(buf * mul), as the JAX math scales q in the compute dtype.
-__device__ void scale_rows(bf16* buf, int ld, int rows, int cols, float mul) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx - r * cols;
-    buf[r * ld + c] = __float2bfloat16(__bfloat162float(buf[r * ld + c]) * mul);
-  }
 }
 
 // Row softmax of an N x N fp32 map M in shared memory (row stride ldm) into
@@ -956,6 +779,9 @@ __device__ void ds_rows(const ProgTC& p, int vi, const float* drf, const float* 
   zero_pad(lo, ld, N, N);
 }
 
+// Two programs an SM for the lowrank head; the dense head's instantiation
+// does not fit the 128 registers a thread that allows without spilling, so
+// it keeps one program an SM.
 template <class Gate>
 __global__ void __launch_bounds__(kThreads, Gate::kDense ? 1 : 2) edgewise_bwd_tc_kernel(
     const bf16* __restrict__ qs, const bf16* __restrict__ ks, const bf16* __restrict__ vs,
@@ -967,12 +793,14 @@ __global__ void __launch_bounds__(kThreads, Gate::kDense ? 1 : 2) edgewise_bwd_t
   const int ldm = odd_stride(N), ldb = mma_ld(max(N, dk));
   const int C = 2 * V + 2, R4 = 4 * r;
   const int bufsz = kTile * ldb;
-  const long long region = max((long long)kNbuf * bufsz * 2, 16LL * N * ldm);
+  const long long region = max((long long)kNbuf * bufsz * 2,
+                               Gate::kDense ? 4LL * dense_scratch_floats(V) : 16LL * N * ldm);
   bf16* bufs = reinterpret_cast<bf16*>(smem_raw);
   auto Bf = [&](int i) { return bufs + i * bufsz; };
-  float* DZ = reinterpret_cast<float*>(smem_raw);  // the buffers, during the gate backward
+  // The buffers, during the gate stages: the lowrank gate cotangents or the dense edge walk.
+  float* DZ = reinterpret_cast<float*>(smem_raw);
   float* DSM = reinterpret_cast<float*>(smem_raw + region);  // d att, then d smix
-  float* rest = DSM + N * ldm;
+  float* rest = DSM + (Gate::kDense ? round4(N * ldm) : N * ldm);  // dense: 16-byte aligned
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -1112,7 +940,10 @@ __global__ void __launch_bounds__(kThreads, Gate::kDense ? 1 : 2) edgewise_bwd_t
     lowrank_factors(p, gate);
     __syncthreads();
   }
-  gated_mix(p, gate, beta_not);
+  if constexpr (Gate::kDense)
+    dense_mix(p, gate, DZ, beta_not);
+  else
+    gated_mix(p, gate, beta_not);
   __syncthreads();
   softmax_rows<float>(p.ATT(), p.ATT(), N, N);
 
@@ -1254,7 +1085,7 @@ __global__ void __launch_bounds__(kThreads, Gate::kDense ? 1 : 2) edgewise_bwd_t
   softmax_vjp_rows(p.ATT(), N, DSM, ldm, nullptr, 0, N);
   __syncthreads();
   if constexpr (Gate::kDense)
-    dense_gate_backward(p, gate, DSM, DZ, red, dw, bh, beta_not);
+    dense_gate_backward(p, gate, DSM, DZ, dw, bh, beta_not);
   else
     lowrank_gate_backward<false>(p, gate, DSM, DZ, daf, dbf, drf, dcf, wts, dw, bh, beta_not);
 
@@ -1351,20 +1182,23 @@ __global__ void __launch_bounds__(kThreads, Gate::kDense ? 1 : 2) edgewise_bwd_t
 // Shared-memory bytes of one bf16 program.
 size_t smem_bytes_tc(int V, int N, int dk, int r, bool dense) {
   const int ldm = odd_stride(N), C = 2 * V + 2;
+  const size_t gate_maps = dense ? sizeof(float) * dense_scratch_floats(V) : (size_t)16 * N * ldm;
   const size_t region =
-      std::max((size_t)kNbuf * kTile * mma_ld(std::max(N, dk)) * 2, (size_t)16 * N * ldm);
-  const size_t common = region + sizeof(float) * (size_t)N * ldm;
+      std::max((size_t)kNbuf * kTile * mma_ld(std::max(N, dk)) * 2, gate_maps);
   if (dense)
-    return common + sizeof(float) * (dense_gate_floats(C) + (kThreads / 32 + 1) * (size_t)kRed);
+    return region + sizeof(float) * (round4(N * ldm) + dense_gate_floats(C) + kThreads / 32);
+  const size_t common = region + sizeof(float) * (size_t)N * ldm;
   return common + sizeof(float) * (4 * (size_t)N * C + 4 * (size_t)N * 4 * r + kThreads / 32);
 }
 
 size_t smem_bytes(int V, int N, int dk, int r, bool dense) {
   const int ldm = odd_stride(N), C = 2 * V + 2;
-  const size_t common = 3 * (size_t)buf_floats(N, dk) + 5 * (size_t)N * ldm;
+  const size_t common = 3 * (size_t)buf_floats(N, dk) + (size_t)N * ldm;
   if (dense)
-    return sizeof(float) * (common + dense_gate_floats(C) + (kThreads / 32 + 1) * (size_t)kRed);
-  return sizeof(float) * (common + 4 * (size_t)N * C + 4 * (size_t)N * 4 * r + kThreads / 32);
+    return sizeof(float) * (round4((int)common + dense_scratch_floats(V)) + dense_gate_floats(C) +
+                            kThreads / 32);
+  return sizeof(float) *
+         (common + 4 * (size_t)N * ldm + 4 * (size_t)N * C + 4 * (size_t)N * 4 * r + kThreads / 32);
 }
 
 template <class Gate>

@@ -9,7 +9,9 @@
 //   3. per edge (i, j), the dense gate head on the feature stack
 //      [S_1..S_V at (i, j), S_1..S_V at (j, i), log c_fwd, log c_bwd]:
 //      pre = b1 + feat w1 (C -> 16), tanh GELU, g = sigmoid(b2 + hid w2)
-//      (16 -> 4), folded straight into the gated logit mix;
+//      (16 -> 4), folded straight into the gated logit mix, the edges walked
+//      in 16 x 16 blocks whose S_c, c_fwd, c_bwd tiles and transposed S_c
+//      tiles are staged in shared memory (`dense_mix`);
 //   4. the final softmax, the value transport and
 //      y = c(att) v_0 + w A_0 (A_1 (... (A_{V-1} v_{V-1}))).
 // No feature map of its own is built: an edge reads S_c(i, j) and S_c(j, i)
@@ -17,8 +19,8 @@
 // Those maps, the V probability maps, both chains and the transports sit in
 // a per-program fp32 workspace in device memory, as in the backward kernel,
 // whose recompute of the forward (edgewise_stages.cuh) this kernel shares;
-// shared memory holds the staged operands of the product at hand and the
-// head's weights. The workspace makes any N <= 64, dk <= 128, V <= 8 fit.
+// shared memory holds the staged operands of the product at hand, the
+// head's weights and the mix's edge tiles. The workspace makes any N <= 64, dk <= 128, V <= 8 fit.
 //
 // Bound on this card: about 12 Mflop per program at the main shape (the
 // 2(V-1) N^3 chain products and the per-edge head's 2 x (16 C + 64) flops
@@ -30,11 +32,11 @@
 namespace mop {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) edgewise_dense_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 2) edgewise_dense_fwd_kernel(
     const T* __restrict__ qs, const T* __restrict__ ks, const T* __restrict__ vs,
     T* __restrict__ out, Weights wts, float* __restrict__ workspace, int H, int V, int N, int dk,
     Strides strides, float beta_not, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const long long* st = strides.s;
   const int ldm = odd_stride(N), ldd = odd_stride(dk);
   const int nbuf = buf_floats(N, dk);
@@ -45,9 +47,11 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_dense_fwd_kernel(
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const Prog<T> p = make_prog(qs, ks, vs, st, workspace, H, V, N, dk);
-  const DenseGate gate = load_dense_gate(wts, 2 * V + 2, W + nbuf);
+  // The head's weights, read four at a time (16-byte aligned), then the mix's edge blocks.
+  const DenseGate gate = load_dense_gate(wts, 2 * V + 2, smem + round4(4 * nbuf));
+  float* tiles = smem + round4(4 * nbuf) + dense_gate_floats(2 * V + 2);
   const float w = *wts.p[4];
-  recompute_forward<T>(p, gate, X, Y, Z, W, beta_not, rnd<T>(scale));
+  recompute_forward<T>(p, gate, X, Y, Z, W, beta_not, rnd<T>(scale), tiles);
 
   // y = c(att) v_0 + w Ac_0 c(P_1).
   __syncthreads();
@@ -75,7 +79,8 @@ __global__ void __launch_bounds__(kThreads, 1) edgewise_dense_fwd_kernel(
 }
 
 size_t smem_bytes(int V, int N, int dk) {
-  return sizeof(float) * (4 * (size_t)buf_floats(N, dk) + dense_gate_floats(2 * V + 2));
+  return sizeof(float) *
+         (round4(4 * buf_floats(N, dk)) + dense_gate_floats(2 * V + 2) + (2 * V + 2) * kET);
 }
 
 template <typename T>

@@ -4,7 +4,8 @@
 // (edgewise_dense_fwd.cu). The gate heads, `lowrank_factors` and
 // `gated_mix` take any program type with the workspace accessors (`Prog`
 // here, the bf16 backward's `ProgTC`), and load an edge's V scores together
-// (`load_views`) before they use any.
+// (`load_views`) before they use any. The dense head walks the edges in
+// 16 x 16 blocks staged in shared memory (`stage_block`, `dense_mix`).
 //
 // One CTA runs one (batch*head) program. `recompute_forward` rebuilds the
 // forward of `_edgewise_math` (lowrank gate head) or `_edgewise_dense_math`
@@ -222,74 +223,127 @@ struct LowrankGate {
   }
 };
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
-}
-
-// d gelu_tanh / dx.
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
+// d gelu / dx of the tanh GELU 0.5 x (1 + t), given t = tanh(sqrt(2 / pi)
+// (x + 0.044715 x^3)).
+__device__ __forceinline__ float gelu_tanh_grad(float x, float t) {
   const float k = 0.7978845608028654f;
-  const float t = tanhf(k * (x + 0.044715f * x * x * x));
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * k * (1.f + 3.f * 0.044715f * x * x);
 }
 
-// Channel c of the feature stack at edge e = (i, j), with et = (j, i):
-// [S_1..S_V at e, S_1..S_V at et (the transposed maps), log c_fwd, log c_bwd].
-template <class P>
-__device__ __forceinline__ float dense_feature(const P& p, int c, int e, int et) {
-  if (c < p.V) return p.S(c)[e];
-  if (c < 2 * p.V) return p.S(c - p.V)[et];
-  return logf((c == 2 * p.V ? p.Fm(p.V - 1) : p.Bm(p.V - 1))[e] + 1e-6f);
+// Four consecutive floats of 16-byte-aligned shared memory.
+__device__ __forceinline__ float4 ld4s(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // Dense head: per edge, pre = b1 + feat w1 (C x 16), hidden = gelu(pre),
 // g = sigmoid(b2 + hidden w2 (16 x 4)); the sums run in the JAX math's order.
-// The weights are shared-memory copies (w1 row-major C x 16, w2 16 x 4).
+// The weights are shared-memory copies, 16-byte aligned, read four at a
+// time (w1 row-major C x 16, w2 16 x 4).
 struct DenseGate {
   static constexpr bool kDense = true;
   const float *w1, *b1, *w2, *b2;
   int C;
 
-  // The 16 pre-activations of edge e (transpose et).
-  template <class P>
-  __device__ __forceinline__ void pre(const P& p, int e, int et, float* x) const {
+  // sum over h of w1[c][h] y[h], in h order.
+  __device__ __forceinline__ float dot_w1(int c, const float (&y)[kHidden]) const {
+    float s = 0.f;
 #pragma unroll
-    for (int h = 0; h < kHidden; ++h) x[h] = b1[h];
+    for (int q = 0; q < kHidden / 4; ++q) {
+      const float4 w = ld4s(w1 + c * kHidden + 4 * q);
+      s = fmaf(w.x, y[4 * q], s);
+      s = fmaf(w.y, y[4 * q + 1], s);
+      s = fmaf(w.z, y[4 * q + 2], s);
+      s = fmaf(w.w, y[4 * q + 3], s);
+    }
+    return s;
+  }
+
+  // x += f * w1[c][0 .. 15].
+  __device__ __forceinline__ void pre_add(float f, int c, float (&x)[kHidden]) const {
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c < C) {
-        const float f = dense_feature(p, c, e, et);
-#pragma unroll
-        for (int h = 0; h < kHidden; ++h) x[h] = x[h] + f * w1[c * kHidden + h];
-      }
+    for (int q = 0; q < kHidden / 4; ++q) {
+      const float4 w = ld4s(w1 + c * kHidden + 4 * q);
+      x[4 * q] = x[4 * q] + f * w.x;
+      x[4 * q + 1] = x[4 * q + 1] + f * w.y;
+      x[4 * q + 2] = x[4 * q + 2] + f * w.z;
+      x[4 * q + 3] = x[4 * q + 3] + f * w.w;
     }
   }
 
-  // The four gates from the pre-activations.
-  __device__ __forceinline__ void out(const float* x, float g[4]) const {
+  // From the C features f (in registers: the channel loop unrolled; or in
+  // shared memory: one channel at a time, fewer registers): the
+  // pre-activations x, th = tanh of the GELU's argument (its backward reuses
+  // it) and the four gates g.
+  __device__ __forceinline__ void head(const float (&f)[kMaxC], float (&x)[kHidden],
+                                       float (&th)[kHidden], float (&g)[4]) const {
+    init(x);
 #pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) g[c4] = b2[c4];
+    for (int c = 0; c < kMaxC; ++c)
+      if (c < C) pre_add(f[c], c, x);
+    gates(x, th, g);
+  }
+
+  __device__ __forceinline__ void head(const float* f, float (&x)[kHidden],
+                                       float (&th)[kHidden], float (&g)[4]) const {
+    init(x);
+#pragma unroll 2
+    for (int c = 0; c < C; ++c) pre_add(f[c], c, x);
+    gates(x, th, g);
+  }
+
+  __device__ __forceinline__ void init(float (&x)[kHidden]) const {
+#pragma unroll
+    for (int q = 0; q < kHidden / 4; ++q) {
+      const float4 b = ld4s(b1 + 4 * q);
+      x[4 * q] = b.x;
+      x[4 * q + 1] = b.y;
+      x[4 * q + 2] = b.z;
+      x[4 * q + 3] = b.w;
+    }
+  }
+
+  __device__ __forceinline__ void gates(const float (&x)[kHidden], float (&th)[kHidden],
+                                        float (&g)[4]) const {
+    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float4 b = ld4s(b2);
+    g[0] = b.x;
+    g[1] = b.y;
+    g[2] = b.z;
+    g[3] = b.w;
 #pragma unroll
     for (int h = 0; h < kHidden; ++h) {
-      const float a = gelu_tanh(x[h]);
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) g[c4] = g[c4] + a * w2[h * 4 + c4];
+      const float u = x[h];
+      th[h] = tanhf(k * (u + 0.044715f * u * u * u));
+      const float a = 0.5f * u * (1.f + th[h]);
+      const float4 w = ld4s(w2 + 4 * h);
+      g[0] = g[0] + a * w.x;
+      g[1] = g[1] + a * w.y;
+      g[2] = g[2] + a * w.z;
+      g[3] = g[3] + a * w.w;
     }
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) g[c4] = 1.f / (1.f + expf(-g[c4]));
   }
 
-  template <class P>
-  __device__ __forceinline__ void operator()(const P& p, int i, int j, float g[4]) const {
-    float x[kHidden];
-    pre(p, i * p.N + j, j * p.N + i, x);
-    out(x, g);
+  // The head's backward through GELU: x (the pre-activations) becomes
+  // dpre = (w2 dz) * gelu'(x).
+  __device__ __forceinline__ void dpre(const float (&dz)[4], const float (&th)[kHidden],
+                                       float (&x)[kHidden]) const {
+#pragma unroll
+    for (int h = 0; h < kHidden; ++h) {
+      const float4 w = ld4s(w2 + 4 * h);
+      float dh = 0.f;
+      dh = fmaf(w.x, dz[0], dh);
+      dh = fmaf(w.y, dz[1], dh);
+      dh = fmaf(w.z, dz[2], dh);
+      dh = fmaf(w.w, dz[3], dh);
+      x[h] = dh * gelu_tanh_grad(x[h], th[h]);
+    }
   }
 };
 
 // Copy the dense head's weights (w1 C x 16, b1 16, w2 16 x 4, b2 4) into
-// shared memory at dst and return the head over that copy.
+// shared memory at dst (16-byte aligned) and return the head over that copy.
 __device__ inline DenseGate load_dense_gate(const Weights& w, int C, float* dst) {
   const int n1 = C * kHidden, n2 = kHidden * 4;
   for (int k = threadIdx.x; k < n1; k += kThreads) dst[k] = w.p[0][k];
@@ -304,6 +358,9 @@ __device__ inline DenseGate load_dense_gate(const Weights& w, int C, float* dst)
   g.C = C;
   return g;
 }
+
+// Floats rounded up to a multiple of four (16-byte alignment).
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // Floats of the dense head's shared-memory copy.
 __host__ __device__ inline int dense_gate_floats(int C) { return C * kHidden + kHidden + kHidden * 4 + 4; }
@@ -380,16 +437,115 @@ __device__ void gated_mix(const P& p, const Gate& gate, float beta_not) {
   }
 }
 
+// --------------------------- the dense head's edge walk ---------------------------
+//
+// The dense head reads, at edge (i, j), the V scores S_c(i, j), the V
+// transposed scores S_c(j, i) and log c_fwd(i, j), log c_bwd(i, j). The stages
+// that run it (`dense_mix` below, `dense_gate_backward` in edgewise_bwd.cu)
+// walk the edges in 16 x 16 blocks: a block's S_c, c_fwd and c_bwd tiles and
+// the S_c tiles of its transposed block are staged in shared memory with
+// row-contiguous loads, so a transposed channel costs no column walk of the
+// workspace, and each log is taken once.
+
+constexpr int kEB = 16;         // edge block side
+constexpr int kEL = kEB + 1;    // row stride of an edge tile
+constexpr int kET = kEB * kEL;  // floats of an edge tile
+
+// Stage `ntiles` (at most V + 2) tiles of edge block (bi, bj) at dst:
+// S_0 .. S_{V-1}, then (ntiles = V + 2) c_fwd and c_bwd; entries past N are
+// zero. A thread loads its element of every tile before it stores any.
+template <class P>
+__device__ void stage_block(const P& p, float* dst, int bi, int bj, int ntiles) {
+  const int N = p.N, V = p.V;
+  const int r = threadIdx.x >> 4, c = threadIdx.x & (kEB - 1);
+  const int i = bi * kEB + r, j = bj * kEB + c;
+  const bool in = i < N && j < N;
+  float v[kMaxViews + 2];
+#pragma unroll
+  for (int t = 0; t < kMaxViews + 2; ++t) {
+    const float* src = t < V ? p.S(t) : (t == V ? p.Fm(V - 1) : p.Bm(V - 1));
+    v[t] = (t < ntiles && in) ? src[i * N + j] : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxViews + 2; ++t)
+    if (t < ntiles) dst[t * kET + r * kEL + c] = v[t];
+}
+
+// Feature c of edge (r, cc) of the staged block X, with Y its transposed
+// block's tiles: S_c at (r, cc) of X; S_{c-V} at (cc, r) of Y; then X's
+// c_fwd and c_bwd tiles (whose logs the caller takes).
+__device__ __forceinline__ const float* feat_at(const float* X, const float* Y, int V, int c,
+                                                int r, int cc) {
+  return c < V       ? X + c * kET + r * kEL + cc
+         : c < 2 * V ? Y + (c - V) * kET + cc * kEL + r
+                     : X + (c - V) * kET + r * kEL + cc;
+}
+
+// The C features of edge (r, cc) of block X into f, the two log channels
+// taken here (once) and also returned in lf, lb; s gets the V scores.
+__device__ __forceinline__ void edge_features(const float* X, const float* Y, int V, int C,
+                                              int r, int cc, float (&f)[kMaxC],
+                                              float (&s)[kMaxViews], float& lf, float& lb) {
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) {
+    float x = 0.f;
+    if (c < C) {
+      x = *feat_at(X, Y, V, c, r, cc);
+      if (c >= 2 * V) x = logf(x + 1e-6f);
+      if (c == 2 * V) lf = x;
+      if (c == 2 * V + 1) lb = x;
+    }
+    f[c] = x;
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxViews; ++c) s[c] = c < V ? f[c] : 0.f;
+}
+
+// The gated logit mix of every edge into ATT with the dense head, the edges
+// walked in 16 x 16 blocks staged at scr (2V + 2 tiles). Ends without a barrier.
+template <class P>
+__device__ void dense_mix(const P& p, const DenseGate& gate, float* scr, float beta_not) {
+  const int V = p.V, N = p.N, nb = (N + kEB - 1) / kEB;
+  const float n_others = (float)max(1, V - 1);
+  float* X = scr;
+  float* Y = scr + (V + 2) * kET;
+  const int r = threadIdx.x >> 4, cc = threadIdx.x & (kEB - 1);
+  for (int bi = 0; bi < nb; ++bi)
+    for (int bj = 0; bj < nb; ++bj) {
+      __syncthreads();  // the last block's tiles are read
+      stage_block(p, X, bi, bj, V + 2);
+      stage_block(p, Y, bj, bi, V);
+      __syncthreads();
+      const int i = bi * kEB + r, j = bj * kEB + cc;
+      if (i < N && j < N) {
+        float f[kMaxC], s[kMaxViews], x[kHidden], th[kHidden], g[4];
+        float lf = 0.f, lb = 0.f;
+        edge_features(X, Y, V, gate.C, r, cc, f, s, lf, lb);
+        gate.head(f, x, th, g);
+        float ssum, lse;
+        view_stats(s, V, ssum, lse);
+        const float others = ssum - s[0];
+        float smix = s[0];
+        smix = smix + g[0] * others;
+        smix = smix + g[1] * (lse - s[0]);
+        smix = smix - g[2] * (beta_not * (others / n_others));
+        smix = smix + g[3] * lf;
+        p.ATT()[i * N + j] = smix;
+      }
+    }
+}
+
 // ------------------------- the forward, recomputed -------------------------
 
 // Rebuild the forward into the workspace: S_i, A_i (fp32, unrounded), both
 // chains' partial products (unrounded: the last one feeds the log), the
 // softmaxed attention att, and the rounded transports P_i. X, Y, Z and W are
 // staging buffers of at least buf_floats(N, dk) floats (W at least N x
-// odd_stride(N)). Ends without a barrier.
+// odd_stride(N)); the dense head's mix walks its edge blocks in dscr
+// ((2V + 2) edge tiles). Ends without a barrier.
 template <typename T, class Gate>
 __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, float* Y, float* Z,
-                                  float* W, float beta_not, float sc) {
+                                  float* W, float beta_not, float sc, float* dscr) {
   const int V = p.V, N = p.N, dk = p.dk;
   const long long* st = p.st;
   const int ldm = odd_stride(N), ldd = odd_stride(dk);
@@ -430,11 +586,13 @@ __device__ void recompute_forward(const Prog<T>& p, const Gate& gate, float* X, 
     put<T>(p.Bm(j), N, N, N, 0, t, 1.f, false, false);
   }
   __syncthreads();
-  if constexpr (!Gate::kDense) {
+  if constexpr (Gate::kDense) {
+    dense_mix(p, gate, dscr, beta_not);
+  } else {
     lowrank_factors(p, gate);
     __syncthreads();
+    gated_mix(p, gate, beta_not);
   }
-  gated_mix(p, gate, beta_not);
   __syncthreads();
   softmax_rows<float>(p.ATT(), p.ATT(), N, N);
   // Transport: P_{V-1} = Ac_{V-1} v_{V-1}, P_i = Ac_i c(P_{i+1}), stored rounded.

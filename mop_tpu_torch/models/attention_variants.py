@@ -19,12 +19,13 @@ Parameter names follow the torch reference (``qkv_list.i``, ``qkv1``,
 Conv1d, ``edge_head.conv1`` / ``mid3`` / ``conv2`` as Conv2d, ``q_lens.i``,
 ``lens_bank.i``).
 
-``EdgewiseMSA`` picks its route as the JAX module's ``fused_ok`` does, from
-its configuration and its mode alone: the lowrank head runs the fused K2
-(K2b backward), the dense head without ``use_k3`` runs the fused K3 (K3b
-backward) in eval mode, and every other case (dense in training, ``use_k3``,
-any lens bank) the composed path of plain ops, which is what the JAX package
-computes for it. Its attention dropout is not ported and raises; C and D
+``EdgewiseMSA`` picks its route from its configuration and its shapes: the
+lowrank head runs the fused K2 (K2b backward) and the dense head without
+``use_k3`` the fused K3 (K3b backward), in eval and in training, where
+``ops.fused`` says their kernels take the shape; every other case
+(``use_k3``, any lens bank, N above 64) runs the composed path of plain
+ops, which is what the JAX package computes for it. ``MultiHopMSA`` (and
+``DualPathMSA``) likewise runs K4 only where ``multihop_fits``. Its attention dropout is not ported and raises; C and D
 draw theirs from the explicit generator of ``Dropout``.
 """
 
@@ -294,16 +295,19 @@ class EdgewiseMSA(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         qs, ks, vs = self._views(x)
+        _, _, nv, n, dk = qs.shape
         fused = not self.use_lens_bank and not self.use_lens_bank_qk
         w = torch.sigmoid(self.chain_value_logit)
-        if fused and self.gate_mode == "lowrank":
+        if (fused and self.gate_mode == "lowrank" and ops_fused.edgewise_lowrank_fits(
+                qs.dtype, nv, n, dk, self.edge_head.gate_rank)):
             y = ops_fused.fused_edgewise_lowrank_attention(
                 qs, ks, vs, *self.edge_head.lowrank_params(), beta_not=self.beta_not,
                 chain_w=w)
-        elif fused and self.gate_mode == "dense" and not self.use_k3 and not self.training:
-            # Eval only, as in the JAX package, whose train-time choice of the
-            # composed path rests on a TPU timing (chip_smoke.py phase 9 times
-            # both routes on the GPU).
+        elif (fused and self.gate_mode == "dense" and not self.use_k3
+              and ops_fused.edgewise_dense_fits(qs.dtype, nv, n, dk)):
+            # In training too: on the H100 one layer's bf16 forward and backward
+            # runs faster through K3 + K3b than composed (chip_smoke.py phase 9),
+            # where the JAX package composes on a TPU timing.
             y = ops_fused.fused_edgewise_dense_attention(
                 qs, ks, vs, *self.edge_head.dense_params(), beta_not=self.beta_not, chain_w=w)
         else:
@@ -401,8 +405,9 @@ class MultiHopMSA(nn.Module):
     ``y = att v1 + sigmoid(chain_value_logit) A1 A2^(hops-1) v2``.
 
     The eval forward without a mask is the fused K4 with ``base`` forced to
-    1 (the JAX module's choice); training or a mask runs the composed path,
-    whose mix (``multihop_logit_mix``) has no base term, as in JAX.
+    1 (the JAX module's choice) where K4 takes the shape; training, a mask or
+    a shape outside K4's runs the composed path, whose mix
+    (``multihop_logit_mix``) has no base term, as in JAX.
     """
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
@@ -432,7 +437,8 @@ class MultiHopMSA(nn.Module):
         q1, k1, v1 = _qkv(x, h, self.qkv1)
         q2, k2, v2 = _qkv(x, h, self.qkv2)
         w = torch.sigmoid(self.chain_value_logit)
-        if attn_mask is None and not self.training:
+        n, dk = q1.shape[-2:]
+        if attn_mask is None and not self.training and ops_fused.multihop_fits(n, dk, self.hops):
             y = ops_fused.fused_multihop_attention(
                 q1, k1, v1, q2, k2, v2, gates=self._kernel_gates(),
                 beta_not=self.beta_not, hops=self.hops, chain_w=w)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import attention as A
 from ..ops import fused as ops_fused
 from .layers import Conv, Dropout, LayerNorm, Linear, RandomDrop, gelu_tanh
 
@@ -50,8 +51,10 @@ class PatchEmbed(nn.Module):
 
 class MSA(nn.Module):
     """Multi-head self-attention, fused QKV, bias-free; attention runs through
-    the flash kernel (K1) on the card. Attention dropout (which the flash
-    kernel has no site for) is not ported yet."""
+    the flash kernel (K1) where it takes the head width, else the composed
+    scores, softmax and value product of the JAX module's non-fused path.
+    Attention dropout (which the flash kernel has no site for) is not ported
+    yet."""
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
                  proj_drop: float = 0.0):
@@ -67,7 +70,11 @@ class MSA(nn.Module):
         b, n, d = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, d // self.heads).permute(
             2, 0, 3, 1, 4)
-        y = ops_fused.flash_attention(q, k, v, causal=False)
+        if ops_fused.flash_fits(d // self.heads):
+            y = ops_fused.flash_attention(q, k, v, causal=False)
+        else:
+            a = torch.softmax(A.scaled_scores(q, k), -1)
+            y = a.to(v.dtype) @ v
         return self.proj_drop(self.proj(y.transpose(1, 2).reshape(b, n, d)))
 
 

@@ -6,7 +6,8 @@ Quartet attention is dual-path causal attention: a second QK path, both
 score maps standardized per row (unbiased std, eps after the sqrt), and the
 learned mix ``(1 - m) qk_norm + m (qk_norm * q2k2_norm) scale`` with
 ``m = sigmoid(mixture)`` (gate init -5). Without a mask, weights to return
-or ``causal_std``, and outside dropout-on training, it runs the fused K5
+or ``causal_std``, outside dropout-on training and where K5 takes the head
+width (``ops.fused.quartet_fits``), it runs the fused K5
 (``ops.fused.fused_quartet_attention``); otherwise the composed path, as the
 JAX module chooses. Parameter names follow the torch reference (``wte``,
 ``wpe``, ``blocks.i.attn.q_proj``, ``mixture``, ...); the tied head has no
@@ -108,7 +109,8 @@ class CausalSelfAttention(nn.Module):
             q2, k2 = split(self.q2_proj(x)), split(self.k2_proj(x))
             m = torch.sigmoid(self.mixture)
             if (attention_mask is None and (not self.training or cfg.dropout == 0.0)
-                    and not need_weights and not cfg.causal_std):
+                    and not need_weights and not cfg.causal_std
+                    and ops_fused.quartet_fits(c // h)):
                 y = ops_fused.fused_quartet_attention(q, k, v, q2, k2, m[0], self.quartet_scale[0],
                                                       eps=cfg.score_norm_eps)
                 return self.resid_drop(self.o_proj(y.transpose(1, 2).reshape(b, t, c)))

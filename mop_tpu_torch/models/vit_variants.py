@@ -30,7 +30,8 @@ class DualPathMSA(MultiHopMSA):
     the composed path reads every gate by key.
 
     The eval forward without a mask is K4 with hops 2 and the gates as
-    given; training or a mask runs the composed path, as in JAX.
+    given where K4 takes the shape; training, a mask or a larger N runs the
+    composed path, as in JAX.
     """
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,

@@ -25,7 +25,12 @@ function's arguments and layout:
 
 The kernel is chosen by the tensors' device alone: a CUDA tensor launches the
 kernel or raises, a CPU tensor runs the ``*_plain`` version, which is also
-what the tests and ``chip_smoke.py`` hold the kernel against. Each wrapper
+what the tests and ``chip_smoke.py`` hold the kernel against. Beside each
+kernel's envelope stands a predicate on shapes alone (``flash_fits``,
+``edgewise_lowrank_fits``, ``edgewise_dense_fits``, ``multihop_fits``,
+``quartet_fits``): the modules call their fused op only where it says the
+kernels take the shape, on the CPU as on the card, and compose otherwise, as
+the JAX modules do outside their kernels' envelopes. Each wrapper
 counts its launches in its ``launches`` attribute. The ops are
 differentiable through ``torch.autograd.Function``s that save only their
 inputs, as the JAX ``custom_vjp`` rules do; both edgewise ops share one
@@ -90,6 +95,14 @@ def _raise_on(rc: int, name: str) -> None:
 # ------------------------------- K1: flash -------------------------------
 
 
+FLASH_MAX_DK = 128
+
+
+def flash_fits(dk: int) -> bool:
+    """Whether K1 takes heads of width ``dk``."""
+    return dk <= FLASH_MAX_DK
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """``softmax(q k^T / sqrt(dk) [causal]) v`` over (..., N, dk), as the kernel
@@ -148,8 +161,8 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_kv = k.shape[2]
     if k.shape != (b, h, n_kv, dk) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape}")
-    if dk > 128:
-        raise ValueError(f"flash_attention: dk={dk} > 128 is not supported")
+    if not flash_fits(dk):
+        raise ValueError(f"flash_attention: dk={dk} > {FLASH_MAX_DK} is not supported")
     out = torch.empty(b, n, h, dk, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -376,18 +389,66 @@ def _edgewise_bwd_plain(fwd_plain, lead: int, qs, ks, vs, weights, beta_not, cha
     return (dq, dk, dv, *dws, grads[-1].reshape(b * h))
 
 
-def edgewise_lowrank_smem_bytes(n_views: int, n: int, dk: int, rank: int) -> int:
-    """Shared memory one K2 program needs (the kernel's own count)."""
-    fn = _fn("edgewise_lowrank_fwd", "mop_edgewise_lowrank_smem_bytes",
-             [_I, _I, _I, _I], ctypes.c_longlong)
-    return int(fn(n_views, n, dk, rank))
+def _pad8_plus4(x: int) -> int:
+    """Row stride, in floats, of an fp32 K2 map read with float4 loads:
+    ``ld4`` of ``csrc/edgewise_lowrank_fwd.cu``."""
+    return ((x + 7) & ~7) + 4
+
+
+def edgewise_lowrank_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int,
+                                rank: int) -> int:
+    """Shared memory one K2 program takes; the kernel's own count,
+    ``mop_edgewise_lowrank_smem_bytes``.
+
+    bf16: the V maps Ac_i and four operand buffers of 64 rows in bf16 (the
+    view statistics S_0, the other views' sum and the running log-sum-exp
+    stay in registers), then the pooled features, the rank factors and the
+    cross-warp row and column sums (640 floats) in fp32. fp32 (two groups of 256
+    threads): the V maps A_i, each group's staging area (q and k^T, then its
+    chain's running product, then the transport or att and v_0, at least the
+    three statistic maps the groups merge through), the features and factors
+    and each warp's column sums."""
+    c = 2 * n_views + 2
+    if dtype == torch.bfloat16:
+        bf = n_views * 64 * _mma_ld(n) + 4 * 64 * _mma_ld(max(n, dk))
+        return 2 * bf + 4 * (2 * n * c + 8 * n * rank + 10 * 64)
+    ldn, ldd = _pad8_plus4(n), _pad8_plus4(dk)
+    area = max(n * ldd + dk * ldn, n * ldn + n * ldd)
+    groups = max(2 * area, 3 * n * ldn)
+    return 4 * (n_views * n * ldn + groups + 2 * n * c + 8 * n * rank + 16 * n)
+
+
+DENSE_HIDDEN = 16  # the dense gate head's hidden width, fixed in the kernels
+_EDGE_TILE = 16 * 17  # floats of one 16 x 16 edge tile (row stride 17) of the dense stages
+
+
+def _dense_gate_floats(n_views: int) -> int:
+    """The dense head's weights in shared memory: w1, b1, w2, b2."""
+    return (2 * n_views + 2) * DENSE_HIDDEN + DENSE_HIDDEN + 4 * DENSE_HIDDEN + 4
+
+
+def _dense_scratch_floats(n_views: int) -> int:
+    """The dense backward's edge walk (``dense_gate_backward``): the features
+    of a pair of 16 x 16 edge blocks (V score tiles, c_fwd and c_bwd each),
+    their dS tiles, and 256 edges' staging rows (dpre, hid, dz and the
+    features: 55 floats)."""
+    return (4 * n_views + 4) * _EDGE_TILE + 256 * 55
+
+
+def _round4(n: int) -> int:
+    """Floats rounded up to a multiple of four: the dense head's weights are
+    read four at a time from 16-byte-aligned shared memory."""
+    return (n + 3) & ~3
 
 
 def edgewise_dense_smem_bytes(n_views: int, n: int, dk: int) -> int:
-    """Shared memory one K3 program needs (the kernel's own count)."""
-    fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [_I, _I, _I],
-             ctypes.c_longlong)
-    return int(fn(n_views, n, dk))
+    """Shared memory one K3 program takes (the kernel's own count,
+    ``mop_edgewise_dense_smem_bytes``): four staging buffers, the head's
+    weights and the feature tiles of one edge block and its transpose."""
+    ldm, ldd = n | 1, dk | 1
+    buf = max(n * ldm, n * ldd, dk * ldm)
+    return 4 * (_round4(4 * buf) + _dense_gate_floats(n_views)
+                + (2 * n_views + 2) * _EDGE_TILE)
 
 
 def edgewise_bwd_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int,
@@ -395,22 +456,24 @@ def edgewise_bwd_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int,
     """Shared memory one K2b (lowrank, ``rank``) or K3b (``dense``) program
     takes; the kernels' own count, ``mop_edgewise_bwd_smem_bytes``.
 
-    fp32: three fp32 staging buffers, d smix and the four gate-logit
-    cotangents. bf16: seven bf16 operand buffers of 64 rows (which the gate
-    cotangents reuse once the products before them are done) and d smix.
-    Then the gate head's arrays: the lowrank factors and features, or the
-    dense head's weights and its block sums."""
+    fp32: three fp32 staging buffers and d smix, then the four gate-logit
+    cotangents (lowrank) or the dense edge walk's tiles and staging. bf16:
+    seven bf16 operand buffers of 64 rows, which the gate cotangents or the
+    dense edge walk reuse once the products before them are done, and d
+    smix. Then the gate head's arrays: the lowrank factors and features, or
+    the dense head's weights (16-byte aligned); and one float per warp."""
     ldm, c = n | 1, 2 * n_views + 2
     if dtype == torch.bfloat16:
-        common = max(7 * 64 * _mma_ld(max(n, dk)) * 2, 16 * n * ldm) + 4 * n * ldm
-    else:
-        buf = max(n * ldm, n * (dk | 1), dk * ldm)
-        common = 4 * (3 * buf + 5 * n * ldm)
+        gate_maps = 4 * _dense_scratch_floats(n_views) if dense else 16 * n * ldm
+        region = max(7 * 64 * _mma_ld(max(n, dk)) * 2, gate_maps)
+        if dense:
+            return region + 4 * (_round4(n * ldm) + _dense_gate_floats(n_views) + 8)
+        return region + 4 * n * ldm + 4 * (4 * n * c + 16 * n * rank + 8)
+    common = 3 * max(n * ldm, n * (dk | 1), dk * ldm) + n * ldm
     if dense:
-        k_red = (2 * 8 + 2) * 4 + 4 + 4 * 4  # the dense weight-grad sums of one group
-        return common + 4 * (c * DENSE_HIDDEN + DENSE_HIDDEN + 4 * DENSE_HIDDEN + 4
-                             + 9 * k_red)
-    return common + 4 * (4 * n * c + 16 * n * rank + 8)
+        return 4 * (_round4(common + _dense_scratch_floats(n_views))
+                    + _dense_gate_floats(n_views) + 8)
+    return 4 * (common + 4 * n * ldm + 4 * n * c + 16 * n * rank + 8)
 
 
 def edgewise_bwd_ws_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> int:
@@ -427,6 +490,31 @@ def edgewise_bwd_ws_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> 
         wf = ((3 * n_views + 3) * n * n + 3) & ~3
         return 4 * wf + 2 * ((3 * n_views - 4) * n * nw + (n_views - 1) * n * dw)
     return 4 * ((5 * n_views - 1) * n * n + (n_views - 1) * n * dk)
+
+
+EDGEWISE_MAX_N, EDGEWISE_MAX_DK, EDGEWISE_MAX_VIEWS = 64, 128, 8
+
+
+def _edgewise_envelope(nv: int, n: int, dk: int, max_views: int = EDGEWISE_MAX_VIEWS) -> bool:
+    return 2 <= nv <= max_views and n <= EDGEWISE_MAX_N and dk <= EDGEWISE_MAX_DK
+
+
+def edgewise_lowrank_fits(dtype: torch.dtype, n_views: int, n: int, dk: int,
+                          rank: int) -> bool:
+    """Whether the fused lowrank op's kernels take (V, N, dk, r) in
+    ``dtype``: K2 for the forward and K2b for its gradient, each within its
+    shape limits and the card's shared memory."""
+    return (rank >= 1 and _edgewise_envelope(n_views, n, dk)
+            and edgewise_lowrank_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES
+            and edgewise_bwd_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES)
+
+
+def edgewise_dense_fits(dtype: torch.dtype, n_views: int, n: int, dk: int) -> bool:
+    """Whether the fused dense op's kernels take (V, N, dk) in ``dtype``: K3
+    for the forward and K3b for its gradient."""
+    return (_edgewise_envelope(n_views, n, dk)
+            and edgewise_dense_smem_bytes(n_views, n, dk) <= MAX_SMEM_BYTES
+            and edgewise_bwd_smem_bytes(dtype, n_views, n, dk, dense=True) <= MAX_SMEM_BYTES)
 
 
 def _check_smem(name, smem, nv, n, dk):
@@ -446,15 +534,12 @@ def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_f
         raise ValueError(f"{name}: gate-head shapes {wrow.shape}, {brow.shape}, "
                          f"{wcol.shape}, {bcol.shape} for {nv} views")
     rank = c4 // 4
-    if nv < 2 or nv > max_views or n > 64 or dk > 128 or rank < 1:
+    if rank < 1 or not _edgewise_envelope(nv, n, dk, max_views):
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} outside the "
-                         f"kernel's shapes (2 <= V <= {max_views}, N <= 64, dk <= 128, "
-                         "r >= 1)")
+                         f"kernel's shapes (2 <= V <= {max_views}, N <= {EDGEWISE_MAX_N}, "
+                         f"dk <= {EDGEWISE_MAX_DK}, r >= 1)")
     _check_smem(f"{name} (r={rank})", smem_fn(nv, n, dk, rank), nv, n, dk)
     return b, h, nv, n, dk, rank
-
-
-DENSE_HIDDEN = 16  # the dense gate head's hidden width, fixed in the kernels
 
 
 def _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2, smem_fn):
@@ -468,9 +553,10 @@ def _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2, smem_fn):
         raise ValueError(f"{name}: gate-head shapes {w1.shape}, {b1.shape}, {w2.shape}, "
                          f"{b2.shape} for {nv} views (the kernels take a 2V+2 -> {hd} -> 4 "
                          "head)")
-    if nv < 2 or nv > 8 or n > 64 or dk > 128:
+    if not _edgewise_envelope(nv, n, dk):
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk} outside the kernel's shapes "
-                         "(2 <= V <= 8, N <= 64, dk <= 128)")
+                         f"(2 <= V <= {EDGEWISE_MAX_VIEWS}, N <= {EDGEWISE_MAX_N}, "
+                         f"dk <= {EDGEWISE_MAX_DK})")
     _check_smem(name, smem_fn(nv, n, dk), nv, n, dk)
     return b, h, nv, n, dk
 
@@ -498,18 +584,19 @@ def _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w):
     """Launch K2 on CUDA inputs; the output is a view of a (B, N, H, dk) buffer."""
     name = "fused_edgewise_lowrank_attention"
     _check_cuda_inputs(name, qs, ks, vs)
-    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
-                                             1 << 30, edgewise_lowrank_smem_bytes)
+    b, h, nv, n, dk, rank = _edgewise_shapes(
+        name, qs, ks, vs, wrow, brow, wcol, bcol, 1 << 30,
+        lambda *shape: edgewise_lowrank_smem_bytes(qs.dtype, *shape))
     ws = _fp32_weights(qs.device, wrow, brow, wcol, bcol, chain_w.reshape(1))
     out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=qs.device).transpose(1, 2)
     fn = _fn("edgewise_lowrank_fwd", "mop_edgewise_lowrank_fwd",
              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-              _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
+              _I, _I, _I, _I, _I, _I, _P, _F, _F, _I, _P])
     with torch.cuda.device(qs.device):
         rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
                 out.data_ptr(), *(t.data_ptr() for t in ws),
                 b, h, nv, n, dk, rank, _in_strides(qs, ks, vs, out), float(beta_not),
-                1.0 / math.sqrt(dk), _stream(qs.device))
+                1.0 / math.sqrt(dk), copy_width((qs, ks, vs), dk), _stream(qs.device))
     _raise_on(rc, name)
     fused_edgewise_lowrank_attention.launches += 1
     return out
@@ -770,6 +857,11 @@ fused_edgewise_dense_attention.launches = 0
 MULTIHOP_MAX_N, MULTIHOP_MAX_DK = 64, 128
 
 
+def multihop_fits(n: int, dk: int, hops: int) -> bool:
+    """Whether K4 takes N tokens of heads of width ``dk`` at ``hops``."""
+    return n <= MULTIHOP_MAX_N and dk <= MULTIHOP_MAX_DK and hops >= 2
+
+
 def _gate_values(gates: dict):
     """(base, and, or, not, chain) as the JAX kernel reads them: ``.get``
     with its defaults."""
@@ -845,7 +937,7 @@ def _multihop_fwd_cuda(q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w):
     b, h, n, dk = q1.shape
     if any(t.shape != q1.shape for t in ins):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ins]}")
-    if n > MULTIHOP_MAX_N or dk > MULTIHOP_MAX_DK or hops < 2:
+    if not multihop_fits(n, dk, hops):
         raise ValueError(f"{name}: N={n}, dk={dk}, hops={hops} outside the kernel's shapes "
                          f"(N <= {MULTIHOP_MAX_N}, dk <= {MULTIHOP_MAX_DK}, hops >= 2)")
     dev = q1.device
@@ -918,6 +1010,11 @@ fused_multihop_attention.launches = 0
 QUARTET_MAX_DK = 128
 
 
+def quartet_fits(dk: int) -> bool:
+    """Whether K5 takes heads of width ``dk`` (it takes any N)."""
+    return dk <= QUARTET_MAX_DK
+
+
 def fused_quartet_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q2: torch.Tensor, k2: torch.Tensor,
     mixture: Union[torch.Tensor, float], quartet_scale: Union[torch.Tensor, float],
@@ -967,7 +1064,7 @@ def _quartet_fwd_cuda(q, k, v, q2, k2, mixture, quartet_scale, eps):
     b, h, n, dk = q.shape
     if any(t.shape != q.shape for t in ins):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ins]}")
-    if dk > QUARTET_MAX_DK:
+    if not quartet_fits(dk):
         raise ValueError(f"{name}: dk={dk} outside the kernel's shapes (dk <= {QUARTET_MAX_DK})")
     dev = q.device
     mix = torch.stack(_fp32_weights(dev, *(_scalar_tensor(x, dev).reshape(())

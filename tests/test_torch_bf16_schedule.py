@@ -16,9 +16,11 @@ the CPU.
   through the casts) and against ``jax.grad`` of the JAX kernel in bf16
   interpret mode. The other ways to treat those two cotangents (round them
   to bf16, or keep the products in fp32 on CUDA cores) are checked too.
+- K2: its plain version in bf16 (what the tensor-core K2 is held to on the
+  card) against the JAX kernel in bf16 interpret mode.
 - The Python counts the wrappers launch with: K1's copy width at the A, B
-  and B_bench layouts, and the shared-memory and workspace bytes of K1 and
-  K2b / K3b at the main shape and the envelope's edges.
+  and B_bench layouts, and the shared-memory and workspace bytes of K1, K2
+  and K2b / K3b at the main shape and the envelope's edges.
 """
 
 import math
@@ -353,6 +355,34 @@ def test_k2b_bf16_schedule_matches_jax_kernel(v_, n, dk, r):
         assert _frac(g.float(), np.asarray(w, np.float32)) <= K2B_JAX_FRAC, name
 
 
+# ------------------------------- K2 in bf16 -------------------------------
+
+# The port's bf16 K2 plain version (what the tensor-core K2 is held to on
+# the card) against the JAX kernel in bf16 interpret mode. Both round at the
+# same points (q * scale, each A_i, each partial chain product, the
+# transports and att before their products) and keep the statistics, the
+# gate head and the mix in fp32, so they differ only where an fp32 sum in
+# another order flips a bf16 rounding of an intermediate or of the output:
+# each output is held to one bf16 step (2^-8) of the largest, and at most 1%
+# of them may differ at all (at these shapes none does).
+K2_JAX_FRAC = 2 ** -8
+
+
+@pytest.mark.parametrize("v_,n,dk,r", [(3, 16, 8, 2), (5, 16, 8, 4), (2, 12, 24, 1)])
+def test_k2_bf16_plain_matches_jax_kernel(v_, n, dk, r):
+    args, _ = _k2b_inputs(v_, n, dk, r, seed=70 + v_)
+    got = TF.fused_edgewise_lowrank_attention_plain(*args)
+    assert got.dtype == BF16
+    with pltpu.force_tpu_interpret_mode():
+        want = JF.fused_edgewise_lowrank_attention(
+            *[jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in args[:3]],
+            *[jnp.asarray(t.numpy()) for t in args[3:7]], beta_not=args[7],
+            chain_w=jnp.float32(0.4), force=True)
+    want = np.asarray(want, np.float32)
+    assert _frac(got.float(), want) <= K2_JAX_FRAC
+    assert (got.float().numpy() != want).mean() <= 0.01
+
+
 # ------------------------- K2b / K3b byte counts -------------------------
 
 
@@ -360,8 +390,8 @@ def test_k2b_bf16_schedule_matches_jax_kernel(v_, n, dk, r):
     # The main shape (V, N, dk, r) = (5, 64, 56, 4): bf16 fits two programs an SM.
     (BF16, (5, 64, 56, 4), False, 111904, 413696),
     (torch.float32, (5, 64, 56, 4), False, 161824, 450560),
-    (BF16, (5, 64, 56), True, 87616, 413696),
-    (torch.float32, (5, 64, 56), True, 137536, 450560),
+    (BF16, (5, 64, 56), True, 100208, 413696),
+    (torch.float32, (5, 64, 56), True, 150128, 450560),
     # The envelope's edges: eight views, N 64, dk 128; two views at N 1, dk 1.
     (BF16, (8, 64, 128, 4), False, 173344, 720896),
     (torch.float32, (8, 64, 128, 4), False, 217888, 868352),
@@ -374,6 +404,29 @@ def test_edgewise_bwd_byte_counts(dtype, shape, dense, smem, ws):
     # The bf16 kernel's copies need each program's workspace 16-byte aligned.
     assert smem <= TF.MAX_SMEM_BYTES and ws % (16 if dtype == BF16 else 4) == 0
     if dtype == BF16 and shape[1:3] == (64, 56) and not dense:
+        assert 2 * (smem + 1024) <= 233472  # two programs in an SM's 228 KB
+
+
+@pytest.mark.parametrize("dtype,shape,smem,fits", [
+    # The main shape: bf16 (the V maps Ac_i in bf16, four operand buffers)
+    # fits two programs an SM; fp32 (the V fp32 maps, two groups' staging)
+    # one.
+    (BF16, (5, 64, 56, 4), 99840, True),
+    (torch.float32, (5, 64, 56, 4), 171008, True),
+    # Eight views at N 64: bf16 fits at dk 128, fp32 only up to dk 64.
+    (BF16, (8, 64, 128, 4), 163328, True),
+    (torch.float32, (8, 64, 64, 4), 230400, True),
+    (torch.float32, (8, 64, 128, 4), 297984, False),
+    (BF16, (2, 1, 1, 1), 21072, True),
+    (torch.float32, (2, 1, 1, 1), 432, True),
+])
+def test_k2_byte_counts(dtype, shape, smem, fits):
+    """K2's shared memory per dtype (``edgewise_lowrank_smem_bytes``, which
+    chip_smoke.py phase 2 holds to the kernel's own count), and the shape
+    predicate the modules route by."""
+    assert TF.edgewise_lowrank_smem_bytes(dtype, *shape) == smem
+    assert TF.edgewise_lowrank_fits(dtype, *shape) == fits
+    if dtype == BF16 and shape[1:3] == (64, 56):
         assert 2 * (smem + 1024) <= 233472  # two programs in an SM's 228 KB
 
 

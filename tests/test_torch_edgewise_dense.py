@@ -218,10 +218,40 @@ def _program_forward(q, k, v, w1, b1, w2, b2, beta, w):
                 g=g, stack=stack, lse=lse, others=others, n_o=n_o, att=att, pv=pv, y=y)
 
 
+def _kernel_edge_order(n):
+    """The order in which K3b's dense edge walk adds each edge to the warps'
+    weight-grad sums: pairs of 16 x 16 edge blocks (bi <= bj), block
+    (bi, bj) and then (bj, bi), warp w taking edges 32w .. 32w + 31 of each
+    block. One list of edges per warp; the warps' sums are added in order."""
+    nb = -(-n // 16)
+    order = [[] for _ in range(8)]
+    for bi in range(nb):
+        for bj in range(bi, nb):
+            for b0, b1 in ((bi, bj),) if bi == bj else ((bi, bj), (bj, bi)):
+                for e in range(256):
+                    i, j = b0 * 16 + e // 16, b1 * 16 + e % 16
+                    if i < n and j < n:
+                        order[e // 32].append((i, j))
+    return order
+
+
+def _walk_sum(order, x, y):
+    """sum over the edges (i, j) of x[i, j] (x) y[i, j], in the walk's order."""
+    total = 0
+    for edges in order:
+        part = 0
+        for i, j in edges:
+            part = part + torch.outer(x[i, j], y[i, j])
+        total = total + part
+    return total
+
+
 def _hand_vjp(q, k, v, w1, b1, w2, b2, beta, w, dy):
     """K3b's derivation (csrc/edgewise_bwd.cu, stages 1-6 with the dense
-    head's passes a-c) for one program, written with plain tensor ops:
-    (dq, dk, dv, dw1, db1, dw2, db2, dchain)."""
+    head's single-visit edge walk) for one program, written with plain
+    tensor ops: (dq, dk, dv, dw1, db1, dw2, db2, dchain). Each dS_c is the
+    mix's share plus the edge's own channel, then the transposed channel's
+    share, as the walk adds them."""
     nv = q.shape[0]
     f = _program_forward(q, k, v, w1, b1, w2, b2, beta, w)
     sc, s, a, fm, bm, cf, cb, lf = (f[key] for key in ("sc", "s", "a", "fm", "bm", "cf", "cb",
@@ -248,11 +278,14 @@ def _hand_vjp(q, k, v, w1, b1, w2, b2, beta, w, dy):
     ds += [dsm * (g[0] - g[2] * beta / n_o) + dsm * g[1] * p[i] for i in range(1, nv)]
     dg = (dsm * others, dsm * (lse - s[0]), -dsm * beta * others / n_o, dsm * lf)
     dz = torch.stack([dg[c] * g[c] * (1 - g[c]) for c in range(4)], -1)  # (N, N, 4)
-    # 3-4. the dense head's backward, per edge
+    # 3-4. the dense head's backward, per edge; the weight grads summed over
+    # the edges in the kernel's order (_kernel_edge_order)
     dhid = dz @ w2.T
-    dw2, db2 = torch.einsum("ijh,ijc->hc", hid, dz), dz.sum((0, 1))
     dpre = dhid * _gelu_grad(pre)
-    dw1, db1 = torch.einsum("ijc,ijh->ch", feat, dpre), dpre.sum((0, 1))
+    ones = torch.ones(*pre.shape[:2], 1, dtype=pre.dtype)
+    order = _kernel_edge_order(pre.shape[0])
+    dw1, db1 = _walk_sum(order, feat, dpre), _walk_sum(order, ones, dpre)[0]
+    dw2, db2 = _walk_sum(order, hid, dz), _walk_sum(order, ones, dz)[0]
     dfeat = dpre @ w1.T  # (N, N, C)
     for c in range(nv):
         ds[c] = ds[c] + dfeat[..., c] + dfeat[..., nv + c].T
@@ -356,14 +389,21 @@ def test_edgewise_msa_matches_jax(name, train):
         np.testing.assert_allclose(g.numpy(), want_g[k], atol=G_ATOL, rtol=G_RTOL, err_msg=k)
 
 
+def _composed_route(monkeypatch):
+    """Make ``EdgewiseMSA`` compose its dense head, as it does where the
+    fused op's kernels do not take the shape."""
+    monkeypatch.setattr(TF, "edgewise_dense_fits", lambda *a: False)
+
+
 @pytest.mark.parametrize("name", ["dense", "dense_v5_neutral", "dense_shared"])
-def test_dense_eval_route_equals_train_route(name):
-    """The K3 route (eval) and the composed route (train) are one function:
-    same output and grads at fp32 on one module."""
+def test_dense_eval_route_equals_train_route(name, monkeypatch):
+    """The fused route (K3 + K3b on the card), which the dense head takes in
+    eval and in training, and the composed route are one function: same
+    output and grads at fp32 on one module in training mode."""
     _, _, tm, x = _msa_pair(name, seed=11)
     dy = torch.from_numpy(np.random.default_rng(12).standard_normal(x.shape).astype(np.float32))
     out = {}
-    for mode in (False, True):
+    for route in ("fused", "composed"):
         tm.zero_grad()
         xt = torch.from_numpy(x).requires_grad_()
         calls = []
@@ -373,29 +413,34 @@ def test_dense_eval_route_equals_train_route(name):
             calls.append(1)
             return orig(*a, **k)
 
-        TF.fused_edgewise_dense_attention_plain = spy
-        try:
-            y = tm.train(mode)(xt)
-        finally:
-            TF.fused_edgewise_dense_attention_plain = orig
-        assert bool(calls) == (not mode)  # eval runs the fused op, train composes
+        with monkeypatch.context() as m:
+            m.setattr(TF, "fused_edgewise_dense_attention_plain", spy)
+            if route == "composed":
+                _composed_route(m)
+            y = tm.train(True)(xt)
+        assert bool(calls) == (route == "fused")
         (y * dy).sum().backward()
-        out[mode] = (y.detach(), xt.grad, {k: p.grad.clone() for k, p in tm.named_parameters()})
-    torch.testing.assert_close(out[False][0], out[True][0], rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(out[False][1], out[True][1], rtol=G_RTOL, atol=G_ATOL)
-    for k, g in out[False][2].items():
-        torch.testing.assert_close(g, out[True][2][k], rtol=G_RTOL, atol=G_ATOL, msg=k)
+        out[route] = (y.detach(), xt.grad, {k: p.grad.clone() for k, p in tm.named_parameters()})
+    torch.testing.assert_close(out["fused"][0], out["composed"][0], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(out["fused"][1], out["composed"][1], rtol=G_RTOL, atol=G_ATOL)
+    for k, g in out["fused"][2].items():
+        torch.testing.assert_close(g, out["composed"][2][k], rtol=G_RTOL, atol=G_ATOL, msg=k)
 
 
-def test_dense_eval_route_bf16_close_to_train_route():
-    """At bf16 the routes differ by the composed path's cast of the feature
-    stack to bf16 before the head (the kernel keeps it fp32)."""
+def test_dense_eval_route_bf16_close_to_train_route(monkeypatch):
+    """At bf16 the fused route (eval and training alike) differs from the
+    composed route by the composed path's cast of the feature stack to bf16
+    before the head (the kernels keep it fp32)."""
     _, _, tm, x = _msa_pair("dense_v5_neutral", seed=13)
     tm = tm.to(torch.bfloat16)
     xb = torch.from_numpy(x).bfloat16()
     with torch.no_grad():
         ev, tr = tm.eval()(xb).float(), tm.train()(xb).float()
-    assert (ev - tr).abs().max().item() <= 5e-2 * tr.abs().max().item()
+        with monkeypatch.context() as m:
+            _composed_route(m)
+            comp = tm.train()(xb).float()
+    assert torch.equal(ev, tr)
+    assert (ev - comp).abs().max().item() <= 5e-2 * comp.abs().max().item()
 
 
 def test_lens_qk_requires_shared_qkv():
