@@ -11,19 +11,23 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc,
    print each kernel's registers and spills (both K2 kernels and both K3b
    instantiations among them, and whether K3b spills), and hold the Python byte counts the wrappers
-   launch with and the modules route by (K1's, K2's, K3's, K2b's and K3b's
-   shared memory, K2b's and K3b's workspace) to the libraries' own;
+   launch with and the modules route by (K1's, K2's, K3's, K5's, K2b's and
+   K3b's shared memory per dtype, K2b's, K3b's and K3's workspace, where K5
+   keeps its score rows) to the libraries' own;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card:
    fp32 and bf16 at the path shape, at B's strided dk-54 views, causal,
    ragged and long (N 1500, several key blocks) cases;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version: fp32
    and bf16 at the path shape, off shapes (two and eight views, N < 64,
    dk > 64) and strided views;
-   4b. K3 ``fused_edgewise_dense_attention`` against its plain version;
+   4b. K3 ``fused_edgewise_dense_attention`` against its plain version:
+   fp32 and bf16 at the path shape, strided views, off shapes (two and eight
+   views, N < 64, dk > 64, the fp32 maps in the workspace);
    4c. K4 ``fused_multihop_attention`` against its plain version: hops 3
    and 2 with every gate on, fp32 and bf16, strided views, an off shape;
    4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
-   shape, N = 512 and an off shape, fp32 and bf16, strided views;
+   shape, N = 1 and 100, both sides of the kept-rows threshold at dk 80
+   and 128, fp32 and bf16, strided views;
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
    (autograd through the plain forward), all eight grads, fp32 and bf16, at
    the path shape, off shapes (dk > 64 too) and the strided view inputs;
@@ -54,11 +58,12 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    torch.profiler breakdown (E_dense through its composed route too), and
    an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one (K1, K2, K2b, K3 and K3b in
-   bf16 too, and K1's and sdpa's time replayed from a CUDA graph, without
-   the host's launch path); one E_dense attention layer's bf16 forward and
-   backward in training through the kernel route (K3, K3b) and the composed
-   route, and which was faster; each ViT's eval images/s and the LM's
+   bound and one library call where there is one, and K2's, K3's and K5's
+   times before their redesign (K1, K2, K2b, K3, K3b and K5 in bf16 too,
+   and K1's and sdpa's time replayed from a CUDA graph, without the host's
+   launch path); one E_dense attention layer's bf16 forward and backward in
+   training through the kernel route (K3, K3b) and the composed route, and
+   which was faster; each ViT's eval images/s and the LM's
    eval forward, with a torch.profiler breakdown of their device time.
 """
 
@@ -151,12 +156,24 @@ LM_VOCAB, LM_BATCH = 8192, 64
 # mop_tpu's parameter count of create_gpt_quartet at that config
 # (tests/test_torch_quartet.py holds both mop_tpu's and the port's count to it).
 LM_JAX_PARAMS = 51303696
+# The kernels' times before their redesign (K2 before it shared K3's
+# kernels, K3 over the backward's recompute, K5 streaming the keys twice),
+# which phase 9 restates beside its own: ms at the main-path shapes on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's table).
+BEFORE_MS = {("K2", torch.float32): 0.9330, ("K2", torch.bfloat16): 0.4870,
+          ("K3", torch.float32): 1.1589, ("K3", torch.bfloat16): 1.1635,
+          ("K5", torch.float32): 1.7245, ("K5", torch.bfloat16): 2.2823}
 MULTIHOP_GATES = dict(base=0.9, and_=1.0, or_=0.5, not_=0.25, chain=0.75)
 # K2's and K3b's checks off the main shape, ((B, H), V, N, dk, r): two and
 # eight views, N below 64 and odd, dk above 64 (two column tiles of every
 # N x dk product) and not a multiple of 8.
 K2_OFF_SHAPES = (((2, 2), 2, 16, 8, 1), ((2, 2), 3, 40, 100, 2), ((2, 3), 8, 33, 54, 2),
                  ((2, 2), 8, 40, 100, 4))
+# K3's checks off the main shape, ((B, H), V, N, dk): two and eight views, N
+# below 64 and odd, dk above 64 and not a multiple of 8, and the fp32
+# kernel's maps A_i in its workspace (V 5 at dk 128, V 8 at dk 80).
+K3_OFF_SHAPES = (((2, 2), 2, 16, 8), ((2, 2), 2, 40, 100), ((2, 3), 8, 33, 54),
+                 ((2, 2), 8, 40, 128), ((2, 2), 5, 64, 128), ((2, 2), 8, 64, 80))
 # The layers phase 7 runs above the kernels' N (224/16 images: 196 tokens),
 # E's, E_dense's and D's attention at their CIFAR widths.
 N_WIDE, BATCH_WIDE = 196, 32
@@ -492,8 +509,12 @@ def check_byte_counts():
     flash = F._fn("flash_fwd", "mop_flash_smem_bytes", [i_, i_], ctypes.c_longlong)
     k2 = F._fn("edgewise_lowrank_fwd", "mop_edgewise_lowrank_smem_bytes", [i_] * 5,
                ctypes.c_longlong)
-    k3 = F._fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [i_] * 3,
+    k3 = F._fn("edgewise_dense_fwd", "mop_edgewise_dense_smem_bytes", [i_] * 4,
                ctypes.c_longlong)
+    k3_ws = F._fn("edgewise_dense_fwd", "mop_edgewise_dense_ws_bytes", [i_] * 4,
+                  ctypes.c_longlong)
+    k5 = F._fn("quartet_fwd", "mop_quartet_smem_bytes", [i_] * 3, ctypes.c_longlong)
+    k5_rows = F._fn("quartet_fwd", "mop_quartet_keeps_rows", [i_] * 3)
     smem = F._fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [i_] * 6, ctypes.c_longlong)
     ws = F._fn("edgewise_bwd", "mop_edgewise_bwd_ws_bytes", [i_] * 4, ctypes.c_longlong)
     bad = []
@@ -502,7 +523,8 @@ def check_byte_counts():
             if F.flash_smem_bytes(dtype, dk) != flash(code, dk):
                 bad.append(("K1", dtype, dk))
         for nv, n, dk, r in ((5, 64, 56, 4), (2, 16, 8, 1), (3, 40, 100, 2), (8, 64, 128, 4),
-                             (2, 1, 1, 1), (4, 33, 54, 2), (8, 40, 100, 4)):
+                             (2, 1, 1, 1), (4, 33, 54, 2), (8, 40, 100, 4), (5, 64, 128, 1),
+                             (8, 64, 80, 1), (6, 64, 100, 1)):
             if F.edgewise_lowrank_smem_bytes(dtype, nv, n, dk, r) != k2(code, nv, n, dk, r):
                 bad.append(("K2", dtype, nv, n, dk, r))
             for dense in (False, True):
@@ -511,8 +533,18 @@ def check_byte_counts():
                     bad.append(("smem", dtype, nv, n, dk, r, dense))
             if F.edgewise_bwd_ws_bytes(dtype, nv, n, dk) != ws(code, nv, n, dk):
                 bad.append(("ws", dtype, nv, n, dk))
-            if dtype == torch.float32 and F.edgewise_dense_smem_bytes(nv, n, dk) != k3(nv, n, dk):
-                bad.append(("K3", nv, n, dk))
+            if F.edgewise_dense_smem_bytes(dtype, nv, n, dk) != k3(code, nv, n, dk):
+                bad.append(("K3", dtype, nv, n, dk))
+            if F.edgewise_dense_ws_bytes(dtype, nv, n, dk) != k3_ws(code, nv, n, dk):
+                bad.append(("K3 ws", dtype, nv, n, dk))
+        # K5 on both sides of where it keeps its score rows (fp32 N 256 | 257
+        # at dk 80 and 128 | 129 at dk 128, bf16 768 | 769 at dk 80).
+        for n in (1, 100, 128, 129, 256, 257, 512, 768, 769, 2048):
+            for dk in (54, 80, 128):
+                if F.quartet_smem_bytes(dtype, n, dk) != k5(code, n, dk):
+                    bad.append(("K5", dtype, n, dk))
+                if F.quartet_keeps_rows(dtype, n, dk) != bool(k5_rows(code, n, dk)):
+                    bad.append(("K5 rows", dtype, n, dk))
     check(not bad, f"Python byte counts equal the kernels' own {bad}")
 
 
@@ -636,6 +668,21 @@ def main() -> int:
         args = dense_inputs(gd, (2, 2), 2, 40, 100, torch.float32)
         compare("(2, 2, 2, 40, 100) float32", F.fused_edgewise_dense_attention(*args),
                 F.fused_edgewise_dense_attention_plain(*args), 2e-5, 2e-4)
+        # Off the main shape in both dtypes (two and eight views, N < 64 and
+        # odd, dk > 64, the fp32 maps A_i in the workspace), and bf16's
+        # strided views; from their own generator.
+        for bh_shape, nv, n, dk in K3_OFF_SHAPES:
+            for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+                args = dense_inputs(gn, bh_shape, nv, n, dk, dtype)
+                compare(f"{(*bh_shape, nv, n, dk)} {dtype}",
+                        F.fused_edgewise_dense_attention(*args),
+                        F.fused_edgewise_dense_attention_plain(*args), atol, rtol)
+        args = dense_inputs(gn, (256, 4), 5, 64, 56, torch.bfloat16)
+        qkv = rn(256, 64, 5, 3, 4, 56, dtype=torch.bfloat16, gen=gn).permute(3, 0, 4, 2, 1, 5)
+        args = (*qkv, *args[3:])
+        compare(f"strided view inputs (256, 4, 5, 64, 56) bfloat16, "
+                f"{F.copy_width(qkv, 56)}-byte copies", F.fused_edgewise_dense_attention(*args),
+                F.fused_edgewise_dense_attention_plain(*args), 5e-2, 5e-2)
 
         say("[4c K4 fused_multihop_attention vs plain] gates " + str(MULTIHOP_GATES))
         for hops in (3, 2):
@@ -661,25 +708,36 @@ def main() -> int:
                     2e-5, 2e-4)
 
         say("[4d K5 fused_quartet_attention vs plain] m 0.3, qscale 1.2")
-        for shape in ((64, 8, 256, 80), (2, 8, 512, 80)):
-            for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
+
+        def quartet_case(label, ins, dtype):
+            rows = "kept rows" if F.quartet_keeps_rows(dtype, ins[0].shape[-2],
+                                                       ins[0].shape[-1]) else "streaming"
+            got = F.fused_quartet_attention(*ins, 0.3, 1.2)
+            want = F.fused_quartet_attention_plain(*ins, 0.3, 1.2)
+            if dtype == torch.float32:
+                return compare(f"{label} float32, {rows}", got, want, 2e-5, 2e-4)
+            err = compare(f"{label} bfloat16, {rows}", got, want, 5e-2, 5e-2)
+            # where the probabilities are rounded shows in how many outputs differ
+            frac = (got != want).float().mean().item()
+            check(frac < 1e-2, f"{frac:.3e} of the bf16 outputs differ from the plain "
+                  "version's (limit 1e-2: the same rounding points)")
+            return err
+
+        # The LM's shape; N 1 and 100; both sides of the kept-rows threshold
+        # at dk 80 (fp32 256 | 288, bf16 768 | 800) and at dk 128 (fp32 128).
+        for shape in ((64, 8, 256, 80), (2, 3, 1, 80), (2, 3, 100, 80), (2, 8, 256, 80),
+                      (2, 8, 288, 80), (2, 8, 768, 80), (2, 8, 800, 80), (2, 3, 100, 128),
+                      (2, 3, 256, 128)):
+            for dtype in (torch.float32, torch.bfloat16):
                 ins = [rn(*shape, dtype=dtype, gen=gk) for _ in range(5)]
-                got = F.fused_quartet_attention(*ins, 0.3, 1.2)
-                want = F.fused_quartet_attention_plain(*ins, 0.3, 1.2)
-                err = compare(f"{shape} {dtype}", got, want, atol, rtol)
+                err = quartet_case(str(shape), ins, dtype)
                 if dtype == torch.float32:
                     errs[K5] = max(errs.get(K5, 0.0), err)
-                else:  # where the probabilities are rounded shows in how many outputs differ
-                    frac = (got != want).float().mean().item()
-                    check(frac < 1e-2, f"{frac:.3e} of the bf16 outputs differ from the plain "
-                          "version's (limit 1e-2: the same rounding points)")
         # The LM's CausalSelfAttention: (B, H, T, dk) views of (B, T, C) projections.
-        ins = [rn(64, 256, 8, 80, gen=gk).transpose(1, 2) for _ in range(5)]
-        compare("strided views (64, 8, 256, 80) float32", F.fused_quartet_attention(*ins, 0.3, 1.2),
-                F.fused_quartet_attention_plain(*ins, 0.3, 1.2), 2e-5, 2e-4)
-        ins = [rn(2, 3, 100, 128, gen=gk) for _ in range(5)]
-        compare("(2, 3, 100, 128) float32", F.fused_quartet_attention(*ins, 0.3, 1.2),
-                F.fused_quartet_attention_plain(*ins, 0.3, 1.2), 2e-5, 2e-4)
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [rn(64, 256, 8, 80, dtype=dtype, gen=gk).transpose(1, 2) for _ in range(5)]
+            quartet_case(f"strided views (64, 8, 256, 80), {F.copy_width(ins, 80)}-byte copies",
+                         ins, dtype)
 
     say("[5 K2b fused_edgewise_lowrank_attention_bwd vs plain backward]")
     grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
@@ -1111,8 +1169,9 @@ def main() -> int:
             ms = time_ms(lambda: F.fused_edgewise_lowrank_attention(*args))
             plain = time_ms(lambda: F.fused_edgewise_lowrank_attention_plain(*args))
             bnd, by = bound_ms(*edgewise_cost(1024, 5, 64, 56, 4, dtype), dtype)
-            say(f"  K2 (256, 4, 5, 64, 56) r=4 {dtype}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) [{smi}]")
+            say(f"  K2 (256, 4, 5, 64, 56) r=4 {dtype}: kernel {ms:.4f} ms (before "
+                f"{BEFORE_MS[('K2', dtype)]}), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}) "
+                f"[{smi}]")
             if dtype == torch.float32:
                 k2_record = dict(
                     name="fused_edgewise_lowrank_attention", route="cuda",
@@ -1131,8 +1190,9 @@ def main() -> int:
             ms = time_ms(lambda: F.fused_edgewise_dense_attention(*args))
             plain = time_ms(lambda: F.fused_edgewise_dense_attention_plain(*args))
             bnd, by = bound_ms(*edgewise_dense_cost(1024, 5, 64, 56, dtype), dtype)
-            say(f"  K3 (256, 4, 5, 64, 56) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+            say(f"  K3 (256, 4, 5, 64, 56) {dtype}: kernel {ms:.4f} ms (before "
+                f"{BEFORE_MS[('K3', dtype)]}), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), no "
+                f"single library call [{smi}]")
             if dtype == torch.float32:
                 k3_record = dict(
                     name="fused_edgewise_dense_attention", route="cuda",
@@ -1168,14 +1228,19 @@ def main() -> int:
             plain = time_ms(lambda: F.fused_quartet_attention_plain(*ins, 0.3, 1.2), iters=5,
                             reps=3)
             bnd, by = bound_ms(*quartet_cost(512, 256, 80, dtype), dtype)
-            say(f"  K5 (64, 8, 256, 80) {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+            say(f"  K5 (64, 8, 256, 80) {dtype}: kernel {ms:.4f} ms (before "
+                f"{BEFORE_MS[('K5', dtype)]}), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), no "
+                f"single library call [{smi}]")
             if dtype == torch.float32:
-                records.append(dict(
+                k5_record = dict(
                     name=K5, route="cuda", source="mop_tpu_torch/csrc/quartet_fwd.cu",
                     replaces="mop_tpu/ops/fused.py:888", launches=launches[K5],
                     max_abs_err=errs[K5], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                    library_ms=None))
+                    library_ms=None)
+                records.append(k5_record)
+            else:
+                k5_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=None)
         del ins
         x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
         for name, model in models.items():

@@ -1,7 +1,8 @@
 // Stages shared by the edgewise kernels that keep their N x N maps in a
-// per-program workspace in device memory: the backward K2b / K3b
-// (edgewise_bwd.cu, both instantiations) and the dense forward K3
-// (edgewise_dense_fwd.cu). The gate heads, `lowrank_factors` and
+// per-program workspace in device memory, the backward K2b / K3b
+// (edgewise_bwd.cu, both instantiations), and the gate-head policy classes
+// that the forward kernels K2 and K3 (edgewise_fwd.cuh) take too. The gate
+// heads, `lowrank_factors` and
 // `gated_mix` take any program type with the workspace accessors (`Prog`
 // here, the bf16 backward's `ProgTC`), and load an edge's V scores together
 // (`load_views`) before they use any. The dense head walks the edges in

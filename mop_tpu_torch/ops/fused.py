@@ -441,14 +441,49 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def edgewise_dense_smem_bytes(n_views: int, n: int, dk: int) -> int:
-    """Shared memory one K3 program takes (the kernel's own count,
-    ``mop_edgewise_dense_smem_bytes``): four staging buffers, the head's
-    weights and the feature tiles of one edge block and its transpose."""
-    ldm, ldd = n | 1, dk | 1
-    buf = max(n * ldm, n * ldd, dk * ldm)
-    return 4 * (_round4(4 * buf) + _dense_gate_floats(n_views)
-                + (2 * n_views + 2) * _EDGE_TILE)
+def edgewise_dense_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> int:
+    """Shared memory one K3 program takes; the kernel's own count,
+    ``mop_edgewise_dense_smem_bytes``. K3 runs K2's kernels with the dense
+    head (``csrc/edgewise_fwd.cuh``), whose weights (16-byte aligned) take
+    the place of the lowrank features and factors.
+
+    bf16: the V maps Ac_i and four operand buffers of 64 rows in bf16, then
+    the head's weights and the cross-warp row and column sums (640 floats).
+    fp32: the V maps A_i (in the workspace instead where they would not fit:
+    many views with wide heads) and the two thread groups' staging areas,
+    then the head's weights and the log c_bwd map of the backward chain's
+    group."""
+    gate = _round4(_dense_gate_floats(n_views))
+    if dtype == torch.bfloat16:
+        bf = n_views * 64 * _mma_ld(n) + 4 * 64 * _mma_ld(max(n, dk))
+        return 2 * bf + 4 * (gate + 10 * 64)
+    rest, a_maps = _dense_f32_smem(n_views, n, dk)
+    return rest if rest + a_maps > MAX_SMEM_BYTES else rest + a_maps
+
+
+def _dense_f32_smem(n_views: int, n: int, dk: int):
+    """K3's fp32 shared memory without its V maps A_i, and the maps' bytes."""
+    ldn, ldd = _pad8_plus4(n), _pad8_plus4(dk)
+    msz = n * ldn
+    area = max(n * ldd + dk * ldn, msz + n * ldd)
+    return 4 * (2 * area + msz + _round4(_dense_gate_floats(n_views))), 4 * n_views * msz
+
+
+def _dense_a_in_ws(dtype: torch.dtype, n_views: int, n: int, dk: int) -> bool:
+    """Whether K3's fp32 kernel keeps its V maps A_i in its workspace: where
+    they do not fit in shared memory beside the rest (at N = 64: V = 5 with
+    dk > 100, V >= 6 with dk >= 100, V = 8 with dk >= 80)."""
+    return dtype == torch.float32 and sum(_dense_f32_smem(n_views, n, dk)) > MAX_SMEM_BYTES
+
+
+def edgewise_dense_ws_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> int:
+    """Bytes of one K3 program's device-memory workspace; the kernel's own
+    count, ``mop_edgewise_dense_ws_bytes``: the V fp32 score maps, which the
+    dense head reads at (i, j) and at (j, i), rows padded to a multiple of
+    four floats (80 KB at V = 5, N = 64), in both dtypes; and in fp32 the V
+    maps A_i where they do not fit on chip."""
+    a_maps = _dense_f32_smem(n_views, n, dk)[1] if _dense_a_in_ws(dtype, n_views, n, dk) else 0
+    return 4 * n_views * n * _round4(n) + a_maps
 
 
 def edgewise_bwd_smem_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int,
@@ -513,7 +548,7 @@ def edgewise_dense_fits(dtype: torch.dtype, n_views: int, n: int, dk: int) -> bo
     """Whether the fused dense op's kernels take (V, N, dk) in ``dtype``: K3
     for the forward and K3b for its gradient."""
     return (_edgewise_envelope(n_views, n, dk)
-            and edgewise_dense_smem_bytes(n_views, n, dk) <= MAX_SMEM_BYTES
+            and edgewise_dense_smem_bytes(dtype, n_views, n, dk) <= MAX_SMEM_BYTES
             and edgewise_bwd_smem_bytes(dtype, n_views, n, dk, dense=True) <= MAX_SMEM_BYTES)
 
 
@@ -604,26 +639,25 @@ def _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w):
 
 def _dense_fwd_cuda(qs, ks, vs, w1, b1, w2, b2, beta_not, chain_w):
     """Launch K3 on CUDA inputs; the output is a view of a (B, N, H, dk) buffer.
-    The kernel keeps its maps in a per-program fp32 workspace in device
-    memory (about 450 KB a program at V = 5, N = 64, dk = 56), allocated here."""
+    The kernel writes its V score maps to a per-program fp32 workspace in
+    device memory (80 KB a program at V = 5, N = 64), allocated here."""
     name = "fused_edgewise_dense_attention"
     _check_cuda_inputs(name, qs, ks, vs)
     b, h, nv, n, dk = _dense_shapes(name, qs, ks, vs, w1, b1, w2, b2,
-                                    edgewise_dense_smem_bytes)
+                                    lambda *shape: edgewise_dense_smem_bytes(qs.dtype, *shape))
     dev = qs.device
     ws = _fp32_weights(dev, w1, b1, w2, b2, chain_w.reshape(1))
     out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=dev).transpose(1, 2)
-    ws_fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_ws_floats", [_I, _I, _I],
-                ctypes.c_longlong)
-    workspace = torch.empty(b * h * int(ws_fn(nv, n, dk)), dtype=torch.float32, device=dev)
+    workspace = torch.empty(b * h * edgewise_dense_ws_bytes(qs.dtype, nv, n, dk),
+                            dtype=torch.uint8, device=dev)
     fn = _fn("edgewise_dense_fwd", "mop_edgewise_dense_fwd",
              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-              _I, _I, _I, _I, _I, _P, _F, _F, _P])
+              _I, _I, _I, _I, _I, _P, _F, _F, _I, _P])
     with torch.cuda.device(dev):
         rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
                 out.data_ptr(), *(t.data_ptr() for t in ws), workspace.data_ptr(),
                 b, h, nv, n, dk, _in_strides(qs, ks, vs, out), float(beta_not),
-                1.0 / math.sqrt(dk), _stream(dev))
+                1.0 / math.sqrt(dk), copy_width((qs, ks, vs), dk), _stream(dev))
     _raise_on(rc, name)
     fused_edgewise_dense_attention.launches += 1
     return out
@@ -1015,6 +1049,37 @@ def quartet_fits(dk: int) -> bool:
     return dk <= QUARTET_MAX_DK
 
 
+def _quartet_rows_bytes(dtype: torch.dtype, n: int, dk: int) -> int:
+    """Shared memory of K5's kept-rows kernels: q and q2, then in fp32 (64
+    query rows) one block of 64 keys of k and of k2 (two of v in pass 2),
+    fp32 rows read as float4, in bf16 (32 query rows) two stages of 32 keys
+    of both, bf16 rows for ``ldmatrix``; then the kept S1 and S2 rows in
+    fp32 over every block of 64 keys (row stride 8 floats past it)."""
+    lr = -(-n // 64) * 64 + 8
+    if dtype == torch.bfloat16:
+        return (2 * 32 + 4 * 32) * 2 * _mma_ld(dk) + 4 * 2 * 32 * lr
+    return (2 * 64 + 2 * 64) * 4 * _pad8_plus4(dk) + 4 * 2 * 64 * lr
+
+
+def quartet_keeps_rows(dtype: torch.dtype, n: int, dk: int) -> bool:
+    """Whether K5 keeps each query block's raw score rows on chip (every
+    score tile computed once) at (N, dk) in ``dtype``; above, it streams the
+    keys twice and recomputes the causal tiles. The kernel's own rule,
+    ``mop_quartet_keeps_rows``: at dk = 80, fp32 up to N = 256 and bf16 up
+    to N = 768."""
+    return _quartet_rows_bytes(dtype, n, dk) <= MAX_SMEM_BYTES
+
+
+def quartet_smem_bytes(dtype: torch.dtype, n: int, dk: int) -> int:
+    """Shared memory one K5 block takes at (N, dk); the kernel's own count,
+    ``mop_quartet_smem_bytes``: the kept-rows kernel's where its rows fit,
+    else the streaming kernel's (q, q2, k and k2 blocks of 64 rows at an
+    odd row stride in fp32, and a 64 x 65 probability tile)."""
+    if quartet_keeps_rows(dtype, n, dk):
+        return _quartet_rows_bytes(dtype, n, dk)
+    return 4 * (4 * 64 * (dk | 1) + 64 * 65)
+
+
 def fused_quartet_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q2: torch.Tensor, k2: torch.Tensor,
     mixture: Union[torch.Tensor, float], quartet_scale: Union[torch.Tensor, float],
@@ -1071,11 +1136,11 @@ def _quartet_fwd_cuda(q, k, v, q2, k2, mixture, quartet_scale, eps):
                                            for x in (mixture, quartet_scale))))
     out = torch.empty(b, n, h, dk, dtype=q.dtype, device=dev).transpose(1, 2)
     strides = (ctypes.c_longlong * 18)(*(s for t in (*ins, out) for s in t.stride()[:3]))
-    fn = _fn("quartet_fwd", "mop_quartet_fwd", [_I] + [_P] * 7 + [_I] * 4 + [_P, _F, _F, _P])
+    fn = _fn("quartet_fwd", "mop_quartet_fwd", [_I] + [_P] * 7 + [_I] * 4 + [_P, _F, _F, _I, _P])
     with torch.cuda.device(dev):
         rc = fn(_DTYPE_CODE[q.dtype], *(t.data_ptr() for t in ins), out.data_ptr(),
                 mix.data_ptr(), b, h, n, dk, strides, float(eps), 1.0 / math.sqrt(dk),
-                _stream(dev))
+                copy_width(ins, dk), _stream(dev))
     _raise_on(rc, name)
     fused_quartet_attention.launches += 1
     return out

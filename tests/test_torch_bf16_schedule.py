@@ -19,8 +19,9 @@ the CPU.
 - K2: its plain version in bf16 (what the tensor-core K2 is held to on the
   card) against the JAX kernel in bf16 interpret mode.
 - The Python counts the wrappers launch with: K1's copy width at the A, B
-  and B_bench layouts, and the shared-memory and workspace bytes of K1, K2
-  and K2b / K3b at the main shape and the envelope's edges.
+  and B_bench layouts, and the shared-memory and workspace bytes of K1, K2,
+  K2b / K3b, K3 and K5 at the main shape and the envelope's edges (K5 on
+  both sides of where it keeps its score rows), and the dense op's envelope.
 """
 
 import math
@@ -439,3 +440,82 @@ def test_k2b_wrapper_checks_shared_memory_per_dtype():
     TF._edgewise_shapes("k", many, many, many, w, w[0], w, w[0], 8,
                         lambda *s: counted.append(TF.edgewise_bwd_smem_bytes(BF16, *s)) or 0)
     assert counted == [173344]
+
+
+# -------------------------- K3 and K5 byte counts --------------------------
+
+
+@pytest.mark.parametrize("dtype,shape,smem,ws", [
+    # The main shape (V, N, dk) = (5, 64, 56): bf16 fits two programs an SM;
+    # the workspace holds the V fp32 score maps (80 KB) in both dtypes.
+    (BF16, (5, 64, 56), 86608, 81920),
+    (torch.float32, (5, 64, 56), 171088, 81920),
+    # Off shapes: two and eight views, N 33, N 1.
+    (BF16, (2, 16, 8), 21712, 2048),
+    (torch.float32, (2, 16, 8), 8656, 2048),
+    (BF16, (8, 33, 54), 98256, 38016),
+    (torch.float32, (8, 33, 54), 88608, 38016),
+    (BF16, (2, 1, 1), 21712, 32),
+    (torch.float32, (2, 1, 1), 1056, 32),
+    # Wide heads: the fp32 maps A_i move to the workspace where they would
+    # not fit on chip.
+    (BF16, (8, 64, 128), 147408, 131072),
+    (torch.float32, (8, 64, 128), 156112, 270336),
+    (torch.float32, (5, 64, 128), 155728, 168960),
+    (torch.float32, (8, 64, 80), 105424, 270336),
+])
+def test_k3_byte_counts(dtype, shape, smem, ws):
+    """K3 runs K2's kernels with the dense head: its shared memory per dtype
+    (``edgewise_dense_smem_bytes``) and its workspace
+    (``edgewise_dense_ws_bytes``), which chip_smoke.py phase 2 holds to the
+    kernel's own counts, and the shape predicate the modules route by."""
+    assert TF.edgewise_dense_smem_bytes(dtype, *shape) == smem
+    assert TF.edgewise_dense_ws_bytes(dtype, *shape) == ws
+    assert TF.edgewise_dense_fits(dtype, *shape)
+    assert smem <= TF.MAX_SMEM_BYTES and ws % 16 == 0
+    if dtype == BF16 and shape == (5, 64, 56):
+        assert 2 * (smem + 1024) <= 233472  # two programs in an SM's 228 KB
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_k3_envelope_is_kept(dtype):
+    """The dense op's kernels take every V in [2, 8], N <= 64, dk <= 128 in
+    both dtypes, as before K3 kept its maps on chip."""
+    for v_ in range(2, 9):
+        for n in (1, 16, 33, 40, 63, 64):
+            for dk in (1, 8, 54, 56, 80, 100, 127, 128):
+                assert TF.edgewise_dense_fits(dtype, v_, n, dk), (v_, n, dk)
+    assert not TF.edgewise_dense_fits(dtype, 9, 64, 56)
+    assert not TF.edgewise_dense_fits(dtype, 5, 65, 56)
+    assert not TF.edgewise_dense_fits(dtype, 5, 64, 129)
+
+
+@pytest.mark.parametrize("dtype,n,dk,smem,keeps", [
+    # The LM's shape (N, dk) = (256, 80): both dtypes keep the raw rows; bf16
+    # fits two CTAs an SM.
+    (BF16, 256, 80, 101376, True),
+    (torch.float32, 256, 80, 221184, True),
+    (BF16, 1, 80, 52224, True),
+    (torch.float32, 1, 80, 122880, True),
+    (BF16, 100, 80, 68608, True),
+    (torch.float32, 100, 80, 155648, True),
+    # The thresholds: fp32 keeps rows up to N 256 at dk 80 and 128 at dk 128,
+    # bf16 up to 768 at dk 80; above, the streaming kernel's bytes.
+    (torch.float32, 257, 80, 99584, False),
+    (torch.float32, 128, 128, 204800, True),
+    (torch.float32, 129, 128, 148736, False),
+    (BF16, 512, 80, 166912, True),
+    (BF16, 768, 80, 232448, True),
+    (BF16, 769, 80, 99584, False),
+    (BF16, 2048, 80, 99584, False),
+    (torch.float32, 2048, 80, 99584, False),
+])
+def test_k5_byte_counts(dtype, n, dk, smem, keeps):
+    """K5's shared memory per dtype (``quartet_smem_bytes``) and where it
+    keeps the raw score rows (``quartet_keeps_rows``), which chip_smoke.py
+    phase 2 holds to the kernel's own counts."""
+    assert TF.quartet_smem_bytes(dtype, n, dk) == smem
+    assert TF.quartet_keeps_rows(dtype, n, dk) == keeps
+    assert smem <= TF.MAX_SMEM_BYTES and TF.quartet_fits(dk)
+    if dtype == BF16 and (n, dk) == (256, 80):
+        assert 2 * (smem + 1024) <= 233472  # two CTAs in an SM's 228 KB

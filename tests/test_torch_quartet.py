@@ -1,6 +1,8 @@
 """K5 and the Quartet causal LM: the port's quartet op (its plain forward,
 which CPU tensors run, and its recompute backward) against the JAX Pallas
-kernel in TPU interpret mode and ``jax.grad`` through it; the LM
+kernel in TPU interpret mode and ``jax.grad`` through it; the statistics
+order of K5's kept-rows kernels (``quartet_rows_schedule``) against the JAX
+kernel in fp32 and bf16; the LM
 (``TinyTransformerLM`` from ``create_gpt_quartet`` and
 ``create_gpt_baseline``) against the JAX model with transplanted weights,
 for the Quartet, baseline and ``causal_std`` configs and with an additive
@@ -78,6 +80,86 @@ def test_quartet_op_bf16_matches_jax_kernel():
         *[torch.from_numpy(np.asarray(a)).bfloat16() for a in arrays[:5]], 0.3, 1.2)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=5e-2, rtol=5e-2)
+
+
+def _oct_sum(x):
+    """The sum over the last axis in the order of K5's kept-rows kernels: lane
+    g of an eight-lane group sums columns g, g + 8, ... in order, then the
+    lanes combine as ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)).
+    Zero columns pad the last group (adding 0 is exact)."""
+    x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 8))
+    p = torch.zeros(*x.shape[:-1], 8, dtype=torch.float32)
+    for c0 in range(0, x.shape[-1], 8):
+        p = p + x[..., c0:c0 + 8]
+    a = p[..., :4] + p[..., 4:]
+    b = a[..., :2] + a[..., 2:]
+    return b[..., 0] + b[..., 1]
+
+
+def quartet_rows_schedule(q, k, v, q2, k2, mixture, quartet_scale, eps=1e-5):
+    """K5's kept-rows kernels (``csrc/quartet_fwd.cu``) over (..., N, dk)
+    inputs in fp32 or bf16, with their statistics in the kernels' order:
+    each row's mean is an eight-lane sum (``_oct_sum``) over every column
+    divided by N, its M2 the same order over the squared deviations (each
+    added by one fused multiply-add, emulated in fp64), the row max, the sum
+    of exponentials over the causal columns in the same order, and the
+    normalised probabilities rounded to the compute dtype before P V. The
+    products keep the compute dtype's rounding points (q * scale rounded,
+    fp32 accumulation)."""
+    cdt, f32 = q.dtype, torch.float32
+    n, dk = q.shape[-2:]
+    sc = torch.tensor(1.0 / np.sqrt(dk), dtype=cdt)
+    s1 = (q * sc).to(f32) @ k.to(f32).transpose(-1, -2)
+    s2 = (q2 * sc).to(f32) @ k2.to(f32).transpose(-1, -2)
+
+    def standardize(s):
+        mu = (_oct_sum(s) / n)[..., None]
+        d = (s - mu).double()
+        sq = torch.nn.functional.pad(d * d, (0, -n % 8))
+        p = torch.zeros(*s.shape[:-1], 8, dtype=f32)
+        for c0 in range(0, sq.shape[-1], 8):  # fma(d, d, p): one rounding
+            p = (sq[..., c0:c0 + 8] + p.double()).to(f32)
+        a = p[..., :4] + p[..., 4:]
+        b = a[..., :2] + a[..., 2:]
+        m2 = b[..., 0] + b[..., 1]
+        den = torch.sqrt(m2 / max(1, n - 1)) + eps
+        return (s - mu) / den[..., None]
+
+    s1n, s2n = standardize(s1), standardize(s2)
+    m = torch.tensor(mixture, dtype=f32)
+    qs = torch.tensor(quartet_scale, dtype=f32)
+    x = (1.0 - m) * s1n + m * (s1n * s2n) * qs
+    keep = torch.ones(n, n, dtype=torch.bool).tril()
+    x = x.masked_fill(~keep, float("-inf"))
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    p = (e / _oct_sum(e)[..., None]).to(cdt)
+    return (p.to(f32) @ v.to(f32)).to(cdt)
+
+
+@pytest.mark.parametrize("n", [1, 100, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_statistics_schedule_matches_jax_kernel(n, dtype):
+    """K5's kept-rows kernels take each row's statistics in one pass over the
+    kept rows (eight-lane sums) where the streaming kernel merged tiles by
+    Chan's update: that order, mirrored by ``quartet_rows_schedule``, against
+    the JAX kernel in interpret mode and the plain version, at one row, a
+    ragged key block and the LM's N. fp32 within the forward tolerance; bf16
+    within the bf16 tolerance, with at most 1% of the outputs differing (the
+    probabilities are rounded at the same point)."""
+    arrays = _inputs((1, 2, n, 80), seed=50 + n)
+    tdt = getattr(torch, dtype)
+    ts = [torch.from_numpy(np.asarray(a)).to(tdt) for a in arrays[:5]]
+    got = quartet_rows_schedule(*ts, 0.3, 1.2)
+    want = np.asarray(_jax_op(arrays, getattr(jnp, dtype)), np.float32)
+    plain = TF.fused_quartet_attention_plain(*ts, 0.3, 1.2)
+    assert got.dtype == tdt and got.shape == (1, 2, n, 80)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=5e-2, rtol=5e-2)
+        assert (got.float().numpy() != want).mean() <= 0.01
+        assert (got != plain).float().mean().item() <= 0.01
 
 
 def test_quartet_statistics_run_over_the_masked_columns():
