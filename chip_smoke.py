@@ -11,8 +11,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 2. build every kernel of the path from ``mop_tpu_torch/csrc`` with nvcc,
    print each kernel's registers and spills (both K2 kernels and both K3b
    instantiations among them, and whether K3b spills), and hold the Python byte counts the wrappers
-   launch with and the modules route by (K1's, K2's, K3's, K5's, K2b's and
-   K3b's shared memory per dtype, K2b's, K3b's and K3's workspace, where K5
+   launch with and the modules route by (K1's, K2's, K3's, K4's (over its
+   whole envelope), K5's, K2b's and K3b's shared memory per dtype, K2b's, K3b's and K3's workspace, where K5
    keeps its score rows) to the libraries' own;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card:
    fp32 and bf16 at the path shape, at B's strided dk-54 views, causal,
@@ -24,7 +24,9 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    fp32 and bf16 at the path shape, strided views, off shapes (two and eight
    views, N < 64, dk > 64, the fp32 maps in the workspace);
    4c. K4 ``fused_multihop_attention`` against its plain version: hops 3
-   and 2 with every gate on, fp32 and bf16, strided views, an off shape;
+   and 2 with every gate on, fp32 and bf16, strided views (hops 3 and 2,
+   and at dk 54 with 8-byte copies); fp32 off the main shape (N 1, 33, 40,
+   dk 8, 100, 128, hops 2 to 4), with the default gates and with chain_w 0;
    4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
    shape, N = 1 and 100, both sides of the kept-rows threshold at dk 80
    and 128, fp32 and bf16, strided views;
@@ -58,13 +60,17 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    torch.profiler breakdown (E_dense through its composed route too), and
    an eval step after training;
 9. timings: each kernel at its path shape beside its plain version, its
-   bound and one library call where there is one, and K2's, K3's and K5's
-   times before their redesign (K1, K2, K2b, K3, K3b and K5 in bf16 too,
-   and K1's and sdpa's time replayed from a CUDA graph, without the host's
-   launch path); one E_dense attention layer's bf16 forward and backward in
-   training through the kernel route (K3, K3b) and the composed route, and
-   which was faster; each ViT's eval images/s and the LM's
-   eval forward, with a torch.profiler breakdown of their device time.
+   bound and one library call where there is one, and K2's, K3's, K4's and
+   K5's times before their redesign (K1, K2, K2b, K3, K3b, K4 and K5 in
+   bf16 too; K4 also with a device chain_w, as the models pass it, and
+   K1's, sdpa's and K4's fp32 time replayed from a CUDA graph, without the
+   host's launch path); one E_dense attention layer's
+   bf16 forward and backward in training through the kernel route (K3, K3b)
+   and the composed route, and one D layer's through K4 with its recompute
+   backward and the composed route, and which was faster; each ViT's eval
+   images/s, the LM's eval forward and the gradient through E's, E_dense's
+   and D's eval forward (7b), with a torch.profiler breakdown of their
+   device time.
 """
 
 from __future__ import annotations
@@ -157,13 +163,20 @@ LM_VOCAB, LM_BATCH = 8192, 64
 # (tests/test_torch_quartet.py holds both mop_tpu's and the port's count to it).
 LM_JAX_PARAMS = 51303696
 # The kernels' times before their redesign (K2 before it shared K3's
-# kernels, K3 over the backward's recompute, K5 streaming the keys twice),
-# which phase 9 restates beside its own: ms at the main-path shapes on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's table).
+# kernels, K3 over the backward's recompute, K5 streaming the keys twice,
+# K4 running the fp32 transport with all threads in turn), which phase 9
+# restates beside its own: ms at the main-path shapes on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md's table); K4's by hops.
 BEFORE_MS = {("K2", torch.float32): 0.9330, ("K2", torch.bfloat16): 0.4870,
-          ("K3", torch.float32): 1.1589, ("K3", torch.bfloat16): 1.1635,
-          ("K5", torch.float32): 1.7245, ("K5", torch.bfloat16): 2.2823}
+             ("K3", torch.float32): 1.1589, ("K3", torch.bfloat16): 1.1635,
+             ("K5", torch.float32): 1.7245, ("K5", torch.bfloat16): 2.2823,
+             ("K4", torch.float32, 3): 0.4306, ("K4", torch.float32, 2): 0.3483,
+             ("K4", torch.bfloat16, 3): 0.4217}
 MULTIHOP_GATES = dict(base=0.9, and_=1.0, or_=0.5, not_=0.25, chain=0.75)
+# K4's fp32 checks off the main shape, ((B, H), N, dk): N 1 (one float4 of
+# padded columns), 33 and 40 (the second thread group owns 1 and 8 rows),
+# dk 8, 100 (two column tiles, dk not a multiple of 8) and 128.
+K4_OFF_SHAPES = (((2, 3), 1, 8), ((2, 3), 33, 100), ((2, 3), 40, 128))
 # K2's and K3b's checks off the main shape, ((B, H), V, N, dk, r): two and
 # eight views, N below 64 and odd, dk above 64 (two column tiles of every
 # N x dk product) and not a multiple of 8.
@@ -513,6 +526,7 @@ def check_byte_counts():
                ctypes.c_longlong)
     k3_ws = F._fn("edgewise_dense_fwd", "mop_edgewise_dense_ws_bytes", [i_] * 4,
                   ctypes.c_longlong)
+    k4 = F._fn("multihop_fwd", "mop_multihop_smem_bytes", [i_] * 3, ctypes.c_longlong)
     k5 = F._fn("quartet_fwd", "mop_quartet_smem_bytes", [i_] * 3, ctypes.c_longlong)
     k5_rows = F._fn("quartet_fwd", "mop_quartet_keeps_rows", [i_] * 3)
     smem = F._fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [i_] * 6, ctypes.c_longlong)
@@ -537,6 +551,11 @@ def check_byte_counts():
                 bad.append(("K3", dtype, nv, n, dk))
             if F.edgewise_dense_ws_bytes(dtype, nv, n, dk) != k3_ws(code, nv, n, dk):
                 bad.append(("K3 ws", dtype, nv, n, dk))
+        # K4 over its whole envelope (N <= 64, dk <= 128).
+        for n in range(1, F.MULTIHOP_MAX_N + 1):
+            for dk in range(1, F.MULTIHOP_MAX_DK + 1):
+                if F.multihop_smem_bytes(dtype, n, dk) != k4(code, n, dk):
+                    bad.append(("K4", dtype, n, dk))
         # K5 on both sides of where it keeps its score rows (fp32 N 256 | 257
         # at dk 80 and 128 | 129 at dk 128, bf16 768 | 769 at dk 80).
         for n in (1, 100, 128, 129, 256, 257, 512, 768, 769, 2048):
@@ -706,6 +725,34 @@ def main() -> int:
                     F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
                     F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
                     2e-5, 2e-4)
+        # The fp32 kernel off the main shape, with the default gates, with
+        # chain_w 0, and at the Gated ViT's hops 2 on D's strided views;
+        # from their own generator.
+        gm = cuda_generator(6)
+        for bh_shape, n, dk in K4_OFF_SHAPES:
+            for hops in (2, 3, 4):
+                ins = [rn(*bh_shape, n, dk, gen=gm) for _ in range(6)]
+                compare(f"{(*bh_shape, n, dk)} hops {hops} float32",
+                        F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
+                        F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, hops, 0.4),
+                        2e-5, 2e-4)
+        ins = [rn(256, 4, 64, 64, gen=gm) for _ in range(6)]
+        for gates, w in (({}, 0.4), (MULTIHOP_GATES, 0.0)):
+            compare(f"(256, 4, 64, 64) hops 3 float32, gates {gates or 'default'}, chain_w {w}",
+                    F.fused_multihop_attention(*ins, gates, 0.5, 3, w),
+                    F.fused_multihop_attention_plain(*ins, gates, 0.5, 3, w), 2e-5, 2e-4)
+        qkv = rn(256, 64, 2, 3, 4, 64, gen=gm).permute(2, 3, 0, 4, 1, 5)
+        ins = [qkv[p, i] for p in range(2) for i in range(3)]
+        compare(f"strided qkv views (256, 4, 64, 64) hops 2 float32, "
+                f"{F.copy_width(ins, 64)}-byte copies",
+                F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, 2, 0.4),
+                F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, 2, 0.4), 2e-5, 2e-4)
+        qkv = rn(2, 33, 2, 3, 3, 54, gen=gm).permute(2, 3, 0, 4, 1, 5)
+        ins = [qkv[p, i] for p in range(2) for i in range(3)]
+        compare(f"strided qkv views (2, 3, 33, 54) hops 3 float32, "
+                f"{F.copy_width(ins, 54)}-byte copies",
+                F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, 3, 0.4),
+                F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, 3, 0.4), 2e-5, 2e-4)
 
         say("[4d K5 fused_quartet_attention vs plain] m 0.3, qscale 1.2")
 
@@ -1136,6 +1183,32 @@ def main() -> int:
         f"{max(route_ms['kernel']) < min(route_ms['composed'])} (EdgewiseMSA trains the "
         "dense head through the kernels)")
     del layer, xl, dyl, lparams
+    # One D attention layer (MultiHopMSA, 256 wide, 4 heads, hops 3) at bf16,
+    # forward and backward, through K4 with its recompute backward (the
+    # layer in eval mode, which without dropout computes the train-mode
+    # function) and through the composed route (train mode, the route D and
+    # Gated train by), in turns, four of each.
+    gl = cuda_generator(7)
+    layer = init_params(MultiHopMSA(256, 4, beta_not=0.5, hops=3),
+                        torch.Generator().manual_seed(9)).to("cuda", torch.bfloat16)
+    xl = rn(BATCH, 64, 256, dtype=torch.bfloat16, gen=gl).requires_grad_()
+    dyl = rn(BATCH, 64, 256, dtype=torch.bfloat16, gen=gl)
+    lparams = [xl, *layer.parameters()]
+    route_ms = {"kernel": [], "composed": []}
+    for route in ("kernel", "composed", "composed", "kernel") * 2:
+        layer.train(route == "composed")
+        F.reset_launch_counts()
+        route_ms[route].append(time_ms(layer_step, iters=10, reps=3))
+        ran_k4 = F.fused_multihop_attention.launches > 0
+        check(ran_k4 == (route == "kernel"), f"D layer {route} route: K4 launched {ran_k4}")
+    say("  D MultiHopMSA layer (256, 4 heads, hops 3) bf16 forward + backward, batch "
+        f"{BATCH}: K4 + recompute route {' / '.join(f'{t:.4f}' for t in route_ms['kernel'])} "
+        f"ms, composed route {' / '.join(f'{t:.4f}' for t in route_ms['composed'])} ms [{smi}]")
+    faster = [r for r, o in (("kernel", "composed"), ("composed", "kernel"))
+              if max(route_ms[r]) < min(route_ms[o])]
+    say(f"    faster in every turn: {faster[0] if faster else 'neither'} route (MultiHopMSA and "
+        "DualPathMSA train composed)")
+    del layer, xl, dyl, lparams
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (rn(1024, 64, 56, dtype=dtype) for _ in range(3))
@@ -1209,19 +1282,40 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             for hops in (3, 2):
                 ins = [rn(256, 4, 64, 64, dtype=dtype, gen=gk) for _ in range(6)]
-                ms = time_ms(lambda: F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops,
-                                                                0.4))
+                # ms passes chain_w as a Python float, as K4 was timed before
+                # its redesign: each call copies it to the card and waits for
+                # the stream. device_w_ms passes a device scalar, as the
+                # models do, and fp32's device_ms replays that from a CUDA
+                # graph: the device time alone.
+                w4 = torch.tensor(0.4, device="cuda")
+
+                def k4():
+                    return F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, hops, w4)
+
+                ms = time_ms(lambda: F.fused_multihop_attention(
+                    *ins, MULTIHOP_GATES, 0.5, hops, 0.4))
+                ms_dev_w = time_ms(k4)
                 plain = time_ms(lambda: F.fused_multihop_attention_plain(
                     *ins, MULTIHOP_GATES, 0.5, hops, 0.4), iters=10)
                 bnd, by = bound_ms(*multihop_cost(1024, 64, 64, hops, dtype), dtype)
-                say(f"  K4 (256, 4, 64, 64) hops {hops} {dtype}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+                dev = graph_ms(k4) if dtype == torch.float32 else None
+                graphed = f", in a CUDA graph {dev:.4f} ms" if dev is not None else ""
+                say(f"  K4 (256, 4, 64, 64) hops {hops} {dtype}: kernel {ms:.4f} ms (before "
+                    f"{BEFORE_MS.get(('K4', dtype, hops), 'not measured')}); with a device "
+                    f"chain_w {ms_dev_w:.4f} ms{graphed}; plain {plain:.4f} ms, bound "
+                    f"{bnd:.4f} ms ({by}), no single library call [{smi}]")
+                row = dict(ms=ms, device_w_ms=ms_dev_w, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by, library_ms=None)
+                if dev is not None:
+                    row["device_ms"] = dev
                 if dtype == torch.float32 and hops == 3:
-                    records.append(dict(
+                    k4_record = dict(
                         name=K4, route="cuda", source="mop_tpu_torch/csrc/multihop_fwd.cu",
                         replaces="mop_tpu/ops/fused.py:289", launches=launches[K4],
-                        max_abs_err=errs[K4], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                        library_ms=None))
+                        max_abs_err=errs[K4], **row)
+                    records.append(k4_record)
+                else:  # Gated runs hops 2; no main path runs bf16 K4
+                    k4_record[f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}_hops{hops}"] = row
         for dtype in (torch.float32, torch.bfloat16):
             ins = [rn(64, 8, 256, 80, dtype=dtype, gen=gk) for _ in range(5)]
             ms = time_ms(lambda: F.fused_quartet_attention(*ins, 0.3, 1.2), iters=10)
@@ -1260,6 +1354,25 @@ def main() -> int:
         top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:6])
         say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
             f"(2 forwards, profiled); by kernel: {top}")
+    # The gradient through the eval forward (phase 7b), fp32: D's runs K4 in
+    # its forward and recomputes the composed forward for its backward.
+    x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
+    for name in EVAL_GRAD:
+        model = models[name].eval()
+        params = list(model.parameters())
+
+        def eval_grads():
+            loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+            return torch.autograd.grad(loss, params)
+
+        ms = time_ms(eval_grads, iters=3, reps=3)
+        say(f"  {name} fp32 gradient through the eval forward, batch {BATCH}: {ms:.3f} ms "
+            f"[{smi}]")
+        rows, wall_us = device_breakdown(eval_grads, reps=2)
+        busy = sum(t for _, t in rows)
+        top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:6])
+        say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
+            f"(2 gradients, profiled); by kernel: {top}")
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main path: {launches}")
     say(f"total {time.time() - t_start:.1f} s")

@@ -130,10 +130,6 @@ __device__ __forceinline__ void factors(const LowrankGate& gate, int N, int C, i
 
 // =========================== fp32: CUDA cores ===========================
 
-// Row stride, in floats, of an fp32 map read with float4 loads: 16-byte
-// rows, and two rows four apart fall in other banks.
-__host__ __device__ inline int ld4(int x) { return ((x + 7) & ~7) + 4; }
-
 // Floats of the fp32 kernel's shared memory before the gate head's arrays:
 // the V maps A_i (unless `a_ws`: then they sit in the workspace) and the two
 // groups' areas (or the lowrank statistics merge).
@@ -166,69 +162,6 @@ __host__ __device__ inline long long dense_ws_floats(int V, int N, bool a_ws) {
 // Barrier of one group of kThreads threads (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kThreads) : "memory");
-}
-
-// A thread's 4 x 4 tile of a product in its group: rows 4ty + i, columns
-// c0 + 4tx + j (gt = 16 ty + tx). t = X Y over K, X rows x K (row stride
-// ldx) read as float4 along k, Y K x cols (row stride ldy) as float4 along
-// the columns; the k sum runs in order. Rows past `rows` read the last row
-// and columns past `cols` column 0: their sums are never stored.
-__device__ __forceinline__ void mm4(const float* X, int ldx, const float* Y, int ldy, int K,
-                                    int rows, int cols, int c0, int gt, float (&t)[4][4]) {
-  const int ty = gt >> 4, tx = gt & 15;
-  const float* xr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) xr[i] = X + min(4 * ty + i, rows - 1) * ldx;
-  const int cc = c0 + 4 * tx < cols ? c0 + 4 * tx : 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t[i][j] = 0.f;
-  int kk = 0;
-  for (; kk + 4 <= K; kk += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(xr[i] + kk);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = *reinterpret_cast<const float4*>(Y + (kk + q) * ldy + cc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        t[i][0] = fmaf(av[q], b[q].x, t[i][0]);
-        t[i][1] = fmaf(av[q], b[q].y, t[i][1]);
-        t[i][2] = fmaf(av[q], b[q].z, t[i][2]);
-        t[i][3] = fmaf(av[q], b[q].w, t[i][3]);
-      }
-    }
-  }
-  for (; kk < K; ++kk) {
-    const float4 b = *reinterpret_cast<const float4*>(Y + kk * ldy + cc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = xr[i][kk];
-      t[i][0] = fmaf(a, b.x, t[i][0]);
-      t[i][1] = fmaf(a, b.y, t[i][1]);
-      t[i][2] = fmaf(a, b.z, t[i][2]);
-      t[i][3] = fmaf(a, b.w, t[i][3]);
-    }
-  }
-}
-
-// D[r][c] = t for the tile's rows < rows and columns c0 + 4tx + j < cols.
-__device__ __forceinline__ void put4(float* D, int ld, int rows, int cols, int c0, int gt,
-                                     const float (&t)[4][4]) {
-  const int ty = gt >> 4, tx = gt & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * tx + j;
-      if (r < rows && c < cols) D[r * ld + c] = t[i][j];
-    }
-  }
 }
 
 // The row and column means of an N x N register tile (x[i][j] at row

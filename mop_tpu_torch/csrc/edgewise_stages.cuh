@@ -360,9 +360,6 @@ __device__ inline DenseGate load_dense_gate(const Weights& w, int C, float* dst)
   return g;
 }
 
-// Floats rounded up to a multiple of four (16-byte alignment).
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-
 // Floats of the dense head's shared-memory copy.
 __host__ __device__ inline int dense_gate_floats(int C) { return C * kHidden + kHidden + kHidden * 4 + 4; }
 

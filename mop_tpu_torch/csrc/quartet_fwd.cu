@@ -64,10 +64,6 @@ struct Strides {
   long long s[18];
 };
 
-// Row stride, in floats, of a staged fp32 operand read as float4 along dk:
-// 16-byte rows, eight consecutive rows in distinct 16-byte bank groups.
-__host__ __device__ inline int ldq(int dk) { return ((dk + 7) & ~7) + 4; }
-
 // Row stride, in floats, of a kept score row: every block of 64 keys,
 // float4 aligned, and four rows eight banks apart.
 __host__ __device__ inline int ldr(int N) { return ((N + kTile - 1) / kTile) * kTile + 8; }
@@ -82,7 +78,7 @@ __host__ __device__ inline int rows_qb(int dtype) { return dtype == 1 ? kQBh : k
 __host__ __device__ inline long long rows_bytes(int dtype, int N, int dk) {
   const int qb = rows_qb(dtype);
   const long long ops = dtype == 1 ? (2LL * qb + 4LL * kKT) * 2 * mma_ld(dk)
-                                   : (2LL * qb + 2LL * kTile) * 4 * ldq(dk);
+                                   : (2LL * qb + 2LL * kTile) * 4 * ld4(dk);
   return ops + 4LL * 2 * qb * ldr(N);
 }
 
@@ -181,11 +177,6 @@ struct RowsBlock {
   }
 };
 
-// Barrier of one group of half the block's threads (ids 1 and 2).
-__device__ __forceinline__ void named_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kThreads / 2) : "memory");
-}
-
 // fp32: CUDA cores, 64 query rows, 256 threads. Each map has its own
 // thread group: warps 0-3 compute S1, warps 4-7 S2, each group staging its
 // own q rows and key blocks of 64 keys (one block at a time) and meeting at
@@ -203,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1) quartet_rows_f32_kernel(
     float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
   const long long* st = strides.s;
-  const int ld = ldq(dk), lr = ldr(N);
+  const int ld = ld4(dk), lr = ldr(N);
   const int tsz = kTile * ld;  // floats of one staged key block
   float* Q1 = smem;
   float* Q2 = Q1 + kQBf * ld;

@@ -390,8 +390,8 @@ def _edgewise_bwd_plain(fwd_plain, lead: int, qs, ks, vs, weights, beta_not, cha
 
 
 def _pad8_plus4(x: int) -> int:
-    """Row stride, in floats, of an fp32 K2 map read with float4 loads:
-    ``ld4`` of ``csrc/edgewise_lowrank_fwd.cu``."""
+    """Row stride, in floats, of an fp32 operand read with float4 loads:
+    ``ld4`` of ``csrc/common.cuh``."""
     return ((x + 7) & ~7) + 4
 
 
@@ -896,6 +896,24 @@ def multihop_fits(n: int, dk: int, hops: int) -> bool:
     return n <= MULTIHOP_MAX_N and dk <= MULTIHOP_MAX_DK and hops >= 2
 
 
+def multihop_smem_bytes(dtype: torch.dtype, n: int, dk: int) -> int:
+    """Shared memory one K4 block takes at (N, dk); the kernel's own count,
+    ``mop_multihop_smem_bytes``. fp32 (``F32Layout``): [att | C] (N rows of
+    2 np + 4 floats, np = N rounded up to 4), A1 (N rows of np + 4), A2 (np
+    rows of np + 4) after both groups' q and k where those reach further,
+    then the stacked [v1 ; v2] (2 np rows of ``ld4(dk)``) in a space of its
+    own. bf16: four N x N fp32 maps and two N x dk staging buffers at an odd
+    row stride."""
+    if dtype == torch.bfloat16:
+        return 4 * (4 * n * (n | 1) + 2 * n * (dk | 1))
+    np4, lq = _round4(n), _pad8_plus4(dk)
+    lm, lp = np4 + 4, 2 * np4 + 4
+    att, qk = n * lp, 2 * n * lq  # qk: one group's q and k
+    a2 = max(att + n * lm, qk)
+    v = max(a2 + np4 * lm, max(qk, att) + qk)
+    return 4 * (v + 2 * np4 * lq)
+
+
 def _gate_values(gates: dict):
     """(base, and, or, not, chain) as the JAX kernel reads them: ``.get``
     with its defaults."""
@@ -979,11 +997,11 @@ def _multihop_fwd_cuda(q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w):
     out = torch.empty(b, n, h, dk, dtype=q1.dtype, device=dev).transpose(1, 2)
     strides = (ctypes.c_longlong * 21)(*(s for t in (*ins, out) for s in t.stride()[:3]))
     fn = _fn("multihop_fwd", "mop_multihop_fwd",
-             [_I] + [_P] * 8 + [_I] * 5 + [_P] + [_F] * 7 + [_P])
+             [_I] + [_P] * 8 + [_I] * 5 + [_P] + [_F] * 7 + [_I, _P])
     with torch.cuda.device(dev):
         rc = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in ins), out.data_ptr(),
                 w.data_ptr(), b, h, n, dk, int(hops), strides, *_gate_values(gates),
-                float(beta_not), 1.0 / math.sqrt(dk), _stream(dev))
+                float(beta_not), 1.0 / math.sqrt(dk), copy_width(ins, dk), _stream(dev))
     _raise_on(rc, name)
     fused_multihop_attention.launches += 1
     return out

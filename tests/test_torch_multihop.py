@@ -108,6 +108,72 @@ def test_multihop_kernel_refuses_shapes_outside_its_envelope():
         TF._multihop_fwd_cuda(t, t, t, t, t, torch.zeros(1, 1, 16, 4), {}, 0.5, 3, 0.3)
 
 
+def multihop_fp32_schedule(q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w):
+    """K4's fp32 kernel in its own order: the scores of q * scale, both
+    softmaxes and the mix as ``_multihop_kernel``, the fp32 chain
+    C = A1 A2^(hops-1) (every cast of the JAX kernel is the identity in
+    fp32), its log term, att, and y = [att | w C] [v1 ; v2] as one product
+    over K = 2N, where the JAX kernel runs the transport A1 (A2 (... v2))."""
+    sc = torch.tensor(1.0 / np.sqrt(q1.shape[-1]), dtype=torch.float32)
+    s1 = (q1 * sc) @ k1.transpose(-1, -2)
+    s2 = (q2 * sc) @ k2.transpose(-1, -2)
+    a1, a2 = torch.softmax(s1, -1), torch.softmax(s2, -1)
+    c = a1 @ a2
+    for _ in range(hops - 2):
+        c = c @ a2
+    base, g_and, g_or, g_not, g_chain = TF._gate_values(gates)
+    smix = base * s1
+    smix = smix + g_and * s2
+    smix = smix + g_or * (torch.logaddexp(s1, s2) - s1)
+    smix = smix - g_not * (beta_not * s2)
+    smix = smix + g_chain * torch.log(c + 1e-6)
+    att = torch.softmax(smix, -1)
+    w = torch.as_tensor(chain_w, dtype=torch.float32)
+    return torch.cat([att, w * c], -1) @ torch.cat([v1, v2], -2)
+
+
+@pytest.mark.parametrize("dk", [8, 64, 100])
+@pytest.mark.parametrize("n", [1, 33, 64])
+@pytest.mark.parametrize("hops", [2, 3, 4])
+def test_multihop_fp32_schedule_matches_jax_kernel_and_plain(hops, n, dk):
+    arrays = _inputs((1, 2, n, dk), seed=100 * hops + n + dk)
+    ts = [torch.from_numpy(np.asarray(a)) for a in arrays[:6]]
+    got = multihop_fp32_schedule(*ts, GATES, 0.5, hops, float(arrays[6]))
+    want = _jax_op(arrays, GATES, hops)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+    plain = TF.fused_multihop_attention_plain(*ts, GATES, 0.5, hops, float(arrays[6]))
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,n,dk,smem", [
+    # fp32 (F32Layout, np = round4(N), lq = ld4(dk)): [att | C] N (2 np + 4),
+    # A2 from max(att + A1's N (np + 4), q1 and k1's 2 N lq), the stacked
+    # [v1 ; v2] 2 np lq after max(A2 + np (np + 4), q2 and k2's end).
+    (torch.float32, 64, 64, 104448),   # the main shape: two programs an SM
+    (torch.float32, 33, 100, 88128),   # q and k reach past A2
+    (torch.float32, 64, 128, 202752),  # the envelope's widest
+    # bf16, unchanged: four N x N fp32 maps and two N x dk buffers, rows at
+    # an odd stride.
+    (torch.bfloat16, 64, 64, 99840),
+    (torch.bfloat16, 33, 100, 44088),
+])
+def test_multihop_smem_bytes(dtype, n, dk, smem):
+    """K4's shared memory at (N, dk) (``multihop_smem_bytes``, which
+    chip_smoke.py phase 2 holds to the kernel's own count), counted from the
+    kernel's layout."""
+    assert TF.multihop_smem_bytes(dtype, n, dk) == smem
+
+
+def test_multihop_smem_bytes_envelope():
+    """fp32 K4 fits two programs an SM at the main shape (113 KB a block at
+    most) and every shape of the envelope in a block's 227 KB."""
+    assert TF.multihop_smem_bytes(torch.float32, 64, 64) <= 113 * 1024
+    for n in range(1, TF.MULTIHOP_MAX_N + 1):
+        for dk in range(1, TF.MULTIHOP_MAX_DK + 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert TF.multihop_smem_bytes(dtype, n, dk) <= TF.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("hops", [2, 3])
 def test_multihop_function_grads_match_jax_grad(hops):
     arrays = _inputs((2, 2, 16, 8), seed=20 + hops)
