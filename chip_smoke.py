@@ -29,7 +29,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    dk 8, 100, 128, hops 2 to 4), with the default gates and with chain_w 0;
    4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
    shape, N = 1 and 100, both sides of the kept-rows threshold at dk 80
-   and 128, fp32 and bf16, strided views;
+   and 128, fp32 and bf16, strided views, and GPT-MoP's train shape
+   (64, 6, 256, 64);
 5. K2b ``fused_edgewise_lowrank_attention_bwd`` against its plain backward
    (autograd through the plain forward), all eight grads, fp32 and bf16, at
    the path shape, off shapes (dk > 64 too) and the strided view inputs;
@@ -59,12 +60,26 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    whose loss must fall, images/s of the scanned step (K = 20) with a
    torch.profiler breakdown (E_dense through its composed route too), and
    an eval step after training;
+   8b. the LM train path through ``make_lm_train_step`` (bf16 compute,
+   AdamW 3e-4 / 0.1, 64 sequences of 256 tokens, vocab 8192): the Quartet LM
+   at the comparison config at dropout 0, as ``examples/train_gpt_char.py``
+   and ``tools/bench_lm.py`` train (grad clip 1.0): K5 launches per step (8,
+   and no other kernel), one step's fp32 grads and one bf16 step's loss held
+   against the plain path, 20 steps on one batch whose loss must fall,
+   tokens/s over timed windows with a torch.profiler breakdown; the same
+   model at the comparison config's dropout 0.1 (composed: no launch, a
+   finite loss); GPT-MoP at ``tools/bench_lm.py``'s config (6 layers, 6
+   heads, 384 wide, Quartet attention, no clip): its parameter count, K5
+   launches per step (6), fp32 grads, the falling loss and tokens/s; and the
+   comparison framework's GPT-MoP (Quartet off): no launch; one of the
+   Quartet LM's attention layers, bf16 forward and backward, through K5 with
+   its recompute backward and composed, in turns;
 9. timings: each kernel at its path shape beside its plain version, its
    bound and one library call where there is one, and K2's, K3's, K4's and
    K5's times before their redesign (K1, K2, K2b, K3, K3b, K4 and K5 in
-   bf16 too; K4 also with a device chain_w, as the models pass it, and
-   K1's, sdpa's and K4's fp32 time replayed from a CUDA graph, without the
-   host's launch path); one E_dense attention layer's
+   bf16 too, K5 also at GPT-MoP's shape; K4 also with a device chain_w, as
+   the models pass it, and K1's, sdpa's and K4's fp32 time replayed from a
+   CUDA graph, without the host's launch path); one E_dense attention layer's
    bf16 forward and backward in training through the kernel route (K3, K3b)
    and the composed route, and one D layer's through K4 with its recompute
    backward and the composed route, and which was faster; each ViT's eval
@@ -86,11 +101,12 @@ import time
 
 import torch
 
-from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, TransformerConfig, ViT_Baseline,
-                           ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated, ViTMultiHop,
-                           create_gpt_quartet, make_classifier_eval_step,
-                           make_classifier_train_step, make_scanned_classifier_train_step)
-from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
+from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTComparisonFramework,
+                           TransformerConfig, ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise,
+                           ViTGated, ViTMultiHop, create_gpt_mop, create_gpt_quartet,
+                           make_classifier_eval_step, make_classifier_train_step,
+                           make_lm_train_step, make_scanned_classifier_train_step)
+from mop_tpu_torch.models import CausalSelfAttention, EdgewiseMSA, MultiHopMSA
 from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
@@ -162,6 +178,20 @@ LM_VOCAB, LM_BATCH = 8192, 64
 # mop_tpu's parameter count of create_gpt_quartet at that config
 # (tests/test_torch_quartet.py holds both mop_tpu's and the port's count to it).
 LM_JAX_PARAMS = 51303696
+# Phase 8b, the LM train path: examples/train_gpt_char.py's and
+# tools/bench_lm.py's recipe (AdamW 3e-4, weight decay 0.1, dropout 0), the
+# Quartet LM with the example's grad clip 1.0; GPT-MoP at tools/bench_lm.py's
+# config, whose TransformerConfig keeps Quartet attention on, and
+# mop_tpu's parameter count there (tests/test_torch_gpt_mop.py holds both
+# packages' counts to it).
+LM_LR, LM_WD, LM_CLIP = 3e-4, 0.1, 1.0
+GPT_MOP_CONFIG = dict(n_layer=6, n_head=6, n_embd=384, dropout=0.0, block_size=256)
+GPT_MOP_JAX_PARAMS = 15652230
+# mop_tpu's counts of the comparison framework's three models at vocab 8192
+# (tests/test_torch_gpt_mop.py holds the port's framework to them).
+COMPARISON_JAX_PARAMS = {"baseline": 44750080, "quartet": 51303696, "mop": 44776184}
+LM_STEPS = 20  # steps on one batch whose loss must fall
+LM_WINDOWS, LM_WINDOW_STEPS = 3, 5  # timed windows of train steps, after one warm step
 # The kernels' times before their redesign (K2 before it shared K3's
 # kernels, K3 over the backward's recompute, K5 streaming the keys twice,
 # K4 running the fp32 transport with all threads in turn), which phase 9
@@ -416,31 +446,62 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
-def composed_dense():
-    """Route the dense E head through its composed path, as ``EdgewiseMSA``
-    does where K3 and K3b do not take the shape: the other train route."""
-    saved = F.edgewise_dense_fits
-    F.edgewise_dense_fits = lambda *a: False
+def composed(fits):
+    """Route the modules that ask the predicate ``F.<fits>`` through their
+    composed path, as where the kernels do not take the shape: the other
+    train route (``edgewise_dense_fits``: the dense E head's K3 and K3b;
+    ``quartet_fits``: K5)."""
+    saved = getattr(F, fits)
+    setattr(F, fits, lambda *a: False)
     try:
         yield
     finally:
-        F.edgewise_dense_fits = saved
+        setattr(F, fits, saved)
+
+
+# Kernel classes of a device-time breakdown, by a substring of the name.
+KERNEL_CLASSES = (("K5", ("quartet",)), ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+                  ("elementwise", ("elementwise",)), ("LayerNorm", ("layer_norm",)),
+                  ("reductions and softmax", ("reduce", "softmax")),
+                  ("AdamW", ("multi_tensor",)))
+
+
+def by_class(rows):
+    """Device-time shares of the kernel classes, largest first, as text."""
+    total = sum(t for _, t in rows)
+    shares = {}
+    for name, t in rows:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name.lower() for k in keys)),
+                   "other")
+        shares[cls] = shares.get(cls, 0.0) + t
+    return ", ".join(f"{c} {100 * t / total:.1f}%"
+                     for c, t in sorted(shares.items(), key=lambda kv: -kv[1]))
+
+
+def timed_windows(run, windows, runs_per_window, items_per_run):
+    """ms per run, items/s over all the time and each window's items/s of
+    ``windows`` timed windows of ``runs_per_window`` calls of ``run``, after
+    a warm one."""
+    run()
+    torch.cuda.synchronize()
+    dts = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(runs_per_window):
+            run()
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    n = windows * runs_per_window
+    return (sum(dts) / n * 1e3, items_per_run * n / sum(dts),
+            [items_per_run * runs_per_window / t for t in dts])
 
 
 def train_windows(scanned, xk, yk, gen):
     """ms per step, images/s and the per-window rates of TRAIN_WINDOWS timed
     scanned calls after a warm one."""
-    scanned(xk, yk, gen)
-    torch.cuda.synchronize()
-    dts = []
-    for _ in range(TRAIN_WINDOWS):
-        t0 = time.perf_counter()
-        scanned(xk, yk, gen)
-        torch.cuda.synchronize()
-        dts.append(time.perf_counter() - t0)
-    n_steps = TRAIN_K * TRAIN_WINDOWS
-    return (sum(dts) / n_steps * 1e3, BATCH * n_steps / sum(dts),
-            [BATCH * TRAIN_K / t for t in dts])
+    ms, rate, per = timed_windows(lambda: scanned(xk, yk, gen), TRAIN_WINDOWS, 1,
+                                  BATCH * TRAIN_K)
+    return ms / TRAIN_K, rate, per
 
 
 def launched(counts):
@@ -459,6 +520,26 @@ def one_step_grads(model, x_u8, y):
                                       compute_dtype=None)
     step(x_u8, y)
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def lm_step_grads(model, idx, tgt):
+    """fp32 grads of one LM train step (fp32 compute), params kept."""
+    make_lm_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                       compute_dtype=None)(idx, tgt)
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def lm_step_loss(model, idx, tgt):
+    """The loss of one bf16 LM train step, params kept."""
+    return make_lm_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))(
+        idx, tgt)["loss"]
+
+
+def worst_rel(got, want):
+    """The worst max-abs error over tensors, each of its reference's largest
+    magnitude."""
+    return max((got[k] - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1e-30)
+               for k in want)
 
 
 def edgewise_inputs(g, bh_shape, nv, n, dk, r, dtype):
@@ -785,6 +866,13 @@ def main() -> int:
             ins = [rn(64, 256, 8, 80, dtype=dtype, gen=gk).transpose(1, 2) for _ in range(5)]
             quartet_case(f"strided views (64, 8, 256, 80), {F.copy_width(ins, 80)}-byte copies",
                          ins, dtype)
+        # GPT-MoP's train shape (phase 8b), views as its attention passes them;
+        # drawn from a generator of its own, so the other phases' inputs stay.
+        gm = cuda_generator(6)
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [rn(64, 256, 6, 64, dtype=dtype, gen=gm).transpose(1, 2) for _ in range(5)]
+            quartet_case(f"GPT-MoP's strided views (64, 6, 256, 64), "
+                         f"{F.copy_width(ins, 64)}-byte copies", ins, dtype)
 
     say("[5 K2b fused_edgewise_lowrank_attention_bwd vs plain backward]")
     grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
@@ -1075,8 +1163,7 @@ def main() -> int:
         got = one_step_grads(model, x_u8, y)
         with plain_kernels():
             want = one_step_grads(model, x_u8, y)
-        worst = max((got[k] - want[k]).abs().max().item()
-                    / max(want[k].abs().max().item(), 1e-30) for k in got)
+        worst = worst_rel(got, want)
         check(worst <= 1e-3 and all(bool(torch.isfinite(t).all()) for t in got.values()),
               f"{name}: one step's fp32 grads (augment off, drop_path 0), kernel path vs "
               f"plain path over {len(got)} tensors: worst max-abs error {worst:.2e} of the "
@@ -1100,7 +1187,7 @@ def main() -> int:
         # The rate is every image over all the time of every timed window;
         # the per-window rates show the spread.
         if name == "E_dense":  # the composed train route first, in the same run
-            with composed_dense():
+            with composed("edgewise_dense_fits"):
                 ms, rate, per = train_windows(scanned, xk, yk, gen)
                 rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
             say(f"  {name} train step through the composed route: {ms:.3f} ms/step, {rate:.0f} "
@@ -1121,6 +1208,121 @@ def main() -> int:
         check(not model.training and first == again and first[1] == BATCH,
               f"{name}: eval after training runs in eval mode, counts {first} twice")
         del model, opt, step, scanned
+
+    say(f"[8b LM train path] make_lm_train_step, {LM_BATCH} x {t_lm} tokens, vocab "
+        f"{LM_VOCAB}, bf16 compute, AdamW {LM_LR} / {LM_WD}")
+    gl8 = cuda_generator(8)
+    lm_idx = torch.randint(0, LM_VOCAB, (LM_BATCH, t_lm), device="cuda", generator=gl8)
+    lm_tgt = torch.randint(0, LM_VOCAB, (LM_BATCH, t_lm), device="cuda", generator=gl8)
+
+    def lm_train(label, model, per_step, grad_clip, seed):
+        """The train path of one LM: fp32 grads and a bf16 loss against the
+        plain path, launches per step, the loss over LM_STEPS steps on one
+        batch, tokens/s over timed windows and a device-time breakdown."""
+        got = lm_step_grads(model, lm_idx, lm_tgt)
+        with plain_kernels():
+            want = lm_step_grads(model, lm_idx, lm_tgt)
+        worst = worst_rel(got, want)
+        check(worst <= 1e-3 and all(bool(torch.isfinite(t).all()) for t in got.values()),
+              f"{label}: one step's fp32 grads, kernel path vs plain path over {len(got)} "
+              f"tensors: worst max-abs error {worst:.2e} of the tensor's largest grad (limit 1e-3)")
+        del got, want
+        loss = lm_step_loss(model, lm_idx, lm_tgt)
+        with plain_kernels():
+            ref = lm_step_loss(model, lm_idx, lm_tgt)
+        # K5 in bf16 rounds like its plain version but for under 1e-2 of its
+        # outputs, by one bf16 step; the mean over 16,384 tokens keeps far less.
+        compare(f"{label}: one bf16 step's loss {loss.item():.6f}, kernel path vs plain path",
+                loss, ref, 0.0, 1e-3)
+        opt = torch.optim.AdamW(model.parameters(), lr=LM_LR, weight_decay=LM_WD)
+        step = make_lm_train_step(model, opt, grad_clip=grad_clip)
+        gen = cuda_generator(seed)
+        first, counts = counted(lambda: step(lm_idx, lm_tgt, gen))
+        check(counts == expected(per_step, "train"),
+              f"{label}: launches per train step {launched(counts)}")
+        losses = [first["loss"].item()] + [step(lm_idx, lm_tgt, gen)["loss"].item()
+                                           for _ in range(LM_STEPS - 1)]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"{label}: loss over {LM_STEPS} steps on one batch {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        ms, rate, per = timed_windows(lambda: step(lm_idx, lm_tgt, gen), LM_WINDOWS,
+                                      LM_WINDOW_STEPS, lm_idx.numel())
+        say(f"  {label} train step, {LM_BATCH} x {t_lm} tokens ({LM_WINDOWS} windows of "
+            f"{LM_WINDOW_STEPS} steps): {ms:.3f} ms/step, {rate:.0f} tokens/s [per window "
+            f"{', '.join(f'{r:.0f}' for r in per)} tokens/s] [{smi}]")
+        rows, wall_us = device_breakdown(lambda: step(lm_idx, lm_tgt, gen), reps=2)
+        busy = sum(t for _, t in rows)
+        top = "; ".join(f"{k[:90]} {100 * t / busy:.1f}%" for k, t in rows[:8])
+        say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
+            f"(2 steps, profiled); by class: {by_class(rows)}; by kernel: {top}")
+
+    lm_cfg = TransformerConfig(**{**LM_CONFIG, "dropout": 0.0})
+    say(f"  LM_quartet: create_gpt_quartet({LM_VOCAB}, {lm_cfg}), grad clip {LM_CLIP}")
+    train_lm = create_gpt_quartet(LM_VOCAB, lm_cfg, generator=torch.Generator().manual_seed(12))
+    lm_train("LM_quartet", train_lm, {K5: lm_cfg.n_layer}, LM_CLIP, 12)
+    del train_lm
+    # One of its attention layers at bf16, forward and backward at the step's
+    # shape, through K5 with its composed recompute backward (the route the
+    # LM trains by at dropout 0) and composed, in turns, four of each.
+    layer = init_params(CausalSelfAttention(lm_cfg), torch.Generator().manual_seed(16)).to(
+        "cuda", torch.bfloat16).train()
+    xl = rn(LM_BATCH, t_lm, lm_cfg.n_embd, dtype=torch.bfloat16, gen=gl8).requires_grad_()
+    dyl = rn(LM_BATCH, t_lm, lm_cfg.n_embd, dtype=torch.bfloat16, gen=gl8)
+    lparams = [xl, *layer.parameters()]
+    route_ms = {"kernel": [], "composed": []}
+    for route in ("kernel", "composed", "composed", "kernel") * 2:
+        with composed("quartet_fits") if route == "composed" else contextlib.nullcontext():
+            F.reset_launch_counts()
+            route_ms[route].append(time_ms(lambda: torch.autograd.grad(layer(xl), lparams, dyl),
+                                           iters=10, reps=3))
+            ran_k5 = F.fused_quartet_attention.launches > 0
+        check(ran_k5 == (route == "kernel"), f"LM attention layer {route} route: K5 launched "
+              f"{ran_k5}")
+    say(f"  LM_quartet CausalSelfAttention layer ({lm_cfg.n_embd}, {lm_cfg.n_head} heads) bf16 "
+        f"forward + backward, {LM_BATCH} x {t_lm} tokens: K5 + recompute route "
+        f"{' / '.join(f'{t:.4f}' for t in route_ms['kernel'])} ms, composed route "
+        f"{' / '.join(f'{t:.4f}' for t in route_ms['composed'])} ms [{smi}]")
+    faster = [r for r, o in (("kernel", "composed"), ("composed", "kernel"))
+              if max(route_ms[r]) < min(route_ms[o])]
+    say(f"    faster in every turn: {faster[0] if faster else 'neither'} route (the LM trains "
+        "through K5 at dropout 0, as the JAX module)")
+    del layer, xl, dyl, lparams
+
+    train_lm = create_gpt_quartet(LM_VOCAB, TransformerConfig(**LM_CONFIG),
+                                  generator=torch.Generator().manual_seed(12))
+    step = make_lm_train_step(train_lm, torch.optim.AdamW(train_lm.parameters(), lr=LM_LR,
+                                                          weight_decay=LM_WD), grad_clip=LM_CLIP)
+    m, counts = counted(lambda: step(lm_idx, lm_tgt, cuda_generator(13)))
+    check(counts == expected({}, "train") and math.isfinite(m["loss"].item()),
+          f"LM_quartet_drop (dropout {LM_CONFIG['dropout']}): one step composes, launches "
+          f"{launched(counts)}, loss {m['loss'].item():.4f}")
+    del train_lm, step
+
+    mop_cfg = TransformerConfig(**GPT_MOP_CONFIG)
+    train_lm = create_gpt_mop(LM_VOCAB, mop_cfg, generator=torch.Generator().manual_seed(14))
+    n_params = sum(p.numel() for p in train_lm.parameters())
+    say(f"  GPT_MoP: create_gpt_mop({LM_VOCAB}, {mop_cfg}) (tools/bench_lm.py), no grad clip")
+    check(n_params == GPT_MOP_JAX_PARAMS,
+          f"GPT_MoP: {n_params} params; mop_tpu's count for the same config "
+          f"{GPT_MOP_JAX_PARAMS}")
+    lm_train("GPT_MoP", train_lm, {K5: mop_cfg.n_layer}, None, 14)
+    del train_lm
+
+    # The comparison framework's GPT-MoP: Quartet off, so no kernel runs.
+    fw = GPTComparisonFramework(ComparisonConfig())
+    fw.build_models(LM_VOCAB)
+    fw.init_params(seed=15)
+    fw_mop = fw.models["mop"]
+    step = make_lm_train_step(fw_mop, torch.optim.AdamW(fw_mop.parameters(), lr=LM_LR,
+                                                        weight_decay=LM_WD))
+    m, counts = counted(lambda: step(lm_idx, lm_tgt, cuda_generator(15)))
+    smoke = fw.test_forward_pass()
+    check(fw.param_counts == COMPARISON_JAX_PARAMS and counts == expected({}, "train")
+          and math.isfinite(m["loss"].item()) and not any("error" in r for r in smoke.values()),
+          f"comparison framework {fw.param_counts}: the GPT-MoP (Quartet off) step composes, "
+          f"launches {launched(counts)}, loss {m['loss'].item():.4f}; test_forward_pass "
+          f"{ {k: r.get('logits_shape', r.get('error')) for k, r in smoke.items()} }")
+    del fw, fw_mop, step, smoke
 
     say(f"[9 timings] on {smi}")
     records = []
@@ -1173,7 +1375,7 @@ def main() -> int:
 
     route_ms = {"kernel": [], "composed": []}
     for route in ("kernel", "composed", "composed", "kernel"):
-        with composed_dense() if route == "composed" else contextlib.nullcontext():
+        with composed("edgewise_dense_fits") if route == "composed" else contextlib.nullcontext():
             route_ms[route].append(time_ms(layer_step, iters=10, reps=3))
     say("  E_dense EdgewiseMSA layer (224, 4 heads, 5 views) bf16 forward + backward, batch "
         f"{BATCH}: kernel route (K3 + K3b) {route_ms['kernel'][0]:.4f} / "
@@ -1334,6 +1536,15 @@ def main() -> int:
                 records.append(k5_record)
             else:
                 k5_record["bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=None)
+        # GPT-MoP's train launches (phase 8b): bf16 at (64, 6, 256, 64).
+        ins = [rn(64, 6, 256, 64, dtype=torch.bfloat16, gen=gk) for _ in range(5)]
+        ms = time_ms(lambda: F.fused_quartet_attention(*ins, 0.3, 1.2), iters=10)
+        plain = time_ms(lambda: F.fused_quartet_attention_plain(*ins, 0.3, 1.2), iters=5, reps=3)
+        bnd, by = bound_ms(*quartet_cost(384, 256, 64, torch.bfloat16), torch.bfloat16)
+        say(f"  K5 (64, 6, 256, 64) torch.bfloat16 (GPT-MoP): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+        k5_record["bf16_gpt_mop"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                          library_ms=None)
         del ins
         x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)

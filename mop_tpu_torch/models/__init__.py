@@ -21,7 +21,10 @@ from .components import (
     ViewsLinear,
     ViTEncoder,
 )
-from .layers import Dropout, Embedding, set_generator
+from .gpt_comparison import ComparisonConfig, GPTComparisonFramework, create_comparison_framework
+from .gpt_mop import (GPT_MoP, FuseExcInh1D, Kernels1D, MoPBlock, ViewsLinear1D, create_gpt_mop,
+                      create_gpt_mop_causal)
+from .layers import Conv1d, Dropout, Embedding, set_generator
 from .quartet_attn_patch import (
     CausalSelfAttention,
     TinyTransformerLM,
@@ -49,6 +52,7 @@ __all__ = [
     "MLP",
     "Block",
     "DropPath",
+    "Conv1d",
     "Dropout",
     "Embedding",
     "set_generator",
@@ -64,4 +68,14 @@ __all__ = [
     "TinyTransformerLM",
     "create_gpt_baseline",
     "create_gpt_quartet",
+    "GPT_MoP",
+    "MoPBlock",
+    "ViewsLinear1D",
+    "Kernels1D",
+    "FuseExcInh1D",
+    "create_gpt_mop",
+    "create_gpt_mop_causal",
+    "ComparisonConfig",
+    "GPTComparisonFramework",
+    "create_comparison_framework",
 ]

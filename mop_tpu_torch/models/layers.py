@@ -21,6 +21,27 @@ Linear = nn.Linear
 Conv = nn.Conv2d
 
 
+class Conv1d(nn.Conv1d):
+    """1D convolution over (B, C, L) with torch's defaults, the JAX ``Conv1d``.
+
+    ``padding`` is an int (both sides) or a ``(left, right)`` pair; an
+    uneven pair (the causal left pad) is applied with ``F.pad`` before an
+    unpadded convolution, since ``nn.Conv1d`` pads both sides alike. Weight
+    and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's kaiming-uniform
+    and bias default), which ``init_params`` redraws from a generator.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding=0, bias: bool = True):
+        left, right = (padding, padding) if isinstance(padding, int) else padding
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=left if left == right else 0, bias=bias)
+        self.pad = None if left == right else (left, right)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return super().forward(x if self.pad is None else F.pad(x, self.pad))
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with torch defaults (eps 1e-5, affine) and fp32 statistics;
     the output takes the input's dtype."""

@@ -178,21 +178,27 @@ class TinyTransformerLM(nn.Module):
         if config.use_abs_pos_emb:
             self.wpe = Embedding(config.block_size, config.n_embd)
         self.drop = Dropout(config.dropout)
-        self.blocks = nn.ModuleList(Block(config) for _ in range(config.n_layer))
+        self.blocks = nn.ModuleList(self._block(config) for _ in range(config.n_layer))
         self.ln_f = LayerNorm(config.n_embd)
         if generator is not None:
             init_params(self, generator)
         self.to(device)
 
-    def forward(self, idx: Tensor, attention_mask: Optional[Tensor] = None,
-                targets: Optional[Tensor] = None):
+    def _block(self, config: TransformerConfig) -> nn.Module:
+        return Block(config)
+
+    def _embed(self, idx: Tensor) -> Tensor:
         t = idx.shape[1]
         if t > self.config.block_size:
             raise ValueError(f"sequence length {t} > block size {self.config.block_size}")
         x = self.wte(idx)
         if self.config.use_abs_pos_emb:
             x = x + self.wpe(torch.arange(t, device=idx.device))[None]
-        x = self.drop(x)
+        return self.drop(x)
+
+    def forward(self, idx: Tensor, attention_mask: Optional[Tensor] = None,
+                targets: Optional[Tensor] = None):
+        x = self._embed(idx)
         for blk in self.blocks:
             x = blk(x, attention_mask=attention_mask)
         logits = self.wte.attend(self.ln_f(x))

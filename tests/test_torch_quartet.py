@@ -406,11 +406,12 @@ def test_quartet_lm_golden():
 
 
 @pytest.mark.parametrize("name,factory", [("quartet", PM.create_gpt_quartet),
-                                          ("base", PM.create_gpt_baseline)])
+                                          ("base", PM.create_gpt_baseline),
+                                          ("mop", PM.create_gpt_mop)])
 def test_gpt_trajectory_matches_torch_reference(name, factory):
     """The reference's lockstep run (eval mode, AdamW + cosine, 30 steps):
     the Quartet LM trains through K5's plain forward and its recompute
-    backward."""
+    backward, and so does GPT-MoP, whose config keeps Quartet attention on."""
     cfg = GPT_CONFIGS["small"]
     data = np.load(os.path.join(GOLDEN, f"trajectory_gpt_{name}.npz"))
     model = factory(cfg["vocab"], PM.TransformerConfig(

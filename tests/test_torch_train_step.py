@@ -78,6 +78,7 @@ def _jax_run(jm, params, tx, xs, ys, **kw):
     ("A", dict(accum_steps=2)),
     ("B", dict(grad_clip=0.5)),
     ("E", dict(label_smoothing=0.1)),
+    ("A", dict(grad_clip=0.0)),  # the JAX step's clip of 0 zeroes the grads
 ])
 def test_train_step_matches_jax(name, opts):
     jctor, pctor = MODELS[name]
@@ -300,9 +301,6 @@ def test_scanned_step_is_k_single_steps(remat):
 def test_scanned_step_options():
     model = _e_model()
     opt = torch.optim.SGD(model.parameters(), 0.1)
-    with pytest.raises(NotImplementedError, match="dots"):
-        P.make_scanned_classifier_train_step(model, opt, MEAN, STD, 2, remat="dots",
-                                             device="cpu")
     with pytest.raises(ValueError, match="remat"):
         P.make_scanned_classifier_train_step(model, opt, MEAN, STD, 2, remat="some",
                                              device="cpu")
@@ -311,3 +309,40 @@ def test_scanned_step_options():
     x, y = _batches(1)
     with pytest.raises(ValueError, match="divisible"):
         step(torch.from_numpy(x[0]), torch.from_numpy(y[0]))
+
+
+@pytest.mark.parametrize("drop_path", [0.0, 0.1])
+def test_remat_dots_matches_no_remat(drop_path):
+    """remat="dots" (the matmul outputs saved, the rest recomputed) gives the
+    loss and fp32 grads of remat="none": one scanned step of a small ViT,
+    with drop-path drawn from the step's generator (the recompute rewinds
+    it) and without."""
+    xs, ys = _batches(1, b=8, seed=7)
+    out = {}
+    for remat in ("none", "dots"):
+        model = P.ViT_MoP(**SMALL, n_views=3, n_kernels=2, drop_path=drop_path, device="cpu",
+                          generator=torch.Generator().manual_seed(2))
+        step = P.make_scanned_classifier_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=0.0), MEAN, STD, unroll_steps=1,
+            augment=False, compute_dtype=None, remat=remat, device="cpu")
+        g = torch.Generator().manual_seed(4) if drop_path else None
+        loss = step(torch.from_numpy(xs), torch.from_numpy(ys), g)["loss"]
+        out[remat] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()})
+    torch.testing.assert_close(out["dots"][0], out["none"][0], rtol=2e-4, atol=2e-5)
+    assert sorted(out["dots"][1]) == sorted(out["none"][1])
+    for k, g in out["none"][1].items():
+        torch.testing.assert_close(out["dots"][1][k], g, rtol=2e-4, atol=2e-5, msg=k)
+
+
+def test_remat_dots_saves_only_the_matmuls():
+    """The policy keeps mm / bmm / addmm outputs and recomputes everything
+    else, as JAX's checkpoint_dots keeps the dot outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from mop_tpu_torch.parallel.train_step import _save_dots
+
+    aten = torch.ops.aten
+    for op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        assert _save_dots(None, op) == CheckpointPolicy.MUST_SAVE
+    for op in (aten.gelu.default, aten.add.Tensor, aten._softmax.default):
+        assert _save_dots(None, op) == CheckpointPolicy.PREFER_RECOMPUTE
