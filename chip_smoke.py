@@ -27,6 +27,7 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    and 2 with every gate on, fp32 and bf16, strided views (hops 3 and 2,
    and at dk 54 with 8-byte copies); fp32 off the main shape (N 1, 33, 40,
    dk 8, 100, 128, hops 2 to 4), with the default gates and with chain_w 0;
+   and at phase 10's D (dk 50, the harness's gates, strided views);
    4d. K5 ``fused_quartet_attention`` against its plain version: the LM's
    shape, N = 1 and 100, both sides of the kept-rows threshold at dk 80
    and 128, fp32 and bf16, strided views, and GPT-MoP's train shape
@@ -71,9 +72,10 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    finite loss); GPT-MoP at ``tools/bench_lm.py``'s config (6 layers, 6
    heads, 384 wide, Quartet attention, no clip): its parameter count, K5
    launches per step (6), fp32 grads, the falling loss and tokens/s; and the
-   comparison framework's GPT-MoP (Quartet off): no launch; one of the
-   Quartet LM's attention layers, bf16 forward and backward, through K5 with
-   its recompute backward and composed, in turns;
+   comparison framework's GPT-MoP (Quartet off): no launch; the whole
+   Quartet LM step through K5 with its recompute backward and composed, by
+   the kernel switch ``config.fused_quartet``, in turns, with each route's
+   peak memory;
 9. timings: each kernel at its path shape beside its plain version, its
    bound and one library call where there is one, and K2's, K3's, K4's and
    K5's times before their redesign (K1, K2, K2b, K3, K3b, K4 and K5 in
@@ -85,7 +87,19 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    backward and the composed route, and which was faster; each ViT's eval
    images/s, the LM's eval forward and the gradient through E's, E_dense's
    and D's eval forward (7b), with a torch.profiler breakdown of their
-   device time.
+   device time;
+10. the CIFAR experiment harness through its entry point,
+   ``mop_tpu_torch.experiments.cifar100_ab5_param_budgets.run``: A, B, C, D
+   and E (lowrank and dense gate heads) matched at the 5M target on the
+   synthetic tiny set, 20 lockstep steps at batch 256 with evals at steps 1,
+   10 and 20; the matched configs and parameter counts held to the JAX
+   matcher's, every loss finite and falling, the four output files with the
+   JAX harness's names and headers, and the launches of K1, K2, K2b, K3,
+   K3b and K4 in that run (the kernels line's ``launches_ab5``); the trained
+   D's logits on a val batch through K4 and with ``fused_multihop`` off; the
+   device's busy share over 10 more lockstep steps of the run's models;
+   10b. the single-model CLI ``cifar100_multihop_gates`` at its default width
+   (256 / 8 / 4) for 10 steps: finite losses and its ``seed,acc`` CSV.
 """
 
 from __future__ import annotations
@@ -95,8 +109,10 @@ import json
 import math
 import re
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -106,7 +122,11 @@ from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTCom
                            ViTGated, ViTMultiHop, create_gpt_mop, create_gpt_quartet,
                            make_classifier_eval_step, make_classifier_train_step,
                            make_lm_train_step, make_scanned_classifier_train_step)
-from mop_tpu_torch.models import CausalSelfAttention, EdgewiseMSA, MultiHopMSA
+from mop_tpu_torch.config import config as kernel_switches
+from mop_tpu_torch.experiments import cifar100_ab5_param_budgets as ab5
+from mop_tpu_torch.experiments import cifar100_multihop_gates
+from mop_tpu_torch.experiments import common as harness
+from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
 from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
@@ -225,6 +245,28 @@ WIDE_LAYERS = {
                                    gate_init="mix5")),
     "E_dense": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="dense")),
     "D": (256, lambda: MultiHopMSA(256, 4, beta_not=0.5, hops=3)),
+}
+
+# Phase 10: the ab5 harness's flags, and the configs and parameter counts the
+# JAX matcher gives at the 5M target (tests/test_param_parity.py for A and B,
+# the port's CPU test tests/test_torch_experiments_params.py for all five).
+AB5_ARGS = ["--synthetic", "--tiny", "--seeds", "0", "--steps", "20", "--eval_every", "10",
+            "--batch", str(BATCH), "--targets", "5000000", "--models", "A", "B", "C", "D",
+            "E", "--ew_variants", "lowrank:neutral", "dense:neutral"]
+AB5_TARGET = 5_000_000
+AB5_MATCH = {"A": ((224, 8, 4), 4_872_000), "B": ((216, 8, 4), 4_534_044),
+             "C": ((200, 8, 4), 4_849_232), "D": ((200, 8, 4), 4_849_208),
+             "E": ((224, 4, 4), 4_870_084)}
+# Kernel launches of one train step and of one eval forward of each run key.
+AB5_LAUNCHES = {
+    "A": ({"flash_attention": 8}, {"flash_attention": 8}),
+    "B": ({"flash_attention": 8}, {"flash_attention": 8}),
+    "C": ({}, {}),
+    "D": ({}, {K4: 8}),  # D trains composed
+    "E_lowrank_neutral": ({"fused_edgewise_lowrank_attention": 4, K2B: 4},
+                          {"fused_edgewise_lowrank_attention": 4}),
+    "E_dense_neutral": ({"fused_edgewise_dense_attention": 4, K3B: 4},
+                        {"fused_edgewise_dense_attention": 4}),
 }
 
 failures = []
@@ -449,8 +491,8 @@ def plain_kernels():
 def composed(fits):
     """Route the modules that ask the predicate ``F.<fits>`` through their
     composed path, as where the kernels do not take the shape: the other
-    train route (``edgewise_dense_fits``: the dense E head's K3 and K3b;
-    ``quartet_fits``: K5)."""
+    train route of the dense E head (``edgewise_dense_fits``: K3 and K3b),
+    which has no kernel switch of its own."""
     saved = getattr(F, fits)
     setattr(F, fits, lambda *a: False)
     try:
@@ -648,6 +690,153 @@ def check_byte_counts():
     check(not bad, f"Python byte counts equal the kernels' own {bad}")
 
 
+@contextlib.contextmanager
+def recorded_lockstep():
+    """Records each ``lockstep_train`` call's runs, history and wall time (the
+    harness calls it through its module)."""
+    calls = []
+    lockstep = harness.lockstep_train
+
+    def recording(runs, *a, **kw):
+        t0 = time.time()
+        hist = lockstep(runs, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append((runs, hist, time.time() - t0))
+        return hist
+
+    harness.lockstep_train = recording
+    try:
+        yield calls
+    finally:
+        harness.lockstep_train = lockstep
+
+
+def harness_phases(smi):
+    """Phases 10 and 10b: the experiment harness through its entry points.
+    Returns the kernel launches of the ab5 run."""
+    say(f"[10 ab5 harness] cifar100_ab5_param_budgets.run({' '.join(AB5_ARGS)})")
+    train_iter, val_batches, test_batches, *_ = harness.get_loaders("cifar100", BATCH, tiny=True,
+                                                           synthetic=True)
+    n_val, n_test = len(list(val_batches())), len(list(test_batches()))
+    steps, n_evals = 20, 3  # evals at steps 1, 10 and 20
+    # Eval forwards a run makes: the lockstep evals and the final one on the
+    # val set, then the test set twice (accuracy, then McNemar's per sample).
+    eval_fwds = (n_evals + 1) * n_val + 2 * n_test
+    want = {f.__name__: 0 for f in F.KERNELS}
+    for per_step, per_fwd in AB5_LAUNCHES.values():
+        for k, n in per_step.items():
+            want[k] += steps * n
+        for k, n in per_fwd.items():
+            want[k] += eval_fwds * n
+    with tempfile.TemporaryDirectory() as out, recorded_lockstep() as calls:
+        args = ab5.build_argparser().parse_args(AB5_ARGS + ["--out", out])
+        harness._ESTIMATE_CACHE.clear()
+        t0 = time.time()
+        ab5.match_configs(args, AB5_TARGET)  # the run below finds it memoized
+        match_s = time.time() - t0
+        F.reset_launch_counts()
+        t0 = time.time()
+        res = ab5.run(args)[AB5_TARGET]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {f.__name__: f.launches for f in F.KERNELS}
+        for key, ((dim, depth, heads), n_params) in AB5_MATCH.items():
+            cfg, p = res["configs"][key]
+            got = (cfg["dim"], cfg["depth"], cfg["heads"])
+            extra = ""
+            if key == "E":
+                got += (cfg["_ew_views"], cfg["_ew_mlp_ratio"], cfg["_ew_use_k3"])
+                extra = " views 5, mlp 4.0, no use_k3"
+            check(got == ((dim, depth, heads) + ((5, 4.0, False) if key == "E" else ()))
+                  and p == n_params,
+                  f"{key}: matched config {got}, {p:,} params; the JAX matcher's "
+                  f"{dim}/{depth}/{heads}{extra}, {n_params:,} params [{smi}]")
+        for key, n_params in res["params"].items():
+            hist = res["hist"][key]
+            losses = hist["loss"]
+            check(hist["steps"] == [1, 10, 20] and all(math.isfinite(v) for v in losses)
+                  and losses[-1] < losses[0],
+                  f"{key}: {n_params:,} params; loss at steps {hist['steps']}: "
+                  f"{', '.join(f'{v:.4f}' for v in losses)}; val acc "
+                  f"{', '.join(f'{a:.3f}' for a in hist['acc'])}; test acc "
+                  f"{res['test_acc'][key]:.4f} [{smi}]")
+        keys = list(res["params"])
+        prefix = os.path.join(out, f"cifar100_ab5_target_{AB5_TARGET}")
+        headers = {".csv": "seed," + ",".join(f"acc_{k}" for k in keys),
+                   "_test.csv": "model,test_acc", "_val_summary.csv": "model,mean_val,std_val"}
+        for suffix, header in headers.items():
+            path = prefix + suffix
+            first = open(path).readline().strip() if os.path.exists(path) else None
+            check(first == header, f"{os.path.basename(path)}: header {first!r}")
+        with open(prefix + "_summary.json") as f:
+            summary = json.load(f)
+        check(sorted(summary["vs_A"]) == sorted(k for k in keys if k != "A")
+              and summary["params"] == res["params"],
+              f"{os.path.basename(prefix)}_summary.json: vs_A for {sorted(summary['vs_A'])}")
+    check(counts == want, f"ab5 run launches {launched(counts)} ({steps} steps, {eval_fwds} "
+          f"eval forwards a run; expected {launched(want)}) [{smi}]")
+    runs, _, loop_s = calls[0]
+    say(f"  ab5 at the {AB5_TARGET:,} target, {len(keys)} models, batch {BATCH}: matcher "
+        f"{match_s:.2f} s (host); run() {wall:.2f} s wall, of it the lockstep loop "
+        f"{loop_s:.2f} s ({steps} steps of all {len(keys)} models and {n_evals} val evals: "
+        f"{1e3 * loop_s / steps:.1f} ms a lockstep step, evals included), the rest (data, "
+        f"models, the final val and test evals, files) {wall - loop_s:.2f} s [{smi}]")
+
+    # D's K4 at the run's shape, end to end: the trained D's logits on one val
+    # batch through K4 and with the kernel switch off (composed).
+    x_u8, y_val, _ = next(iter(val_batches()))
+    d_model = runs["D"].model.eval()
+    with torch.inference_mode():
+        x = cifar_eval_transform(torch.as_tensor(x_u8).cuda(), CIFAR100_MEAN, CIFAR100_STD)
+        F.reset_launch_counts()
+        logits = d_model(x)
+        k4_on = F.fused_multihop_attention.launches
+        kernel_switches.fused_multihop = False
+        try:
+            ref = d_model(x)
+        finally:
+            kernel_switches.fused_multihop = True
+        k4_off = F.fused_multihop_attention.launches - k4_on
+    check(k4_on == 8 and k4_off == 0, f"ab5's D on a val batch: K4 launches {k4_on} with "
+          f"fused_multihop on, {k4_off} with it off")
+    compare(f"ab5's D after training: logits of {len(y_val)} val images through K4 vs "
+            f"fused_multihop off", logits, ref, 2e-5, 2e-4)
+
+    # The device's busy share in the lockstep loop: 10 more lockstep steps of
+    # the run's models (evals at steps 1 and 10) under torch.profiler.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        harness.lockstep_train(runs, train_iter(0), val_batches, 10, 10, log=lambda *_: None)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    say(f"  ab5 lockstep loop, 10 steps under torch.profiler: {loop_s:.2f} s wall, device busy "
+        f"{100 * busy_s / loop_s:.1f}% [{smi}]")
+    del runs, d_model
+
+    say("[10b single-model CLI] cifar100_multihop_gates at its default width, 10 steps")
+    with tempfile.TemporaryDirectory() as out, recorded_lockstep() as calls:
+        F.reset_launch_counts()
+        t0 = time.time()
+        accs = cifar100_multihop_gates.main(["--synthetic", "--tiny", "--seeds", "0",
+                                             "--steps", "10", "--eval_every", "5",
+                                             "--out", out])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        cli_counts = {f.__name__: f.launches for f in F.KERNELS}
+        with open(os.path.join(out, "cifar100_multihop_gates.csv")) as f:
+            lines = f.read().split()
+    hist = calls[0][1]["m"]
+    check(len(accs) == 1 and lines == ["seed,acc", f"0,{accs[0]:.4f}"]
+          and all(math.isfinite(v) for v in hist["loss"]),
+          f"cifar100_multihop_gates: loss at steps {hist['steps']}: "
+          f"{', '.join(f'{v:.4f}' for v in hist['loss'])}; csv {lines}; launches "
+          f"{launched(cli_counts)}; {wall:.2f} s wall, lockstep loop {calls[0][2]:.2f} s "
+          f"[{smi}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
@@ -834,6 +1023,18 @@ def main() -> int:
                 f"{F.copy_width(ins, 54)}-byte copies",
                 F.fused_multihop_attention(*ins, MULTIHOP_GATES, 0.5, 3, 0.4),
                 F.fused_multihop_attention_plain(*ins, MULTIHOP_GATES, 0.5, 3, 0.4), 2e-5, 2e-4)
+        # Phase 10's D as the harness matches it at the 5M target (200 wide:
+        # dk 50), with the harness's gates and the module's chain weight
+        # sigmoid(-2) on the card, on the strided views of its two qkv outputs.
+        mh = ab5.mh_extra(ab5.build_argparser().parse_args([]))
+        w = torch.sigmoid(torch.tensor(-2.0, device="cuda"))
+        ins = [t for _ in range(2) for t in rn(256, 64, 3, 4, 50, gen=gm).permute(2, 0, 3, 1, 4)]
+        errs[K4] = max(errs[K4], compare(
+            f"ab5's D: strided qkv views (256, 4, 64, 50) hops {mh['hops']} float32, gates "
+            f"{mh['gates']}, {F.copy_width(ins, 50)}-byte copies",
+            F.fused_multihop_attention(*ins, mh["gates"], mh["beta_not"], mh["hops"], w),
+            F.fused_multihop_attention_plain(*ins, mh["gates"], mh["beta_not"], mh["hops"], w),
+            2e-5, 2e-4))
 
         say("[4d K5 fused_quartet_attention vs plain] m 0.3, qscale 1.2")
 
@@ -1261,32 +1462,35 @@ def main() -> int:
     train_lm = create_gpt_quartet(LM_VOCAB, lm_cfg, generator=torch.Generator().manual_seed(12))
     lm_train("LM_quartet", train_lm, {K5: lm_cfg.n_layer}, LM_CLIP, 12)
     del train_lm
-    # One of its attention layers at bf16, forward and backward at the step's
-    # shape, through K5 with its composed recompute backward (the route the
-    # LM trains by at dropout 0) and composed, in turns, four of each.
-    layer = init_params(CausalSelfAttention(lm_cfg), torch.Generator().manual_seed(16)).to(
-        "cuda", torch.bfloat16).train()
-    xl = rn(LM_BATCH, t_lm, lm_cfg.n_embd, dtype=torch.bfloat16, gen=gl8).requires_grad_()
-    dyl = rn(LM_BATCH, t_lm, lm_cfg.n_embd, dtype=torch.bfloat16, gen=gl8)
-    lparams = [xl, *layer.parameters()]
-    route_ms = {"kernel": [], "composed": []}
-    for route in ("kernel", "composed", "composed", "kernel") * 2:
-        with composed("quartet_fits") if route == "composed" else contextlib.nullcontext():
+    # The whole LM_quartet train step both ways through the kernel switch
+    # (config.fused_quartet): K5 with its recompute backward (the default, the
+    # JAX module's route) and composed, in turns, with each route's peak memory.
+    train_lm = create_gpt_quartet(LM_VOCAB, lm_cfg, generator=torch.Generator().manual_seed(12))
+    step = make_lm_train_step(train_lm, torch.optim.AdamW(train_lm.parameters(), lr=LM_LR,
+                                                          weight_decay=LM_WD), grad_clip=LM_CLIP)
+    gen = cuda_generator(12)
+    step_ms, peak_gb = {"kernel": [], "composed": []}, {"kernel": 0.0, "composed": 0.0}
+    for route in ("kernel", "composed", "composed", "kernel"):
+        kernel_switches.fused_quartet = route == "kernel"
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             F.reset_launch_counts()
-            route_ms[route].append(time_ms(lambda: torch.autograd.grad(layer(xl), lparams, dyl),
-                                           iters=10, reps=3))
+            ms, _, _ = timed_windows(lambda: step(lm_idx, lm_tgt, gen), 1, LM_WINDOW_STEPS,
+                                     lm_idx.numel())
             ran_k5 = F.fused_quartet_attention.launches > 0
-        check(ran_k5 == (route == "kernel"), f"LM attention layer {route} route: K5 launched "
-              f"{ran_k5}")
-    say(f"  LM_quartet CausalSelfAttention layer ({lm_cfg.n_embd}, {lm_cfg.n_head} heads) bf16 "
-        f"forward + backward, {LM_BATCH} x {t_lm} tokens: K5 + recompute route "
-        f"{' / '.join(f'{t:.4f}' for t in route_ms['kernel'])} ms, composed route "
-        f"{' / '.join(f'{t:.4f}' for t in route_ms['composed'])} ms [{smi}]")
-    faster = [r for r, o in (("kernel", "composed"), ("composed", "kernel"))
-              if max(route_ms[r]) < min(route_ms[o])]
-    say(f"    faster in every turn: {faster[0] if faster else 'neither'} route (the LM trains "
-        "through K5 at dropout 0, as the JAX module)")
-    del layer, xl, dyl, lparams
+        finally:
+            kernel_switches.fused_quartet = True
+        step_ms[route].append(ms)
+        peak_gb[route] = max(peak_gb[route], torch.cuda.max_memory_allocated() / 2**30)
+        check(ran_k5 == (route == "kernel"), f"LM_quartet step, fused_quartet "
+              f"{route == 'kernel'}: K5 launched {ran_k5}")
+    say(f"  LM_quartet train step by the kernel switch, {LM_BATCH} x {t_lm} tokens, "
+        f"{LM_WINDOW_STEPS} steps a turn: K5 route {' / '.join(f'{t:.3f}' for t in step_ms['kernel'])}"
+        f" ms/step, peak {peak_gb['kernel']:.2f} GiB; composed (fused_quartet off) "
+        f"{' / '.join(f'{t:.3f}' for t in step_ms['composed'])} ms/step, peak "
+        f"{peak_gb['composed']:.2f} GiB [{smi}]")
+    del train_lm, step
 
     train_lm = create_gpt_quartet(LM_VOCAB, TransformerConfig(**LM_CONFIG),
                                   generator=torch.Generator().manual_seed(12))
@@ -1586,6 +1790,11 @@ def main() -> int:
             f"(2 gradients, profiled); by kernel: {top}")
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main path: {launches}")
+    # The ab5 run's totals (20 steps and its eval forwards) in a field of
+    # their own: ``launches`` stays per train step and per forward.
+    ab5_counts = harness_phases(smi)
+    for rec in records:
+        rec["launches_ab5"] = ab5_counts[rec["name"]]
     say(f"total {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))

@@ -15,7 +15,19 @@ Quartet and baseline causal LM (``TinyTransformerLM``, ``create_gpt_quartet``,
 ``create_gpt_baseline``), GPT-MoP (``GPT_MoP``, ``create_gpt_mop``,
 ``create_gpt_mop_causal``), the comparison framework
 (``GPTComparisonFramework``) and ``make_lm_train_step``, with the character-LM
-CLI ``python -m mop_tpu_torch.cli.train_gpt_char``.
+CLI ``python -m mop_tpu_torch.cli.train_gpt_char``; the CIFAR experiment
+harness (``experiments/``: data, parameter matching, lockstep training,
+checkpoints and preemption, statistics, output files) with its CLIs:
+
+- ``python -m mop_tpu_torch.experiments.cifar100_ab5_param_budgets``: A/B/C/D/E
+  at matched parameter budgets, trained in lockstep on the same batches;
+- ``python -m mop_tpu_torch.experiments.cifar{10,100}_{crossview_mixer,
+  edgewise_gates,multihop_gates,twohop_gates}``: one model per seed.
+
+They run on the GPU unless given ``--device cpu``. The kernel switches
+(``config.py``: ``fused_attention``, ``fused_multihop``, ``fused_quartet``,
+``fused_edgewise_train``, by the JAX package's environment variables) send a
+module to its composed path.
 """
 
 from .models import (GPT_MoP, ComparisonConfig, CrossViewMixerMSA, DualPathMSA, EdgewiseMSA,

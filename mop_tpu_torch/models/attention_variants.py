@@ -25,8 +25,12 @@ lowrank head runs the fused K2 (K2b backward) and the dense head without
 ``ops.fused`` says their kernels take the shape; every other case
 (``use_k3``, any lens bank, N above 64) runs the composed path of plain
 ops, which is what the JAX package computes for it. ``MultiHopMSA`` (and
-``DualPathMSA``) likewise runs K4 only where ``multihop_fits``. Its attention dropout is not ported and raises; C and D
-draw theirs from the explicit generator of ``Dropout``.
+``DualPathMSA``) likewise runs K4 only where ``multihop_fits``. The
+kernel switches of ``config.py`` (``fused_attention``,
+``fused_edgewise_train``, ``fused_multihop``) send each to its composed path
+when off, as the JAX flags do. ``EdgewiseMSA``'s attention dropout is not
+ported and raises; C and D draw theirs from the explicit generator of
+``Dropout``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import config as kernel_switches
 from ..ops import attention as A
 from ..ops import fused as ops_fused
 from .components import MSA
@@ -296,7 +301,9 @@ class EdgewiseMSA(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         qs, ks, vs = self._views(x)
         _, _, nv, n, dk = qs.shape
-        fused = not self.use_lens_bank and not self.use_lens_bank_qk
+        # The kernel switches as the JAX module reads them (``config.py``).
+        fused = (kernel_switches.fused_attention and not self.use_lens_bank and not self.use_lens_bank_qk
+                 and (not self.training or kernel_switches.fused_edgewise_train))
         w = torch.sigmoid(self.chain_value_logit)
         if (fused and self.gate_mode == "lowrank" and ops_fused.edgewise_lowrank_fits(
                 qs.dtype, nv, n, dk, self.edge_head.gate_rank)):
@@ -438,7 +445,8 @@ class MultiHopMSA(nn.Module):
         q2, k2, v2 = _qkv(x, h, self.qkv2)
         w = torch.sigmoid(self.chain_value_logit)
         n, dk = q1.shape[-2:]
-        if attn_mask is None and not self.training and ops_fused.multihop_fits(n, dk, self.hops):
+        if (kernel_switches.fused_multihop and attn_mask is None and not self.training
+                and ops_fused.multihop_fits(n, dk, self.hops)):
             y = ops_fused.fused_multihop_attention(
                 q1, k1, v1, q2, k2, v2, gates=self._kernel_gates(),
                 beta_not=self.beta_not, hops=self.hops, chain_w=w)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import config as kernel_switches
 from ..ops import attention as A
 from ..ops import fused as ops_fused
 from .layers import Conv, Dropout, LayerNorm, Linear, RandomDrop, gelu_tanh
@@ -70,7 +71,7 @@ class MSA(nn.Module):
         b, n, d = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, d // self.heads).permute(
             2, 0, 3, 1, 4)
-        if ops_fused.flash_fits(d // self.heads):
+        if kernel_switches.fused_attention and ops_fused.flash_fits(d // self.heads):
             y = ops_fused.flash_attention(q, k, v, causal=False)
         else:
             a = torch.softmax(A.scaled_scores(q, k), -1)

@@ -8,8 +8,8 @@ learned mix ``(1 - m) qk_norm + m (qk_norm * q2k2_norm) scale`` with
 ``m = sigmoid(mixture)`` (gate init -5). Without a mask, weights to return
 or ``causal_std``, outside dropout-on training and where K5 takes the head
 width (``ops.fused.quartet_fits``), it runs the fused K5
-(``ops.fused.fused_quartet_attention``); otherwise the composed path, as the
-JAX module chooses. Parameter names follow the torch reference (``wte``,
+(``ops.fused.fused_quartet_attention``) unless ``config.fused_quartet`` is
+off; otherwise the composed path, as the JAX module chooses. Parameter names follow the torch reference (``wte``,
 ``wpe``, ``blocks.i.attn.q_proj``, ``mixture``, ...); the tied head has no
 parameter of its own (``wte.attend``).
 """
@@ -22,6 +22,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..config import config as kernel_switches
 from ..ops import attention as A
 from ..ops import fused as ops_fused
 from ..utils.device import resolve_device
@@ -108,7 +109,8 @@ class CausalSelfAttention(nn.Module):
         if cfg.use_quartet:
             q2, k2 = split(self.q2_proj(x)), split(self.k2_proj(x))
             m = torch.sigmoid(self.mixture)
-            if (attention_mask is None and (not self.training or cfg.dropout == 0.0)
+            if (kernel_switches.fused_quartet and attention_mask is None
+                    and (not self.training or cfg.dropout == 0.0)
                     and not need_weights and not cfg.causal_std
                     and ops_fused.quartet_fits(c // h)):
                 y = ops_fused.fused_quartet_attention(q, k, v, q2, k2, m[0], self.quartet_scale[0],

@@ -3,10 +3,8 @@ the JAX layer through ``load_jax_params``' 3-D rule; ``GPT_MoP`` (from
 ``create_gpt_mop``, with and without Quartet attention, and
 ``create_gpt_mop_causal``) against the JAX model with transplanted weights:
 logits, loss, grads and ``get_gate_maps``; the ``gpt_mop`` golden;
-causality of the causal variant; exact parameter counts and the comparison
-framework's counts, component breakdown, matching analysis and model info
-against ``mop_tpu``'s at a small config and at the reference comparison
-config."""
+causality of the causal variant; exact parameter counts. The comparison
+framework's tests are in ``test_torch_gpt_comparison.py``."""
 
 import os
 
@@ -19,8 +17,6 @@ from torch import nn
 
 import mop_tpu.models as J
 import mop_tpu_torch.models as PM
-from mop_tpu.models.gpt_comparison import ComparisonConfig as JaxComparisonConfig
-from mop_tpu.models.gpt_comparison import GPTComparisonFramework as JaxFramework
 from mop_tpu.models.layers import Conv1d as JaxConv1d
 from mop_tpu.utils.torch_port import load_golden
 from mop_tpu_torch.models.layers import init_params
@@ -221,65 +217,3 @@ def test_bench_lm_config_param_count_matches_jax():
     want = _jax_count(J.create_gpt_mop(BENCH_LM_VOCAB, J.TransformerConfig(**BENCH_LM)))
     assert want == BENCH_LM_PARAMS
     assert _meta_count(PM.create_gpt_mop, BENCH_LM_VOCAB, BENCH_LM) == want
-
-
-def _configs(small):
-    if small:
-        kw = dict(n_layer=2, n_head=2, n_embd=32, block_size=16, n_views=3, n_kernels=2)
-        return JaxComparisonConfig(**kw), PM.ComparisonConfig(**kw), VOCAB
-    return JaxComparisonConfig(), PM.ComparisonConfig(), 8192
-
-
-@pytest.mark.parametrize("small", [True, False], ids=["small", "comparison"])
-def test_comparison_framework_counts_match_jax(small):
-    """param_counts, the component breakdown (the reference's substring
-    rules: the gate convs count under no component), the matching analysis
-    and the model info equal the JAX framework's."""
-    jcfg, pcfg, vocab = _configs(small)
-    jf = JaxFramework(jcfg)
-    jf.build_models(vocab)
-    pf = PM.create_comparison_framework(pcfg, device="cpu")
-    models = pf.build_models(vocab)
-    assert all(p.is_meta for m in models.values() for p in m.parameters())
-    assert pf.param_counts == jf.param_counts
-    summary, want = pf.get_param_summary(), jf.get_param_summary()
-    for name in want:
-        assert summary[name] == want[name], name
-    assert pf.parameter_matching_analysis() == jf.parameter_matching_analysis()
-    assert pf.get_model_info() == jf.get_model_info()
-    if not small:
-        assert pf.param_counts == {"baseline": 44750080, "quartet": 51303696, "mop": 44776184}
-        assert summary["mop"]["components"] == {
-            "embeddings": 5406720, "attention": 13107200, "mlp": 26214400,
-            "layer_norm": 21760, "lm_head": 0, "mop_components": 25600}
-
-
-def test_comparison_framework_forward_pass_and_summary(capsys):
-    jcfg, pcfg, vocab = _configs(small=True)
-    pf = PM.create_comparison_framework(pcfg, device="cpu")
-    pf.build_models(vocab)
-    params = pf.init_params(seed=3)
-    assert set(params) == {"baseline", "quartet", "mop"}
-    assert all(p.device.type == "cpu" for ps in params.values() for p in ps.values())
-    res = pf.test_forward_pass(batch_size=2, seq_len=8, vocab_size=vocab)
-    jf = JaxFramework(jcfg)
-    jf.build_models(vocab)
-    want = jf.test_forward_pass(batch_size=2, seq_len=8, vocab_size=vocab)
-    for name, w in want.items():
-        assert "error" not in res[name], res[name]
-        assert res[name]["logits_shape"] == w["logits_shape"] == (2, 8, vocab)
-        assert np.isfinite(res[name]["loss_value"])
-        assert res[name].get("mop_maps") == w.get("mop_maps")
-    assert res["mop"]["mop_maps"]["views_shape"] == (2, 2, 3, 8)
-    # A token beyond the vocabulary is reported for each model, not raised.
-    bad = pf.test_forward_pass(batch_size=1, seq_len=4, vocab_size=10 * vocab)
-    assert all("error" in r for r in bad.values())
-    pf.print_comparison_summary()
-    out = capsys.readouterr().out
-    assert "PARAMETER MATCHING" in out and "quartet" in out
-
-
-def test_comparison_framework_defaults_to_the_gpu(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        PM.GPTComparisonFramework(PM.ComparisonConfig())

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``mop_tpu_torch`` and not ``chip_smoke.py``
-imports JAX, flax, optax or the JAX package (checked on the source, since the
-test process has JAX loaded anyway)."""
+imports JAX, flax, optax, the JAX package or its experiment scripts
+(checked on the source, since the test process has JAX loaded anyway)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mop_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mop_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mop_tpu", "experiments"}
 
 
 def _imported_modules(path: Path):
@@ -33,7 +33,11 @@ def _imported_modules(path: Path):
 def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"mop_tpu_torch/__init__.py", "mop_tpu_torch/ops/fused.py",
-            "mop_tpu_torch/models/quartet_attn_patch.py", "chip_smoke.py"} <= names
+            "mop_tpu_torch/models/quartet_attn_patch.py", "chip_smoke.py",
+            "mop_tpu_torch/config.py", "mop_tpu_torch/data/cifar.py",
+            "mop_tpu_torch/data/native_loader.py", "mop_tpu_torch/training/utils.py",
+            "mop_tpu_torch/training/preemption.py", "mop_tpu_torch/experiments/common.py",
+            "mop_tpu_torch/experiments/cifar100_ab5_param_budgets.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -360,10 +360,11 @@ def test_unified_msa_refuses_unknown_modes_and_masks_on_e():
     ("crossview_msa", lambda: PM.CrossViewMixerMSA(
         dim=32, heads=4, use_transpose_cues=True, t1=0.1, t2=0.2, enable_per_key_prior=True,
         prior_weight=0.5, anchor_mode="fixed", fixed_k_star=3)),
+    ("baseline_msa", lambda: PM.BaselineMSA(dim=32, heads=4)),
 ])
 def test_msa_reference_golden(name, ctor):
     """The torch reference's state dict loads by name and reproduces its
-    eval output (K4 for D and the two-hop MSA)."""
+    eval output (K4 for D and the two-hop MSA, K1 for the baseline MSA)."""
     ins, ws, outs = load_golden(os.path.join(GOLDEN, f"{name}.npz"))
     model = ctor().eval()
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in ws.items()},
