@@ -16,7 +16,11 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    keeps its score rows) to the libraries' own;
 3. K1 ``flash_attention`` against its plain PyTorch version on the card:
    fp32 and bf16 at the path shape, at B's strided dk-54 views, causal,
-   ragged and long (N 1500, several key blocks) cases;
+   ragged and long (N 1500, several key blocks) cases, and at Whisper's
+   three attention sites (phase 11): the 20M config's encoder (8, 6, 750,
+   64), causal decoder (8, 6, 112, 64) and cross-attention (112 queries
+   against 750 keys), and the reference width's 1500, 448-causal and 448 x
+   1500 shapes;
 4. K2 ``fused_edgewise_lowrank_attention`` against its plain version: fp32
    and bf16 at the path shape, off shapes (two and eight views, N < 64,
    dk > 64) and strided views;
@@ -38,7 +42,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    5b. K3b ``fused_edgewise_dense_attention_bwd`` likewise, both dtypes at
    the off shapes and the strided views;
 6. K1's autograd (kernel forward, recompute backward) against autograd
-   through the plain version; 6b. K4's and K5's (kernel forward, recompute
+   through the plain version, at the ViT path's shape and Whisper's 20M
+   encoder shape; 6b. K4's and K5's (kernel forward, recompute
    backward) against autograd through their composed references;
 7. the eval path: CIFAR-100 eval steps of the full-width 5M-parameter A, B,
    E (lowrank gates) and E_dense (the dense gate head) configurations, B at
@@ -79,7 +84,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
 9. timings: each kernel at its path shape beside its plain version, its
    bound and one library call where there is one, and K2's, K3's, K4's and
    K5's times before their redesign (K1, K2, K2b, K3, K3b, K4 and K5 in
-   bf16 too, K5 also at GPT-MoP's shape; K4 also with a device chain_w, as
+   bf16 too, K5 also at GPT-MoP's shape, K1 also at Whisper's encoder and
+   cross-attention shapes beside sdpa; K4 also with a device chain_w, as
    the models pass it, and K1's, sdpa's and K4's fp32 time replayed from a
    CUDA graph, without the host's launch path); one E_dense attention layer's
    bf16 forward and backward in training through the kernel route (K3, K3b)
@@ -99,7 +105,27 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    D's logits on a val batch through K4 and with ``fused_multihop`` off; the
    device's busy share over 10 more lockstep steps of the run's models;
    10b. the single-model CLI ``cifar100_multihop_gates`` at its default width
-   (256 / 8 / 4) for 10 steps: finite losses and its ``seed,acc`` CSV.
+   (256 / 8 / 4) for 10 steps: finite losses and its ``seed,acc`` CSV;
+11. Whisper-MoP, ``tools/bench_lm.py``'s 20M config (384 wide, 6 heads, 4 + 4
+   layers, 750 frames, 112 tokens, vocab 8192, batch 8) and the reference
+   width (``WhisperConfig``'s defaults, batch 4): parameter counts against
+   mop_tpu's; an fp32 eval forward with targets at both widths, K1 launches
+   (12 and 36) and the logits, loss and gates against the plain path; the
+   20M train step by ``tools/bench_lm.py``'s recipe (bf16 compute, fp32
+   grads, AdamW 3e-4 / 0.1): 12 K1 launches and no other kernel, one step's
+   fp32 grads and a bf16 loss and logits against the plain path, 20 steps on
+   one batch whose loss must fall, audio frames/s over three timed windows
+   with a torch.profiler breakdown, the busy share and the peak memory, one
+   layer's MoP2D gate forward + backward in both dtypes; two bf16 train steps
+   at the reference width; greedy transcription at the reference width by a
+   fresh model with its kernels scaled (4 clips, 32 varied tokens): the full
+   window's 24 K1 launches a step, each cached step's logits teacher-forced
+   on the full window's tokens, the cached route's tokens against the full
+   window's with fp32 and bf16 KV, int8 KV; the full-window vs cached
+   crossover at
+   ``tools/bench_whisper_dispatch.py``'s config; the demo CLI for 10 steps.
+   K1's ``launches`` in the kernels line add one 20M train step's and one
+   reference-width forward's.
 """
 
 from __future__ import annotations
@@ -115,18 +141,24 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTComparisonFramework,
                            TransformerConfig, ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise,
-                           ViTGated, ViTMultiHop, create_gpt_mop, create_gpt_quartet,
+                           ViTGated, ViTMultiHop, WhisperConfig, cast_floats, create_gpt_mop,
+                           create_gpt_quartet, create_whisper_baseline, create_whisper_mop,
                            make_classifier_eval_step, make_classifier_train_step,
-                           make_lm_train_step, make_scanned_classifier_train_step)
+                           make_lm_train_step, make_scanned_classifier_train_step,
+                           whisper_transcribe, whisper_transcribe_auto,
+                           whisper_transcribe_cached)
+from mop_tpu_torch.cli import whisper_demo
 from mop_tpu_torch.config import config as kernel_switches
 from mop_tpu_torch.experiments import cifar100_ab5_param_budgets as ab5
 from mop_tpu_torch.experiments import cifar100_multihop_gates
 from mop_tpu_torch.experiments import common as harness
 from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
+from mop_tpu_torch.models.generate import whisper_decode_prep, whisper_decode_token
 from mop_tpu_torch.models.layers import init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import fused as F
@@ -269,7 +301,52 @@ AB5_LAUNCHES = {
                         {"fused_edgewise_dense_attention": 4}),
 }
 
+# Phase 11, Whisper: tools/bench_lm.py's WHISPER (the README's "Whisper-MoP
+# 20M" row, batch 8) and the reference width (WhisperConfig's defaults: 1024
+# wide, 16 heads, 12 + 12 layers, 1500 frames, 448 tokens, vocab 51,865),
+# with mop_tpu's eval_shape counts, baseline and MoP alike
+# (tests/test_torch_whisper_comparison.py holds both packages' counts to them).
+WHISPER_20M = dict(n_mels=80, n_audio_ctx=750, vocab_size=8192, n_text_ctx=112, n_embd=384,
+                   n_head=6, n_layer_enc=4, n_layer_dec=4, dropout=0.0)
+WHISPER_REF = {}
+WHISPER_JAX_PARAMS = {"20M": 20041016, "reference": 407639720}
+WHISPER_BATCH = {"20M": 8, "reference": 4}
+WHISPER_LR, WHISPER_WD = 3e-4, 0.1  # tools/bench_lm.py's AdamW
+WHISPER_STEPS = 20  # steps on one batch whose loss must fall
+WHISPER_WINDOWS, WHISPER_WINDOW_STEPS = 3, 10  # timed windows, after a warm one
+WHISPER_MAX_TOKENS = 32  # greedy transcription at the reference width
+# The transcribing model's linear and conv kernels are scaled by this from
+# their init, as tests/test_torch_whisper_decode.py scales its own, so that
+# the greedy tokens vary along the sequence instead of repeating one token.
+WHISPER_DECODE_SCALE = 3.0
+# A cached step's logits, teacher-forced on the full window's tokens, against
+# the full window's at that position: the limit as a share of the full
+# window's largest logit, per KV dtype.
+WHISPER_CACHED_LOGITS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# tools/bench_whisper_dispatch.py's config, batch and text lengths.
+DISPATCH = dict(n_mels=80, n_audio_ctx=256, vocab_size=512, n_embd=384, n_head=6,
+                n_layer_enc=4, n_layer_dec=4, dropout=0.0)
+DISPATCH_BATCH, DISPATCH_CTXS = 8, (32, 64, 128, 256, 512)
+# K1 at the Whisper shapes, (q shape, k/v shape, causal): the 20M config's
+# encoder, causal decoder and cross-attention, and the reference width's.
+WHISPER_K1_SHAPES = (((8, 6, 750, 64), (8, 6, 750, 64), False),
+                     ((8, 6, 112, 64), (8, 6, 112, 64), True),
+                     ((8, 6, 112, 64), (8, 6, 750, 64), False),
+                     ((4, 16, 1500, 64), (4, 16, 1500, 64), False),
+                     ((4, 16, 448, 64), (4, 16, 448, 64), True),
+                     ((4, 16, 448, 64), (4, 16, 1500, 64), False))
+# K1's bf16 output against its plain version, element by element. The two
+# round the output to bf16 (one unit in the last place is 2^-8 to 2^-7 of
+# the value), and the kernel rounds its unnormalised probabilities against a
+# running maximum where the plain version takes the row's: in rows with few
+# live keys (causal) that moves the output by up to about 2.6e-3 beyond 1% of
+# its value (the kernel's order replayed in fp32 over eight seeds at the
+# Whisper and A shapes; measured on the H100, up to 3.9e-3 in all).
+K1_BF16_ATOL, K1_BF16_RTOL = 5e-3, 1e-2
+
 failures = []
+# Each kernel's launches on the main paths, for the kernels line.
+launches = {f.__name__: 0 for f in F.KERNELS}
 
 
 def say(msg: str) -> None:
@@ -502,7 +579,8 @@ def composed(fits):
 
 
 # Kernel classes of a device-time breakdown, by a substring of the name.
-KERNEL_CLASSES = (("K5", ("quartet",)), ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+KERNEL_CLASSES = (("K5", ("quartet",)), ("K1", ("flash_fwd",)), ("convs", ("conv",)),
+                  ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
                   ("elementwise", ("elementwise",)), ("LayerNorm", ("layer_norm",)),
                   ("reductions and softmax", ("reduce", "softmax")),
                   ("AdamW", ("multi_tensor",)))
@@ -544,6 +622,19 @@ def train_windows(scanned, xk, yk, gen):
     ms, rate, per = timed_windows(lambda: scanned(xk, yk, gen), TRAIN_WINDOWS, 1,
                                   BATCH * TRAIN_K)
     return ms / TRAIN_K, rate, per
+
+
+def counted(fn, add=True):
+    """``fn()`` and every kernel's launches in it, the counts set to 0 just
+    before; with ``add``, the counts are added to ``launches``."""
+    F.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in F.KERNELS}
+    if add:
+        for k_name, c in counts.items():
+            launches[k_name] += c
+    return out, counts
 
 
 def launched(counts):
@@ -837,6 +928,307 @@ def harness_phases(smi):
     return counts
 
 
+def whisper_batch(cfg: WhisperConfig, batch: int, t_text: int):
+    """tools/bench_lm.py's Whisper batch on the card: a RandomState(0) mel,
+    random ids and the targets they roll to."""
+    rs = np.random.RandomState(0)
+    mel = rs.randn(batch, cfg.n_audio_ctx, cfg.n_mels).astype(np.float32)
+    ids = rs.randint(0, cfg.vocab_size, (batch, t_text)).astype(np.int64)
+    return (torch.from_numpy(mel).cuda(), torch.from_numpy(ids).cuda(),
+            torch.from_numpy(np.roll(ids, -1, axis=-1)).cuda())
+
+
+def whisper_forward(model, mel, ids, tgt, dtype):
+    """(logits, loss) of one forward with the float params cast to ``dtype``
+    (a differentiable cast: the grads reach the fp32 params in fp32), as
+    tools/bench_lm.py's loss_fn; fp32 with ``dtype`` None."""
+    if dtype is None:
+        return model(mel, ids, targets=tgt)[:2]
+    params = cast_floats(dict(model.named_parameters()), dtype)
+    return torch.func.functional_call(model, params, (mel.to(dtype), ids),
+                                      {"targets": tgt})[:2]
+
+
+def whisper_loss(model, mel, ids, tgt, dtype):
+    return whisper_forward(model, mel, ids, tgt, dtype)[1]
+
+
+def whisper_step(model, opt, mel, ids, tgt, dtype=torch.bfloat16):
+    """tools/bench_lm.py's Whisper train step: bf16 forward and backward,
+    fp32 grads, the optimizer's update. Returns the loss."""
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = whisper_loss(model, mel, ids, tgt, dtype)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def whisper_phases(smi):
+    """Phase 11: the Whisper family on the card. One 20M train step (12 K1
+    launches) and one reference-width forward (36) add to the kernels line."""
+    only_k1 = {f.__name__: 0 for f in F.KERNELS}
+    cfgs = {"20M": WhisperConfig(**WHISPER_20M), "reference": WhisperConfig(**WHISPER_REF)}
+    for width, cfg in cfgs.items():
+        say(f"[11 Whisper] {width}: {cfg}")
+        with torch.device("meta"):
+            n = {kind: sum(p.numel() for p in fac(cfg, device="meta").parameters())
+                 for kind, fac in (("mop", create_whisper_mop),
+                                   ("baseline", create_whisper_baseline))}
+        check(n["mop"] == n["baseline"] == WHISPER_JAX_PARAMS[width],
+              f"Whisper {width}: params {n}; mop_tpu's count {WHISPER_JAX_PARAMS[width]}")
+
+    def k1_per(n):
+        return {**only_k1, "flash_attention": n}
+
+    # 11.2: one fp32 eval forward with targets at each width against the plain path.
+    models = {}
+    for seed, (width, cfg) in enumerate(cfgs.items()):
+        t_text = cfg.n_text_ctx
+        b = WHISPER_BATCH[width]
+        per_fwd = cfg.n_layer_enc + 2 * cfg.n_layer_dec
+        t0 = time.time()
+        model = create_whisper_mop(cfg, generator=torch.Generator().manual_seed(30 + seed)).eval()
+        build_s = time.time() - t0
+        mel, ids, tgt = whisper_batch(cfg, b, t_text)
+        with torch.inference_mode():
+            (logits, loss, gates), counts = counted(lambda: model(mel, ids, targets=tgt),
+                                                    add=width == "reference")
+            with plain_kernels():
+                ref_logits, ref_loss, ref_gates = model(mel, ids, targets=tgt)
+            check(counts == k1_per(per_fwd) and tuple(logits.shape) == (b, t_text, cfg.vocab_size)
+                  and tuple(gates.shape) == (b, cfg.n_layer_enc, cfg.n_audio_ctx),
+                  f"Whisper {width} fp32 eval forward with targets, {b} x {cfg.n_audio_ctx} "
+                  f"frames x {t_text} tokens (built in {build_s:.1f} s): launches "
+                  f"{launched(counts)} (K1 {cfg.n_layer_enc} encoder, {cfg.n_layer_dec} causal, "
+                  f"{cfg.n_layer_dec} cross)")
+            compare(f"Whisper {width}: logits kernel path vs plain path", logits, ref_logits,
+                    2e-5, 2e-4)
+            compare(f"Whisper {width}: loss {loss.item():.6f} kernel path vs plain path", loss,
+                    ref_loss, 2e-5, 2e-4)
+            compare(f"Whisper {width}: gates kernel path vs plain path", gates, ref_gates,
+                    2e-5, 2e-4)
+            ms = time_ms(lambda: model(mel, ids, targets=tgt), iters=2, reps=3)
+            say(f"  Whisper {width} fp32 eval forward: {ms:.3f} ms, "
+                f"{b * cfg.n_audio_ctx / ms * 1e3:.0f} audio frames/s [{smi}]")
+        del logits, ref_logits, gates, ref_gates
+        models[width] = model
+
+    # 11.3: the 20M train step, tools/bench_lm.py's recipe.
+    cfg, model = cfgs["20M"], models.pop("20M").train()
+    b = WHISPER_BATCH["20M"]
+    mel, ids, tgt = whisper_batch(cfg, b, cfg.n_text_ctx)
+    params = list(model.parameters())
+    say(f"  Whisper 20M train step, batch {b} x {cfg.n_audio_ctx} frames x {cfg.n_text_ctx} "
+        f"tokens, bf16 compute, AdamW {WHISPER_LR} / {WHISPER_WD}")
+
+    def grads():
+        return torch.autograd.grad(whisper_loss(model, mel, ids, tgt, None), params)
+
+    got = grads()
+    with plain_kernels():
+        want = grads()
+    worst = max((a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                for a, w in zip(got, want))
+    check(worst <= 1e-3 and all(bool(torch.isfinite(t).all()) for t in got),
+          f"Whisper 20M: one step's fp32 grads, kernel path vs plain path over {len(got)} "
+          f"tensors: worst max-abs error {worst:.2e} of the tensor's largest grad (limit 1e-3)")
+    del got, want
+    with torch.no_grad():
+        logits, loss = whisper_forward(model, mel, ids, tgt, torch.bfloat16)
+        with plain_kernels():
+            ref_logits, ref = whisper_forward(model, mel, ids, tgt, torch.bfloat16)
+            fp32_logits = whisper_forward(model, mel, ids, tgt, None)[0]
+    compare(f"Whisper 20M: one bf16 step's loss {loss.item():.6f}, kernel path vs plain path",
+            loss, ref, 0.0, 1e-3)
+    # The kernel path's bf16 logits may differ from the plain path's by as
+    # much as bf16 rounding moves them: at most twice the plain path's own
+    # difference from its fp32 logits.
+    rounding = (ref_logits.float() - fp32_logits).abs().max().item()
+    err = (logits.float() - ref_logits.float()).abs().max().item()
+    check(bool(torch.isfinite(logits).all()) and err <= 2 * rounding,
+          f"Whisper 20M: one bf16 step's logits, kernel path vs plain path: max_abs_err "
+          f"{err:.3e} (limit twice the plain path's bf16 against fp32, {rounding:.3e})")
+    del logits, ref_logits, fp32_logits
+    opt = torch.optim.AdamW(params, lr=WHISPER_LR, weight_decay=WHISPER_WD)
+    step = whisper_step(model, opt, mel, ids, tgt)
+    first, counts = counted(step)
+    check(counts == k1_per(cfg.n_layer_enc + 2 * cfg.n_layer_dec),
+          f"Whisper 20M: launches per train step {launched(counts)} (K1 only; its backward "
+          "recomputes with plain ops)")
+    losses = [first.item()] + [step().item() for _ in range(WHISPER_STEPS - 1)]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"Whisper 20M: loss over {WHISPER_STEPS} steps on one batch {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, rate, per = timed_windows(step, WHISPER_WINDOWS, WHISPER_WINDOW_STEPS,
+                                  b * cfg.n_audio_ctx)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  Whisper 20M train step ({WHISPER_WINDOWS} windows of {WHISPER_WINDOW_STEPS} steps): "
+        f"{ms:.3f} ms/step, {rate:.0f} audio frames/s [per window "
+        f"{', '.join(f'{r:.0f}' for r in per)}], peak {peak:.2f} GiB [{smi}]")
+    rows, wall_us = device_breakdown(step, reps=2)
+    busy = sum(t for _, t in rows)
+    top = "; ".join(f"{k[:80]} {100 * t / busy:.1f}%" for k, t in rows[:8])
+    say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms (2 steps, "
+        f"profiled); by class: {by_class(rows)}; by kernel: {top}")
+    # One encoder layer's MoP2D gate over the mel at this shape, forward and
+    # backward to its weights, in both dtypes (its 5 x 5 conv is the step's
+    # conv share, PERF.md section 5).
+    times = []
+    for dtype in (torch.bfloat16, torch.float32):
+        mop = model.encoder[0].mop
+        wrt = [p.to(dtype) for p in mop.parameters()]
+        names = [n for n, _ in mop.named_parameters()]
+        x1 = mel[:, None].to(dtype)
+
+        def fwd_bwd():
+            out = torch.func.functional_call(mop, dict(zip(names, wrt)), (x1,))[0]
+            return torch.autograd.grad(out.float().sum(), wrt)
+
+        times.append(f"{dtype} {time_ms(fwd_bwd, iters=10, reps=3):.3f} ms")
+    say(f"  MoP2D gate of one encoder layer on the ({b}, 1, {cfg.n_audio_ctx}, {cfg.n_mels}) mel, "
+        f"forward + backward: {'; '.join(times)} [{smi}]")
+    del model, opt, step, params, wrt, x1
+
+    # 11.4: two bf16 train steps at the reference width.
+    cfg, model = cfgs["reference"], models["reference"].train()
+    b = WHISPER_BATCH["reference"]
+    mel, ids, tgt = whisper_batch(cfg, b, cfg.n_text_ctx)
+    opt = torch.optim.AdamW(model.parameters(), lr=WHISPER_LR, weight_decay=WHISPER_WD)
+    step = whisper_step(model, opt, mel, ids, tgt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    steps = [counted(step, add=False) for _ in range(2)]
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = cfg.n_layer_enc + 2 * cfg.n_layer_dec
+    check(all(c == k1_per(per_step) and math.isfinite(v.item()) for v, c in steps),
+          f"Whisper reference width: two bf16 train steps, batch {b}: losses "
+          f"{', '.join(f'{v.item():.4f}' for v, _ in steps)}, launches a step "
+          f"{[launched(c) for _, c in steps]}, {wall:.2f} s for both (the first warms), "
+          f"peak {peak:.2f} GiB [{smi}]")
+    del models, model, opt, step, steps
+
+    # 11.5: greedy transcription at the reference width, 4 clips, by a fresh
+    # model (the two steps above teach it to repeat a few tokens) whose
+    # kernels are scaled so that the tokens vary.
+    model = create_whisper_mop(cfg, generator=torch.Generator().manual_seed(34)).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                m.weight.mul_(WHISPER_DECODE_SCALE)
+    n = WHISPER_MAX_TOKENS
+    mel = whisper_batch(cfg, b, 1)[0]
+    full, counts = counted(lambda: whisper_transcribe(model, mel, 1, n), add=False)
+    distinct = [len(set(row.tolist())) for row in full]
+    check(counts == k1_per(cfg.n_layer_enc + n * 2 * cfg.n_layer_dec) and min(distinct) >= 4,
+          f"whisper_transcribe (full window), kernels x {WHISPER_DECODE_SCALE}: distinct tokens "
+          f"per clip {distinct} of {n}; launches {launched(counts)}: {cfg.n_layer_enc} "
+          f"encoder, then {2 * cfg.n_layer_dec} a step for {n} steps")
+    ids = torch.cat([torch.ones_like(full[:, :1]), full], 1)
+    with torch.no_grad():
+        full_logits = model.decode(model.encode(mel)[0], ids)[:, :n].float()
+        top2 = full_logits.topk(2, -1).values
+        margin = top2[..., 0] - top2[..., 1]
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        # Each cached step teacher-forced on the full window's tokens: its
+        # logits against the full window's at that position, and its greedy
+        # token. The cached route must give the full window's tokens up to
+        # the first step whose teacher-forced token differs (a near tie that
+        # the KV dtype's rounding flips), and that step's token there.
+        with torch.no_grad():
+            cross_k, cross_v = whisper_decode_prep(model, mel, kv_dtype)
+            shape = (cfg.n_layer_dec, b, cfg.n_head, n + 1, cfg.n_embd // cfg.n_head)
+            ks = torch.zeros(shape, dtype=kv_dtype, device=mel.device)
+            vs = torch.zeros_like(ks)
+            forced = []
+            for i in range(n):
+                step_logits, ks, vs = whisper_decode_token(model, ids[:, i], i, ks, vs,
+                                                           cross_k, cross_v)
+                forced.append(step_logits.float())
+            forced = torch.stack(forced, 1)
+        compare_rel(f"cached {kv_dtype} KV steps, teacher-forced on the full window's tokens: "
+                    f"logits vs the full window's", forced, full_logits,
+                    WHISPER_CACHED_LOGITS[kv_dtype])
+        flips = forced.argmax(-1) != full
+        tie = torch.where(flips.any(1), flips.float().argmax(1), n).tolist()
+        cached, counts = counted(lambda: whisper_transcribe_cached(model, mel, 1, n,
+                                                                   kv_dtype=kv_dtype), add=False)
+        ok = all(torch.equal(cached[r, :t], full[r, :t])
+                 and (t == n or cached[r, t] == forced[r, t].argmax()) for r, t in enumerate(tie))
+        err = (forced - full_logits).abs().amax(-1)
+        at = "; ".join(f"clip {r} step {t}: margin {margin[r, t].item():.3e}, logit error "
+                       f"{err[r, t].item():.3e}" for r, t in enumerate(tie) if t < n)
+        check(ok and counts == k1_per(cfg.n_layer_enc),
+              f"whisper_transcribe_cached {kv_dtype} KV: tokens equal to the full window's in "
+              f"{sum(t == n for t in tie)} of {b} clips throughout, and in every clip up to its "
+              f"first teacher-forced flip [{at or 'none'}]; the full window's smallest top-two "
+              f"margin {margin.min().item():.3e}; launches {launched(counts)} (the encoder's)")
+    cached8 = whisper_transcribe_cached(model, mel, 1, n, kv_dtype=torch.int8)
+    agree = (cached8 == full).float().mean().item()
+    check(tuple(cached8.shape) == (b, n) and bool(((cached8 >= 0)
+                                                   & (cached8 < cfg.vocab_size)).all()),
+          f"whisper_transcribe_cached int8 KV: runs, tokens in range, {100 * agree:.1f}% equal "
+          f"to the full window's")
+    say(f"  tokens of clip 0: {full[0].tolist()}")
+    del model, full, cached, cached8
+
+    # 11.6: the full-window vs cached crossover at tools/bench_whisper_dispatch.py's config.
+    cfg = WhisperConfig(**DISPATCH, n_text_ctx=max(DISPATCH_CTXS) + 8)
+    model = create_whisper_mop(cfg, generator=torch.Generator().manual_seed(33)).eval()
+    mel = whisper_batch(cfg, DISPATCH_BATCH, 1)[0]
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # Both routes host-bound, so each ctx runs them in turns (full, cached,
+    # cached, full, twice) after a warm call each, and compares medians.
+    rows = []
+    for ctx in DISPATCH_CTXS:
+        routes = {"full": lambda: whisper_transcribe(model, mel, 1, ctx),
+                  "cached": lambda: whisper_transcribe_cached(model, mel, 1, ctx)}
+        times = {name: [] for name in routes}
+        for name, fn in routes.items():
+            fn()
+        for name in ("full", "cached", "cached", "full") * 2:
+            times[name].append(seconds(routes[name]))
+        t_full, t_cached = (statistics.median(times[k]) for k in ("full", "cached"))
+        rows.append((ctx, t_full, t_cached))
+        say(f"  dispatch ctx {ctx}: full window {1e3 * t_full:.1f} ms "
+            f"[{', '.join(f'{1e3 * t:.1f}' for t in times['full'])}], cached "
+            f"{1e3 * t_cached:.1f} ms [{', '.join(f'{1e3 * t:.1f}' for t in times['cached'])}] "
+            f"(medians, {t_full / t_cached:.2f}x), "
+            f"{DISPATCH_BATCH * ctx / min(t_full, t_cached):.0f} tokens/s; auto picks "
+            f"{'cached' if ctx >= kernel_switches.whisper_cached_min_ctx else 'full'} "
+            f"[{smi}]")
+    wins = [ctx for ctx, tf, tc in rows if tc < tf]
+    cross = next((ctx for i, (ctx, _, _) in enumerate(rows)
+                  if all(tc < tf for _, tf, tc in rows[i:])), None)
+    say(f"  Whisper dispatch at {DISPATCH} batch {DISPATCH_BATCH}: cached faster by median at "
+        f"ctx {wins}; from ctx {cross} on at every ctx measured; the port's "
+        f"whisper_cached_min_ctx {kernel_switches.whisper_cached_min_ctx} [{smi}]")
+    out = whisper_transcribe_auto(model, mel, 1, DISPATCH_CTXS[0])
+    check(tuple(out.shape) == (DISPATCH_BATCH, DISPATCH_CTXS[0]),
+          f"whisper_transcribe_auto at ctx {DISPATCH_CTXS[0]}: shape {tuple(out.shape)}")
+    del model
+
+    # 11.7: the demo CLI on the card.
+    t0 = time.time()
+    losses = whisper_demo.main(["--steps", "10"])
+    check(len(losses) == 10 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"whisper_demo on the card, 10 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{time.time() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
@@ -879,7 +1271,8 @@ def main() -> int:
     errs = {}
     say("[3 K1 flash_attention vs plain]")
     with torch.inference_mode():
-        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 5e-2, 5e-2)):
+        bf = torch.bfloat16
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (bf, K1_BF16_ATOL, K1_BF16_RTOL)):
             q, k, v = (rn(1024, 64, 56, dtype=dtype) for _ in range(3))
             err = compare(f"(1024, 64, 56) {dtype}", F.flash_attention(q, k, v),
                           F.flash_attention_plain(q, k, v), atol, rtol)
@@ -896,22 +1289,34 @@ def main() -> int:
                 F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v), 2e-5, 0.0)
         # bf16 at the same strided, causal and ragged cases; then a long
         # sequence whose key blocks stream through the copy ring.
-        bf = torch.bfloat16
         q, k, v = rn(256, 64, 3, 4, 54, dtype=bf).permute(2, 0, 3, 1, 4)
         compare(f"strided qkv views (256, 4, 64, 54) bfloat16, {F.copy_width((q, k, v), 54)}-byte "
-                "copies", F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v), 5e-2, 5e-2)
+                "copies", F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v),
+                K1_BF16_ATOL, K1_BF16_RTOL)
         q, k, v = (rn(64, 200, 56, dtype=bf) for _ in range(3))
         compare("causal (64, 200, 56) bfloat16", F.flash_attention(q, k, v, causal=True),
-                F.flash_attention_plain(q, k, v, causal=True), 5e-2, 5e-2)
+                F.flash_attention_plain(q, k, v, causal=True), K1_BF16_ATOL, K1_BF16_RTOL)
         q, k, v = rn(64, 64, 54, dtype=bf), rn(64, 100, 54, dtype=bf), rn(64, 100, 54, dtype=bf)
         compare("ragged kv q (64, 64, 54) kv (64, 100, 54) bfloat16", F.flash_attention(q, k, v),
-                F.flash_attention_plain(q, k, v), 5e-2, 5e-2)
-        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (bf, 5e-2, 5e-2)):
+                F.flash_attention_plain(q, k, v), K1_BF16_ATOL, K1_BF16_RTOL)
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (bf, K1_BF16_ATOL, K1_BF16_RTOL)):
             q, k, v = (rn(4, 2, 1500, 64, dtype=dtype) for _ in range(3))
             for causal in (False, True):
                 compare(f"(4, 2, 1500, 64) causal={causal} {dtype}",
                         F.flash_attention(q, k, v, causal=causal),
                         F.flash_attention_plain(q, k, v, causal=causal), atol, rtol)
+        # Whisper's three attention sites (phase 11): encoder, causal decoder
+        # and rectangular cross-attention, at the 20M config and the reference
+        # width; from their own generator.
+        gw = cuda_generator(6)
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0), (bf, K1_BF16_ATOL, K1_BF16_RTOL)):
+            for q_shape, kv_shape, causal in WHISPER_K1_SHAPES:
+                q = rn(*q_shape, dtype=dtype, gen=gw)
+                k, v = (rn(*kv_shape, dtype=dtype, gen=gw) for _ in range(2))
+                compare(f"Whisper q {q_shape} kv {kv_shape[2]} causal={causal} {dtype}",
+                        F.flash_attention(q, k, v, causal=causal),
+                        F.flash_attention_plain(q, k, v, causal=causal), atol, rtol)
+        del q, k, v
 
         say("[4 K2 fused_edgewise_lowrank_attention vs plain]")
         for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-4), (torch.bfloat16, 5e-2, 5e-2)):
@@ -1182,17 +1587,20 @@ def main() -> int:
         compare_rel(f"strided view inputs bfloat16 {gname}", a, b, BF16_GRAD_FRAC)
 
     say("[6 K1 autograd (kernel forward, recompute backward) vs plain autograd]")
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (rn(256, 4, 64, 56, dtype=dtype).requires_grad_() for _ in range(3))
-        do = rn(256, 4, 64, 56, dtype=dtype)
-        got = torch.autograd.grad(F.flash_attention(q, k, v), (q, k, v), do)
-        want = torch.autograd.grad(F.flash_attention_plain(q, k, v), (q, k, v), do)
-        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
-            label = f"(256, 4, 64, 56) {dtype} {gname}"
-            if dtype == torch.float32:
-                compare(label, a, b, 2e-4, 2e-3)
-            else:
-                compare_rel(label, a, b, BF16_GRAD_FRAC)
+    # The ViT path's shape, then the Whisper 20M encoder's (its own generator).
+    gw = cuda_generator(16)
+    for shape, gen in (((256, 4, 64, 56), g), ((8, 6, 750, 64), gw)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (rn(*shape, dtype=dtype, gen=gen).requires_grad_() for _ in range(3))
+            do = rn(*shape, dtype=dtype, gen=gen)
+            got = torch.autograd.grad(F.flash_attention(q, k, v), (q, k, v), do)
+            want = torch.autograd.grad(F.flash_attention_plain(q, k, v), (q, k, v), do)
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                label = f"{shape} {dtype} {gname}"
+                if dtype == torch.float32:
+                    compare(label, a, b, 2e-4, 2e-3)
+                else:
+                    compare_rel(label, a, b, BF16_GRAD_FRAC)
 
     say("[6b K4 and K5 autograd (kernel forward, recompute backward) vs autograd through "
         "the composed reference]")
@@ -1225,8 +1633,6 @@ def main() -> int:
                          generator=g)
     y = torch.randint(0, N_CLASSES, (BATCH,), device="cuda", generator=g)
     valid = torch.ones(BATCH, device="cuda")
-    launches = {f.__name__: 0 for f in F.KERNELS}
-
     def expected(per_fwd, mode):
         """Launches of an "eval" forward, a "train" step or an "eval_grad"
         (a gradient through the eval forward)."""
@@ -1238,15 +1644,6 @@ def main() -> int:
             if mode != "eval" and k in BWD:
                 want[BWD[k]] = n
         return want
-
-    def counted(fn):
-        F.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {f.__name__: f.launches for f in F.KERNELS}
-        for k_name, c in counts.items():
-            launches[k_name] += c
-        return out, counts
 
     models = {}
     for seed, (name, (ctor, per_fwd)) in enumerate(MODELS.items()):
@@ -1643,6 +2040,32 @@ def main() -> int:
                 records.append(k1_record)
             else:  # the train steps run K1 in bf16
                 k1_record["bf16"] = row
+        # K1 at Whisper's encoder and cross-attention shapes (phase 11's 20M
+        # config), beside sdpa on the same (B, H, N, dk) tensors; from their own
+        # generator.
+        gw = cuda_generator(17)
+        for dtype in (torch.float32, torch.bfloat16):
+            for site, q_shape, kv_shape in (("encoder", (8, 6, 750, 64), (8, 6, 750, 64)),
+                                            ("cross", (8, 6, 112, 64), (8, 6, 750, 64))):
+                q = rn(*q_shape, dtype=dtype, gen=gw)
+                k, v = (rn(*kv_shape, dtype=dtype, gen=gw) for _ in range(2))
+
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+                ms = time_ms(lambda: F.flash_attention(q, k, v))
+                plain = time_ms(lambda: F.flash_attention_plain(q, k, v), iters=10)
+                lib = time_ms(sdpa)
+                dev = graph_ms(lambda: F.flash_attention(q, k, v))
+                lib_dev = graph_ms(sdpa)
+                bnd, by = bound_ms(*flash_cost(48, q_shape[2], kv_shape[2], 64, dtype), dtype)
+                say(f"  K1 Whisper {site} q {q_shape} kv {kv_shape[2]} {dtype}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms "
+                    f"({by}); in a CUDA graph kernel {dev:.4f} ms, sdpa {lib_dev:.4f} ms [{smi}]")
+                key = f"whisper_{site}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+                k1_record[key] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                      library_ms=lib, device_ms=dev, library_device_ms=lib_dev)
+        del q, k, v
         for dtype in (torch.float32, torch.bfloat16):
             args = edgewise_inputs(g, (256, 4), 5, 64, 56, 4, dtype)
             ms = time_ms(lambda: F.fused_edgewise_lowrank_attention(*args))
@@ -1793,7 +2216,9 @@ def main() -> int:
     # The ab5 run's totals (20 steps and its eval forwards) in a field of
     # their own: ``launches`` stays per train step and per forward.
     ab5_counts = harness_phases(smi)
-    for rec in records:
+    whisper_phases(smi)
+    for rec in records:  # K1's main-path launches now include Whisper's
+        rec["launches"] = launches[rec["name"]]
         rec["launches_ab5"] = ab5_counts[rec["name"]]
     say(f"total {time.time() - t_start:.1f} s")
 

@@ -15,7 +15,13 @@ Quartet and baseline causal LM (``TinyTransformerLM``, ``create_gpt_quartet``,
 ``create_gpt_baseline``), GPT-MoP (``GPT_MoP``, ``create_gpt_mop``,
 ``create_gpt_mop_causal``), the comparison framework
 (``GPTComparisonFramework``) and ``make_lm_train_step``, with the character-LM
-CLI ``python -m mop_tpu_torch.cli.train_gpt_char``; the CIFAR experiment
+CLI ``python -m mop_tpu_torch.cli.train_gpt_char``; the Whisper family:
+the on-device log-mel frontend (``ops.mel``), ``WhisperMoP``
+(``create_whisper_mop``, ``create_whisper_baseline``), its comparison
+framework (``WhisperComparisonFramework``) and greedy transcription, full
+window and KV-cached (``whisper_transcribe``, ``whisper_transcribe_cached``,
+``whisper_transcribe_auto``), with the demo
+``python -m mop_tpu_torch.cli.whisper_demo``; the CIFAR experiment
 harness (``experiments/``: data, parameter matching, lockstep training,
 checkpoints and preemption, statistics, output files) with its CLIs:
 
@@ -33,9 +39,13 @@ module to its composed path.
 from .models import (GPT_MoP, ComparisonConfig, CrossViewMixerMSA, DualPathMSA, EdgewiseMSA,
                      GPTComparisonFramework, MultiHopMSA, TinyTransformerLM, TransformerConfig,
                      UnifiedMSA, ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated,
-                     ViTMultiHop, create_comparison_framework, create_gpt_baseline,
-                     create_gpt_mop, create_gpt_mop_causal, create_gpt_quartet, set_generator)
-from .ops import fused
+                     ViTMultiHop, WhisperComparisonConfig, WhisperComparisonFramework,
+                     WhisperConfig, WhisperMoP, create_comparison_framework, create_gpt_baseline,
+                     create_gpt_mop, create_gpt_mop_causal, create_gpt_quartet,
+                     create_whisper_baseline, create_whisper_comparison_framework,
+                     create_whisper_mop, set_generator, whisper_transcribe,
+                     whisper_transcribe_auto, whisper_transcribe_cached)
+from .ops import fused, mel
 from .ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
                              cifar_eval_transform, cifar_train_augment,
                              label_smoothing_onehot, random_crop, random_hflip)
@@ -67,8 +77,19 @@ __all__ = [
     "ComparisonConfig",
     "GPTComparisonFramework",
     "create_comparison_framework",
+    "WhisperConfig",
+    "WhisperMoP",
+    "create_whisper_mop",
+    "create_whisper_baseline",
+    "WhisperComparisonConfig",
+    "WhisperComparisonFramework",
+    "create_whisper_comparison_framework",
+    "whisper_transcribe",
+    "whisper_transcribe_cached",
+    "whisper_transcribe_auto",
     "set_generator",
     "fused",
+    "mel",
     "CIFAR10_MEAN",
     "CIFAR10_STD",
     "CIFAR100_MEAN",

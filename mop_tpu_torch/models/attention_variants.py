@@ -28,9 +28,11 @@ ops, which is what the JAX package computes for it. ``MultiHopMSA`` (and
 ``DualPathMSA``) likewise runs K4 only where ``multihop_fits``. The
 kernel switches of ``config.py`` (``fused_attention``,
 ``fused_edgewise_train``, ``fused_multihop``) send each to its composed path
-when off, as the JAX flags do. ``EdgewiseMSA``'s attention dropout is not
-ported and raises; C and D draw theirs from the explicit generator of
-``Dropout``.
+when off, as the JAX flags do. Training with attention dropout, or an
+``attn_mask``, sends ``EdgewiseMSA`` to its composed path too, which masks
+every score map and the mixed logits and drops after the final softmax, as
+in JAX. Every variant draws its attention dropout from the explicit
+generator of ``Dropout``.
 """
 
 from __future__ import annotations
@@ -167,8 +169,6 @@ class EdgewiseMSA(nn.Module):
                  lens_qk_dilations: Optional[Tuple[int, ...]] = None,
                  lens_qk_causal: bool = False):
         super().__init__()
-        if attn_drop > 0.0:
-            raise NotImplementedError("EdgewiseMSA: attention dropout is not ported yet")
         if use_lens_bank_qk and not share_qkv:
             raise ValueError("use_lens_bank_qk=True requires share_qkv=True for now")
         self.heads = heads
@@ -211,6 +211,7 @@ class EdgewiseMSA(nn.Module):
             gate_rank=gate_rank, gate_init=gate_init)
         self.chain_value_logit = nn.Parameter(torch.empty(()))
         self.proj = Linear(dim, dim, bias=False)
+        self.attn_drop = Dropout(attn_drop)
         self.proj_drop = Dropout(proj_drop)
         self.init_own(None)
 
@@ -261,16 +262,19 @@ class EdgewiseMSA(nn.Module):
             s_list.append(A.scaled_scores(q_l, k_l))
         return s_list
 
-    def _composed(self, x: Tensor, qs: Tensor, ks: Tensor, vs: Tensor, w: Tensor) -> Tensor:
+    def _composed(self, x: Tensor, qs: Tensor, ks: Tensor, vs: Tensor, w: Tensor,
+                  attn_mask: Optional[Tensor] = None) -> Tensor:
         """The attention of the JAX module's composed path, (B, H, N, dk): the
-        feature stack [S_i, S_i^T, log c_fwd, log c_bwd (, lensed S)] in the
-        compute dtype, the gate head, the gated mix, the softmax and the
-        chained value transport."""
+        score maps masked by ``attn_mask`` (0 = masked), the feature stack
+        [S_i, S_i^T, log c_fwd, log c_bwd (, lensed S)] in the compute dtype,
+        the gate head, the gated mix, the masked softmax, attention dropout
+        and the chained value transport."""
         b, h, nv, n, dk = qs.shape
         if self.use_lens_bank_qk:
             s_list = self._lens_scores(qs[:, :, 0], ks[:, :, 0])
         else:
             s_list = [A.scaled_scores(qs[:, :, i], ks[:, :, i]) for i in range(nv)]
+        s_list = [A.apply_mask(s, attn_mask) for s in s_list]
         a_list = [torch.softmax(s, -1) for s in s_list]
         num_s = len(s_list)
         eps = 1e-6
@@ -288,7 +292,7 @@ class EdgewiseMSA(nn.Module):
         gates = self.edge_head(torch.stack(feat_list, 1).to(x.dtype))  # (BH, 4, N, N)
         smix = A.edgewise_logit_mix(s_imgs, gates[:, 0], gates[:, 1], gates[:, 2], gates[:, 3],
                                     cr_img, self.beta_not).reshape(b, h, n, n)
-        att = torch.softmax(smix, -1)
+        att = self.attn_drop(A.masked_softmax(smix, attn_mask))
         v1 = vs[:, :, 0]
         y = att.to(v1.dtype) @ v1
         # Value transport aligned with the constructed score maps.
@@ -298,12 +302,15 @@ class EdgewiseMSA(nn.Module):
         y_chain = a_list[0].to(transport.dtype) @ transport
         return y + w * y_chain
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
         qs, ks, vs = self._views(x)
         _, _, nv, n, dk = qs.shape
-        # The kernel switches as the JAX module reads them (``config.py``).
-        fused = (kernel_switches.fused_attention and not self.use_lens_bank and not self.use_lens_bank_qk
-                 and (not self.training or kernel_switches.fused_edgewise_train))
+        # The kernel switches as the JAX module reads them (``config.py``); the
+        # kernels have no mask and no attention-dropout site.
+        fused = (kernel_switches.fused_attention and attn_mask is None
+                 and not self.use_lens_bank and not self.use_lens_bank_qk
+                 and (not self.training or (kernel_switches.fused_edgewise_train
+                                            and self.attn_drop.p == 0.0)))
         w = torch.sigmoid(self.chain_value_logit)
         if (fused and self.gate_mode == "lowrank" and ops_fused.edgewise_lowrank_fits(
                 qs.dtype, nv, n, dk, self.edge_head.gate_rank)):
@@ -318,7 +325,7 @@ class EdgewiseMSA(nn.Module):
             y = ops_fused.fused_edgewise_dense_attention(
                 qs, ks, vs, *self.edge_head.dense_params(), beta_not=self.beta_not, chain_w=w)
         else:
-            y = self._composed(x, qs, ks, vs, w)
+            y = self._composed(x, qs, ks, vs, w, attn_mask)
         return self.proj_drop(self.proj(_merge_heads(y)))
 
 
@@ -331,7 +338,7 @@ class BaselineMSA(MSA):
         if attn_mask is None:
             return super().forward(x)
         q, k, v = _qkv(x, self.heads, self.qkv)
-        att = A.masked_softmax(A.scaled_scores(q, k), attn_mask)
+        att = self.attn_drop(A.masked_softmax(A.scaled_scores(q, k), attn_mask))
         y = att.to(v.dtype) @ v
         return self.proj_drop(self.proj(_merge_heads(y)))
 
@@ -472,8 +479,8 @@ class MultiHopMSA(nn.Module):
 
 class UnifiedMSA(nn.Module):
     """The A/B/C/D/E switch: ``impl`` is the mode's module, built from the
-    kwargs that mode reads (E's lens-bank kwargs included). Only A-D take an
-    ``attn_mask`` in the port; E raises on one."""
+    kwargs that mode reads (E's lens-bank kwargs included); every mode takes
+    an ``attn_mask`` (0 = masked)."""
 
     def __init__(self, mode: str, dim: int, heads: int = 4, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_transpose_cues: bool = True, t1: float = 0.0,
@@ -514,7 +521,4 @@ class UnifiedMSA(nn.Module):
     def forward(self, x: Tensor, attn_mask: Optional[Tensor] = None) -> Tensor:
         if attn_mask is None:
             return self.impl(x)
-        if self.mode == "E":
-            raise NotImplementedError("UnifiedMSA: EdgewiseMSA takes no attention mask in the "
-                                      "port yet")
         return self.impl(x, attn_mask)

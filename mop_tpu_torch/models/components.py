@@ -52,29 +52,29 @@ class PatchEmbed(nn.Module):
 
 class MSA(nn.Module):
     """Multi-head self-attention, fused QKV, bias-free; attention runs through
-    the flash kernel (K1) where it takes the head width, else the composed
-    scores, softmax and value product of the JAX module's non-fused path.
-    Attention dropout (which the flash kernel has no site for) is not ported
-    yet."""
+    the flash kernel (K1) where it takes the head width and attention dropout
+    is off (rate 0 or eval mode), else the composed scores, softmax,
+    attention dropout (drawn from the explicit generator of ``Dropout``) and
+    value product of the JAX module's non-fused path."""
 
     def __init__(self, dim: int, heads: int = 4, attn_drop: float = 0.0,
                  proj_drop: float = 0.0):
         super().__init__()
-        if attn_drop > 0.0:
-            raise NotImplementedError("MSA: attention dropout is not ported yet")
         self.heads = heads
         self.qkv = Linear(dim, dim * 3, bias=False)
         self.proj = Linear(dim, dim, bias=False)
+        self.attn_drop = Dropout(attn_drop)
         self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: Tensor) -> Tensor:
         b, n, d = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, d // self.heads).permute(
             2, 0, 3, 1, 4)
-        if kernel_switches.fused_attention and ops_fused.flash_fits(d // self.heads):
+        if (kernel_switches.fused_attention and ops_fused.flash_fits(d // self.heads)
+                and (self.attn_drop.p == 0.0 or not self.training)):
             y = ops_fused.flash_attention(q, k, v, causal=False)
         else:
-            a = torch.softmax(A.scaled_scores(q, k), -1)
+            a = self.attn_drop(torch.softmax(A.scaled_scores(q, k), -1))
             y = a.to(v.dtype) @ v
         return self.proj_drop(self.proj(y.transpose(1, 2).reshape(b, n, d)))
 

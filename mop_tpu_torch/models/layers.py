@@ -42,6 +42,47 @@ class Conv1d(nn.Conv1d):
         return super().forward(x if self.pad is None else F.pad(x, self.pad))
 
 
+class Conv2d(nn.Conv2d):
+    """2D convolution over (B, C, H, W) with torch's defaults, the JAX ``Conv``.
+
+    ``padding`` takes the JAX layer's forms: an int (every side), an
+    ``(h, w)`` pair, ``((top, bottom), (left, right))``, ``"VALID"`` or
+    ``"SAME"`` (XLA's: output size ``ceil(in / stride)``, the odd pad on the
+    bottom and right). Pads that differ by side are applied with ``F.pad``
+    before an unpadded convolution. Weight and bias ~
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), which ``init_params`` redraws.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, dilation=1, groups: int = 1, bias: bool = True):
+        even = isinstance(padding, int) or (
+            isinstance(padding, (tuple, list)) and all(isinstance(p, int) for p in padding))
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding if even else 0, dilation=dilation, groups=groups,
+                         bias=bias)
+        if even or isinstance(padding, str):
+            if isinstance(padding, str) and padding.upper() not in ("SAME", "VALID"):
+                raise ValueError(f"Conv2d: padding {padding!r}")
+            self.pads = None if even or padding.upper() == "VALID" else "SAME"
+        else:
+            (top, bottom), (left, right) = padding
+            self.pads = (left, right, top, bottom)
+
+    def _same_pads(self, h: int, w: int):
+        pads = []
+        for size, k, s, d in zip((w, h), self.kernel_size[::-1], self.stride[::-1],
+                                 self.dilation[::-1]):
+            total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+            pads += [total // 2, total - total // 2]
+        return tuple(pads)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.pads is None:
+            return super().forward(x)
+        pads = self._same_pads(*x.shape[-2:]) if self.pads == "SAME" else self.pads
+        return super().forward(F.pad(x, pads))
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with torch defaults (eps 1e-5, affine) and fp32 statistics;
     the output takes the input's dtype."""

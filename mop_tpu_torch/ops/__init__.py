@@ -1,5 +1,6 @@
-"""Ops of the PyTorch port: score algebra, kernels and preprocessing."""
+"""Ops of the PyTorch port: score algebra, kernels, the log-mel frontend and
+preprocessing."""
 
-from . import attention, fused, preprocess
+from . import attention, fused, mel, preprocess
 
-__all__ = ["attention", "fused", "preprocess"]
+__all__ = ["attention", "fused", "mel", "preprocess"]

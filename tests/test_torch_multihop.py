@@ -340,11 +340,15 @@ def test_unified_msa_matches_jax(mode, train):
 
 
 def test_unified_msa_refuses_unknown_modes_and_masks_on_e():
+    """An unknown mode raises. E takes a mask since it was ported (its masked
+    output against JAX's is in test_torch_attention_dropout.py): a mask of
+    ones composes to what the unmasked call computes."""
     with pytest.raises(ValueError, match="Unknown attention mode"):
         PM.UnifiedMSA("F", 32)
-    tm = PM.UnifiedMSA("E", 32, 4)
-    with pytest.raises(NotImplementedError, match="mask"):
-        tm(torch.zeros(1, 4, 32), torch.ones(1, 1, 1, 4))
+    tm = PM.UnifiedMSA("E", 32, 4).eval()
+    x = torch.randn(1, 4, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        torch.testing.assert_close(tm(x, torch.ones(1, 1, 1, 4)), tm(x), rtol=RTOL, atol=ATOL)
 
 
 # ------------------------------ (c) goldens ------------------------------
