@@ -50,8 +50,9 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    the bench.py config, and the 256/8/4 D (multi-hop, K4), Gated (two-hop,
    K4) and C (cross-view, no kernel) ViTs of the experiments, batch 256,
    fp32, with kernel launch counts and the logits held against the plain
-   path; an E, E_dense and D layer at N = 196 (224/16 images), beyond the
-   kernels' N, composes with no launch and matches its plain path;
+   path; an E, E_dense and D layer at N = 196 (224/16 images): E's through
+   K2w (and K2bw for its gradient), E_dense's and D's, beyond K3's and K4's
+   N, composed with no launch; each matches its plain path;
    7b. gradients through the eval forward of E, E_dense (the edgewise
    backward kernels) and D (K4's recompute backward), launches counted,
    grads held against the plain path;
@@ -125,7 +126,30 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    crossover at
    ``tools/bench_whisper_dispatch.py``'s config; the demo CLI for 10 steps.
    K1's ``launches`` in the kernels line add one 20M train step's and one
-   reference-width forward's.
+   reference-width forward's;
+12. the MoE ViT, VOC localization and the ImageNet path: ``ViT_MoP(use_moe=True,
+   moe_experts=4)`` at B_bench's width, batch 256, dense and routed: an fp32 eval
+   forward (K1 6 launches, logits against the plain path), routed at capacity factor 4
+   against dense (fp32), the share of tokens dropped at 1.25, a bf16 train step (K1 6),
+   20 steps on one batch whose loss must fall, ms/step, images/s, busy share and peak
+   memory; the op at ``tools/bench_moe.py``'s shapes (16,384 tokens, 256 -> 1024, 4 / 8 /
+   16 experts, bf16), dense against routed, forward and forward + backward; the VOC CLI
+   ``voc_localization_vit.main`` at its defaults (224/16, 256 x 6 x 4, batch 64,
+   ``--synthetic --tiny --epochs 2``) for A, B and E: the loss falling, IoU in [0, 1],
+   its CSV, K1 66 launches in A's and B's runs, K2w 66 and K2bw 48 in E's, after K2w and
+   K2bw at E's attention shape (64, 4, 4, 196, 64) r=4 and off it against their plain
+   versions, with their times; K1 at A's and B's (64, 4, 196, 64) against its plain
+   version and sdpa; the ImageNet
+   CLI ``imagenet_ab_param_budgets.main`` (``--synthetic --tiny --targets 50000000
+   --steps 20 --ema``) with A and B at batch 256 and E at 128 (at 256 its step does not
+   fit): the JAX matcher's configs, finite losses, the EMA off the params, the three files,
+   no launch (A and B compose at dk 160 and 158, E's dense gate at N = 196); and the
+   ImageNet bf16 step alone (RandAugment, erasing, Mixup / CutMix at their defaults): A at
+   batch 256 with each remat mode (none, full, dots, dots_nb: per-block checkpoints), B at
+   256, E at 128, each with ms/step, images/s, busy share and peak memory. The kernels
+   line's ``launches`` add the MoE's counted steps and forwards and the VOC runs'; K1's
+   holds the (64, 4, 196, 64) timings as ``voc_fp32`` and ``voc_bf16``; K2w and K2bw
+   are timed at VOC E's shape.
 """
 
 from __future__ import annotations
@@ -144,23 +168,28 @@ import time
 import numpy as np
 import torch
 
-from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTComparisonFramework,
-                           TransformerConfig, ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise,
-                           ViTGated, ViTMultiHop, WhisperConfig, cast_floats, create_gpt_mop,
+from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, IMAGENET_MEAN, IMAGENET_STD,
+                           ComparisonConfig, GPTComparisonFramework, TransformerConfig,
+                           ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated,
+                           ViTMultiHop, WhisperConfig, cast_floats, create_gpt_mop,
                            create_gpt_quartet, create_whisper_baseline, create_whisper_mop,
                            make_classifier_eval_step, make_classifier_train_step,
-                           make_lm_train_step, make_scanned_classifier_train_step,
-                           whisper_transcribe, whisper_transcribe_auto,
-                           whisper_transcribe_cached)
+                           make_imagenet_train_step, make_lm_train_step,
+                           make_scanned_classifier_train_step, whisper_transcribe,
+                           whisper_transcribe_auto, whisper_transcribe_cached)
 from mop_tpu_torch.cli import whisper_demo
 from mop_tpu_torch.config import config as kernel_switches
 from mop_tpu_torch.experiments import cifar100_ab5_param_budgets as ab5
 from mop_tpu_torch.experiments import cifar100_multihop_gates
+from mop_tpu_torch.experiments import imagenet_ab_param_budgets as imagenet_cli
+from mop_tpu_torch.experiments import voc_localization_vit as voc_cli
 from mop_tpu_torch.experiments import common as harness
 from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
 from mop_tpu_torch.models.generate import whisper_decode_prep, whisper_decode_token
-from mop_tpu_torch.models.layers import init_params
+from mop_tpu_torch.models.components import MoEMLP
+from mop_tpu_torch.models.layers import gelu_tanh, init_params
 from mop_tpu_torch.ops import _build
+from mop_tpu_torch.ops import moe as ops_moe
 from mop_tpu_torch.ops import fused as F
 from mop_tpu_torch.ops.preprocess import cifar_eval_transform
 
@@ -214,6 +243,7 @@ MODELS = {
                                        use_transpose_cues=False, generator=g, **kw), {}),
 }
 K2B, K3B = "fused_edgewise_lowrank_attention_bwd", "fused_edgewise_dense_attention_bwd"
+WIDE_FWD, WIDE_BWD = "edgewise_lowrank_wide_fwd", "edgewise_lowrank_wide_bwd"
 K4, K5 = "fused_multihop_attention", "fused_quartet_attention"
 # The backward kernel of each forward kernel with one.
 BWD = {"fused_edgewise_lowrank_attention": K2B, "fused_edgewise_dense_attention": K3B}
@@ -269,14 +299,18 @@ K2_OFF_SHAPES = (((2, 2), 2, 16, 8, 1), ((2, 2), 3, 40, 100, 2), ((2, 3), 8, 33,
 # kernel's maps A_i in its workspace (V 5 at dk 128, V 8 at dk 80).
 K3_OFF_SHAPES = (((2, 2), 2, 16, 8), ((2, 2), 2, 40, 100), ((2, 3), 8, 33, 54),
                  ((2, 2), 8, 40, 128), ((2, 2), 5, 64, 128), ((2, 2), 8, 64, 80))
-# The layers phase 7 runs above the kernels' N (224/16 images: 196 tokens),
-# E's, E_dense's and D's attention at their CIFAR widths.
+# The layers phase 7 runs at 224/16 images (196 tokens), E's, E_dense's and
+# D's attention at their CIFAR widths, with the launches of an eval forward
+# and of a train-mode gradient: E's lowrank op takes N <= 256 (K2w, K2bw);
+# K3's and K4's N <= 64, so E_dense and D compose.
 N_WIDE, BATCH_WIDE = 196, 32
 WIDE_LAYERS = {
     "E": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="lowrank", gate_rank=4,
-                                   gate_init="mix5")),
-    "E_dense": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="dense")),
-    "D": (256, lambda: MultiHopMSA(256, 4, beta_not=0.5, hops=3)),
+                                   gate_init="mix5"),
+          {"edgewise_lowrank_wide_fwd": 1}, {"edgewise_lowrank_wide_fwd": 1,
+                                             "edgewise_lowrank_wide_bwd": 1}),
+    "E_dense": (224, lambda: EdgewiseMSA(224, 4, n_views=5, gate_mode="dense"), {}, {}),
+    "D": (256, lambda: MultiHopMSA(256, 4, beta_not=0.5, hops=3), {}, {}),
 }
 
 # Phase 10: the ab5 harness's flags, and the configs and parameter counts the
@@ -343,6 +377,42 @@ WHISPER_K1_SHAPES = (((8, 6, 750, 64), (8, 6, 750, 64), False),
 # its value (the kernel's order replayed in fp32 over eight seeds at the
 # Whisper and A shapes; measured on the H100, up to 3.9e-3 in all).
 K1_BF16_ATOL, K1_BF16_RTOL = 5e-3, 1e-2
+
+# Phase 12, MoE: ViT_MoP(use_moe=True) at bench.py's B width (B_bench, 224/6/4)
+# on CIFAR-100, and the op at tools/bench_moe.py's shapes (bf16, T tokens of
+# D -> H -> D, capacity factor 1.25).
+MOE_EXPERTS = 4
+MOE_STEPS = 20  # steps on one batch whose loss must fall
+MOE_WINDOWS, MOE_WINDOW_STEPS = 3, 5
+MOE_OP = dict(tokens=16384, dim=256, hidden=1024, cf=1.25)
+MOE_OP_EXPERTS = (4, 8, 16)
+# VOC: the CLI at its defaults (224/16, 256 wide, 6 deep, 4 heads, batch 64)
+# on the synthetic tiny set, 2 epochs of 256 / 64 = 4 steps, an eval after each
+# and one at the end (64 val images: one batch each).
+VOC_ARGS = ["--synthetic", "--tiny", "--epochs", "2"]
+VOC_STEPS, VOC_EVALS, VOC_DEPTH = 8, 3, 6
+VOC_K1 = (64, 4, 196, 64)  # (B, H, N, dk) of A's and B's attention
+# E's attention at the VOC defaults: lowrank head, 4 views, rank 4, dk 64 at
+# N = 196, through K2w and its gradient through K2bw (fp32: the CLI trains in
+# fp32), once a block a forward and a train step.
+VOC_E = ((64, 4), 4, 196, 64, 4)  # ((B, H), V, N, dk, r)
+# K2w / K2bw off VOC's shape: two views at rank 1, and the JAX envelope's
+# corner (8 views, N 256, dk 128).
+WIDE_OFF_SHAPES = (((2, 2), 2, 72, 8, 1), ((1, 2), 8, 256, 128, 1), ((2, 3), 3, 100, 54, 2))
+# ImageNet: the CLI at the 50M target on the synthetic tiny set, with the
+# configs and counts the JAX matcher gives (tests/test_torch_experiments_
+# voc_imagenet.py holds the port's matcher to the JAX script's at narrowed
+# grids). A and B compose (dk 160 and 158 > K1's 128); E (the CLI's dense gate)
+# composes at N = 196, as the JAX module does above its dense kernel's 128.
+# E's step at batch 256 does not fit in 80 GB (its out-of-memory at 76.28 GiB
+# is in PERF.md), so E runs at 128: the one cut.
+IMAGENET_ARGS = ["--synthetic", "--tiny", "--targets", "50000000", "--steps", "20", "--ema"]
+IMAGENET_TARGET = 50_000_000
+IMAGENET_MATCH = {"A": ((640, 10, 4), 49_859_840), "B": ((632, 10, 4), 48_633_884),
+                  "E": ((504, 8, 4), 49_326_680)}
+IMAGENET_E_BATCH = 128
+IMAGENET_REMATS = ("none", "full", "dots", "dots_nb")
+IMAGENET_WINDOWS, IMAGENET_WINDOW_STEPS = 3, 5
 
 failures = []
 # Each kernel's launches on the main paths, for the kernels line.
@@ -745,7 +815,12 @@ def check_byte_counts():
     k5_rows = F._fn("quartet_fwd", "mop_quartet_keeps_rows", [i_] * 3)
     smem = F._fn("edgewise_bwd", "mop_edgewise_bwd_smem_bytes", [i_] * 6, ctypes.c_longlong)
     ws = F._fn("edgewise_bwd", "mop_edgewise_bwd_ws_bytes", [i_] * 4, ctypes.c_longlong)
+    wide_ws = F._fn("edgewise_wide", "mop_edgewise_wide_ws_bytes", [i_] * 5, ctypes.c_longlong)
     bad = []
+    for (_, nv, n, dk, r) in (VOC_E, *WIDE_OFF_SHAPES):
+        for bwd in (False, True):
+            if F.edgewise_wide_ws_bytes(nv, n, dk, r, bwd) != wide_ws(nv, n, dk, r, int(bwd)):
+                bad.append(("K2w ws", nv, n, dk, r, bwd))
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for dk in (1, 54, 56, 80, 128):
             if F.flash_smem_bytes(dtype, dk) != flash(code, dk):
@@ -1229,6 +1304,345 @@ def whisper_phases(smi):
           f"{time.time() - t0:.2f} s")
 
 
+def step_profile(step, images, label, smi, windows, window_steps):
+    """Times ``step`` (``windows`` timed windows of ``window_steps`` calls
+    after a warm one) with its peak memory and a torch.profiler breakdown of
+    two more calls; prints one line each. Returns (ms, images/s, busy, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, rate, per = timed_windows(step, windows, window_steps, images)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows, wall_us = device_breakdown(step, reps=2)
+    busy = sum(t for _, t in rows) / wall_us
+    say(f"  {label}: {ms:.3f} ms/step, {rate:.0f} images/s [per window "
+        f"{', '.join(f'{r:.0f}' for r in per)}], peak {peak:.2f} GiB [{smi}]")
+    say(f"    device busy {100 * busy:.1f}% of {wall_us / 1e3:.2f} ms (2 steps, profiled); "
+        f"by class: {by_class(rows)}")
+    return ms, rate, busy, peak
+
+
+def wide_kernel_checks(smi):
+    """K2w and K2bw against their plain versions: at VOC E's shape in fp32
+    (the CLI's dtype) and bf16, at the strided per-view views and the
+    strided dy that EdgewiseMSA passes, and off the shape. Then their times
+    beside the plain versions' and the bound. Returns the kernels line's two
+    records (launches filled in from the main path later)."""
+    say("[12 K2w edgewise_lowrank_wide_fwd and K2bw edgewise_lowrank_wide_bwd vs plain]")
+    gw = cuda_generator(46)
+    grad_names = ("dq", "dk", "dv", "dwrow", "dbrow", "dwcol", "dbcol", "dchain")
+    errs = {WIDE_FWD: 0.0, WIDE_BWD: 0.0}
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gw).to(dtype)
+
+    def both(label, args, dy, dtype, main=False):
+        with torch.no_grad():
+            got, want = F.edgewise_lowrank_wide_fwd(*args), \
+                F.fused_edgewise_lowrank_attention_plain(*args)
+        if dtype == torch.float32:
+            err = compare(f"K2w {label}", got, want, 2e-5, 2e-4)
+        else:
+            err = compare(f"K2w {label}", got, want, 5e-2, 5e-2)
+        if main:
+            errs[WIDE_FWD] = max(errs[WIDE_FWD], err)
+        got = F.edgewise_lowrank_wide_bwd(*args, dy)
+        want = F.fused_edgewise_lowrank_attention_bwd_plain(*args, dy)
+        for gname, a, b in zip(grad_names, got, want):
+            if dtype == torch.float32:
+                err = compare(f"K2bw {label} {gname}", a, b, 2e-4, 2e-3)
+                if main:
+                    errs[WIDE_BWD] = max(errs[WIDE_BWD], err)
+            else:
+                compare_rel(f"K2bw {label} {gname}", a, b, BF16_GRAD_FRAC)
+
+    (b, h), nv, n, dk, r = VOC_E
+    for dtype in (torch.float32, torch.bfloat16):
+        args = edgewise_inputs(gw, (b, h), nv, n, dk, r, dtype)
+        both(f"{(b, h, nv, n, dk)} r={r} {dtype}", args, rn(b, h, n, dk, dtype=dtype), dtype,
+             main=dtype == torch.float32)
+    # EdgewiseMSA's views of one stacked qkv output, and the strided dy that
+    # merging the heads gives back.
+    args = edgewise_inputs(gw, (b, h), nv, n, dk, r, torch.float32)
+    qkv = rn(b, n, nv, 3, h, dk).permute(3, 0, 4, 2, 1, 5)
+    both(f"strided view inputs {(b, h, nv, n, dk)} r={r} float32", (*qkv, *args[3:]),
+         rn(b, n, h, dk).transpose(1, 2), torch.float32, main=True)
+    for bh_shape, nv_, n_, dk_, r_ in WIDE_OFF_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = edgewise_inputs(gw, bh_shape, nv_, n_, dk_, r_, dtype)
+            both(f"{(*bh_shape, nv_, n_, dk_)} r={r_} {dtype}", args,
+                 rn(*bh_shape, n_, dk_, dtype=dtype), dtype)
+    records = []
+    for name, fn, plain_fn, cost in (
+            (WIDE_FWD, F.edgewise_lowrank_wide_fwd, F.fused_edgewise_lowrank_attention_plain,
+             edgewise_cost),
+            (WIDE_BWD, F.edgewise_lowrank_wide_bwd,
+             F.fused_edgewise_lowrank_attention_bwd_plain, edgewise_bwd_cost)):
+        rec = None
+        for dtype in (torch.float32, torch.bfloat16):
+            args = edgewise_inputs(gw, (b, h), nv, n, dk, r, dtype)
+            if name == WIDE_BWD:
+                args = (*args, rn(b, h, n, dk, dtype=dtype))
+            with torch.no_grad():
+                ms = time_ms(lambda: fn(*args), iters=5, reps=3)
+                plain = time_ms(lambda: plain_fn(*args), iters=3, reps=3)
+            bnd, by = bound_ms(*cost(b * h, nv, n, dk, r, dtype), dtype)
+            say(f"  {name} {(b, h, nv, n, dk)} r={r} {dtype}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+            if rec is None:  # VOC's E trains in fp32
+                rec = dict(name=name, route="cuda", source="mop_tpu_torch/csrc/edgewise_wide.cu",
+                           replaces="mop_tpu/ops/fused.py:"
+                           + ("628" if name == WIDE_FWD else "641"),
+                           launches=0, max_abs_err=errs[name], **row)
+            else:
+                rec["bf16"] = row
+        records.append(rec)
+    return records
+
+
+def moe_voc_imagenet_phases(smi):
+    """Phase 12: the MoE ViT, the VOC localizer CLI and the ImageNet CLI and
+    step on the card. Returns K1's timing rows at VOC's attention shape; the
+    MoE's counted steps and forwards and the VOC runs add to the kernels
+    line's launches."""
+    none = {f.__name__: 0 for f in F.KERNELS}
+
+    def k1_per(n):
+        return {**none, "flash_attention": n}
+
+    # 12.1: the MoE ViT at B_bench's width, dense and routed, from one seed.
+    say(f"[12 MoE] ViT_MoP(use_moe=True, moe_experts={MOE_EXPERTS}) at B_bench's width "
+        f"(224/6/4, 5 views, 3 kernels), batch {BATCH}")
+    models = {impl: ViT_MoP(dim=224, depth=6, heads=4, n_classes=N_CLASSES, n_views=5,
+                            n_kernels=3, use_moe=True, moe_experts=MOE_EXPERTS, moe_impl=impl,
+                            generator=torch.Generator().manual_seed(40))
+              for impl in ("dense", "routed")}
+    rs = np.random.RandomState(12)
+    x_u8 = torch.from_numpy(rs.randint(0, 256, (BATCH, 3, 32, 32), dtype=np.uint8)).cuda()
+    y = torch.from_numpy(rs.randint(0, N_CLASSES, BATCH)).cuda()
+    x = cifar_eval_transform(x_u8, CIFAR100_MEAN, CIFAR100_STD)
+    with torch.inference_mode():
+        logits = {}
+        for impl, model in models.items():
+            logits[impl], counts = counted(lambda: model.eval()(x))
+            with plain_kernels():
+                ref = model(x)
+            check(counts == k1_per(6), f"MoE {impl}: fp32 eval forward launches "
+                  f"{launched(counts)} (K1 once a block)")
+            compare(f"MoE {impl}: fp32 logits kernel path vs plain path", logits[impl], ref,
+                    2e-5, 2e-4)
+        routed = models["routed"]
+        for m in routed.modules():
+            if isinstance(m, MoEMLP):
+                m.capacity_factor = float(MOE_EXPERTS)  # room for every token
+        compare(f"MoE routed at capacity factor {MOE_EXPERTS} (every expert holds every "
+                "token) vs dense: fp32 logits", routed(x), logits["dense"], 2e-5, 2e-4)
+        for m in routed.modules():
+            if isinstance(m, MoEMLP):
+                m.capacity_factor = 1.25
+        # The share of tokens the routed layers drop at the default 1.25.
+        kept = []
+        hooks = [m.register_forward_hook(lambda mod, ins, out: kept.append(
+            (out.flatten(0, 1).abs().amax(-1) > 0).float().sum()))
+            for m in routed.modules() if isinstance(m, MoEMLP)]
+        routed(x)
+        for hook in hooks:
+            hook.remove()
+        total = BATCH * 64 * len(hooks)
+        say(f"  MoE routed at capacity factor 1.25: "
+            f"{100 * (1 - sum(kept).item() / total):.2f}% of the {total:,} token-layers "
+            f"dropped (zero output), on random weights")
+    del logits, ref
+    for impl, model in models.items():
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD)
+        train = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD)
+        gen = cuda_generator(41)
+        first, counts = counted(lambda: train(x_u8, y, gen))
+        check(counts == k1_per(6), f"MoE {impl}: bf16 train step launches {launched(counts)} "
+              "(K1 in the forward; its backward recomputes with plain ops)")
+        losses = [first["loss"].item()] + [train(x_u8, y, gen)["loss"].item()
+                                           for _ in range(MOE_STEPS - 1)]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"MoE {impl}: loss over {MOE_STEPS} steps on one batch {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        step_profile(lambda: train(x_u8, y, gen), BATCH, f"MoE {impl} bf16 train step, batch "
+                     f"{BATCH}", smi, MOE_WINDOWS, MOE_WINDOW_STEPS)
+        del opt, train
+    del models, model, routed
+    # The op at tools/bench_moe.py's shapes, bf16: dense (every expert on
+    # every token) vs routed (cf 1.25), forward alone and forward + backward
+    # to every input, in turns (dense, routed, routed, dense).
+    t, d, h = MOE_OP["tokens"], MOE_OP["dim"], MOE_OP["hidden"]
+    gm = cuda_generator(42)
+    for e in MOE_OP_EXPERTS:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gm) * scale).to(torch.bfloat16)
+
+        ins = [rnd(t, d), rnd(d, e, scale=0.02), rnd(e, scale=0.0), rnd(e, d, h, scale=0.02),
+               rnd(e, h, d, scale=0.02)]
+        wrt = [a.clone().requires_grad_() for a in ins]
+        ops = {"dense": lambda *a: ops_moe.dense_top1_mlp(*a, gelu_tanh),
+               "routed": lambda *a: ops_moe.top1_routed_mlp(*a, gelu_tanh,
+                                                            capacity_factor=MOE_OP["cf"])}
+        res = {}
+        for what in ("forward", "forward + backward"):
+            times = {"dense": [], "routed": []}
+            for impl in ("dense", "routed", "routed", "dense"):
+                op = ops[impl]
+                if what == "forward":
+                    with torch.inference_mode():
+                        times[impl].append(time_ms(lambda: op(*ins), iters=20, reps=5))
+                else:
+                    times[impl].append(time_ms(lambda: torch.autograd.grad(
+                        op(*wrt).float().sum(), wrt), iters=10, reps=5))
+            res[what] = {k: min(v) for k, v in times.items()}
+            say(f"  MoE op T {t} x {d} -> {h}, {e} experts, bf16, {what}: dense "
+                f"{res[what]['dense']:.4f} ms [{' / '.join(f'{v:.4f}' for v in times['dense'])}]"
+                f", routed (cf {MOE_OP['cf']}) {res[what]['routed']:.4f} ms "
+                f"[{' / '.join(f'{v:.4f}' for v in times['routed'])}]: dense / routed "
+                f"{res[what]['dense'] / res[what]['routed']:.2f}x [{smi}]")
+    del ins, wrt
+
+    # 12.2: K2w and K2bw, E's attention at VOC's shape, against their plain
+    # versions; then off it and at the strided views EdgewiseMSA passes.
+    wide_records = wide_kernel_checks(smi)
+
+    # 12.3: the VOC localizer CLI at its defaults, modes A, B and E.
+    rows = {}
+    for mode in ("A", "B", "E"):
+        with tempfile.TemporaryDirectory() as out:
+            argv = VOC_ARGS + ["--model", mode, "--out", out]
+            say(f"[12 VOC] voc_localization_vit.main({' '.join(argv[:-2])})")
+            F.reset_launch_counts()
+            t0 = time.time()
+            res = voc_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = {f.__name__: f.launches for f in F.KERNELS}
+            lines = open(res["csv"]).read().split()
+        if mode == "E":  # K2w each block's forward, K2bw its gradient
+            want = {**none, WIDE_FWD: VOC_DEPTH * (VOC_STEPS + VOC_EVALS),
+                    WIDE_BWD: VOC_DEPTH * VOC_STEPS}
+        else:
+            want = k1_per(VOC_DEPTH * (VOC_STEPS + VOC_EVALS))
+        for name, c in counts.items():
+            launches[name] += c
+        losses, half = res["losses"], len(res["losses"]) // 2
+        falls = sum(losses[half:]) / half < sum(losses[:half]) / half
+        check(counts == want and len(losses) == VOC_STEPS and falls
+              and all(math.isfinite(v) for v in losses)
+              and all(0.0 <= iou <= 1.0 for _, iou, _ in res["evals"])
+              and lines == ["model,val_iou,val_l1", f"{mode},{res['iou']:.4f},{res['l1']:.4f}"],
+              f"VOC {mode}: loss by step {', '.join(f'{v:.4f}' for v in losses)} (epoch means "
+              f"falling: {falls}); val IoU / L1 by epoch "
+              f"{', '.join(f'{i:.4f} / {l1:.4f}' for _, i, l1 in res['evals'])}; csv {lines}; "
+              f"launches {launched(counts)} (expected {launched(want)}: "
+              f"{'K2w' if mode == 'E' else 'K1'} {VOC_DEPTH} a forward"
+              f"{', K2bw 6 a step' if mode == 'E' else ''}, {VOC_STEPS} steps and "
+              f"{VOC_EVALS} evals); "
+              f"{wall:.2f} s wall [{smi}]")
+        rows[mode] = res
+    del rows, res
+    # K1 at A's and B's attention shape, against its plain version and sdpa.
+    gv = cuda_generator(43)
+    k1_rows = {}
+    bh = VOC_K1[0] * VOC_K1[1]
+    for dtype, atol, rtol in ((torch.float32, 2e-5, 0.0),
+                              (torch.bfloat16, K1_BF16_ATOL, K1_BF16_RTOL)):
+        q, k, v = (torch.randn(*VOC_K1, device="cuda", generator=gv).to(dtype)
+                   for _ in range(3))
+        with torch.inference_mode():
+            err = compare(f"K1 at VOC's {VOC_K1} {dtype} vs plain", F.flash_attention(q, k, v),
+                          F.flash_attention_plain(q, k, v), atol, rtol)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+            ms = time_ms(lambda: F.flash_attention(q, k, v))
+            plain = time_ms(lambda: F.flash_attention_plain(q, k, v), iters=10)
+            lib = time_ms(sdpa)
+            dev = graph_ms(lambda: F.flash_attention(q, k, v))
+            lib_dev = graph_ms(sdpa)
+        bnd, by = bound_ms(*flash_cost(bh, VOC_K1[2], VOC_K1[2], VOC_K1[3], dtype), dtype)
+        say(f"  K1 {VOC_K1} {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}); in a CUDA graph kernel {dev:.4f} ms, sdpa "
+            f"{lib_dev:.4f} ms [{smi}]")
+        k1_rows[f"voc_{'fp32' if dtype == torch.float32 else 'bf16'}"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib, device_ms=dev,
+            library_device_ms=lib_dev, max_abs_err=err)
+    del q, k, v
+
+    # 12.4: the ImageNet CLI at the 50M target: A and B at batch 256, then E
+    # at its cut batch (the CLI always runs A too).
+    for models_, batch in ((["A", "B"], BATCH), (["E"], IMAGENET_E_BATCH)):
+        with tempfile.TemporaryDirectory() as out:
+            argv = IMAGENET_ARGS + ["--models", *models_, "--batch", str(batch), "--out", out]
+            say(f"[12 ImageNet] imagenet_ab_param_budgets.main({' '.join(argv[:-2])})")
+            F.reset_launch_counts()
+            t0 = time.time()
+            res = imagenet_cli.main(argv)[IMAGENET_TARGET]
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = {f.__name__: f.launches for f in F.KERNELS}
+            prefix = os.path.join(out, f"imagenet_ab_target_{IMAGENET_TARGET}")
+            keys = list(res["params"])
+            headers = {".csv": "seed," + ",".join(f"acc_{k}" for k in keys),
+                       "_val_summary.csv": "model,mean_val,std_val",
+                       "_test.csv": "model,test_acc"}
+            files = {sfx: open(prefix + sfx).readline().strip() == hdr
+                     for sfx, hdr in headers.items()}
+        for key in keys:
+            cfg, p = res["configs"][key]
+            got = ((cfg["dim"], cfg["depth"], cfg["heads"]), p)
+            losses = res["losses"][key]
+            run = res["runs"][key]
+            lag = max((a - b).abs().max().item() for a, b in
+                      zip(run.model.parameters(), run.ema.parameters()))
+            check(got == IMAGENET_MATCH[key] and len(losses) == 20
+                  and all(math.isfinite(v) for v in losses) and lag > 0,
+                  f"ImageNet {key} at batch {batch}: matched {got[0]}, {got[1]:,} params (the "
+                  f"JAX matcher's {IMAGENET_MATCH[key][0]}, {IMAGENET_MATCH[key][1]:,}); loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}) over 20 steps; "
+                  f"EMA (decay 0.9999) off the params by up to {lag:.3e}; val acc "
+                  f"{res['val_acc'][key][0]:.4f} and test acc {res['test_acc'][key]:.4f} by the "
+                  f"EMA weights [{smi}]")
+        check(all(files.values()) and counts == none,
+              f"ImageNet CLI {models_} at batch {batch}: the JAX script's three files and "
+              f"headers {files}; launches {launched(counts) or 'none'} (A and B compose at dk "
+              f"160 and 158 > {F.FLASH_MAX_DK}, E's dense gate at N = 196); {wall:.2f} s wall "
+              f"[{smi}]")
+        del res, run
+    torch.cuda.empty_cache()
+
+    # 12.5: the ImageNet step by itself: A with RandAugment on and erasing,
+    # Mixup and CutMix at their defaults, batch 256, each remat mode; B
+    # likewise with none; E at its cut batch.
+    args = imagenet_cli.build_argparser().parse_args(IMAGENET_ARGS + ["--models", "A", "B", "E"])
+    size = args.img_size
+    cfgs = {k: (dict(zip(("dim", "depth", "heads"), c)), p) for k, (c, p) in
+            IMAGENET_MATCH.items()}
+    ri = np.random.RandomState(13)
+    for key, batch, remats in (("A", BATCH, IMAGENET_REMATS), ("B", BATCH, ("none",)),
+                               ("E", IMAGENET_E_BATCH, ("none",))):
+        model = imagenet_cli.make_model(args, cfgs, key, 100, "cuda",
+                                        torch.Generator().manual_seed(44))
+        opt = torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=args.weight_decay)
+        xi = torch.from_numpy(ri.randint(0, 256, (batch, 3, size, size), dtype=np.uint8)).cuda()
+        yi = torch.from_numpy(ri.randint(0, 100, batch)).cuda()
+        gi = cuda_generator(45)
+        for remat in remats:
+            step = make_imagenet_train_step(model, opt, IMAGENET_MEAN, IMAGENET_STD, 100,
+                                            use_randaug=True, remat=remat)
+            label = (f"ImageNet {key} bf16 step, batch {batch}, RandAugment, erasing 0.25, "
+                     f"Mixup 0.8 / CutMix 1.0 at 0.5, remat {remat}")
+            step_profile(lambda: step(xi, yi, gi), batch, label, smi, IMAGENET_WINDOWS,
+                         IMAGENET_WINDOW_STEPS)
+            del step
+        del model, opt, xi, yi
+        torch.cuda.empty_cache()
+    return k1_rows, wide_records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
@@ -1665,9 +2079,10 @@ def main() -> int:
         check(tuple(logits.shape) == (BATCH, N_CLASSES), f"{name}: logits shape")
         compare(f"{name}: logits kernel path vs plain path", logits, ref, 2e-5, 2e-4)
 
-    say(f"  layers above the kernels' N: {N_WIDE} tokens (224/16 images), batch {BATCH_WIDE}, "
-        "fp32, eval forward and a train-mode gradient")
-    for lname, (dim, ctor) in WIDE_LAYERS.items():
+    say(f"  layers at {N_WIDE} tokens (224/16 images), batch {BATCH_WIDE}, fp32, eval forward "
+        "and a train-mode gradient")
+    none = {f.__name__: 0 for f in F.KERNELS}
+    for lname, (dim, ctor, want_eval, want_train) in WIDE_LAYERS.items():
         layer = init_params(ctor(), torch.Generator().manual_seed(21)).to("cuda")
         xw = rn(BATCH_WIDE, N_WIDE, dim, gen=gn)
         lparams = [p for p in layer.parameters()]
@@ -1680,18 +2095,19 @@ def main() -> int:
             y_w, counts = counted(lambda: layer.eval()(xw))
             with plain_kernels():
                 ref_w = layer(xw)
-        check(not launched(counts) and tuple(y_w.shape) == (BATCH_WIDE, N_WIDE, dim),
-              f"{lname} at N {N_WIDE}: eval forward composes, launches {launched(counts)}")
+        check(counts == {**none, **want_eval} and tuple(y_w.shape) == (BATCH_WIDE, N_WIDE, dim),
+              f"{lname} at N {N_WIDE}: eval forward launches {launched(counts)} (expected "
+              f"{want_eval or 'none: it composes'})")
         compare(f"{lname} at N {N_WIDE}: eval output vs plain path", y_w, ref_w, 2e-5, 2e-4)
         got, counts = counted(wide_grads)
         with plain_kernels():
             want = wide_grads()
         worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
                     for a, b in zip(got, want))
-        check(not launched(counts) and worst <= 1e-3,
-              f"{lname} at N {N_WIDE}: train-mode gradient composes, launches "
-              f"{launched(counts)}; worst max-abs error {worst:.2e} of the tensor's largest grad "
-              "against the plain path (limit 1e-3)")
+        check(counts == {**none, **want_train} and worst <= 1e-3,
+              f"{lname} at N {N_WIDE}: train-mode gradient launches {launched(counts)} "
+              f"(expected {want_train or 'none: it composes'}); worst max-abs error "
+              f"{worst:.2e} of the tensor's largest grad against the plain path (limit 1e-3)")
         del layer, xw, y_w, ref_w, got, want
 
     say(f"[7b gradient through the eval forward] batch {BATCH}, fp32")
@@ -2211,13 +2627,18 @@ def main() -> int:
         top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:6])
         say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
             f"(2 gradients, profiled); by kernel: {top}")
-    check(all(c > 0 for c in launches.values()),
-          f"every kernel launched on the main path: {launches}")
+    check(all(c > 0 for k, c in launches.items() if k not in (WIDE_FWD, WIDE_BWD)),
+          f"every kernel but K2w and K2bw (phase 12's) launched on the main path: {launches}")
     # The ab5 run's totals (20 steps and its eval forwards) in a field of
     # their own: ``launches`` stays per train step and per forward.
     ab5_counts = harness_phases(smi)
     whisper_phases(smi)
-    for rec in records:  # K1's main-path launches now include Whisper's
+    k1_rows, wide_records = moe_voc_imagenet_phases(smi)
+    k1_record.update(k1_rows)
+    records.extend(wide_records)
+    check(all(c > 0 for c in launches.values()),
+          f"every kernel launched on the main paths: {launches}")
+    for rec in records:  # K1's main-path launches now include Whisper's, MoE's and VOC's
         rec["launches"] = launches[rec["name"]]
         rec["launches_ab5"] = ab5_counts[rec["name"]]
     say(f"total {time.time() - t_start:.1f} s")

@@ -7,10 +7,13 @@ hand-written CUDA kernel under ``csrc/``, built with nvcc at first use
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
 Ported so far: CIFAR ViT training and inference for A (``ViT_Baseline``), B
-(``ViT_MoP``), C (``ViTCrossView``), D (``ViTMultiHop``), the two-hop gated
+(``ViT_MoP``, with the top-1 MoE encoder, dense or routed), C (``ViTCrossView``), D (``ViTMultiHop``), the two-hop gated
 ViT (``ViTGated``) and E (``ViTEdgewise``, lowrank and dense gates) through
 ``make_classifier_train_step``, ``make_scanned_classifier_train_step`` and
-``make_classifier_eval_step``; the GPT family, forward and training: the
+``make_classifier_eval_step``; the ImageNet train step
+(``make_imagenet_train_step``: RandAugment, RandomErasing, Mixup/CutMix,
+label smoothing, remat) with ``ema_update``; the VOC box localizer
+(``ViTLocalizer``, ``bbox_iou``); the GPT family, forward and training: the
 Quartet and baseline causal LM (``TinyTransformerLM``, ``create_gpt_quartet``,
 ``create_gpt_baseline``), GPT-MoP (``GPT_MoP``, ``create_gpt_mop``,
 ``create_gpt_mop_causal``), the comparison framework
@@ -28,7 +31,11 @@ checkpoints and preemption, statistics, output files) with its CLIs:
 - ``python -m mop_tpu_torch.experiments.cifar100_ab5_param_budgets``: A/B/C/D/E
   at matched parameter budgets, trained in lockstep on the same batches;
 - ``python -m mop_tpu_torch.experiments.cifar{10,100}_{crossview_mixer,
-  edgewise_gates,multihop_gates,twohop_gates}``: one model per seed.
+  edgewise_gates,multihop_gates,twohop_gates}``: one model per seed;
+- ``python -m mop_tpu_torch.experiments.voc_localization_vit``: the VOC
+  single-box localizer, mode A, B or E;
+- ``python -m mop_tpu_torch.experiments.imagenet_ab_param_budgets``: A/B/E at
+  matched budgets on ImageNet-style data, with EMA.
 
 They run on the GPU unless given ``--device cpu``. The kernel switches
 (``config.py``: ``fused_attention``, ``fused_multihop``, ``fused_quartet``,
@@ -39,7 +46,7 @@ module to its composed path.
 from .models import (GPT_MoP, ComparisonConfig, CrossViewMixerMSA, DualPathMSA, EdgewiseMSA,
                      GPTComparisonFramework, MultiHopMSA, TinyTransformerLM, TransformerConfig,
                      UnifiedMSA, ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated,
-                     ViTMultiHop, WhisperComparisonConfig, WhisperComparisonFramework,
+                     ViTLocalizer, ViTMultiHop, WhisperComparisonConfig, WhisperComparisonFramework,
                      WhisperConfig, WhisperMoP, create_comparison_framework, create_gpt_baseline,
                      create_gpt_mop, create_gpt_mop_causal, create_gpt_quartet,
                      create_whisper_baseline, create_whisper_comparison_framework,
@@ -47,10 +54,12 @@ from .models import (GPT_MoP, ComparisonConfig, CrossViewMixerMSA, DualPathMSA, 
                      whisper_transcribe_auto, whisper_transcribe_cached)
 from .ops import fused, mel
 from .ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
-                             cifar_eval_transform, cifar_train_augment,
-                             label_smoothing_onehot, random_crop, random_hflip)
+                             IMAGENET_MEAN, IMAGENET_STD, cifar_eval_transform,
+                             cifar_train_augment, label_smoothing_onehot, random_crop,
+                             random_hflip)
 from .parallel import (cast_floats, make_classifier_eval_step, make_classifier_train_step,
-                       make_lm_train_step, make_scanned_classifier_train_step)
+                       make_imagenet_train_step, make_lm_train_step,
+                       make_scanned_classifier_train_step)
 from .utils import load_jax_params, resolve_device
 
 __version__ = "0.1.0"
@@ -62,6 +71,7 @@ __all__ = [
     "ViTCrossView",
     "ViTMultiHop",
     "ViTGated",
+    "ViTLocalizer",
     "CrossViewMixerMSA",
     "MultiHopMSA",
     "DualPathMSA",
@@ -94,6 +104,8 @@ __all__ = [
     "CIFAR10_STD",
     "CIFAR100_MEAN",
     "CIFAR100_STD",
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
     "cifar_eval_transform",
     "cifar_train_augment",
     "label_smoothing_onehot",
@@ -103,6 +115,7 @@ __all__ = [
     "make_classifier_eval_step",
     "make_classifier_train_step",
     "make_scanned_classifier_train_step",
+    "make_imagenet_train_step",
     "make_lm_train_step",
     "load_jax_params",
     "resolve_device",

@@ -1,8 +1,11 @@
 """Data for the port: the CIFAR pickles, a synthetic set, batch iterators and
-the native prefetching loader."""
+the native prefetching loader; VOC boxes and ImageNet folders, each with its
+synthetic set."""
 
 from .cifar import (BatchIterator, download_cifar, eval_batches, has_real_data, load_cifar,
                     synthetic_cifar, train_val_split)
+from .imagenet import has_imagefolder, load_imagefolder, synthetic_imagenet, val_test_split
+from .voc import has_real_voc, load_voc_boxes, synthetic_voc
 
 __all__ = [
     "load_cifar",
@@ -12,4 +15,11 @@ __all__ = [
     "train_val_split",
     "BatchIterator",
     "eval_batches",
+    "has_real_voc",
+    "load_voc_boxes",
+    "synthetic_voc",
+    "has_imagefolder",
+    "load_imagefolder",
+    "synthetic_imagenet",
+    "val_test_split",
 ]

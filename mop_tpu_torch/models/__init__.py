@@ -1,6 +1,7 @@
-"""Models of the PyTorch port: the CIFAR ViTs A (baseline), B (MoP), C
-(cross-view), D (multi-hop), the two-hop gated ViT and E (edgewise-gated
-attention), the attention-variant zoo, the Quartet / baseline causal LM and
+"""Models of the PyTorch port: the CIFAR ViTs A (baseline), B (MoP, with an
+optional top-1 MoE encoder), C (cross-view), D (multi-hop), the two-hop
+gated ViT and E (edgewise-gated attention), the VOC box localizer (modes A,
+B, E), the attention-variant zoo, the Quartet / baseline causal LM and
 GPT-MoP, and Whisper-MoP with its comparison framework and greedy
 transcription."""
 
@@ -16,12 +17,15 @@ from .components import (
     MLP,
     MSA,
     Block,
+    BlockMoE,
     DropPath,
     FuseExcInh,
     Kernels3,
+    MoEMLP,
     PatchEmbed,
     ViewsLinear,
     ViTEncoder,
+    ViTEncoderMoE,
 )
 from .generate import whisper_transcribe, whisper_transcribe_auto, whisper_transcribe_cached
 from .gpt_comparison import ComparisonConfig, GPTComparisonFramework, create_comparison_framework
@@ -36,6 +40,7 @@ from .quartet_attn_patch import (
     create_gpt_quartet,
 )
 from .vit_baseline import ViT_Baseline
+from .vit_localizer import ViTLocalizer, ViTLocHead, bbox_iou, smooth_l1
 from .vit_mop import ViT_MoP
 from .vit_variants import DualPathMSA, ViTCrossView, ViTEdgewise, ViTGated, ViTMultiHop
 from .whisper_comparison import (WhisperComparisonConfig, WhisperComparisonFramework,
@@ -55,6 +60,13 @@ __all__ = [
     "Kernels3",
     "FuseExcInh",
     "ViTEncoder",
+    "ViTEncoderMoE",
+    "MoEMLP",
+    "BlockMoE",
+    "ViTLocalizer",
+    "ViTLocHead",
+    "bbox_iou",
+    "smooth_l1",
     "PatchEmbed",
     "MSA",
     "MLP",

@@ -1,13 +1,15 @@
 """Core MoP components — ViT bricks and the MoP gate bricks, in PyTorch.
 
-The port of ``mop_tpu/models/components.py`` (MoE waits for a later slice).
-Module and parameter names follow the torch reference, so reference state
-dicts load with ``load_state_dict``. Images are NCHW and stay NCHW: tokens are
+The port of ``mop_tpu/models/components.py``. Module and parameter names
+follow the torch reference, so reference state dicts load with
+``load_state_dict``; the MoE MLP keeps the JAX module's stacked expert
+weights. Images are NCHW and stay NCHW: tokens are
 the row-major (gh, gw) flatten of the patch grid, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -18,6 +20,7 @@ from torch import nn
 from ..config import config as kernel_switches
 from ..ops import attention as A
 from ..ops import fused as ops_fused
+from ..ops import moe as ops_moe
 from .layers import Conv, Dropout, LayerNorm, Linear, RandomDrop, gelu_tanh
 
 Tensor = torch.Tensor
@@ -93,22 +96,84 @@ class MLP(nn.Module):
         return self.drop(self.fc2(gelu_tanh(self.fc1(x))))
 
 
+class MoEMLP(nn.Module):
+    """Token-level top-1 mixture-of-experts MLP: E bias-free 2-layer
+    tanh-GELU MLPs behind a biased gate, the argmax expert per token.
+
+    The experts' weights are stacked as in the JAX module, ``fc1`` (E, D, H)
+    and ``fc2`` (E, H, D); ``gate_kernel`` is (E, D), the torch (out, in)
+    layout of the JAX (D, E) leaf (``load_jax_params`` and the JAX
+    package's ``port_torch_state_dict`` transpose it, as every 2-D kernel),
+    and ``gate_bias`` (E,). Each weight ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    with the JAX initialiser's fan-in (an expert's input width times E for
+    the stacked weights, D for the gate). ``impl``: "dense" (every expert on
+    every token, reference-exact) or "routed" (capacity-bounded dispatch,
+    ``capacity_factor`` slots per expert per fair share); see ``ops.moe``.
+    """
+
+    def __init__(self, dim: int, mlp_ratio: float = 4.0, num_experts: int = 4,
+                 impl: str = "dense", capacity_factor: float = 1.25):
+        super().__init__()
+        if num_experts < 2:
+            raise ValueError("MoE requires at least 2 experts")
+        if impl not in ("dense", "routed"):
+            raise ValueError(f"unknown MoE impl {impl!r}")
+        hidden = int(dim * mlp_ratio)
+        self.impl = impl
+        self.capacity_factor = capacity_factor
+        self.fc1 = nn.Parameter(torch.empty(num_experts, dim, hidden))
+        self.fc2 = nn.Parameter(torch.empty(num_experts, hidden, dim))
+        self.gate_kernel = nn.Parameter(torch.empty(num_experts, dim))
+        self.gate_bias = nn.Parameter(torch.empty(num_experts))
+        self.init_own(None)
+
+    def init_own(self, generator: Optional[torch.Generator]) -> None:
+        e, d, h = self.fc1.shape
+        with torch.no_grad():
+            for w, fan_in in ((self.fc1, e * d), (self.fc2, e * h), (self.gate_kernel, d),
+                              (self.gate_bias, d)):
+                bound = 1.0 / math.sqrt(fan_in)
+                nn.init.uniform_(w, -bound, bound, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, n, d = x.shape
+        args = (x.reshape(b * n, d), self.gate_kernel.t(), self.gate_bias, self.fc1, self.fc2,
+                gelu_tanh)
+        if self.impl == "routed":
+            y = ops_moe.top1_routed_mlp(*args, capacity_factor=self.capacity_factor)
+        else:
+            y = ops_moe.dense_top1_mlp(*args)
+        return y.reshape(b, n, d)
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block with stochastic depth."""
+    """Pre-LN transformer block with stochastic depth; its MLP is ``mlp``
+    where given, else an ``MLP``."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path: float = 0.0):
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 mlp: Optional[nn.Module] = None):
         super().__init__()
         self.ln1 = LayerNorm(dim)
         self.attn = MSA(dim, heads, attn_drop, drop)
         self.dp1 = DropPath(drop_path)
         self.ln2 = LayerNorm(dim)
-        self.mlp = MLP(dim, mlp_ratio, drop)
+        self.mlp = MLP(dim, mlp_ratio, drop) if mlp is None else mlp
         self.dp2 = DropPath(drop_path)
 
     def forward(self, x: Tensor) -> Tensor:
         x = x + self.dp1(self.attn(self.ln1(x)))
         return x + self.dp2(self.mlp(self.ln2(x)))
+
+
+class BlockMoE(Block):
+    """Pre-LN transformer block whose MLP is a ``MoEMLP``."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0, num_experts: int = 4,
+                 moe_impl: str = "dense"):
+        super().__init__(dim, heads, mlp_ratio, drop, attn_drop, drop_path,
+                         mlp=MoEMLP(dim, mlp_ratio, num_experts, impl=moe_impl))
 
 
 def drop_path_schedule(drop_path: float, depth: int):
@@ -126,10 +191,13 @@ class ViTEncoder(nn.Module):
         self.patch = PatchEmbed(dim=dim, patch=patch)
         self.pos = nn.Parameter(torch.empty(1, num_tokens, dim))
         self.blocks = nn.ModuleList(
-            Block(dim, heads, mlp_ratio, drop, 0.0, dp)
+            self.make_block(dim, heads, mlp_ratio, drop, dp)
             for dp in drop_path_schedule(drop_path, depth))
         self.ln_f = LayerNorm(dim)
         self.init_own(None)
+
+    def make_block(self, dim, heads, mlp_ratio, drop, drop_path) -> nn.Module:
+        return Block(dim, heads, mlp_ratio, drop, 0.0, drop_path)
 
     def init_own(self, generator: Optional[torch.Generator]) -> None:
         with torch.no_grad():
@@ -141,6 +209,22 @@ class ViTEncoder(nn.Module):
         for blk in self.blocks:
             tok = blk(tok)
         return self.ln_f(tok), grid
+
+
+class ViTEncoderMoE(ViTEncoder):
+    """ViT encoder whose blocks are ``BlockMoE``: ``num_experts`` experts per
+    MLP, by ``moe_impl``."""
+
+    def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,
+                 mlp_ratio: float = 4.0, drop: float = 0.0, drop_path: float = 0.1,
+                 patch: int = 4, num_tokens: int = 64, num_experts: int = 4,
+                 moe_impl: str = "dense"):
+        self.num_experts, self.moe_impl = num_experts, moe_impl
+        super().__init__(dim, depth, heads, mlp_ratio, drop, drop_path, patch, num_tokens)
+
+    def make_block(self, dim, heads, mlp_ratio, drop, drop_path) -> nn.Module:
+        return BlockMoE(dim, heads, mlp_ratio, drop, 0.0, drop_path,
+                        num_experts=self.num_experts, moe_impl=self.moe_impl)
 
 
 class ViewsLinear(nn.Module):

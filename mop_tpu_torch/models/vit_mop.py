@@ -3,7 +3,8 @@ PyTorch — the port of ``mop_tpu/models/vit_mop.py``.
 
 Encoder -> multi-view projection -> learnable kernels -> excitatory/inhibitory
 fusion -> spatial gate ``1 + a_pos*G_pos - a_neg*G_neg`` applied to the tokens
--> pool -> head, plus the ``get_gate_maps`` introspection API.
+-> pool -> head, plus the ``get_gate_maps`` introspection API and the
+optional MoE encoder.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .components import FuseExcInh, Kernels3, ViewsLinear, ViTEncoder
+from .components import FuseExcInh, Kernels3, ViewsLinear, ViTEncoder, ViTEncoderMoE
 from .layers import Linear, init_params
 
 Tensor = torch.Tensor
@@ -24,7 +25,9 @@ class ViT_MoP(nn.Module):
     """ViT with spatial boolean logic via excitatory/inhibitory gating.
 
     Built on ``device`` (the GPU unless given); ``generator`` seeds the
-    initialisation. The MoE encoder (``use_moe=True``) is not ported yet.
+    initialisation. ``use_moe`` swaps every block's MLP for a top-1 MoE MLP
+    of ``moe_experts`` experts, computed by ``moe_impl``: "dense"
+    (reference-exact) or "routed" (capacity-bounded dispatch).
     """
 
     def __init__(self, dim: int = 256, depth: int = 6, heads: int = 4,
@@ -37,12 +40,13 @@ class ViT_MoP(nn.Module):
         super().__init__()
         if dim % heads != 0:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
-        if use_moe:
-            raise NotImplementedError("ViT_MoP(use_moe=True): the MoE encoder is not ported yet")
         device = resolve_device(device)
-        self.enc = ViTEncoder(dim=dim, depth=depth, heads=heads, mlp_ratio=mlp_ratio,
-                              drop_path=drop_path, patch=patch,
-                              num_tokens=(img_size // patch) ** 2)
+        enc = dict(dim=dim, depth=depth, heads=heads, mlp_ratio=mlp_ratio, drop_path=drop_path,
+                   patch=patch, num_tokens=(img_size // patch) ** 2)
+        if use_moe:
+            self.enc = ViTEncoderMoE(**enc, num_experts=int(moe_experts), moe_impl=moe_impl)
+        else:
+            self.enc = ViTEncoder(**enc)
         self.views = ViewsLinear(dim, n_views=n_views)
         self.kerns = Kernels3(in_ch=n_views, n_kernels=n_kernels)
         self.fuse = FuseExcInh(in_ch=n_views + n_kernels)

@@ -34,6 +34,7 @@ SOURCES = {
     "edgewise_lowrank_fwd": "edgewise_lowrank_fwd.cu",
     "edgewise_dense_fwd": "edgewise_dense_fwd.cu",
     "edgewise_bwd": "edgewise_bwd.cu",
+    "edgewise_wide": "edgewise_wide.cu",
     "multihop_fwd": "multihop_fwd.cu",
     "quartet_fwd": "quartet_fwd.cu",
 }

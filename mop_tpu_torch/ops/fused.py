@@ -10,7 +10,10 @@ function's arguments and layout:
 - ``fused_edgewise_lowrank_attention``: K2, the full E-mode lowrank pipeline
   in one program per batch*head (``csrc/edgewise_lowrank_fwd.cu``), and its
   backward K2b, which recomputes the forward and applies the hand-derived
-  VJP (``csrc/edgewise_bwd.cu``).
+  VJP (``csrc/edgewise_bwd.cu``), for N <= 64; above that, up to the JAX
+  kernels' N <= 256, K2w and K2bw (``edgewise_lowrank_wide_fwd`` and
+  ``_bwd``, ``csrc/edgewise_wide.cu``), the same forward and VJP as stages
+  over a per-program workspace in device memory.
 - ``fused_edgewise_dense_attention``: K3, the E-mode pipeline with the dense
   per-edge gate head (``csrc/edgewise_dense_fwd.cu``), and its backward K3b,
   the same backward kernel templated on the dense head.
@@ -528,20 +531,53 @@ def edgewise_bwd_ws_bytes(dtype: torch.dtype, n_views: int, n: int, dk: int) -> 
 
 
 EDGEWISE_MAX_N, EDGEWISE_MAX_DK, EDGEWISE_MAX_VIEWS = 64, 128, 8
+# K2w / K2bw take the rest of the JAX kernels' envelope (N <= 256).
+WIDE_MAX_N = 256
 
 
-def _edgewise_envelope(nv: int, n: int, dk: int, max_views: int = EDGEWISE_MAX_VIEWS) -> bool:
-    return 2 <= nv <= max_views and n <= EDGEWISE_MAX_N and dk <= EDGEWISE_MAX_DK
+def _edgewise_envelope(nv: int, n: int, dk: int, max_views: int = EDGEWISE_MAX_VIEWS,
+                       max_n: int = EDGEWISE_MAX_N) -> bool:
+    return 2 <= nv <= max_views and n <= max_n and dk <= EDGEWISE_MAX_DK
+
+
+def _lowrank_one_program(dtype: torch.dtype, n_views: int, n: int, dk: int, rank: int) -> bool:
+    """Whether K2 and K2b (one program a batch*head, every map on chip) take
+    (V, N, dk, r) in ``dtype``."""
+    return (rank >= 1 and _edgewise_envelope(n_views, n, dk)
+            and edgewise_lowrank_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES
+            and edgewise_bwd_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES)
+
+
+def _lowrank_wide(n_views: int, n: int, dk: int, rank: int) -> bool:
+    """Whether K2w and K2bw take (V, N, dk, r): above K2's N, up to 256."""
+    return (rank >= 1 and n > EDGEWISE_MAX_N
+            and _edgewise_envelope(n_views, n, dk, max_n=WIDE_MAX_N))
 
 
 def edgewise_lowrank_fits(dtype: torch.dtype, n_views: int, n: int, dk: int,
                           rank: int) -> bool:
     """Whether the fused lowrank op's kernels take (V, N, dk, r) in
-    ``dtype``: K2 for the forward and K2b for its gradient, each within its
-    shape limits and the card's shared memory."""
-    return (rank >= 1 and _edgewise_envelope(n_views, n, dk)
-            and edgewise_lowrank_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES
-            and edgewise_bwd_smem_bytes(dtype, n_views, n, dk, rank) <= MAX_SMEM_BYTES)
+    ``dtype``: K2 for the forward and K2b for its gradient up to N = 64, each
+    within its shape limits and the card's shared memory; K2w and K2bw for
+    64 < N <= 256."""
+    return (_lowrank_one_program(dtype, n_views, n, dk, rank)
+            or _lowrank_wide(n_views, n, dk, rank))
+
+
+def edgewise_wide_ws_bytes(n_views: int, n: int, dk: int, rank: int, bwd: bool) -> int:
+    """Bytes of one K2w (``bwd`` False) or K2bw program's fp32 workspace; the
+    kernels' own count, ``mop_edgewise_wide_ws_bytes``. The forward keeps
+    V N x dk scaled queries, the V score maps S_v and softmaxes A_v, both
+    chains' 2(V-1) maps, att and the V-1 transports (with the means,
+    features and factors, and one N x dk product); the backward adds datt,
+    dA_v, dS_v, the four gate-logit cotangents, d c_fwd, d c_bwd, two chain
+    cotangents, two transport cotangents and the factors' and features'
+    cotangents: 5.5 MB a program backward at V = 4, N = 196, dk = 64, r = 4."""
+    nn, nd, c, r4 = n * n, n * dk, 2 * n_views + 2, 4 * rank
+    fwd = (n_views * nd + 2 * n_views * nn + 2 * (n_views - 1) * nn + 2 * (n_views + 2) * n
+           + 2 * n * c + 2 * n * r4 + nn + (n_views - 1) * nd + nd)
+    extra = nn + 2 * n_views * nn + 4 * nn + 2 * nn + 2 * nn + 2 * nd + 2 * n * r4 + 2 * n * c
+    return 4 * (fwd + (extra if bwd else 0))
 
 
 def edgewise_dense_fits(dtype: torch.dtype, n_views: int, n: int, dk: int) -> bool:
@@ -558,8 +594,10 @@ def _check_smem(name, smem, nv, n, dk):
                          f"memory, more than {MAX_SMEM_BYTES}")
 
 
-def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_fn):
-    """(B, H, V, N, dk, r) of a K2 / K2b call; raises outside the kernel's shapes."""
+def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_fn,
+                     max_n=EDGEWISE_MAX_N):
+    """(B, H, V, N, dk, r) of a K2 / K2b (or, with ``max_n``, K2w / K2bw)
+    call; raises outside the kernel's shapes."""
     b, h, nv, n, dk = qs.shape
     if ks.shape != qs.shape or vs.shape != qs.shape:
         raise ValueError(f"{name}: shapes {qs.shape}, {ks.shape}, {vs.shape}")
@@ -569,9 +607,9 @@ def _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol, max_views, smem_f
         raise ValueError(f"{name}: gate-head shapes {wrow.shape}, {brow.shape}, "
                          f"{wcol.shape}, {bcol.shape} for {nv} views")
     rank = c4 // 4
-    if rank < 1 or not _edgewise_envelope(nv, n, dk, max_views):
+    if rank < 1 or not _edgewise_envelope(nv, n, dk, max_views, max_n):
         raise ValueError(f"{name}: V={nv}, N={n}, dk={dk}, r={rank} outside the "
-                         f"kernel's shapes (2 <= V <= {max_views}, N <= {EDGEWISE_MAX_N}, "
+                         f"kernel's shapes (2 <= V <= {max_views}, N <= {max_n}, "
                          f"dk <= {EDGEWISE_MAX_DK}, r >= 1)")
     _check_smem(f"{name} (r={rank})", smem_fn(nv, n, dk, rank), nv, n, dk)
     return b, h, nv, n, dk, rank
@@ -687,6 +725,96 @@ def _edgewise_bwd_cuda(name, sym, qs, ks, vs, weights, beta_not, chain_w, dy, di
                 1.0 / math.sqrt(dk), copy_width((qs, ks, vs, dy), dk), _stream(dev))
     _raise_on(rc, name)
     return (dq, dkey, dv, *dws)
+
+
+def edgewise_lowrank_wide_fwd(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float],
+) -> torch.Tensor:
+    """K2w: the forward of ``fused_edgewise_lowrank_attention`` as stages over
+    a per-program fp32 workspace in device memory (``edgewise_wide_ws_bytes``),
+    for 2 <= V <= 8, N <= 256, dk <= 128; it raises outside them. On a CPU
+    tensor it is the plain version. The output is a view of a (B, N, H, dk)
+    buffer."""
+    if not qs.is_cuda:
+        return fused_edgewise_lowrank_attention_plain(qs, ks, vs, wrow, brow, wcol, bcol,
+                                                      beta_not, chain_w)
+    name = "edgewise_lowrank_wide_fwd"
+    _check_cuda_inputs(name, qs, ks, vs)
+    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
+                                             EDGEWISE_MAX_VIEWS, lambda *shape: 0, WIDE_MAX_N)
+    dev = qs.device
+    ws = _fp32_weights(dev, wrow, brow, wcol, bcol,
+                       _scalar_tensor(chain_w, dev).reshape(1))
+    out = torch.empty(b, n, h, dk, dtype=qs.dtype, device=dev).transpose(1, 2)
+    nbytes = b * h * edgewise_wide_ws_bytes(nv, n, dk, rank, False)
+    workspace = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+    fn = _fn("edgewise_wide", "mop_edgewise_wide_fwd",
+             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+              _I, _I, _I, _I, _I, _I, _P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                out.data_ptr(), *(t.data_ptr() for t in ws), workspace.data_ptr(), nbytes,
+                b, h, nv, n, dk, rank, _in_strides(qs, ks, vs, out), float(beta_not),
+                1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    edgewise_lowrank_wide_fwd.launches += 1
+    return out
+
+
+edgewise_lowrank_wide_fwd.launches = 0
+
+
+def edgewise_lowrank_wide_bwd(
+    qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    wrow: torch.Tensor, brow: torch.Tensor, wcol: torch.Tensor, bcol: torch.Tensor,
+    beta_not: float, chain_w: Union[torch.Tensor, float], dy: torch.Tensor,
+):
+    """K2bw: the backward of ``fused_edgewise_lowrank_attention`` for the
+    cotangent ``dy`` (B, H, N, dk), as stages (the forward's, then the
+    hand-derived VJP) over a per-program workspace, with the outputs of
+    ``fused_edgewise_lowrank_attention_bwd_plain``: dq, dk, dv contiguous in
+    the input dtype and the fp32 per-program weight and chain grads. Shapes
+    as K2w's; on a CPU tensor it is the plain version."""
+    if not qs.is_cuda:
+        return fused_edgewise_lowrank_attention_bwd_plain(
+            qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w, dy)
+    name = "edgewise_lowrank_wide_bwd"
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    _check_cuda_inputs(name, qs, ks, vs, dy)
+    b, h, nv, n, dk, rank = _edgewise_shapes(name, qs, ks, vs, wrow, brow, wcol, bcol,
+                                             EDGEWISE_MAX_VIEWS, lambda *shape: 0, WIDE_MAX_N)
+    if dy.shape != (b, h, n, dk):
+        raise ValueError(f"{name}: dy shape {dy.shape}, expected {(b, h, n, dk)}")
+    dev, bh, f32 = qs.device, b * h, torch.float32
+    ws = _fp32_weights(dev, wrow, brow, wcol, bcol,
+                       _scalar_tensor(chain_w, dev).reshape(1))
+    dq, dkey = (torch.empty(b, h, nv, n, dk, dtype=qs.dtype, device=dev) for _ in range(2))
+    dv = torch.zeros(b, h, nv, n, dk, dtype=qs.dtype, device=dev)  # views 1..V-2 get none
+    c, r4 = 2 * nv + 2, 4 * rank
+    dws = [torch.empty(bh, c, r4, dtype=f32, device=dev), torch.empty(bh, 1, r4, dtype=f32,
+                                                                      device=dev),
+           torch.empty(bh, c, r4, dtype=f32, device=dev), torch.empty(bh, 1, r4, dtype=f32,
+                                                                      device=dev),
+           torch.empty(bh, dtype=f32, device=dev)]
+    nbytes = bh * edgewise_wide_ws_bytes(nv, n, dk, rank, True)
+    workspace = torch.empty(nbytes // 4, dtype=f32, device=dev)
+    fn = _fn("edgewise_wide", "mop_edgewise_wide_bwd",
+             [_I] + [_P] * 18 + [ctypes.c_longlong] + [_I] * 6 + [_P, _F, _F, _P])
+    with torch.cuda.device(dev):
+        rc = fn(_DTYPE_CODE[qs.dtype], qs.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                dy.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dv.data_ptr(),
+                *(t.data_ptr() for t in ws), *(t.data_ptr() for t in dws),
+                workspace.data_ptr(), nbytes, b, h, nv, n, dk, rank,
+                _in_strides(qs, ks, vs, dy), float(beta_not), 1.0 / math.sqrt(dk), _stream(dev))
+    _raise_on(rc, name)
+    edgewise_lowrank_wide_bwd.launches += 1
+    return (dq, dkey, dv, *dws)
+
+
+edgewise_lowrank_wide_bwd.launches = 0
 
 
 def fused_edgewise_lowrank_attention_bwd_plain(
@@ -839,11 +967,15 @@ def fused_edgewise_lowrank_attention(
     qs/ks/vs: (B, H, V, N, dk) per-view tensors (any strides with a contiguous
     feature axis); wrow/wcol: (2V+2, 4r) gate-head kernels; brow/bcol: (4r,);
     chain_w: the sigmoid'd chain-value weight. Returns (B, H, N, dk). On CUDA
-    the forward is K2 and the backward K2b; K2 supports 2 <= V, N <= 64,
-    dk <= 128 within the card's shared memory and raises outside them; the
-    output is a view of a (B, N, H, dk) buffer.
+    the forward is K2 and the backward K2b where they take the shape
+    (2 <= V <= 8, N <= 64, dk <= 128 within the card's shared memory), else
+    K2w and K2bw (N <= 256); it raises outside them. The output is a view of
+    a (B, N, H, dk) buffer.
     """
-    if qs.is_cuda:
+    b, h, nv, n, dk = qs.shape
+    if qs.is_cuda and not _lowrank_one_program(qs.dtype, nv, n, dk, wrow.shape[-1] // 4):
+        fwd, bwd = edgewise_lowrank_wide_fwd, edgewise_lowrank_wide_bwd
+    elif qs.is_cuda:
         fwd, bwd = _edgewise_fwd_cuda, fused_edgewise_lowrank_attention_bwd
     else:
         fwd, bwd = (fused_edgewise_lowrank_attention_plain,
@@ -1192,7 +1324,8 @@ def fused_quartet_attention(
 fused_quartet_attention.launches = 0
 
 KERNELS = (flash_attention, fused_edgewise_lowrank_attention,
-           fused_edgewise_lowrank_attention_bwd, fused_edgewise_dense_attention,
+           fused_edgewise_lowrank_attention_bwd, edgewise_lowrank_wide_fwd,
+           edgewise_lowrank_wide_bwd, fused_edgewise_dense_attention,
            fused_edgewise_dense_attention_bwd, fused_multihop_attention,
            fused_quartet_attention)
 

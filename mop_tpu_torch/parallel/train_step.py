@@ -1,7 +1,8 @@
 """Train and eval steps on one device — the port of
 ``make_classifier_train_step``, ``make_scanned_classifier_train_step``,
-``make_classifier_eval_step``, ``make_lm_train_step`` and ``cast_floats``
-from ``mop_tpu/parallel/train_step.py``.
+``make_classifier_eval_step``, ``make_imagenet_train_step``,
+``make_lm_train_step`` and ``cast_floats`` from
+``mop_tpu/parallel/train_step.py``.
 
 Train: uint8 NCHW in, augment (or normalize) on the device, params cast to
 the compute dtype, forward with ``train=True``, fp32 logits and
@@ -15,6 +16,7 @@ and targets, which stay integer, and the model's fp32 mean cross-entropy.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..models.layers import set_generator
 from ..ops import preprocess as pp
@@ -64,34 +66,110 @@ def _forward(model: nn.Module, x: Tensor, compute_dtype: Optional[torch.dtype]) 
 # checkpoint_dots saves the dot_general outputs. Everything else is recomputed.
 _DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                       torch.ops.aten.addmm.default))
+# remat="dots_nb" saves only the products with no batch dimension, as JAX's
+# dots_with_no_batch_dims_saveable: the linears' mm and addmm (weight
+# stationary), not the attention's or the experts' batched bmm.
+_NO_BATCH_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+REMAT_MODES = ("none", "full", "dots", "dots_nb")
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _save_no_batch_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_POLICIES = {"dots": _save_dots, "dots_nb": _save_no_batch_dots}
+
+
+def _blocks(model: nn.Module):
+    """The model's transformer blocks: the children of each ``ModuleList``
+    named ``blocks``."""
+    found = [blk for name, mod in model.named_modules()
+             if name.rsplit(".", 1)[-1] == "blocks" and isinstance(mod, nn.ModuleList)
+             for blk in mod]
+    if not found:
+        raise ValueError(f"remat checkpoints each transformer block; {type(model).__name__} "
+                         "has no ModuleList named 'blocks'")
+    return found
+
+
+@contextlib.contextmanager
+def _checkpoint_blocks(blocks, generator, context_fn):
+    """Within the context each block runs under ``torch.utils.checkpoint``:
+    its input is saved (with whatever ``context_fn``'s policy saves) and the
+    rest recomputed, one block at a time, in backward. The recompute calls
+    the block with the params it ran with (the compute-dtype copies, which
+    the backward no longer has in scope), and rewinds the generator to where
+    the block's forward started, so it draws the same drop masks, then puts
+    the generator back."""
+    def wrap(blk):
+        inner = blk.forward
+
+        def forward(*args, **kwargs):
+            if getattr(blk, "_in_recompute", False):
+                return inner(*args, **kwargs)
+            state = {**dict(blk.named_parameters()), **dict(blk.named_buffers())}
+            at = generator.get_state() if generator is not None else None
+            calls = []
+
+            def run(*a):
+                calls.append(1)
+                now = None
+                if at is not None and len(calls) > 1:
+                    now = generator.get_state()
+                    generator.set_state(at)
+                blk._in_recompute = True
+                try:
+                    return functional_call(blk, state, a, kwargs)
+                finally:
+                    blk._in_recompute = False
+                    if now is not None:
+                        generator.set_state(now)
+
+            return checkpoint(run, *args, use_reentrant=False, context_fn=context_fn)
+
+        return forward
+
+    for blk in blocks:
+        blk.forward = wrap(blk)
+    try:
+        yield
+    finally:
+        for blk in blocks:
+            del blk.forward
+
+
+def _remat_forward(model, compute_dtype, remat):
+    """``forward(x, generator) -> logits``: the model on ``x`` in
+    ``compute_dtype``, under ``remat``, which checkpoints each transformer
+    block: "none" (no checkpoint), "full" (recompute all of each block in
+    backward), "dots" (all but the matmuls) or "dots_nb" (all but the
+    products with no batch dimension). Per block, so that the backward holds
+    one block's recomputed activations at a time, as ``jax.checkpoint``
+    around each scanned block does."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {remat!r}")
+    if remat == "none":
+        return lambda x, generator: _forward(model, x, compute_dtype)
+    blocks = _blocks(model)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _REMAT_POLICIES[remat])
+                  if remat in _REMAT_POLICIES else noop_context_fn)
+
+    def forward(x, generator):
+        with _checkpoint_blocks(blocks, generator, context_fn):
+            return _forward(model, x, compute_dtype)
+
+    return forward
+
 
 def _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype, n_classes,
                      remat):
     """``loss_fn(x_u8, y, generator) -> (loss, acc)`` of one (micro)batch."""
-
-    def forward(x, generator):
-        if remat == "none":
-            return _forward(model, x, compute_dtype)
-        # Recompute in backward ("full": all of the forward, "dots": all but
-        # the matmuls). The recompute rewinds the generator to where the
-        # forward started, so it draws the same drop masks.
-        state = generator.get_state() if generator is not None else None
-
-        def run(x):
-            if state is not None:
-                generator.set_state(state)
-            return _forward(model, x, compute_dtype)
-
-        if remat == "dots":
-            return checkpoint(run, x, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _save_dots))
-        return checkpoint(run, x, use_reentrant=False)
+    forward = _remat_forward(model, compute_dtype, remat)
 
     def loss_fn(x_u8, y, generator):
         if augment:
@@ -197,9 +275,10 @@ def make_scanned_classifier_train_step(
     ``step(x_u8 (K, B, C, H, W), y (K, B), generator) -> {"loss": (K,),
     "acc": (K,)}``, one optimizer update per step, as a Python loop.
 
-    ``remat``: "none" | "full" (``torch.utils.checkpoint`` around the forward:
-    recompute in backward) | "dots" (selective checkpointing that saves the
-    matmul outputs, ``mm``, ``bmm`` and ``addmm``, and recomputes the rest).
+    ``remat``: "none" | "full" (``torch.utils.checkpoint`` around each
+    transformer block: recompute in backward) | "dots" (selective
+    checkpointing that saves the matmul outputs, ``mm``, ``bmm`` and
+    ``addmm``, and recomputes the rest); see ``_remat_forward``.
     """
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat mode {remat!r}")
@@ -241,6 +320,75 @@ def make_classifier_eval_step(
         valid = valid_mask.to(device, torch.float32)
         correct = (logits.argmax(-1) == y.to(device)).to(torch.float32) * valid
         return correct.sum(), valid.sum()
+
+    return step
+
+
+def make_imagenet_train_step(
+    model: nn.Module, optimizer: torch.optim.Optimizer, mean, std, n_classes: int,
+    label_smoothing: float = 0.1, use_randaug: bool = False, randaug_n: int = 2,
+    randaug_m: int = 9, random_erasing: float = 0.25, mixup_alpha: float = 0.8,
+    cutmix_alpha: float = 1.0, mix_prob: float = 0.5, grad_clip: Optional[float] = 1.0,
+    compute_dtype: Optional[torch.dtype] = torch.bfloat16, remat: str = "none",
+    device: Device = None,
+) -> Callable[..., Dict[str, Tensor]]:
+    """ImageNet-style train step with the full regularization suite, on the
+    device: returns ``step(x_u8, y, generator) -> {"loss"}``.
+
+    Crop with ``H // 8`` padding, flip, then RandAugment (``use_randaug``)
+    and RandomErasing (``random_erasing`` > 0), normalize; label-smoothed
+    one-hot targets; then Mixup or CutMix: with both alphas above 0 one of
+    the two, Mixup with probability ``mix_prob`` (a uniform drawn first;
+    only the chosen op draws from the generator, and reading the uniform
+    waits for the stream once a step), else whichever alone is on. The
+    forward runs with the float params cast to ``compute_dtype``; the soft
+    cross-entropy is fp32 and the grads reach the fp32 params in fp32. The
+    grads are scaled by ``min(1, clip / (norm + 1e-6))`` only where
+    ``grad_clip > 0`` (the other steps clip wherever it is not None). Then
+    ``optimizer`` takes one step. ``remat``: "none" | "full" | "dots" |
+    "dots_nb" (see ``_remat_forward``) checkpoints each block of the
+    network; the augment is never recomputed. ``generator`` (on the step's device) feeds
+    the augment and the model's drop masks. The step runs on ``device``
+    (the GPU unless given) and moves its inputs there; the model must
+    already live on it.
+    """
+    device = resolve_device(device)
+    forward = _remat_forward(model, compute_dtype, remat)
+    params = [p for p in model.parameters() if p.requires_grad]
+    both = mixup_alpha > 0 and cutmix_alpha > 0
+
+    def loss_fn(x_u8, y, generator):
+        use_mixup = both and float(torch.rand((), device=device, generator=generator)) < mix_prob
+        x = pp.to_float(x_u8)
+        x = pp.random_crop(generator, x, padding=x.shape[-1] // 8)
+        x = pp.random_hflip(generator, x)
+        if use_randaug:
+            x = pp.rand_augment(generator, x, randaug_n, randaug_m)
+        if random_erasing > 0:
+            x = pp.random_erasing(generator, x, p=random_erasing)
+        x = pp.normalize(x, mean, std)
+        tgt = pp.label_smoothing_onehot(y, n_classes, label_smoothing)
+        if use_mixup or (mixup_alpha > 0 and not both):
+            x, tgt = pp.mixup(generator, x, tgt, alpha=mixup_alpha)
+        elif cutmix_alpha > 0:
+            x, tgt = pp.cutmix(generator, x, tgt, alpha=cutmix_alpha)
+        logits = forward(x, generator).float()
+        return -(tgt * torch.log_softmax(logits, -1)).sum(-1).mean()
+
+    def step(x_u8: Tensor, y: Tensor, generator: torch.Generator) -> Dict[str, Tensor]:
+        if generator is None:
+            raise ValueError("the ImageNet augment draws from an explicit torch.Generator; "
+                             "pass one on the step's device")
+        model.train()
+        set_generator(model, generator)
+        x_u8 = x_u8.to(device, non_blocking=True)
+        y = y.to(device, non_blocking=True).long()
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(x_u8, y, generator)
+        loss.backward()
+        _clip_and_update(params, optimizer,
+                         grad_clip if grad_clip is not None and grad_clip > 0 else None)
+        return {"loss": loss.detach()}
 
     return step
 

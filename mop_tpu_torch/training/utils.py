@@ -1,12 +1,13 @@
 """Training utilities of the port: the part of ``mop_tpu/training/utils.py``
-that the experiment harness uses (``set_seed``, ``count_params`` and the
-checkpoint payload {step, state_dict, opt_state, loss, extra})."""
+that the experiment harness uses (``set_seed``, ``count_params``, the
+checkpoint payload {step, state_dict, opt_state, loss, extra} and
+``ema_update``)."""
 
 from __future__ import annotations
 
 import os
 import random
-from typing import Any, Dict, Union
+from typing import Any, Dict, Iterable, Union
 
 import numpy as np
 import torch
@@ -47,3 +48,15 @@ def load_checkpoint(path: str, map_location: Union[str, torch.device] = "cpu"
     """Read a ``save_checkpoint`` payload. Only tensors and plain containers
     are unpickled (``weights_only``), so ``extra`` holds those."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+@torch.no_grad()
+def ema_update(ema: Iterable[torch.Tensor], params: Iterable[torch.Tensor], decay: float):
+    """Shadow-parameter EMA step, in place on the shadow copy: each ``e``
+    of ``ema`` becomes ``decay * e + (1 - decay) * p`` for its ``p`` of
+    ``params`` (two sequences in one order, e.g. an EMA model's and the
+    model's ``parameters()``). Returns ``ema``."""
+    ema = list(ema)
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, list(params), alpha=1.0 - decay)
+    return ema

@@ -9,9 +9,13 @@ into the port's torch names:
 - Conv2d  kernel (kh, kw, in, out)  -> weight (out, in, kh, kw)   [HWIO -> OIHW]
 - lowrank gate kernel (C, 4r)       -> Conv1d weight (4r, C, 1)
 - LayerNorm scale                   -> weight
+- MoE gate_kernel (D, E)            -> gate_kernel (E, D), as every 2-D kernel;
+  the MoE's stacked expert weights ``fc1`` (E, D, H) and ``fc2`` (E, H, D)
+  are not kernels and keep their layout and names
 
-Any leaf without a port parameter, any port parameter without a leaf, and any
-shape mismatch raises.
+The localizer's head and unified-block MLPs (``head.fc1``, ``mlp_fc1``) take
+the reference's ``Sequential`` indices. Any leaf without a port parameter,
+any port parameter without a leaf, and any shape mismatch raises.
 """
 
 from __future__ import annotations

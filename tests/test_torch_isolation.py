@@ -40,7 +40,11 @@ def test_the_scan_sees_the_package():
             "mop_tpu_torch/experiments/cifar100_ab5_param_budgets.py",
             "mop_tpu_torch/ops/mel.py", "mop_tpu_torch/data/audio.py",
             "mop_tpu_torch/models/whisper_mop.py", "mop_tpu_torch/models/whisper_comparison.py",
-            "mop_tpu_torch/models/generate.py", "mop_tpu_torch/cli/whisper_demo.py"} <= names
+            "mop_tpu_torch/models/generate.py", "mop_tpu_torch/cli/whisper_demo.py",
+            "mop_tpu_torch/ops/moe.py", "mop_tpu_torch/models/vit_localizer.py",
+            "mop_tpu_torch/data/voc.py", "mop_tpu_torch/data/imagenet.py",
+            "mop_tpu_torch/experiments/voc_localization_vit.py",
+            "mop_tpu_torch/experiments/imagenet_ab_param_budgets.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -193,21 +193,28 @@ def test_drop_path_drops_whole_samples_in_training_only():
     assert torch.equal(dp.eval()(x), x)
 
 
-@pytest.mark.parametrize("ctor,ported", [
-    (lambda: P.ViT_MoP(**SMALL, use_moe=True, device="cpu"), False),
-    (lambda: P.models.MSA(32, 4, attn_drop=0.1), True),
-    (lambda: EdgewiseMSA(32, 4, attn_drop=0.1), True),
+@pytest.mark.parametrize("ctor", [
+    lambda: P.ViT_MoP(**SMALL, use_moe=True, device="cpu"),
+    lambda: P.models.MSA(32, 4, attn_drop=0.1),
+    lambda: EdgewiseMSA(32, 4, attn_drop=0.1),
 ], ids=["ctor0", "ctor1", "ctor2"])
-def test_unported_options_raise(ctor, ported):
-    """MoE is not ported and raises. Attention dropout in MSA and EdgewiseMSA
-    is ported since: the module builds, and in eval mode it computes what the
-    same weights compute at rate 0 (test_torch_attention_dropout.py holds
-    its training mode against the JAX module's definition)."""
-    if not ported:
-        with pytest.raises(NotImplementedError):
-            ctor()
-        return
+def test_unported_options_raise(ctor):
+    """Each option that raised here when it was not ported is ported since.
+    The MoE encoder builds, and its routed impl at a capacity that holds
+    every token gives the dense impl's logits (test_torch_moe.py holds both
+    against the JAX model). Attention dropout in MSA and EdgewiseMSA builds,
+    and in eval mode it computes what the same weights compute at rate 0
+    (test_torch_attention_dropout.py holds its training mode against the
+    JAX module's definition)."""
     m = ctor().eval()
+    if isinstance(m, P.ViT_MoP):
+        x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+        got = m(x)
+        for mlp in m.enc.blocks:
+            mlp.mlp.impl, mlp.mlp.capacity_factor = "routed", 4.0
+        torch.testing.assert_close(got, m(x), rtol=2e-4, atol=2e-5)
+        assert got.shape == (2, SMALL["n_classes"])
+        return
     x = torch.randn(2, 16, 32, generator=torch.Generator().manual_seed(0))
     got = m(x)
     m.attn_drop.p = 0.0

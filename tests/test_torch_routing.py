@@ -3,11 +3,12 @@ only where ``ops.fused`` says the op's kernels take the shape, from the shape
 alone and the same on the CPU as on the card, and composes otherwise, as the
 JAX modules do outside their kernels' envelopes.
 
-Above N = 64 (x of 81 tokens, a 9 x 9 patch grid) ``EdgewiseMSA`` (lowrank
-and dense heads), ``MultiHopMSA`` and ``DualPathMSA`` compose in eval and in
-training and match the JAX modules (which compose off the TPU); a spy shows
-the fused op is not called. At N = 64 the same spy shows it is. ``MSA``
-composes above K1's head width (dk > 128) and matches the JAX ``MSA``."""
+Above their kernels' N ``EdgewiseMSA`` (lowrank head above 256, dense head
+above 64), ``MultiHopMSA`` and ``DualPathMSA`` (above 64) compose in eval and
+in training and match the JAX modules (which compose off the TPU); a spy
+shows the fused op is not called (x of 257 or 81 tokens). At N = 64 the same
+spy shows it is. ``MSA`` composes above K1's head width (dk > 128) and
+matches the JAX ``MSA``."""
 
 import functools
 
@@ -98,12 +99,18 @@ def _run(name, n, train, monkeypatch):
     return len(calls)
 
 
+# The least N above each module's fused op's envelope: the lowrank op's
+# kernels take N <= 256 (K2w / K2bw above K2's 64), K3's and K4's N <= 64.
+ABOVE = {"E_lowrank": 257, "E_dense": 81, "D": 81, "dualpath": 81}
+
+
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("name", sorted(MODULES))
 def test_module_composes_above_the_kernels_shapes(name, train, monkeypatch):
-    """N = 81 is outside K2's, K3's and K4's shapes (N <= 64): the module
-    composes, in eval and in training, and matches the JAX module."""
-    assert _run(name, 81, train, monkeypatch) == 0
+    """Above the fused op's N (257 for the lowrank head, 81 for the others):
+    the module composes, in eval and in training, and matches the JAX
+    module."""
+    assert _run(name, ABOVE[name], train, monkeypatch) == 0
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -119,7 +126,8 @@ def test_predicates_follow_the_kernels_envelopes():
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
         assert TF.edgewise_lowrank_fits(dtype, 5, 64, 56, 4)
-        assert not TF.edgewise_lowrank_fits(dtype, 5, 65, 56, 4)
+        assert TF.edgewise_lowrank_fits(dtype, 5, 65, 56, 4)  # K2w / K2bw
+        assert not TF.edgewise_lowrank_fits(dtype, 5, 257, 56, 4)
         assert not TF.edgewise_lowrank_fits(dtype, 9, 64, 56, 4)  # K2b takes V <= 8
         assert TF.edgewise_dense_fits(dtype, 5, 64, 56)
         assert not TF.edgewise_dense_fits(dtype, 5, 196, 56)
