@@ -138,7 +138,10 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``--synthetic --tiny --epochs 2``) for A, B and E: the loss falling, IoU in [0, 1],
    its CSV, K1 66 launches in A's and B's runs, K2w 66 and K2bw 48 in E's, after K2w and
    K2bw at E's attention shape (64, 4, 4, 196, 64) r=4 and off it against their plain
-   versions, with their times; K1 at A's and B's (64, 4, 196, 64) against its plain
+   versions, with their times, each kernel's device time by name (torch.profiler's
+   records, held to the library's own launch count) and the products' achieved
+   TFLOP/s, the fp32 bound at the 3xTF32 rate (495 / 3 TFLOP/s); K1 at A's and B's
+   (64, 4, 196, 64) against its plain
    version and sdpa; the ImageNet
    CLI ``imagenet_ab_param_budgets.main`` (``--synthetic --tiny --targets 50000000
    --steps 20 --ema``) with A and B at batch 256 and E at 128 (at 256 its step does not
@@ -149,7 +152,7 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    256, E at 128, each with ms/step, images/s, busy share and peak memory. The kernels
    line's ``launches`` add the MoE's counted steps and forwards and the VOC runs'; K1's
    holds the (64, 4, 196, 64) timings as ``voc_fp32`` and ``voc_bf16``; K2w and K2bw
-   are timed at VOC E's shape.
+   are timed at VOC E's shape, their records carrying ``products_tflops``.
 """
 
 from __future__ import annotations
@@ -206,6 +209,7 @@ LR, WD = 3e-3, 0.05  # bench.py's AdamW
 BF16_GRAD_FRAC = 2e-2
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 off the tensor cores
+PEAK_TF32 = 495e12  # on the tensor cores; a 3xTF32 product takes three passes
 PEAK_BYTES = 3.35e12
 
 # Full-width configs of experiments/cifar100_ab5_param_budgets.py at the 5M
@@ -396,9 +400,12 @@ VOC_K1 = (64, 4, 196, 64)  # (B, H, N, dk) of A's and B's attention
 # N = 196, through K2w and its gradient through K2bw (fp32: the CLI trains in
 # fp32), once a block a forward and a train step.
 VOC_E = ((64, 4), 4, 196, 64, 4)  # ((B, H), V, N, dk, r)
-# K2w / K2bw off VOC's shape: two views at rank 1, and the JAX envelope's
-# corner (8 views, N 256, dk 128).
-WIDE_OFF_SHAPES = (((2, 2), 2, 72, 8, 1), ((1, 2), 8, 256, 128, 1), ((2, 3), 3, 100, 54, 2))
+# K2w / K2bw off VOC's shape: two views at rank 1, the JAX envelope's corner
+# (8 views, N 256, dk 128), dk 54 (element copies), and three and five views,
+# where both chains' backward steps write one map (the final step at V 3, a
+# middle step at V 5) and run a launch a chain.
+WIDE_OFF_SHAPES = (((2, 2), 2, 72, 8, 1), ((1, 2), 8, 256, 128, 1), ((2, 3), 3, 100, 54, 2),
+                   ((1, 3), 5, 90, 32, 3))
 # ImageNet: the CLI at the 50M target on the synthetic tiny set, with the
 # configs and counts the JAX matcher gives (tests/test_torch_experiments_
 # voc_imagenet.py holds the port's matcher to the JAX script's at narrowed
@@ -506,8 +513,11 @@ def graph_ms(fn, calls=20):
     return ms
 
 
-def bound_ms(flops, nbytes, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound_ms(flops, nbytes, dtype, peak=None):
+    """The larger of the flops over the dtype's peak rate (or ``peak``,
+    where the kernel's route has its own) and the bytes over the memory
+    rate, in ms, with which of the two it is."""
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -774,6 +784,14 @@ def _kernel_label(mangled: str) -> str:
     start = m.end()
     name = mangled[start:start + int(m.group(1))]
     rest = mangled[start + int(m.group(1)):]
+    if name == "wide":  # K2w / K2bw: mop::wide::<kernel><template arguments>
+        k = re.match(r"(\d+)", rest)
+        kname, rest = rest[k.end():k.end() + int(k.group(1))], rest[k.end() + int(k.group(1)):]
+        args = rest[1:rest.find("Ev")] if rest.startswith("I") else ""
+        # bf16 is the only type substituted (S<n>_) after its first mention
+        toks = re.findall(r"Lb([01])E|Li(\d+)E|(13__nv_bfloat16|S\d*_)|(f)", args)
+        tags = [b or i or ("bf16" if h else "f32") for b, i, h, _ in toks]
+        return f"wide::{kname}<{','.join(tags)}>" if tags else f"wide::{kname}"
     tags = [t for t, key in (("float", "If"), ("bf16", "I13__nv_bfloat16"),
                              ("lowrank", "LowrankGate"), ("dense", "DenseGate"))
             if (rest.startswith(key) if key.startswith("I") else key in rest.split("Ev")[0])]
@@ -1321,11 +1339,58 @@ def step_profile(step, images, label, smi, windows, window_steps):
     return ms, rate, busy, peak
 
 
+def wide_kernel_times(fn, reps=4, tries=3):
+    """Device time of K2w's or K2bw's kernels by name (ms a call and
+    launches a call) from torch.profiler's kernel records over ``reps``
+    calls. The records are held to the library's own launch count
+    (``mop_edgewise_wide_launches``); a profile that kept fewer is taken
+    again, up to ``tries`` profiles. Returns (times by name, records kept,
+    launches).
+
+    Late in the whole script a profile could miss its first 16 kernel
+    records, three profiles in a row (on the H100, not in the phase alone).
+    So each profile opens with 64 small kernels of its own and the calls
+    run between idle spans, longer on each try."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    count = F._fn("edgewise_wide", "mop_edgewise_wide_launches", [], ctypes.c_longlong)
+    lead = torch.zeros(1, device="cuda")
+    fn()
+    for t in range(tries):
+        pad_s = 0.05 * 4 ** t
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            n0 = count()
+            for _ in range(reps):
+                fn()
+            launches = count() - n0
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "mop::wide::" in e.name]
+        if len(recs) == launches:
+            break
+    times = {}
+    for name, us in recs:
+        label = name.split("mop::wide::", 1)[1].split("(", 1)[0]
+        us_all, k = times.get(label, (0.0, 0))
+        times[label] = (us_all + us, k + 1)
+    return ({label: (us / 1e3 / reps, k / reps) for label, (us, k) in times.items()},
+            len(recs), launches)
+
+
 def wide_kernel_checks(smi):
     """K2w and K2bw against their plain versions: at VOC E's shape in fp32
     (the CLI's dtype) and bf16, at the strided per-view views and the
     strided dy that EdgewiseMSA passes, and off the shape. Then their times
-    beside the plain versions' and the bound. Returns the kernels line's two
+    beside the plain versions' and the bound, with each kernel's device time
+    by name and the products' achieved TFLOP/s. Returns the kernels line's two
     records (launches filled in from the main path later)."""
     say("[12 K2w edgewise_lowrank_wide_fwd and K2bw edgewise_lowrank_wide_bwd vs plain]")
     gw = cuda_generator(46)
@@ -1385,10 +1450,30 @@ def wide_kernel_checks(smi):
             with torch.no_grad():
                 ms = time_ms(lambda: fn(*args), iters=5, reps=3)
                 plain = time_ms(lambda: plain_fn(*args), iters=3, reps=3)
-            bnd, by = bound_ms(*cost(b * h, nv, n, dk, r, dtype), dtype)
+            # fp32 runs every product as 3xTF32: three passes at the TF32 rate.
+            peak = PEAK_TF32 / 3 if dtype == torch.float32 else None
+            bnd, by = bound_ms(*cost(b * h, nv, n, dk, r, dtype), dtype, peak)
+            rate = "3xTF32, 495 / 3 TFLOP/s" if peak else "bf16, 989 TFLOP/s"
             say(f"  {name} {(b, h, nv, n, dk)} r={r} {dtype}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), no single library call [{smi}]")
-            row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}; {rate}), no single library call "
+                f"[{smi}]")
+            with torch.no_grad():
+                times, kept, launches = wide_kernel_times(lambda: fn(*args))
+            check(kept == launches, f"{name} {dtype}: torch.profiler kept {kept} kernel records "
+                  f"of the library's {launches} launches")
+            total = sum(ms_ for ms_, _ in times.values())
+            prod_ms = sum(ms_ for label, (ms_, _) in times.items() if label.startswith("mm_kernel"))
+            flops = cost(b * h, nv, n, dk, r, dtype)[0]
+            tflops = flops / (prod_ms * 1e-3) / 1e12 if prod_ms else None
+            say(f"    by kernel (device ms a call, launches a call; torch.profiler over 4 calls, "
+                f"{total:.4f} ms in all): "
+                + "; ".join(f"{label} {ms_:.4f} ({k:g})" for label, (ms_, k) in
+                            sorted(times.items(), key=lambda kv: -kv[1][0])))
+            if tflops:
+                say(f"    products (mm_kernel) {prod_ms:.4f} ms ({100 * prod_ms / total:.1f}%) "
+                    f"at {tflops:.1f} TFLOP/s of the bound's {flops / 1e9:.2f} GFLOP [{smi}]")
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+                       products_tflops=tflops)
             if rec is None:  # VOC's E trains in fp32
                 rec = dict(name=name, route="cuda", source="mop_tpu_torch/csrc/edgewise_wide.cu",
                            replaces="mop_tpu/ops/fused.py:"

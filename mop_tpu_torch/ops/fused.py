@@ -566,18 +566,29 @@ def edgewise_lowrank_fits(dtype: torch.dtype, n_views: int, n: int, dk: int,
 
 def edgewise_wide_ws_bytes(n_views: int, n: int, dk: int, rank: int, bwd: bool) -> int:
     """Bytes of one K2w (``bwd`` False) or K2bw program's fp32 workspace; the
-    kernels' own count, ``mop_edgewise_wide_ws_bytes``. The forward keeps
-    V N x dk scaled queries, the V score maps S_v and softmaxes A_v, both
-    chains' 2(V-1) maps, att and the V-1 transports (with the means,
-    features and factors, and one N x dk product); the backward adds datt,
-    dA_v, dS_v, the four gate-logit cotangents, d c_fwd, d c_bwd, two chain
-    cotangents, two transport cotangents and the factors' and features'
-    cotangents: 5.5 MB a program backward at V = 4, N = 196, dk = 64, r = 4."""
-    nn, nd, c, r4 = n * n, n * dk, 2 * n_views + 2, 4 * rank
-    fwd = (n_views * nd + 2 * n_views * nn + 2 * (n_views - 1) * nn + 2 * (n_views + 2) * n
-           + 2 * n * c + 2 * n * r4 + nn + (n_views - 1) * nd + nd)
-    extra = nn + 2 * n_views * nn + 4 * nn + 2 * nn + 2 * nn + 2 * nd + 2 * n * r4 + 2 * n * c
-    return 4 * (fwd + (extra if bwd else 0))
+    kernels' own count, ``mop_edgewise_wide_ws_bytes``. Each buffer is padded
+    to a multiple of four floats; N x N maps have rows of round4(N) floats,
+    N x dk ones of round4(dk), the pooled features of round4(2V + 2), and
+    the column factors (4r rows) and the features' cotangents (2V + 2 rows)
+    are stored transposed, rows of round4(N). The forward keeps the V score
+    maps S_v and softmaxes A_v, both chains' 2(V-1) maps, the means (row
+    means of the V + 2 maps and their column sums by 64-row block), the
+    features and factors, att, the V-1 transports and one N x dk product;
+    the backward adds datt, dA_v, dS_v, the four gate-logit cotangents, d
+    c_fwd and d c_bwd, two transport cotangents and the factors' and
+    features' cotangents: 5.0 MB a program backward at V = 4, N = 196, dk =
+    64, r = 4."""
+    def r4(x):
+        return (x + 3) & ~3
+
+    nn, nd, c, r4k = n * r4(n), n * r4(dk), r4(2 * n_views + 2), 4 * rank
+    nrb = (n + 63) // 64  # the products' 64-row blocks
+    fwd = [n_views * nn, n_views * nn, 2 * (n_views - 1) * nn, (n_views + 2) * n,
+           (n_views + 2) * nrb * n, n * c, n * c, n * r4k, r4k * r4(n), nn, (n_views - 1) * nd,
+           nd]
+    cn = (2 * n_views + 2) * r4(n)  # the features' cotangents, channel-major
+    extra = [nn, n_views * nn, n_views * nn, 4 * nn, 2 * nn, 2 * nd, n * r4k, n * r4k, cn, cn]
+    return 4 * sum(r4(x) for x in fwd + (extra if bwd else []))
 
 
 def edgewise_dense_fits(dtype: torch.dtype, n_views: int, n: int, dk: int) -> bool:
