@@ -152,7 +152,29 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    256, E at 128, each with ms/step, images/s, busy share and peak memory. The kernels
    line's ``launches`` add the MoE's counted steps and forwards and the VOC runs'; K1's
    holds the (64, 4, 196, 64) timings as ``voc_fp32`` and ``voc_bf16``; K2w and K2bw
-   are timed at VOC E's shape, their records carrying ``products_tflops``.
+   are timed at VOC E's shape, their records carrying ``products_tflops``;
+13. decode (``mop_tpu_torch.models.generate``, ``beam``, ``speculative``, ``ops.quant``):
+   13a, ``tools/bench_decode.py``'s GPT-Quartet (6 x 384, vocab 512, batch 8, a 16-token
+   prompt, block 256): the exact full-window ``generate`` for 240 tokens, K5 6 x 240
+   launches, its greedy tokens with ``fused_quartet`` off equal up to each row's first near
+   tie (top-two margin under 1e-4) and each step's logits teacher-forced on them against
+   the plain path; ``generate_cached`` with fp32, bf16 and int8 KV: tokens/s and greedy
+   agreement with the full window, ``benchmarks/decode.md``'s table with the port's
+   numbers, and both samplers' busy share; 13b, the 170M GPT-Quartet (12 x 1024, 16 heads,
+   block 512, batch 1) of ``tools/bench_speculative.py``: ``generate`` for 32 tokens through
+   K5's streaming kernel (``quartet_keeps_rows`` false at (1, 16, 512, 64) fp32), 12 x 32
+   launches, its logits teacher-forced against the plain path; ``generate_cached`` with
+   fp32, int8 and int4 weights (stored MB, ms a step, teacher-forced agreement with fp32);
+   ``decode_chunk`` against the same tokens one ``decode_step`` at a time; greedy
+   ``speculative_generate`` with the 2 x 128 draft at gamma 4 and ``generate_beam`` with
+   one beam giving ``generate_cached``'s tokens up to the first near tie, with the
+   acceptance and tokens/s; four beams sorted; K5 timed at both decode shapes; 13c,
+   Whisper_20M beam transcription (4 beams, 32 tokens, batch 8): K1's 4 encoder launches,
+   one beam giving ``whisper_transcribe_cached``'s tokens, int8 KV refused; 13d, the demo
+   ``mop_tpu_torch.cli.generate_text`` for 50 steps: the loss falling, both samplers'
+   text. The kernels line's ``launches`` add the exact samplers' K5 launches and the beam
+   encoder's K1 launches; K5's record holds the decode shapes' timings
+   (``decode_8x6x256x64``, ``decode_1x16x512x64``).
 """
 
 from __future__ import annotations
@@ -171,16 +193,17 @@ import time
 import numpy as np
 import torch
 
-from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, IMAGENET_MEAN, IMAGENET_STD,
-                           ComparisonConfig, GPTComparisonFramework, TransformerConfig,
-                           ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise, ViTGated,
-                           ViTMultiHop, WhisperConfig, cast_floats, create_gpt_mop,
-                           create_gpt_quartet, create_whisper_baseline, create_whisper_mop,
-                           make_classifier_eval_step, make_classifier_train_step,
-                           make_imagenet_train_step, make_lm_train_step,
-                           make_scanned_classifier_train_step, whisper_transcribe,
-                           whisper_transcribe_auto, whisper_transcribe_cached)
-from mop_tpu_torch.cli import whisper_demo
+from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTComparisonFramework,
+                           IMAGENET_MEAN, IMAGENET_STD, TransformerConfig, ViTCrossView,
+                           ViTEdgewise, ViTGated, ViTMultiHop, ViT_Baseline, ViT_MoP,
+                           WhisperConfig, cast_floats, create_gpt_mop, create_gpt_quartet,
+                           create_whisper_baseline, create_whisper_mop, decode_params, generate,
+                           generate_beam, generate_cached, make_classifier_eval_step,
+                           make_classifier_train_step, make_imagenet_train_step,
+                           make_lm_train_step, make_scanned_classifier_train_step,
+                           speculative_generate, whisper_transcribe, whisper_transcribe_auto,
+                           whisper_transcribe_beam, whisper_transcribe_cached)
+from mop_tpu_torch.cli import generate_text, whisper_demo
 from mop_tpu_torch.config import config as kernel_switches
 from mop_tpu_torch.experiments import cifar100_ab5_param_budgets as ab5
 from mop_tpu_torch.experiments import cifar100_multihop_gates
@@ -188,13 +211,15 @@ from mop_tpu_torch.experiments import imagenet_ab_param_budgets as imagenet_cli
 from mop_tpu_torch.experiments import voc_localization_vit as voc_cli
 from mop_tpu_torch.experiments import common as harness
 from mop_tpu_torch.models import EdgewiseMSA, MultiHopMSA
-from mop_tpu_torch.models.generate import whisper_decode_prep, whisper_decode_token
+from mop_tpu_torch.models.generate import (decode_chunk, decode_step, prefill,
+                                           whisper_decode_prep, whisper_decode_token)
 from mop_tpu_torch.models.components import MoEMLP
 from mop_tpu_torch.models.layers import gelu_tanh, init_params
 from mop_tpu_torch.ops import _build
 from mop_tpu_torch.ops import moe as ops_moe
 from mop_tpu_torch.ops import fused as F
 from mop_tpu_torch.ops.preprocess import cifar_eval_transform
+from mop_tpu_torch.ops.quant import quantize_params, quantized_bytes
 
 BATCH = 256
 N_CLASSES = 100
@@ -420,6 +445,21 @@ IMAGENET_MATCH = {"A": ((640, 10, 4), 49_859_840), "B": ((632, 10, 4), 48_633_88
 IMAGENET_E_BATCH = 128
 IMAGENET_REMATS = ("none", "full", "dots", "dots_nb")
 IMAGENET_WINDOWS, IMAGENET_WINDOW_STEPS = 3, 5
+
+# Phase 13, decode: tools/bench_decode.py's GPT-Quartet (6 x 384, 6 heads,
+# vocab 512, batch 8, a 16-token prompt, block 256, 240 new tokens), and
+# tools/bench_speculative.py's 170M target (12 x 1024, 16 heads, block 512,
+# batch 1) with its 2 x 128 draft (4 heads).
+DECODE_SMALL = dict(n_layer=6, n_head=6, n_embd=384, dropout=0.0, block_size=256)
+DECODE_VOCAB, DECODE_BATCH, DECODE_T0, DECODE_NEW = 512, 8, 16, 240
+DECODE_170M = dict(n_layer=12, n_head=16, n_embd=1024, dropout=0.0, block_size=512)
+DECODE_DRAFT = dict(n_layer=2, n_head=4, n_embd=128, dropout=0.0, block_size=512)
+DECODE_170M_EXACT = 32  # tokens of the exact sampler at block 512
+DECODE_170M_CACHED = 64  # tokens of the cached decoders
+DECODE_GAMMA = 4
+DECODE_TIE = 1e-4  # a top-two logit margin below this is a near tie
+DECODE_WINDOW_CHUNK = 240  # full windows a teacher-forced forward takes at once
+WHISPER_BEAMS, WHISPER_BEAM_TOKENS = 4, 32
 
 failures = []
 # Each kernel's launches on the main paths, for the kernels line.
@@ -1275,13 +1315,6 @@ def whisper_phases(smi):
     model = create_whisper_mop(cfg, generator=torch.Generator().manual_seed(33)).eval()
     mel = whisper_batch(cfg, DISPATCH_BATCH, 1)[0]
 
-    def seconds(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     # Both routes host-bound, so each ctx runs them in turns (full, cached,
     # cached, full, twice) after a warm call each, and compares medians.
     rows = []
@@ -1292,7 +1325,7 @@ def whisper_phases(smi):
         for name, fn in routes.items():
             fn()
         for name in ("full", "cached", "cached", "full") * 2:
-            times[name].append(seconds(routes[name]))
+            times[name].append(seconds_of(routes[name])[1])
         t_full, t_cached = (statistics.median(times[k]) for k in ("full", "cached"))
         rows.append((ctx, t_full, t_cached))
         say(f"  dispatch ctx {ctx}: full window {1e3 * t_full:.1f} ms "
@@ -1726,6 +1759,275 @@ def moe_voc_imagenet_phases(smi):
         del model, opt, xi, yi
         torch.cuda.empty_cache()
     return k1_rows, wide_records
+
+
+def tie_prefix(got, want, margins):
+    """Whether ``got`` equals ``want`` (B, T) in every row up to that row's
+    first step whose top-two margin (B, T) is below DECODE_TIE, and those
+    steps (T where there is none)."""
+    n = want.shape[1]
+    ties = margins < DECODE_TIE
+    first = torch.where(ties.any(1), ties.float().argmax(1),
+                        torch.full_like(ties[:, 0], n, dtype=torch.long)).tolist()
+    return all(torch.equal(got[r, :t], want[r, :t]) for r, t in enumerate(first)), first
+
+
+def top2_margin(logits):
+    top = logits.float().topk(2, -1).values
+    return top[..., 0] - top[..., 1]
+
+
+def window_logits(model, seq, t0, n):
+    """The logits (B, n, V) of the full-window sampler's n steps along the
+    token sequence seq (B, t0 + n), teacher-forced: step s's window holds
+    the sequence's last ``min(t0 + s, block)`` tokens before t0 + s, zeros
+    after, and its logits are those at its last live position."""
+    block = model.config.block_size
+    b = seq.shape[0]
+    wins, lens = [], []
+    for s in range(n):
+        end = t0 + s
+        ln = min(end, block)
+        w = torch.zeros(b, block, dtype=torch.long, device=seq.device)
+        w[:, :ln] = seq[:, end - ln:end]
+        wins.append(w)
+        lens.append(ln)
+    wins = torch.stack(wins, 1).reshape(b * n, block)
+    idx = torch.tensor(lens, device=seq.device).repeat(b) - 1
+    out = []
+    with torch.no_grad():
+        for i in range(0, b * n, DECODE_WINDOW_CHUNK):
+            logits = model(wins[i:i + DECODE_WINDOW_CHUNK])[0]
+            out.append(logits[torch.arange(logits.shape[0], device=seq.device),
+                              idx[i:i + DECODE_WINDOW_CHUNK]])
+    return torch.cat(out).reshape(b, n, -1)
+
+
+def cached_logits(model, params, seq, t0, n, kv_dtype=torch.float32):
+    """The cached decoder's logits (B, n, V) along seq (B, t0 + n): the
+    prefill's, then each decode step's fed the sequence's tokens."""
+    logits, cache = prefill(model, params, seq[:, :t0], kv_dtype=kv_dtype)
+    out = [logits]
+    for i in range(n - 1):
+        logits, cache = decode_step(model, params, cache, seq[:, t0 + i])
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def seconds_of(fn):
+    """``fn()`` and its wall seconds, the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def busy_share(fn):
+    """The device's busy share over one call of ``fn`` (torch.profiler), with
+    the call's wall time, profiler included."""
+    rows, wall_us = device_breakdown(fn, reps=1)
+    return sum(t for _, t in rows) / wall_us, wall_us / 1e3
+
+
+def decode_phases(smi):
+    """Phase 13: decode on the card. Returns K5's timing rows at the two
+    decode shapes for the kernels line; the exact samplers' K5 launches and
+    the Whisper beam's K1 launches add to ``launches``."""
+    none = {f.__name__: 0 for f in F.KERNELS}
+    k5_rows = {}
+    say(f"[13 decode] 13a: tools/bench_decode.py's GPT-Quartet {DECODE_SMALL}, vocab "
+        f"{DECODE_VOCAB}, batch {DECODE_BATCH}, {DECODE_T0}-token prompt, {DECODE_NEW} new "
+        "tokens")
+    cfg = TransformerConfig(**DECODE_SMALL)
+    model = create_gpt_quartet(DECODE_VOCAB, cfg,
+                               generator=torch.Generator().manual_seed(40)).eval()
+    prompt = torch.randint(0, DECODE_VOCAB, (DECODE_BATCH, DECODE_T0), device="cuda",
+                           generator=cuda_generator(41))
+    t0, n, L = DECODE_T0, DECODE_NEW, cfg.n_layer
+    toks, counts = counted(lambda: generate(model, prompt, n))
+    check(counts == {**none, K5: L * n} and tuple(toks.shape) == (DECODE_BATCH, t0 + n),
+          f"generate (exact full window): launches {launched(counts)}, K5 {L} layers x {n} "
+          f"tokens = {L * n}; {len(set(toks[:, t0:].flatten().tolist()))} distinct tokens")
+    full, full_s = seconds_of(lambda: generate(model, prompt, n))
+    check(torch.equal(full, toks), "generate: a second run gives the same tokens")
+    kernel_switches.fused_quartet = False
+    try:
+        plain = generate(model, prompt, n)
+        forced_plain = window_logits(model, toks, t0, n)
+    finally:
+        kernel_switches.fused_quartet = True
+    forced, counts = counted(lambda: window_logits(model, toks, t0, n), add=False)
+    compare(f"generate's {n} steps teacher-forced on the kernel route's tokens: logits "
+            f"through K5 ({counts[K5]} launches) vs fused_quartet off", forced, forced_plain,
+            2e-5, 2e-4)
+    margins = top2_margin(forced_plain)
+    ok, ties = tie_prefix(plain[:, t0:], toks[:, t0:], margins)
+    check(ok, f"generate's greedy tokens with fused_quartet off equal the K5 route's up to each "
+          f"row's first near tie (margin < {DECODE_TIE}): first ties at {ties} of {n}; the "
+          f"smallest margin {margins.min().item():.3e}; rows equal throughout "
+          f"{sum(torch.equal(a, b) for a, b in zip(plain, toks))} of {DECODE_BATCH}")
+    rate_full = DECODE_BATCH * n / full_s
+    params = decode_params(model)
+    row = {}
+    for kv in (torch.float32, torch.bfloat16, torch.int8):
+        generate_cached(model, params, prompt, n, kv_dtype=kv)  # warm
+        cached, dt = seconds_of(lambda: generate_cached(model, params, prompt, n, kv_dtype=kv))
+        row[kv] = (DECODE_BATCH * n / dt, (cached[:, t0:] == full[:, t0:]).float().mean().item())
+        check(tuple(cached.shape) == tuple(full.shape) and bool(((cached >= 0)
+                                                                  & (cached < DECODE_VOCAB)).all()),
+              f"generate_cached {kv} KV: {row[kv][0]:.0f} tokens/s, greedy agreement with the "
+              f"full window {100 * row[kv][1]:.1f}% [{smi}]")
+    c32 = row[torch.float32][0]
+    say(f"  | block | new | full-window tok/s | cached tok/s | speedup | bf16-KV tok/s | vs cached "
+        f"| int8-KV tok/s | vs cached |")
+    say(f"  | {cfg.block_size} | {n} | {rate_full:.0f} | {c32:.0f} | {c32 / rate_full:.2f}x | "
+        f"{row[torch.bfloat16][0]:.0f} | {row[torch.bfloat16][0] / c32:.2f}x | "
+        f"{row[torch.int8][0]:.0f} | {row[torch.int8][0] / c32:.2f}x | [{smi}]")
+    m = min(64, n)
+    busy, wall = busy_share(lambda: generate(model, prompt, m))
+    busy_c, wall_c = busy_share(lambda: generate_cached(model, params, prompt, m))
+    say(f"  device busy over {m} tokens: generate {100 * busy:.1f}% of {wall:.1f} ms, "
+        f"generate_cached {100 * busy_c:.1f}% of {wall_c:.1f} ms (profiled) [{smi}]")
+    del model, params, forced, forced_plain
+
+    say(f"[13 decode] 13b: the 170M GPT-Quartet {DECODE_170M}, vocab {DECODE_VOCAB}, batch 1, "
+        f"with the draft {DECODE_DRAFT}")
+    cfg = TransformerConfig(**DECODE_170M)
+    target = create_gpt_quartet(DECODE_VOCAB, cfg,
+                                generator=torch.Generator().manual_seed(42)).eval()
+    draft = create_gpt_quartet(DECODE_VOCAB, TransformerConfig(**DECODE_DRAFT),
+                               generator=torch.Generator().manual_seed(43)).eval()
+    dk = cfg.n_embd // cfg.n_head
+    keeps = F.quartet_keeps_rows(torch.float32, cfg.block_size, dk)
+    check(not keeps, f"quartet_keeps_rows(fp32, {cfg.block_size}, {dk}) = {keeps}: K5 streams "
+          f"at (1, {cfg.n_head}, {cfg.block_size}, {dk})")
+    p1 = torch.randint(0, DECODE_VOCAB, (1, t0), device="cuda", generator=cuda_generator(44))
+    n, L = DECODE_170M_EXACT, cfg.n_layer
+    toks, counts = counted(lambda: generate(target, p1, n))
+    check(counts == {**none, K5: L * n},
+          f"generate (exact, streaming K5): launches {launched(counts)}, {L} x {n} = {L * n}")
+    full, full_s = seconds_of(lambda: generate(target, p1, n))
+    forced = window_logits(target, toks, t0, n)
+    kernel_switches.fused_quartet = False
+    try:
+        forced_plain = window_logits(target, toks, t0, n)
+    finally:
+        kernel_switches.fused_quartet = True
+    compare(f"170M generate's {n} steps teacher-forced: logits through the streaming K5 vs "
+            f"fused_quartet off", forced, forced_plain, 2e-5, 2e-4)
+    say(f"  170M generate: {n / full_s:.1f} tokens/s, {1e3 * full_s / n:.2f} ms a token [{smi}]")
+    del forced, forced_plain
+    n = DECODE_170M_CACHED
+    params = decode_params(target)
+    ref = generate_cached(target, params, p1, n)  # also the fp32 route's warm call
+    ref_logits = cached_logits(target, params, ref, t0, n)
+    ref_margin = top2_margin(ref_logits)
+    step_s = {}
+    for name, p in (("fp32", params), ("int8", quantize_params(params)),
+                    ("int4", quantize_params(params, bits=4))):
+        stored, fp32_bytes = quantized_bytes(p)
+        if name != "fp32":
+            generate_cached(target, p, p1, 8)  # warm
+        out, step_s[name] = seconds_of(lambda: generate_cached(target, p, p1, n))
+        lg = ref_logits if name == "fp32" else cached_logits(target, p, ref, t0, n)
+        agree = (lg.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
+        err = (lg - ref_logits).abs().max().item() / ref_logits.abs().max().item()
+        check(bool(torch.isfinite(lg).all()) and (name != "fp32" or torch.equal(out, ref)),
+              f"generate_cached, {name} weights: {stored / 1e6:.1f} MB stored ({fp32_bytes / 1e6:.1f}"
+              f" MB in fp32), {1e3 * step_s[name] / n:.3f} ms a step ({n} tokens), "
+              f"teacher-forced on the fp32 tokens: argmax agreement {100 * agree:.1f}%, max logit "
+              f"error {err:.3e} of the largest [{smi}]")
+    # decode_chunk against the same tokens one decode_step at a time
+    _, cache = prefill(target, params, p1)
+    c = {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+    seq = []
+    for i in range(DECODE_GAMMA + 1):
+        lg, c = decode_step(target, params, c, ref[:, t0 + i])
+        seq.append(lg)
+    chunk = decode_chunk(target, params, cache, ref[:, t0:t0 + DECODE_GAMMA + 1])[0]
+    compare(f"decode_chunk of {DECODE_GAMMA + 1} tokens vs {DECODE_GAMMA + 1} decode_steps "
+            "(170M)", chunk, torch.stack(seq, 1), 2e-5, 2e-4)
+    del cache, c
+    (spec, stats), spec_s = seconds_of(lambda: speculative_generate(
+        target, params, draft, None, p1, n, gamma=DECODE_GAMMA, return_stats=True))
+    ref_s = step_s["fp32"]
+    ok, ties = tie_prefix(spec[:, t0:], ref[:, t0:], ref_margin)
+    check(ok, f"speculative_generate greedy, gamma {DECODE_GAMMA}: tokens equal "
+          f"generate_cached's up to the first near tie ({ties} of {n}); acceptance "
+          f"{stats['accepted']} / {stats['drafted']} = "
+          f"{stats['accepted'] / max(stats['drafted'], 1):.3f} over {stats['rounds']} rounds; "
+          f"{n / spec_s:.1f} tokens/s against generate_cached's {n / ref_s:.1f} [{smi}]")
+    beam1 = generate_beam(target, params, p1, n, num_beams=1)
+    ok, ties = tie_prefix(beam1[:, t0:], ref[:, t0:], ref_margin)
+    check(ok, f"generate_beam num_beams=1: generate_cached's tokens up to the first near tie "
+          f"({ties} of {n})")
+    beams, scores = generate_beam(target, params, p1, n, num_beams=4, return_all=True)
+    check(tuple(beams.shape) == (1, 4, t0 + n) and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"generate_beam num_beams=4: scores best first {[round(v, 3) for v in scores[0].tolist()]}")
+    small = TransformerConfig(**DECODE_SMALL)
+    for dtype, shape in ((torch.float32, (DECODE_BATCH, small.n_head, small.block_size,
+                                          small.n_embd // small.n_head)),
+                         (torch.float32, (1, cfg.n_head, cfg.block_size, dk))):
+        ins = [torch.randn(*shape, device="cuda", generator=cuda_generator(45)) for _ in range(5)]
+        ms = time_ms(lambda: F.fused_quartet_attention(*ins, 0.3, 1.2), iters=20)
+        plain_ms = time_ms(lambda: F.fused_quartet_attention_plain(*ins, 0.3, 1.2), iters=10)
+        bnd, by = bound_ms(*quartet_cost(shape[0] * shape[1], shape[2], shape[3], dtype), dtype)
+        kind = "kept rows" if F.quartet_keeps_rows(dtype, shape[2], shape[3]) else "streaming"
+        say(f"  K5 {shape} fp32 (decode, {kind}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}) [{smi}]")
+        k5_rows["decode_" + "x".join(map(str, shape))] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None)
+    del target, draft, params, ins
+
+    say(f"[13 decode] 13c: Whisper_20M beam transcription, {WHISPER_BEAMS} beams, "
+        f"{WHISPER_BEAM_TOKENS} tokens")
+    wcfg = WhisperConfig(**WHISPER_20M)
+    wm = create_whisper_mop(wcfg, generator=torch.Generator().manual_seed(46)).eval()
+    with torch.no_grad():
+        for m in wm.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                m.weight.mul_(WHISPER_DECODE_SCALE)
+    b, n = WHISPER_BATCH["20M"], WHISPER_BEAM_TOKENS
+    mel = whisper_batch(wcfg, b, 1)[0]
+    (seqs, scores), counts = counted(lambda: whisper_transcribe_beam(
+        wm, mel, 1, n, num_beams=WHISPER_BEAMS, return_all=True))
+    check(counts == {**none, "flash_attention": wcfg.n_layer_enc}
+          and tuple(seqs.shape) == (b, WHISPER_BEAMS, n)
+          and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"whisper_transcribe_beam: launches {launched(counts)} (K1 in the "
+          f"{wcfg.n_layer_enc} encoder layers), beams {tuple(seqs.shape)}, best scores "
+          f"{[round(v, 3) for v in scores[:, 0].tolist()]}")
+    _, beam_s = seconds_of(lambda: whisper_transcribe_beam(wm, mel, 1, n,
+                                                           num_beams=WHISPER_BEAMS))
+    cached, cached_s = seconds_of(lambda: whisper_transcribe_cached(wm, mel, 1, n))
+    beam1 = whisper_transcribe_beam(wm, mel, 1, n, num_beams=1)
+    with torch.no_grad():
+        cross_k, cross_v = whisper_decode_prep(wm, mel)
+        shape = (wcfg.n_layer_dec, b, wcfg.n_head, n + 1, wcfg.n_embd // wcfg.n_head)
+        ks, vs = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+        ids = torch.cat([torch.ones_like(cached[:, :1]), cached], 1)
+        forced = torch.stack([whisper_decode_token(wm, ids[:, i], i, ks, vs, cross_k, cross_v)[0]
+                              for i in range(n)], 1)
+    ok, ties = tie_prefix(beam1, cached, top2_margin(forced))
+    check(ok, f"whisper_transcribe_beam num_beams=1: whisper_transcribe_cached's tokens up to the "
+          f"first near tie ({ties} of {n}); beam {b * n / beam_s:.0f} tokens/s, cached greedy "
+          f"{b * n / cached_s:.0f} tokens/s [{smi}]")
+    try:
+        whisper_transcribe_beam(wm, mel, 1, 4, kv_dtype=torch.int8)
+        check(False, "whisper_transcribe_beam kv_dtype=int8 raises")
+    except ValueError as e:
+        check("scales" in str(e), f"whisper_transcribe_beam kv_dtype=int8 raises: {e}")
+    del wm, mel
+
+    say("[13 decode] 13d: python -m mop_tpu_torch.cli.generate_text --steps 50 --tokens 32")
+    out, cli_s = seconds_of(lambda: generate_text.main(["--steps", "50", "--tokens", "32"]))
+    losses = list(out["losses"].values())
+    check(losses[-1] < losses[0] and len(out["full"]) == len(out["cached"]) == 16 + 32,
+          f"generate_text on the card: loss {losses[0]:.3f} -> {losses[-1]:.3f}, full window "
+          f"{out['full']!r} ({out['full_s']:.2f} s), cached {out['cached']!r} "
+          f"({out['cached_s']:.2f} s); {cli_s:.1f} s in all [{smi}]")
+    return k5_rows
 
 
 def main() -> int:
@@ -2721,6 +3023,7 @@ def main() -> int:
     k1_rows, wide_records = moe_voc_imagenet_phases(smi)
     k1_record.update(k1_rows)
     records.extend(wide_records)
+    k5_record.update(decode_phases(smi))
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main paths: {launches}")
     for rec in records:  # K1's main-path launches now include Whisper's, MoE's and VOC's

@@ -23,8 +23,15 @@ the on-device log-mel frontend (``ops.mel``), ``WhisperMoP``
 (``create_whisper_mop``, ``create_whisper_baseline``), its comparison
 framework (``WhisperComparisonFramework``) and greedy transcription, full
 window and KV-cached (``whisper_transcribe``, ``whisper_transcribe_cached``,
-``whisper_transcribe_auto``), with the demo
-``python -m mop_tpu_torch.cli.whisper_demo``; the CIFAR experiment
+``whisper_transcribe_auto``) and beam transcription (``whisper_transcribe_beam``), with the demo
+``python -m mop_tpu_torch.cli.whisper_demo``; GPT decoding: the exact
+full-window sampler (``generate``, K5 in every layer of every step), the
+KV-cached decoder (``prefill``, ``decode_step``, ``decode_chunk``,
+``generate_cached`` over ``decode_params(model)``, with int8 / int4
+weights from ``ops.quant``), beam search (``generate_beam``) and
+speculative decoding (``speculative_generate``), the tokenizers
+(``data.ByteBPETokenizer``, ``data.CharTokenizer``) and the demo
+``python -m mop_tpu_torch.cli.generate_text``; the CIFAR experiment
 harness (``experiments/``: data, parameter matching, lockstep training,
 checkpoints and preemption, statistics, output files) with its CLIs:
 
@@ -50,9 +57,10 @@ from .models import (GPT_MoP, ComparisonConfig, CrossViewMixerMSA, DualPathMSA, 
                      WhisperConfig, WhisperMoP, create_comparison_framework, create_gpt_baseline,
                      create_gpt_mop, create_gpt_mop_causal, create_gpt_quartet,
                      create_whisper_baseline, create_whisper_comparison_framework,
-                     create_whisper_mop, set_generator, whisper_transcribe,
-                     whisper_transcribe_auto, whisper_transcribe_cached)
-from .ops import fused, mel
+                     create_whisper_mop, decode_params, generate, generate_beam,
+                     generate_cached, set_generator, speculative_generate, whisper_transcribe,
+                     whisper_transcribe_auto, whisper_transcribe_beam, whisper_transcribe_cached)
+from .ops import fused, mel, quant
 from .ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
                              IMAGENET_MEAN, IMAGENET_STD, cifar_eval_transform,
                              cifar_train_augment, label_smoothing_onehot, random_crop,
@@ -97,9 +105,16 @@ __all__ = [
     "whisper_transcribe",
     "whisper_transcribe_cached",
     "whisper_transcribe_auto",
+    "whisper_transcribe_beam",
+    "decode_params",
+    "generate",
+    "generate_cached",
+    "generate_beam",
+    "speculative_generate",
     "set_generator",
     "fused",
     "mel",
+    "quant",
     "CIFAR10_MEAN",
     "CIFAR10_STD",
     "CIFAR100_MEAN",

@@ -2,8 +2,9 @@
 optional top-1 MoE encoder), C (cross-view), D (multi-hop), the two-hop
 gated ViT and E (edgewise-gated attention), the VOC box localizer (modes A,
 B, E), the attention-variant zoo, the Quartet / baseline causal LM and
-GPT-MoP, and Whisper-MoP with its comparison framework and greedy
-transcription."""
+GPT-MoP with their decoders (the exact full-window sampler, the KV-cached
+decoder, beam search, speculative decoding), and Whisper-MoP with its
+comparison framework and greedy and beam transcription."""
 
 from .attention_variants import (
     BaselineMSA,
@@ -27,11 +28,15 @@ from .components import (
     ViTEncoder,
     ViTEncoderMoE,
 )
-from .generate import whisper_transcribe, whisper_transcribe_auto, whisper_transcribe_cached
+from .beam import generate_beam, whisper_transcribe_beam
+from .generate import (decode_chunk, decode_params, decode_step, generate, generate_cached,
+                       init_decode_cache, prefill, prefill_padded, whisper_transcribe,
+                       whisper_transcribe_auto, whisper_transcribe_cached)
 from .gpt_comparison import ComparisonConfig, GPTComparisonFramework, create_comparison_framework
 from .gpt_mop import (GPT_MoP, FuseExcInh1D, Kernels1D, MoPBlock, ViewsLinear1D, create_gpt_mop,
                       create_gpt_mop_causal)
 from .layers import Conv1d, Dropout, Embedding, set_generator
+from .speculative import speculative_generate, verify_sampled
 from .quartet_attn_patch import (
     CausalSelfAttention,
     TinyTransformerLM,
@@ -115,4 +120,16 @@ __all__ = [
     "whisper_transcribe",
     "whisper_transcribe_cached",
     "whisper_transcribe_auto",
+    "whisper_transcribe_beam",
+    "decode_params",
+    "init_decode_cache",
+    "prefill",
+    "prefill_padded",
+    "decode_step",
+    "decode_chunk",
+    "generate",
+    "generate_cached",
+    "generate_beam",
+    "speculative_generate",
+    "verify_sampled",
 ]

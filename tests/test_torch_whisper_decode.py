@@ -6,6 +6,7 @@ equal to JAX's ``whisper_transcribe_cached(kv_dtype=int8)``;
 ``whisper_decode_prep`` refusing int8; ``whisper_transcribe_auto``
 switching at ``MOP_TPU_WHISPER_CACHED_MIN_CTX``; and the model's mode kept."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -21,8 +22,10 @@ import mop_tpu_torch.models as PM
 from mop_tpu.models.generate import whisper_transcribe_cached as jax_cached
 from mop_tpu_torch.config import WHISPER_CACHED_MIN_CTX
 from mop_tpu_torch.config import config as run_config
-from mop_tpu_torch.models import generate as G
 from mop_tpu_torch.utils.jax_weights import load_jax_params
+
+# The module: the package's ``generate`` attribute is the GPT sampler.
+G = importlib.import_module("mop_tpu_torch.models.generate")
 
 
 @pytest.fixture(autouse=True, scope="module")
