@@ -175,6 +175,23 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    text. The kernels line's ``launches`` add the exact samplers' K5 launches and the beam
    encoder's K1 launches; K5's record holds the decode shapes' timings
    (``decode_8x6x256x64``, ``decode_1x16x512x64``).
+14. serving (``mop_tpu_torch.serving``, ``cli.serve_http``): 14a, ``DecodeEngine`` at
+   ``tools/bench_serving.py``'s GPT-Quartet (6 x 512, 8 heads, vocab 512, block 512, buckets
+   64 / 128 / 256 / 512, 8 slots) over its 32 ``mixed_jobs`` (prompts of 48 to 249 tokens, 64
+   new): no kernel launch (K5 0), tokens/s, busy share and peak memory, every row against its
+   single-stream ``generate_cached`` up to the first near tie; ``step(n_tokens=4)`` giving
+   the single steps' tokens; ``chunk_prefill`` 64 and a 192-token system prompt through the
+   prefix cache, each held to the single-stream ``decode_chunk`` feed it computes (with the
+   share of tokens equal to the monolithic prefill's); a 4-beam request equal to
+   ``generate_beam``; int8 KV; 14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024,
+   block 2048, 4 slots) under a closed loop of 4 users, fp32 and int8 weights: requests/s,
+   TTFT and TPOT; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32 tokens, 4 slots):
+   K1 4 launches an admission (held to the profiler's records), the tokens of
+   ``whisper_transcribe_cached`` up to the first near tie, int8 weights; 14d,
+   ``serve_http`` trained and served on loopback: 8 concurrent text clients, a stream,
+   ``/v1/completions``, ``/v1/embeddings``, ``/v1/audio/transcriptions`` through the 14c engine
+   against ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The
+   kernels line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
 """
 
 from __future__ import annotations
@@ -203,7 +220,7 @@ from mop_tpu_torch import (CIFAR100_MEAN, CIFAR100_STD, ComparisonConfig, GPTCom
                            make_lm_train_step, make_scanned_classifier_train_step,
                            speculative_generate, whisper_transcribe, whisper_transcribe_auto,
                            whisper_transcribe_beam, whisper_transcribe_cached)
-from mop_tpu_torch.cli import generate_text, whisper_demo
+from mop_tpu_torch.cli import generate_text, serve_http, whisper_demo
 from mop_tpu_torch.config import config as kernel_switches
 from mop_tpu_torch.experiments import cifar100_ab5_param_budgets as ab5
 from mop_tpu_torch.experiments import cifar100_multihop_gates
@@ -220,6 +237,10 @@ from mop_tpu_torch.ops import moe as ops_moe
 from mop_tpu_torch.ops import fused as F
 from mop_tpu_torch.ops.preprocess import cifar_eval_transform
 from mop_tpu_torch.ops.quant import quantize_params, quantized_bytes
+from mop_tpu_torch.data.audio import log_mel, segment_frames
+from mop_tpu_torch.models.generate import (init_decode_cache, whisper_decode_params,
+                                           whisper_encode)
+from mop_tpu_torch.serving import DecodeEngine, WhisperServingEngine
 
 BATCH = 256
 N_CLASSES = 100
@@ -460,6 +481,20 @@ DECODE_GAMMA = 4
 DECODE_TIE = 1e-4  # a top-two logit margin below this is a near tie
 DECODE_WINDOW_CHUNK = 240  # full windows a teacher-forced forward takes at once
 WHISPER_BEAMS, WHISPER_BEAM_TOKENS = 4, 32
+# Phase 14, serving. tools/bench_serving.py:34-44's GPT-Quartet and its mixed_jobs (:47).
+SERVE_CFG = dict(n_layer=6, n_head=8, n_embd=512, dropout=0.0, block_size=512)
+SERVE_VOCAB = 512
+SERVE_BUCKETS = [64, 128, 256, 512]
+SERVE_MAX_BATCH = 8
+SERVE_JOBS, SERVE_NEW, SERVE_PROMPTS = 32, 64, (48, 250)  # prompts of 48 to 249 tokens
+SERVE_WARM = 64  # the warm-up prompts' length, and the beam request's
+SERVE_SYSTEM, SERVE_TAILS, SERVE_PREFIX_NEW = 192, (16, 48), 32  # the prefix cache's
+SERVE_CHUNK, SERVE_BURST = 64, 4
+# tools/bench_serving_slo.py:45-61's 170M: 4 slots, 128-token prompts, 32 new.
+SLO_CFG = dict(n_layer=12, n_head=16, n_embd=1024, dropout=0.0, block_size=2048)
+SLO_MB, SLO_PROMPT, SLO_NEW, SLO_REQS = 4, 128, 32, 16
+WHISPER_SERVE_CLIPS, WHISPER_SERVE_TOKENS, WHISPER_SERVE_MB = 8, 32, 4
+SERVE_HTTP_ARGS = ["--steps", "100", "--clients", "8"]
 
 failures = []
 # Each kernel's launches on the main paths, for the kernels line.
@@ -2002,12 +2037,14 @@ def decode_phases(smi):
                                                            num_beams=WHISPER_BEAMS))
     cached, cached_s = seconds_of(lambda: whisper_transcribe_cached(wm, mel, 1, n))
     beam1 = whisper_transcribe_beam(wm, mel, 1, n, num_beams=1)
+    wtree = whisper_decode_params(wm)  # the teacher-forced reference's tree, built once
     with torch.no_grad():
         cross_k, cross_v = whisper_decode_prep(wm, mel)
         shape = (wcfg.n_layer_dec, b, wcfg.n_head, n + 1, wcfg.n_embd // wcfg.n_head)
         ks, vs = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
         ids = torch.cat([torch.ones_like(cached[:, :1]), cached], 1)
-        forced = torch.stack([whisper_decode_token(wm, ids[:, i], i, ks, vs, cross_k, cross_v)[0]
+        forced = torch.stack([whisper_decode_token(wm, ids[:, i], i, ks, vs, cross_k, cross_v,
+                                                   params=wtree)[0]
                               for i in range(n)], 1)
     ok, ties = tie_prefix(beam1, cached, top2_margin(forced))
     check(ok, f"whisper_transcribe_beam num_beams=1: whisper_transcribe_cached's tokens up to the "
@@ -2028,6 +2065,371 @@ def decode_phases(smi):
           f"{out['full']!r} ({out['full_s']:.2f} s), cached {out['cached']!r} "
           f"({out['cached_s']:.2f} s); {cli_s:.1f} s in all [{smi}]")
     return k5_rows
+
+
+def serve_jobs(n, rs):
+    """tools/bench_serving.py's ``mixed_jobs``: n (prompt, new) pairs, each
+    prompt of SERVE_PROMPTS[0] to SERVE_PROMPTS[1] - 1 tokens, from ``rs``."""
+    return [([int(t) for t in rs.randint(0, SERVE_VOCAB, rs.randint(*SERVE_PROMPTS))],
+             SERVE_NEW) for _ in range(n)]
+
+
+def serve_all(eng, jobs, n_tokens=1):
+    """Submit every job, run the engine dry; each job's tokens."""
+    rids = [eng.submit(p, n) for p, n in jobs]
+    res = eng.run(n_tokens=n_tokens)
+    return [res[r] for r in rids]
+
+
+def fed_greedy(model, params, prompt, n, chunk=None, base=None):
+    """The single-stream greedy tokens (1, n) and margins (1, n) of a prompt
+    fed through ``decode_chunk`` ``chunk`` tokens at a time from an empty
+    cache (the engine's chunked prefill), or from a prefix-cache entry's
+    rows ``base = (rows, lcp)`` in one chunk (a prefix-cache hit): a fed
+    row standardizes over its live prefix, where a prefill standardizes
+    over the whole prompt."""
+    cache = init_decode_cache(model.config, 1, n_views=0)
+    at = 0
+    if base is not None:
+        for key, rows in base[0].items():
+            cache[key] = rows[:, None].clone()
+        at, chunk = base[1], len(prompt)
+    cache["len"] = at
+    toks = torch.tensor([prompt], device="cuda")
+    while at < len(prompt):
+        g = min(chunk, len(prompt) - at)
+        logits, cache = decode_chunk(model, params, cache, toks[:, at:at + g])
+        at += g
+    logits = logits[:, -1]
+    out, margins = [], []
+    for i in range(n):
+        margins.append(top2_margin(logits))
+        out.append(logits.argmax(-1))
+        if i < n - 1:
+            logits, cache = decode_step(model, params, cache, out[-1])
+    return torch.stack(out, 1), torch.stack(margins, 1)
+
+
+def stream_checks(model, params, jobs, got):
+    """Each engine row against its single-stream ``generate_cached``: equal,
+    or equal up to the first near tie of the reference's logits
+    (teacher-forced on its tokens). Returns (all ok, rows equal throughout,
+    the first ties of the rows that differ)."""
+    ok, equal, ties = True, 0, []
+    for (prompt, n), row in zip(jobs, got):
+        p = torch.tensor([prompt], device="cuda")
+        ref = generate_cached(model, params, p, n)
+        want = ref[:, len(prompt):]
+        g = torch.tensor([row], device="cuda")
+        if g.shape == want.shape and torch.equal(g, want):
+            equal += 1
+            continue
+        margins = top2_margin(cached_logits(model, params, ref, len(prompt), n))
+        ok_r, first = tie_prefix(g[:, :n], want[:, :g.shape[1]], margins[:, :g.shape[1]])
+        ok = ok and ok_r and g.shape == want.shape
+        ties.append(first[0])
+    return ok, equal, ties
+
+
+def closed_loop(eng, prompts, new, clients):
+    """``clients`` closed-loop users over ``eng``, each submitting its next
+    prompt when its last request ends: (requests/s, TTFT s, TPOT s), the
+    times per request from the host's clock at each step's return."""
+    queue = list(prompts)
+    submit_t, first_t, last_t, ntok = {}, {}, {}, {}
+    live = set()
+
+    def submit():
+        rid = eng.submit(queue.pop(0), new)
+        submit_t[rid] = time.perf_counter()
+        live.add(rid)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(min(clients, len(queue))):
+        submit()
+    while live:
+        out = eng.step()
+        now = time.perf_counter()
+        for rid, toks in out.items():
+            first_t.setdefault(rid, now)
+            last_t[rid] = now
+            ntok[rid] = ntok.get(rid, 0) + len(toks)
+        for rid in [r for r in live if eng.is_done(r)]:
+            live.discard(rid)
+            if queue:
+                submit()
+    wall = time.perf_counter() - t0
+    ttft = np.asarray([first_t[r] - submit_t[r] for r in submit_t])
+    tpot = np.asarray([(last_t[r] - first_t[r]) / (ntok[r] - 1) for r in submit_t
+                       if ntok[r] > 1])
+    return len(submit_t) / wall, ttft, tpot
+
+
+def k1_profile_count(wm, mels, tries=3):
+    """K1's kernel records in a profile of a Whisper engine admitting
+    ``mels`` and decoding two tokens each, and K1's launches there by its
+    wrapper's count. As in ``wide_kernel_times``, each profile opens with
+    64 small kernels of its own and idle spans around the calls, longer on
+    each try (late in the whole script a profile drops its first kernel
+    records); a profile that kept fewer records than launches is taken
+    again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(1, device="cuda")
+    for t in range(tries):
+        pad_s = 0.05 * 4 ** t
+        probe = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
+        for m in mels:
+            probe.submit(m, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            n0 = F.flash_attention.launches
+            probe.run()
+            launches = F.flash_attention.launches - n0
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        records = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd" in e.name)
+        if records == launches:
+            break
+    return records, launches
+
+
+class _IdText:
+    """The Whisper model's token ids as text, for the server's
+    ``whisper_tokenizer`` (its vocabulary has no text)."""
+
+    @staticmethod
+    def decode(ids):
+        return " ".join(str(int(t)) for t in ids)
+
+
+def serving_phases(smi):
+    """Phase 14: serving on the card. The GPT engine launches no kernel; the
+    Whisper engine's admissions launch K1 in each encoder layer, which add
+    to ``launches``."""
+    none = {f.__name__: 0 for f in F.KERNELS}
+    rs = np.random.RandomState(0)
+    say(f"[14 serving] 14a: DecodeEngine at tools/bench_serving.py's GPT-Quartet {SERVE_CFG}, "
+        f"vocab {SERVE_VOCAB}, buckets {SERVE_BUCKETS}, max_batch {SERVE_MAX_BATCH}, "
+        f"{SERVE_JOBS} mixed jobs of {SERVE_NEW} new tokens")
+    t_phase = time.perf_counter()
+    model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SERVE_CFG),
+                               generator=torch.Generator().manual_seed(50)).eval()
+    params = decode_params(model)
+    jobs = serve_jobs(SERVE_JOBS, rs)
+    eng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS)
+    serve_all(eng, [(p[:SERVE_WARM], 4) for p, _ in jobs[:SERVE_MAX_BATCH]])  # warm
+    torch.cuda.reset_peak_memory_stats()
+    (got, secs), counts = counted(lambda: seconds_of(lambda: serve_all(eng, jobs)))
+    n_out = sum(len(g) for g in got)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(counts == none and all(len(g) == SERVE_NEW for g in got),
+          f"the engine served {SERVE_JOBS} requests, {n_out} tokens in {secs:.3f} s: "
+          f"{n_out / secs:.0f} tokens/s, {eng.engine_steps} engine steps, peak "
+          f"{peak:.2f} GiB; kernel launches {launched(counts) or 'none'} (K5 0: plain ops, as "
+          f"JAX's decode_step_rows) [{smi}]")
+    busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
+    say(f"  device busy over {SERVE_MAX_BATCH} requests: {100 * busy:.1f}% of {wall:.1f} ms "
+        f"(profiled) [{smi}]")
+    ok, equal, ties = stream_checks(model, params, jobs, got)
+    check(ok, f"each of the {SERVE_JOBS} greedy rows equals its single-stream generate_cached "
+          f"up to its first near tie: {equal} equal throughout, the others' first ties at "
+          f"{ties}")
+    burst = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS)
+    (multi, multi_s) = seconds_of(lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST))
+    check(multi == got, f"step(n_tokens={SERVE_BURST}): the tokens of single steps, "
+          f"{n_out / multi_s:.0f} tokens/s in {burst.engine_steps} engine steps [{smi}]")
+    some = jobs[:SERVE_MAX_BATCH]
+    chunked = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, chunk_prefill=SERVE_CHUNK)
+    got_c = serve_all(chunked, some)
+    oks = []
+    for (prompt, n), row in zip(some, got_c):
+        if len(prompt) > SERVE_CHUNK:  # fed in chunks
+            want, margins = fed_greedy(model, params, prompt, n, chunk=SERVE_CHUNK)
+        else:  # one monolithic prefill
+            ref = generate_cached(model, params, torch.tensor([prompt], device="cuda"), n)
+            want = ref[:, len(prompt):]
+            margins = top2_margin(cached_logits(model, params, ref, len(prompt), n))
+        oks.append(tie_prefix(torch.tensor([row], device="cuda"), want, margins))
+    agree = np.mean([a == b for g1, g2 in zip(got_c, got[:SERVE_MAX_BATCH])
+                     for a, b in zip(g1, g2)])
+    check(all(o for o, _ in oks), f"chunk_prefill {SERVE_CHUNK}: each row equals the "
+          f"single-stream {SERVE_CHUNK}-token decode_chunk feed (a prompt of at most "
+          f"{SERVE_CHUNK}: generate_cached) up to its first near tie "
+          f"({[t[0] for _, t in oks]} of {SERVE_NEW}); {100 * agree:.1f}% of tokens equal "
+          "the monolithic prefill's (a fed row standardizes over its live prefix)")
+    beam_p = jobs[0][0][:SERVE_WARM]
+    beng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, max_beams=4)
+    rid = beng.submit(beam_p, SERVE_NEW, num_beams=4)
+    beam_got = beng.run()[rid]
+    want = generate_beam(model, params, torch.tensor([beam_p], device="cuda"), SERVE_NEW,
+                         num_beams=4)[0, SERVE_WARM:].tolist()
+    check(beam_got == want and not beng._lens.any(),
+          f"a 4-beam request: generate_beam's {SERVE_NEW} tokens; the freed slots' lengths 0")
+    # the tails' first tokens all differ: every hit reuses exactly the system
+    # prompt's rows, which every entry holds as the first prompt's prefill left them
+    system = [int(t) for t in rs.randint(0, SERVE_VOCAB, SERVE_SYSTEM)]
+    firsts = rs.choice(SERVE_VOCAB, SERVE_MAX_BATCH, replace=False)
+    prompts = [system + [int(f)] + [int(t) for t in rs.randint(0, SERVE_VOCAB,
+                                                               rs.randint(*SERVE_TAILS) - 1)]
+               for f in firsts]
+    peng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefix_cache_entries=4)
+    _, first = prefill(model, params, torch.tensor([prompts[0]], device="cuda"))
+    base = ({k: first[k][:, 0] for k in peng._pool_keys}, SERVE_SYSTEM)  # a fresh prefill's rows
+    oks, ties, cached = [], [], []
+    for i, p in enumerate(prompts):
+        rid = peng.submit(p, SERVE_PREFIX_NEW)
+        cached.append(peng.run()[rid])
+        if i > 0:
+            want, margins = fed_greedy(model, params, p, SERVE_PREFIX_NEW, base=base)
+            ok_r, first_tie = tie_prefix(torch.tensor([cached[-1]], device="cuda"), want, margins)
+            oks.append(ok_r)
+            ties.append(first_tie[0])
+    nocache = serve_all(DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH),
+                        [(p, SERVE_PREFIX_NEW) for p in prompts])
+    agree = np.mean([a == b for g1, g2 in zip(cached, nocache) for a, b in zip(g1, g2)])
+    check(all(oks) and peng.prefix_cache_hits == len(prompts) - 1
+          and peng.prefix_tokens_reused == SERVE_SYSTEM * (len(prompts) - 1),
+          f"prefix cache, a {SERVE_SYSTEM}-token system prompt: {peng.prefix_cache_hits} hits, "
+          f"{peng.prefix_tokens_reused} tokens reused; each hit equals the single-stream feed "
+          f"of its tail after a fresh prefill's system rows up to its first near tie ({ties} of "
+          f"{SERVE_PREFIX_NEW}); {100 * agree:.1f}% of tokens equal the engine without the cache")
+    q8 = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS,
+                      kv_dtype=torch.int8)
+    serve_all(q8, [(p[:SERVE_WARM], 4) for p, _ in some])  # warm
+    got8, s8 = seconds_of(lambda: serve_all(q8, some))
+    agree = np.mean([a == b for g1, g2 in zip(got8, got[:SERVE_MAX_BATCH])
+                     for a, b in zip(g1, g2)])
+    check(all(len(g) == SERVE_NEW and 0 <= min(g) and max(g) < SERVE_VOCAB for g in got8),
+          f"int8 KV (per-row scales): {sum(map(len, got8)) / s8:.0f} tokens/s over "
+          f"{len(some)} requests, {100 * agree:.1f}% of tokens equal fp32 KV's [{smi}]")
+    del model, params, eng, burst, chunked, beng, peng, q8
+    say(f"  14a took {time.perf_counter() - t_phase:.1f} s")
+
+    say(f"[14 serving] 14b: the 170M of tools/bench_serving_slo.py {SLO_CFG}, vocab "
+        f"{SERVE_VOCAB}, {SLO_MB} slots, closed loop of {SLO_MB} users, {SLO_REQS} requests "
+        f"of {SLO_PROMPT} + {SLO_NEW} tokens")
+    model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SLO_CFG),
+                               generator=torch.Generator().manual_seed(51)).eval()
+    fp32 = decode_params(model)
+    slo_prompts = [[int(t) for t in rs.randint(0, SERVE_VOCAB, SLO_PROMPT)]
+                   for _ in range(SLO_REQS)]
+    for name, p in (("fp32", fp32), ("int8", quantize_params(fp32))):
+        eng = DecodeEngine(model, p, max_batch=SLO_MB, prefill_buckets=[SLO_PROMPT])
+        serve_all(eng, [(slo_prompts[0], 2), (slo_prompts[1], 2)])  # warm
+        (rps, ttft, tpot), counts = counted(lambda: closed_loop(eng, slo_prompts, SLO_NEW,
+                                                                SLO_MB))
+        check(counts == none and len(ttft) == SLO_REQS,
+              f"170M {name} weights: {rps:.2f} requests/s, TTFT p50 {1e3 * np.median(ttft):.1f} "
+              f"ms (p90 {1e3 * np.percentile(ttft, 90):.1f}), TPOT p50 "
+              f"{1e3 * np.median(tpot):.2f} ms (p90 {1e3 * np.percentile(tpot, 90):.2f}), "
+              f"{rps * SLO_NEW:.0f} tokens/s; launches {launched(counts) or 'none'} [{smi}]")
+    del model, fp32, eng
+
+    say(f"[14 serving] 14c: WhisperServingEngine at Whisper_20M, {WHISPER_SERVE_CLIPS} clips, "
+        f"{WHISPER_SERVE_TOKENS} tokens, max_batch {WHISPER_SERVE_MB}")
+    wcfg = WhisperConfig(**WHISPER_20M)
+    wm = create_whisper_mop(wcfg, generator=torch.Generator().manual_seed(52)).eval()
+    with torch.no_grad():
+        for m in wm.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                m.weight.mul_(WHISPER_DECODE_SCALE)
+    mel = whisper_batch(wcfg, WHISPER_SERVE_CLIPS, 1)[0]
+    mels = mel.cpu().numpy()
+    n = WHISPER_SERVE_TOKENS
+    weng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
+    wtree = whisper_decode_params(wm)  # the teacher-forced references' tree, built once
+    (res, wsecs), counts = counted(lambda: seconds_of(lambda: [
+        weng.submit(m, n) for m in mels] and weng.run()))
+    got = torch.tensor([res[r] for r in sorted(res)], device="cuda")
+    want_k1 = wcfg.n_layer_enc * WHISPER_SERVE_CLIPS
+    k1_records, k1_probe = k1_profile_count(wm, mels[:2])
+    check(counts == {**none, "flash_attention": want_k1}
+          and k1_records == k1_probe == 2 * wcfg.n_layer_enc,
+          f"{WHISPER_SERVE_CLIPS} admissions: launches {launched(counts)}, K1 "
+          f"{wcfg.n_layer_enc} a clip (the encoder layers), none in the decode steps; a "
+          f"profile of 2 admissions: {k1_records} K1 kernel records, {k1_probe} launches; "
+          f"{WHISPER_SERVE_CLIPS * n / wsecs:.0f} tokens/s [{smi}]")
+    # an admission's K1 shape, (1, H, T_enc, dh), against the plain version;
+    # then one admission's encoder output on the K1 route against the plain route
+    gw = cuda_generator(7)
+    k1_shape = (1, wcfg.n_head, wcfg.n_audio_ctx, wcfg.n_embd // wcfg.n_head)
+    with torch.inference_mode():
+        q, k, v = (torch.randn(*k1_shape, device="cuda", generator=gw) for _ in range(3))
+        compare(f"K1 at a Whisper admission's {k1_shape} float32 vs plain",
+                F.flash_attention(q, k, v), F.flash_attention_plain(q, k, v), 2e-5, 0.0)
+        enc = whisper_encode(wm, mel[:1])
+        with plain_kernels():
+            enc_plain = whisper_encode(wm, mel[:1])
+        compare("an admission's encoder output, K1 route vs plain route", enc, enc_plain,
+                2e-5, 2e-4)
+    del q, k, v, enc, enc_plain
+    ref = whisper_transcribe_cached(wm, mel, 1, n)
+    with torch.no_grad():
+        cross_k, cross_v = whisper_decode_prep(wm, mel)
+        shape = (wcfg.n_layer_dec, WHISPER_SERVE_CLIPS, wcfg.n_head, n + 1,
+                 wcfg.n_embd // wcfg.n_head)
+        ks, vs = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+        ids = torch.cat([torch.ones_like(ref[:, :1]), ref], 1)
+        forced = torch.stack([whisper_decode_token(wm, ids[:, i], i, ks, vs, cross_k, cross_v,
+                                                   params=wtree)[0]
+                              for i in range(n)], 1)
+    ok, ties = tie_prefix(got, ref, top2_margin(forced))
+    check(ok and len(set(ref.flatten().tolist())) > 2,
+          f"each clip's tokens equal whisper_transcribe_cached's up to the first near tie "
+          f"({ties} of {n}); {sum(torch.equal(a, b) for a, b in zip(got, ref))} of "
+          f"{WHISPER_SERVE_CLIPS} equal throughout")
+    q8 = WhisperServingEngine(wm, quantize_params(whisper_decode_params(wm)),
+                              max_batch=WHISPER_SERVE_MB, bos_token=1)
+    (res8, s8), counts = counted(lambda: seconds_of(lambda: [
+        q8.submit(m, n) for m in mels] and q8.run()))
+    got8 = torch.tensor([res8[r] for r in sorted(res8)], device="cuda")
+    check(counts == {**none, "flash_attention": want_k1} and tuple(got8.shape) == tuple(ref.shape),
+          f"int8 weights: launches {launched(counts)}, {WHISPER_SERVE_CLIPS * n / s8:.0f} "
+          f"tokens/s, {100 * (got8 == ref).float().mean().item():.1f}% of tokens equal fp32's "
+          f"[{smi}]")
+
+    say(f"[14 serving] 14d: python -m mop_tpu_torch.cli.serve_http {' '.join(SERVE_HTTP_ARGS)} "
+        "with the 14c Whisper engine behind /v1/audio/transcriptions")
+    audio = np.random.default_rng(53).standard_normal(16000 * 3).astype(np.float32) * 0.1
+    seg = segment_frames(log_mel(audio, 16000, n_mels=wcfg.n_mels), wcfg.n_audio_ctx)
+    win = wcfg.n_text_ctx - 1  # the server's budget for a window
+    seg_t = torch.from_numpy(np.stack(seg)).cuda()
+    ref = whisper_transcribe_cached(wm, seg_t, 1, win)
+    (out, http_s), counts = counted(lambda: seconds_of(lambda: serve_http.run(
+        serve_http._parser().parse_args(SERVE_HTTP_ARGS), whisper_engine=weng,
+        whisper_tokenizer=_IdText(), audio=audio)))
+    heard = torch.tensor([[int(t) for t in out["transcription"].split()]], device="cuda")
+    with torch.no_grad():
+        cross_k, cross_v = whisper_decode_prep(wm, seg_t)
+        shape = (wcfg.n_layer_dec, len(seg), wcfg.n_head, win + 1, wcfg.n_embd // wcfg.n_head)
+        ks, vs = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+        ids = torch.cat([torch.ones_like(ref[:, :1]), ref], 1)
+        forced = torch.stack([whisper_decode_token(wm, ids[:, i], i, ks, vs, cross_k, cross_v,
+                                                   params=wtree)[0]
+                              for i in range(win)], 1)
+    ok_audio, ties = tie_prefix(heard.reshape(ref.shape), ref, top2_margin(forced))
+    m = out["metrics"]
+    check(out["drained"] and all(out["texts"]) and len(out["texts"]) == 8
+          and out["completion"]["finish_reason"] in ("stop", "length")
+          and len(out["embeddings"]) == 2 and ok_audio
+          and int(m.get("mop_ttft_seconds_count", 0)) >= 8
+          and int(m.get("mop_tpot_seconds_count", 0)) >= 8,
+          f"serve_http on the card: 8 concurrent text clients, a stream, /v1/completions "
+          f"({out['completion']['finish_reason']}), /v1/embeddings ({len(out['embeddings'])} x "
+          f"{len(out['embeddings'][0])}), /v1/audio/transcriptions equal to "
+          f"whisper_transcribe_cached's {win} tokens up to the first near tie ({ties}); "
+          f"/metrics TTFT {m.get('mop_ttft_seconds_count')} and TPOT "
+          f"{m.get('mop_tpot_seconds_count')} observations; drained {out['drained']}; loss "
+          f"{out['loss']:.3f}; launches {launched(counts)} (K5: the LM's training, K1: the "
+          f"audio's encoder); {http_s:.1f} s [{smi}]")
+    say(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3024,6 +3426,7 @@ def main() -> int:
     k1_record.update(k1_rows)
     records.extend(wide_records)
     k5_record.update(decode_phases(smi))
+    serving_phases(smi)
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main paths: {launches}")
     for rec in records:  # K1's main-path launches now include Whisper's, MoE's and VOC's

@@ -31,7 +31,11 @@ KV-cached decoder (``prefill``, ``decode_step``, ``decode_chunk``,
 weights from ``ops.quant``), beam search (``generate_beam``) and
 speculative decoding (``speculative_generate``), the tokenizers
 (``data.ByteBPETokenizer``, ``data.CharTokenizer``) and the demo
-``python -m mop_tpu_torch.cli.generate_text``; the CIFAR experiment
+``python -m mop_tpu_torch.cli.generate_text``; serving (``serving``: the
+continuous-batching ``DecodeEngine`` with per-row LoRA from ``training.lora``,
+``prompt_logprobs``, ``EmbeddingModel``, the ``WhisperServingEngine`` and
+the OpenAI-compatible ``ServingServer``, with the demo
+``python -m mop_tpu_torch.cli.serve_http``); the CIFAR experiment
 harness (``experiments/``: data, parameter matching, lockstep training,
 checkpoints and preemption, statistics, output files) with its CLIs:
 

@@ -19,8 +19,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .generate import (_decoding, decode_params, decode_step, prefill, whisper_decode_prep,
-                       whisper_decode_token)
+from .generate import (_decoding, decode_params, decode_step, prefill, whisper_decode_params,
+                       whisper_decode_prep, whisper_decode_token)
 
 Tensor = torch.Tensor
 
@@ -152,14 +152,15 @@ def whisper_transcribe_beam(model: nn.Module, mel: Tensor, bos_token: int, max_t
     b = mel.shape[0]
     k = int(num_beams)
     _check_beams(k, cfg.vocab_size)
-    cross_k, cross_v = whisper_decode_prep(model, mel, kv_dtype)
+    tree = whisper_decode_params(model)  # built once, read by every step
+    cross_k, cross_v = whisper_decode_prep(model, mel, kv_dtype, params=tree)
     shape = (cfg.n_layer_dec, b, cfg.n_head, max_tokens + 1, cfg.n_embd // cfg.n_head)
     state = {"ks": torch.zeros(shape, dtype=kv_dtype, device=mel.device)}
     state["vs"] = torch.zeros_like(state["ks"])
     with _decoding(model):
         bos = torch.full((b,), bos_token, dtype=torch.long, device=mel.device)
         logits0 = whisper_decode_token(model, bos, 0, state["ks"], state["vs"],
-                                       cross_k, cross_v)[0]
+                                       cross_k, cross_v, params=tree)[0]
         state = {key: v.repeat_interleave(k, dim=1) for key, v in state.items()}
         cross_k, cross_v = (c.repeat_interleave(k, dim=1) for c in (cross_k, cross_v))
 
@@ -168,7 +169,7 @@ def whisper_transcribe_beam(model: nn.Module, mel: Tensor, bos_token: int, max_t
                 for key in state:
                     state[key] = state[key].index_select(1, parent_rows)
             return whisper_decode_token(model, tok, i, state["ks"], state["vs"],
-                                        cross_k, cross_v)[0]
+                                        cross_k, cross_v, params=tree)[0]
 
         seqs, final = _search(logits0, step, max_tokens, k, eos_id, length_penalty)
     return (seqs, final) if return_all else seqs[:, 0]

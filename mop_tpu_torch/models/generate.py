@@ -34,8 +34,11 @@ Whisper-MoP:
   every self-attention cache, and the cross-attention K/V are computed once
   from the encoder output (``whisper_decode_prep``). The caches are fp32,
   bf16 or int8; int8 rows carry a per-row fp32 scale, self and cross alike.
-- ``whisper_transcribe_auto``: the cached route from
-  ``config.whisper_cached_min_ctx`` tokens on, the full window below.
+- ``whisper_transcribe_auto``: with fp32 KV the cached route from
+  ``config.whisper_cached_min_ctx`` tokens on and the full window below;
+  with bf16 or int8 KV always the cached route.
+- ``whisper_decode_params``: the model's tree in the JAX layout; the cached
+  route reads it through ``_lin``, so its kernels may be int8 / int4.
 
 The decode runs in eval mode without autograd; the model's mode is restored
 afterwards.
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import re
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -53,8 +57,9 @@ from torch import nn
 
 from ..config import config as run_config
 from ..ops.attention import standardize_scores_causal
-from ..ops.quant import Q4Tensor, QTensor, q4matmul, qmatmul
+from ..ops.quant import Q4Tensor, QTensor, _leaves, dequantize_params, q4matmul, qmatmul
 from ..utils.device import resolve_device
+from ..utils.jax_weights import torch_name
 from .layers import gelu_tanh
 from .whisper_mop import WhisperMoP
 
@@ -62,17 +67,19 @@ Tensor = torch.Tensor
 
 __all__ = ["decode_params", "generate", "init_decode_cache", "model_n_views", "prefill",
            "prefill_padded", "decode_step", "decode_chunk", "generate_cached",
-           "whisper_transcribe", "whisper_decode_prep", "whisper_decode_token",
+           "whisper_transcribe", "whisper_decode_params", "whisper_encode",
+           "whisper_decode_prep", "whisper_decode_token", "whisper_decode_step_rows",
+           "decode_step_rows", "decode_chunk_rows",
            "whisper_transcribe_cached", "whisper_transcribe_auto"]
 
 
 @contextlib.contextmanager
-def _decoding(model: nn.Module):
-    """Eval mode and no autograd for the decode, the model's mode restored."""
+def _decoding(model: nn.Module, grad: bool = False):
+    """Eval mode, and no autograd unless ``grad``, the model's mode restored."""
     was_training = model.training
     model.eval()
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             yield
     finally:
         model.train(was_training)
@@ -104,10 +111,11 @@ def _q8_rows(rows: Tensor) -> Tuple[Tensor, Tensor]:
     return torch.round(rows / s[..., None]).to(torch.int8), s
 
 
-def _mha(q: Tensor, ks: Tensor, vs: Tensor, n_valid: Optional[int] = None,
+def _mha(q: Tensor, ks: Tensor, vs: Tensor, n_valid: Union[None, int, Tensor] = None,
          scales: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
     """q (B, H, 1, dh) against ks/vs (B, H, T, dh), the columns from
-    ``n_valid`` on masked. ``scales``: per-row fp32 scales (k_s, v_s) of
+    ``n_valid`` on masked (an int, or a (B,) tensor of per-row lengths;
+    None: every column). ``scales``: per-row fp32 scales (k_s, v_s) of
     shape (B, H, T) for int8 caches; the K scales multiply the score
     columns after the product, the V scales fold into the attention weights
     before the value product."""
@@ -115,7 +123,7 @@ def _mha(q: Tensor, ks: Tensor, vs: Tensor, n_valid: Optional[int] = None,
     if scales is not None:
         s = s * scales[0][:, :, None, :]
     if n_valid is not None:
-        s[..., n_valid:] = float("-inf")
+        s = s.masked_fill(~_cols_mask(s.shape[-1], n_valid, s.device), float("-inf"))
     a = torch.softmax(s, -1)
     if scales is not None:
         a = a * scales[1][:, :, None, :]
@@ -134,84 +142,218 @@ def _merge_heads(y: Tensor) -> Tensor:
     return y.transpose(1, 2).reshape(b, t, h * dk)
 
 
+def _jax_key_of(model: nn.Module, name: str) -> Tuple[str, object]:
+    """One parameter's JAX tree path (dotted) and its layout map, from its
+    port name: ``encoder.0`` -> ``encoder_0``, a linear weight (out, in) ->
+    ``kernel`` (in, out), a conv weight (O, I, kh, kw) -> ``kernel`` (kh, kw,
+    I, O), an embedding's -> ``embedding``, a LayerNorm's -> ``scale``."""
+    mod_name, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(mod_name)
+    path = re.sub(r"\b(encoder|decoder)\.(\d+)\b", r"\1_\2", mod_name)
+    path = re.sub(r"^audio_proj$", "audio_proj_lin", path)
+    if leaf != "weight":
+        return f"{path}.{leaf}", None
+    if isinstance(mod, nn.Embedding):
+        return f"{path}.embedding", None
+    if isinstance(mod, nn.Linear):
+        return f"{path}.kernel", lambda w: w.t()
+    if isinstance(mod, nn.Conv2d):
+        return f"{path}.kernel", lambda w: w.permute(2, 3, 1, 0)
+    return f"{path}.scale", None
+
+
+def whisper_decode_params(model: WhisperMoP) -> dict:
+    """The Whisper model's tensors as the JAX tree lays them out,
+    ``{"params": {...}}``: ``wte``/``text_pos``/``audio_pos`` ``embedding``,
+    ``audio_proj_lin``, ``encoder_i`` and ``decoder_i`` (``ln1``,
+    ``self_attn`` with its ``*_proj`` kernels in (in, out) layout, ``ln2``,
+    ``cross_attn``, ``ln3``, ``mlp``), ``enc_ln_f`` and ``dec_ln_f``. The
+    leaves are detached views of the parameters (``decode_params``'
+    counterpart); ``ops.quant.quantize_params`` maps over it, and the cached
+    decode reads it through ``_lin``, so int8 / int4 kernels work there."""
+    tree: dict = {}
+    for name, w in model.named_parameters():
+        key, layout = _jax_key_of(model, name)
+        if torch_name(key) != name:  # the inverse of utils.jax_weights' renames
+            raise ValueError(f"whisper_decode_params: {name} maps to {key}, "
+                             f"which loads back as {torch_name(key)}")
+        node = tree
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        w = w.detach()
+        node[leaf] = layout(w) if layout is not None else w
+    return {"params": tree}
+
+
+def _module_state(params: dict) -> Dict[str, Tensor]:
+    """A JAX-layout tree as the module's state dict (the inverse of
+    ``whisper_decode_params`` and of ``decode_params``)."""
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                yield from walk(v, key)
+            else:
+                yield key, v
+
+    out = {}
+    for key, w in walk(params["params"], ""):
+        if key.endswith("kernel") and w.ndim == 2:
+            w = w.t()
+        elif key.endswith("kernel") and w.ndim == 3:  # GPT-MoP's (k, in, out) convs
+            w = w.permute(2, 1, 0)
+        elif key.endswith("kernel") and w.ndim == 4:
+            w = w.permute(3, 2, 0, 1)
+        out[torch_name(key)] = w
+    return out
+
+
+class _Encoder(nn.Module):
+    def __init__(self, model: WhisperMoP):
+        super().__init__()
+        self.m = model
+
+    def forward(self, mel: Tensor) -> Tensor:
+        return self.m.encode(mel)[0]
+
+
+def whisper_encode(model: WhisperMoP, mel: Tensor, params: Optional[dict] = None) -> Tensor:
+    """The encoder output (B, T_enc, D) for ``mel``: the module's own weights
+    when ``params`` is None, else those of the JAX-layout tree ``params``,
+    whose int8 / int4 kernels are dequantized for this pass (the module's
+    layers take no quantized weights; the decode reads them as they are).
+    On the card every encoder layer runs K1."""
+    with _decoding(model):
+        if params is None:
+            return model.encode(mel)[0]
+        if any(isinstance(w, (QTensor, Q4Tensor)) for w in _leaves(params)):
+            params = dequantize_params(params)
+        state = {"m." + k: v for k, v in _module_state(params).items()}
+        return torch.func.functional_call(_Encoder(model), state, (mel,))
+
+
+def _whisper_tree(model: WhisperMoP, params: Optional[dict]) -> dict:
+    return (whisper_decode_params(model) if params is None else params)["params"]
+
+
 def whisper_decode_prep(model: WhisperMoP, mel: Tensor,
-                        kv_dtype: torch.dtype = torch.float32) -> Tuple[Tensor, Tensor]:
+                        kv_dtype: torch.dtype = torch.float32,
+                        params: Optional[dict] = None) -> Tuple[Tensor, Tensor]:
     """One encoder pass and every decoder layer's cross-attention K/V:
     ``(cross_k, cross_v)``, each (L, B, H, T_enc, dh) in ``kv_dtype``
-    (float32 or bfloat16). Int8 rows need their per-row scales, which
-    ``whisper_transcribe_cached`` makes; an int8 ``kv_dtype`` raises here."""
+    (float32 or bfloat16). ``params``: ``whisper_decode_params(model)`` or
+    its ``ops.quant`` form (None: the model's own). Int8 rows need their
+    per-row scales, which ``whisper_transcribe_cached`` makes; an int8
+    ``kv_dtype`` raises here."""
     if kv_dtype == torch.int8:
         raise ValueError("whisper_decode_prep: int8 cross K/V need per-row scales; "
                          "use whisper_transcribe_cached(kv_dtype=torch.int8)")
     h = model.cfg.n_head
-    with _decoding(model):
-        enc_out = model.encode(mel)[0]
-        ks, vs = [], []
-        for blk in model.decoder:
-            ca = blk.cross_attn
-            ks.append(ca.k_proj(enc_out).unflatten(-1, (h, -1)).transpose(1, 2))
-            vs.append(ca.v_proj(enc_out).unflatten(-1, (h, -1)).transpose(1, 2))
+    enc_out = whisper_encode(model, mel, params)
+    p = _whisper_tree(model, params)
+    ks, vs = [], []
+    with torch.no_grad():
+        for li in range(model.cfg.n_layer_dec):
+            cp = p[f"decoder_{li}"]["cross_attn"]
+            ks.append(_split_heads(_lin(enc_out, cp["k_proj"]), h))
+            vs.append(_split_heads(_lin(enc_out, cp["v_proj"]), h))
     return torch.stack(ks).to(kv_dtype), torch.stack(vs).to(kv_dtype)
+
+
+@torch.no_grad()
+def whisper_decode_step_rows(model: WhisperMoP, params: Optional[dict], cross_k: Tensor,
+                             cross_v: Tensor, ks: Tensor, vs: Tensor, tokens: Tensor,
+                             lens: Union[int, Tensor],
+                             scales: Optional[Dict[str, Tensor]] = None):
+    """Advance every row one exact cached decoder token, each at its own
+    position.
+
+    ``cross_k`` / ``cross_v`` (L, B, H, T_enc, dh): each row's
+    cross-attention memory; ``ks`` / ``vs`` (L, B, H, win, dh): the
+    self-attention caches, row b's new K/V written in place at ``lens[b]``;
+    ``tokens`` (B,), ``lens`` (B,) or an int shared by every row. Returns ``(logits (B, vocab), ks, vs)``.
+    ``scales``: for int8 caches, a dict of per-row fp32 scales, ``k_s`` and
+    ``v_s`` (L, B, H, win) for the self-attention rows (this token's rows
+    are quantized and their scales written here) and ``cross_k_s`` /
+    ``cross_v_s`` (L, B, H, T_enc). ``params``: the JAX-layout tree (None:
+    ``whisper_decode_params(model)``, rebuilt on every call), read through
+    ``_lin``, so its kernels may be int8 / int4. Call it in eval mode
+    without autograd, as the transcription does."""
+    cfg = model.cfg
+    p = _whisper_tree(model, params)
+    h = cfg.n_head
+    if isinstance(lens, Tensor):  # each row's new rows at its own length
+        at = (torch.arange(tokens.shape[0], device=tokens.device), slice(None),
+              lens.clamp_max(ks.shape[3] - 1))
+        text_pos = lens.clamp_max(cfg.n_text_ctx - 1)[:, None]
+    else:
+        at, text_pos = (slice(None), slice(None), lens), lens
+    x = p["wte"]["embedding"][tokens][:, None, :]
+    if cfg.use_abs_pos_emb:
+        x = x + p["text_pos"]["embedding"][text_pos]
+    for li in range(cfg.n_layer_dec):
+        bp = p[f"decoder_{li}"]
+        sp = bp["self_attn"]
+        hx = _ln(x, bp["ln1"])
+        q = _split_heads(_lin(hx, sp["q_proj"]), h)
+        k_new = _split_heads(_lin(hx, sp["k_proj"]), h)
+        v_new = _split_heads(_lin(hx, sp["v_proj"]), h)
+        if scales is not None:  # int8: quantize the new rows, each with its scale
+            k_new, k_s = _q8_rows(k_new)
+            v_new, v_s = _q8_rows(v_new)
+            scales["k_s"][(li, *at)] = k_s[..., 0]
+            scales["v_s"][(li, *at)] = v_s[..., 0]
+        ks[(li, *at)] = k_new[:, :, 0].to(ks.dtype)
+        vs[(li, *at)] = v_new[:, :, 0].to(vs.dtype)
+        self_sc = None if scales is None else (scales["k_s"][li], scales["v_s"][li])
+        y = _mha(q, ks[li], vs[li], n_valid=lens + 1, scales=self_sc)
+        x = x + _lin(_merge_heads(y), sp["o_proj"])
+        cp = bp["cross_attn"]
+        qc = _split_heads(_lin(_ln(x, bp["ln2"]), cp["q_proj"]), h)
+        cross_sc = None if scales is None else (scales["cross_k_s"][li],
+                                                scales["cross_v_s"][li])
+        x = x + _lin(_merge_heads(_mha(qc, cross_k[li], cross_v[li], scales=cross_sc)),
+                     cp["o_proj"])
+        mp = bp["mlp"]
+        x = x + _lin(gelu_tanh(_lin(_ln(x, bp["ln3"]), mp["fc"])), mp["proj"])
+    logits = (_ln(x, p["dec_ln_f"]) @ p["wte"]["embedding"].t())[:, 0]
+    return logits, ks, vs
 
 
 def whisper_decode_token(model: WhisperMoP, tok: Tensor, pos: int, ks: Tensor, vs: Tensor,
                          cross_k: Tensor, cross_v: Tensor,
-                         scales: Optional[Dict[str, Tensor]] = None):
-    """One exact cached decoder step for (B,) tokens at position ``pos``:
-    writes this token's self-attention K/V rows at ``pos`` of the
-    (L, B, H, win, dh) caches ``ks``/``vs`` in place and returns
-    ``(logits (B, vocab), ks, vs)``.
-
-    ``scales``: for int8 caches, a dict of per-row fp32 scales, ``k_s`` and
-    ``v_s`` (L, B, H, win) for the self-attention rows (this token's rows are
-    quantized and their scales written here) and ``cross_k_s``/``cross_v_s``
-    (L, B, H, T_enc); the return then gains the dict as a fourth element.
-    Call it in eval mode without autograd, as the transcription does."""
-    h = model.cfg.n_head
-    x = model.wte.weight[tok][:, None, :]
-    if model.cfg.use_abs_pos_emb:
-        x = x + model.text_pos.weight[pos][None, None, :]
-    for li, blk in enumerate(model.decoder):
-        sa = blk.self_attn
-        hx = blk.ln1(x)
-        q = _split_heads(sa.q_proj(hx), h)
-        k_new, v_new = _split_heads(sa.k_proj(hx), h), _split_heads(sa.v_proj(hx), h)
-        if scales is not None:  # int8: quantize the new rows, each with its scale
-            k_new, k_s = _q8_rows(k_new)
-            v_new, v_s = _q8_rows(v_new)
-            scales["k_s"][li, :, :, pos] = k_s[..., 0]
-            scales["v_s"][li, :, :, pos] = v_s[..., 0]
-        ks[li, :, :, pos] = k_new[:, :, 0].to(ks.dtype)
-        vs[li, :, :, pos] = v_new[:, :, 0].to(vs.dtype)
-        self_sc = None if scales is None else (scales["k_s"][li], scales["v_s"][li])
-        y = _mha(q, ks[li], vs[li], n_valid=pos + 1, scales=self_sc)
-        x = x + sa.o_proj(_merge_heads(y))
-        ca = blk.cross_attn
-        qc = _split_heads(ca.q_proj(blk.ln2(x)), h)
-        cross_sc = None if scales is None else (scales["cross_k_s"][li],
-                                                scales["cross_v_s"][li])
-        x = x + ca.o_proj(_merge_heads(_mha(qc, cross_k[li], cross_v[li], scales=cross_sc)))
-        x = x + blk.mlp(blk.ln3(x))
-    logits = model.wte.attend(model.dec_ln_f(x))[:, 0]
-    if scales is not None:
-        return logits, ks, vs, scales
-    return logits, ks, vs
+                         scales: Optional[Dict[str, Tensor]] = None,
+                         params: Optional[dict] = None):
+    """One exact cached decoder step for (B,) tokens at position ``pos``
+    (``whisper_decode_step_rows`` with every row there): writes this
+    token's self-attention K/V rows at ``pos`` of the (L, B, H, win, dh)
+    caches ``ks``/``vs`` in place and returns ``(logits (B, vocab), ks,
+    vs)``, and with int8 ``scales`` the dict as a fourth element."""
+    out = whisper_decode_step_rows(model, params, cross_k, cross_v, ks, vs, tok, pos,
+                                   scales=scales)
+    return out if scales is None else (*out, scales)
 
 
 def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, max_tokens: int,
-                              kv_dtype: torch.dtype = torch.float32) -> Tensor:
+                              kv_dtype: torch.dtype = torch.float32,
+                              params: Optional[dict] = None) -> Tensor:
     """Greedy transcription with exact per-layer KV caches: (B, max_tokens)
     token ids, the tokens of ``whisper_transcribe``.
 
     ``kv_dtype=torch.bfloat16`` halves the cache storage and reads (compute
     stays in the model's dtype); ``torch.int8`` quantizes every cached row,
     self and cross, symmetrically with a per-row fp32 scale, applied after
-    the products as in ``_mha``."""
+    the products as in ``_mha``. ``params``: ``whisper_decode_params(model)``
+    or its int8 / int4 form from ``ops.quant.quantize_params`` (None: the
+    model's own); the encoder runs on its dequantized copy."""
     int8 = kv_dtype == torch.int8
     cfg = model.cfg
     b, win = mel.shape[0], max_tokens + 1
     shape = (cfg.n_layer_dec, b, cfg.n_head, win, cfg.n_embd // cfg.n_head)
-    cross_k, cross_v = whisper_decode_prep(model, mel, torch.float32 if int8 else kv_dtype)
+    cross_k, cross_v = whisper_decode_prep(model, mel, torch.float32 if int8 else kv_dtype,
+                                           params=params)
+    tree = whisper_decode_params(model) if params is None else params
     ks = torch.zeros(shape, dtype=kv_dtype, device=mel.device)
     vs = torch.zeros(shape, dtype=kv_dtype, device=mel.device)
     scales = None
@@ -225,21 +367,27 @@ def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, ma
     with _decoding(model):
         for i in range(max_tokens):
             logits = whisper_decode_token(model, tok, i, ks, vs, cross_k, cross_v,
-                                          scales=scales)[0]
+                                          scales=scales, params=tree)[0]
             tok = logits.argmax(-1)
             outs.append(tok)
     return torch.stack(outs, 1)
 
 
 def whisper_transcribe_auto(model: WhisperMoP, mel: Tensor, bos_token: int, max_tokens: int,
-                            kv_dtype: torch.dtype = torch.float32) -> Tensor:
-    """Greedy transcription by the measured dispatch: the full window below
-    ``config.whisper_cached_min_ctx`` tokens (``MOP_TPU_WHISPER_CACHED_MIN_CTX``),
-    the cached route from there on. Both give the same tokens; ``kv_dtype``
-    reaches only the cached route."""
-    if max_tokens < run_config.whisper_cached_min_ctx:
+                            kv_dtype: torch.dtype = torch.float32,
+                            params: Optional[dict] = None) -> Tensor:
+    """Greedy transcription by the measured dispatch: with fp32 KV, the full
+    window below ``config.whisper_cached_min_ctx`` tokens
+    (``MOP_TPU_WHISPER_CACHED_MIN_CTX``) and the cached route from there on,
+    the two giving the same tokens. Any other ``kv_dtype`` (bf16, int8)
+    always takes the cached route, so that its rounding does not switch on
+    and off with the requested length; so does a ``params`` tree (int8 /
+    int4 weights), which only the cached route reads."""
+    if (kv_dtype == torch.float32 and params is None
+            and max_tokens < run_config.whisper_cached_min_ctx):
         return whisper_transcribe(model, mel, bos_token, max_tokens)
-    return whisper_transcribe_cached(model, mel, bos_token, max_tokens, kv_dtype=kv_dtype)
+    return whisper_transcribe_cached(model, mel, bos_token, max_tokens, kv_dtype=kv_dtype,
+                                     params=params)
 
 
 # ------------------------------ GPT family ------------------------------
@@ -444,44 +592,52 @@ def generate(model: nn.Module, prompt: Tensor, max_new_tokens: int,
 
 
 def _ln(x: Tensor, p: dict, eps: float = 1e-5) -> Tensor:
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    return (x32 - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    """The fp32 LayerNorm of ``layers.LayerNorm`` over a tree node."""
+    return nnF.layer_norm(x.float(), x.shape[-1:], p["scale"], p["bias"], eps)
 
 
 def _lin(x: Tensor, p: dict) -> Tensor:
-    """``x @ kernel (+ bias)``, the kernel fp32, ``QTensor`` or ``Q4Tensor``."""
+    """``x @ kernel (+ bias)``, the kernel fp32, ``QTensor`` or ``Q4Tensor``,
+    plus the per-row LoRA delta where the node carries ``lora_a``/``lora_b``
+    (the serving engine's adapter bank, ``serving.engine.lora_params_view``)."""
     k = p["kernel"]
+    if "lora_a" not in p and not isinstance(k, (QTensor, Q4Tensor)):
+        return nnF.linear(x, k.t(), p.get("bias"))  # one fused product and bias
     if isinstance(k, QTensor):
         y = qmatmul(x, k)
     elif isinstance(k, Q4Tensor):
         y = q4matmul(x, k)
     else:
         y = x @ k
+    if "lora_a" in p:
+        # per-row LoRA factors, lora_a (B, din, r) and lora_b (B, r, dout):
+        # row b holds its request's adapter (zeros: none), y_b += x_b A_b B_b
+        t = torch.einsum("b...d,bdr->b...r", x, p["lora_a"])
+        y = y + torch.einsum("b...r,bro->b...o", t, p["lora_b"]).to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
 
 
 def _cols_mask(n_cols: int, n_valid: Union[int, Tensor], device) -> Tensor:
-    """(1 | B, 1, 1, n_cols) bool mask of the valid prefix; ``n_valid`` is an
-    int (a shared length) or a (B,) tensor (per-row lengths)."""
+    """(1 | B, 1, 1 | G, n_cols) bool mask of the valid prefix; ``n_valid``
+    is an int (a shared length), a (B,) tensor (per-row lengths) or a
+    (B | 1, G) tensor (per row and query position)."""
     cols = torch.arange(n_cols, device=device)
     if isinstance(n_valid, Tensor):
-        return (cols[None, :] < n_valid.reshape(-1, 1))[:, None, None, :]
+        return cols < n_valid.reshape(n_valid.shape[0], 1, -1, 1)
     return (cols < n_valid)[None, None, None, :]
 
 
 def _standardize_rows(s: Tensor, n_valid: Union[int, Tensor], eps: float) -> Tensor:
     """Unbiased row standardization over the first ``n_valid`` columns: the
     mean over them, the squared deviations summed over them and divided by
-    ``max(n - 1, 1)``, eps added after the sqrt. ``n_valid``: an int or a
-    (B,) tensor."""
+    ``max(n - 1, 1)``, eps added after the sqrt. ``n_valid``: as
+    ``_cols_mask`` takes it."""
     cols = _cols_mask(s.shape[-1], n_valid, s.device)
     zero = s.new_zeros(())
     if isinstance(n_valid, Tensor):
-        n = n_valid.clamp_min(1).reshape(-1, 1, 1, 1).to(s.dtype)
+        n = n_valid.clamp_min(1).reshape(n_valid.shape[0], 1, -1, 1).to(s.dtype)
         dof = (n - 1.0).clamp_min(1.0)
     else:
         n = float(max(n_valid, 1))
@@ -574,41 +730,6 @@ def _mlp(x: Tensor, bp: dict) -> Tensor:
     return x + _lin(gelu_tanh(_lin(_ln(x, bp["ln2"]), bp["mlp"]["fc"])), bp["mlp"]["proj"])
 
 
-def _attn_step(p: dict, cfg, x: Tensor, k_all: Tensor, k2_all: Tensor, v_all: Tensor,
-               n_valid: Union[int, Tensor], scales=None) -> Tensor:
-    """One token's attention against caches that already hold its rows at
-    ``n_valid - 1``: x (B, 1, C) -> (B, 1, C). ``scales``: the int8 caches'
-    per-row (k_s, k2_s, v_s), (B, H, T) each: K scales multiply the score
-    columns after the product, V scales fold into the attention weights
-    before the value product."""
-    h = cfg.n_head
-    q = _split_heads(_lin(x, p["q_proj"]), h)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-
-    def col(s):  # (B, H, T) -> over the query axis
-        return s[:, :, None, :]
-
-    qk = q @ k_all.to(q.dtype).transpose(-1, -2) * scale
-    if scales is not None:
-        qk = qk * col(scales[0])
-    if cfg.use_quartet:
-        q2 = _split_heads(_lin(x, p["q2_proj"]), h)
-        q2k2 = q2 @ k2_all.to(q2.dtype).transpose(-1, -2) * scale
-        if scales is not None:
-            q2k2 = q2k2 * col(scales[1])
-        m = torch.sigmoid(p["mixture"][0])
-        s1 = _standardize_rows(qk, n_valid, cfg.score_norm_eps)
-        s2 = _standardize_rows(q2k2, n_valid, cfg.score_norm_eps)
-        scores = (1.0 - m) * s1 + m * (s1 * s2) * p["quartet_scale"][0]
-    else:  # the single path's eps is 1e-5 whatever the config says
-        scores = _standardize_rows(qk, n_valid, 1e-5)
-    cols = _cols_mask(k_all.shape[2], n_valid, x.device)
-    att = torch.softmax(scores.masked_fill(~cols, float("-inf")), -1)
-    if scales is not None:
-        att = att * col(scales[2])
-    return _lin(_merge_heads(att @ v_all.to(att.dtype)), p["o_proj"])
-
-
 def _kv_rows(p: dict, cfg, x: Tensor):
     """This token's k, k2, v rows (B, H, 1, dk) from the ln1 activations
     (k2 is k without Quartet)."""
@@ -619,16 +740,27 @@ def _kv_rows(p: dict, cfg, x: Tensor):
     return k, k2, v
 
 
-def _write_rows(cache: dict, i: int, pos: int, rows) -> Optional[tuple]:
-    """Write layer i's new (k, k2, v) rows (B, H, G, dk) at positions
-    ``pos .. pos + G - 1`` of the cache in place (int8: quantized per row,
-    their scales beside); the layer's int8 scales, else None."""
-    g = rows[0].shape[2]
-    for key, r in zip(("k", "k2", "v"), rows):
+def _write_rows(cache: dict, i: int, pos: Union[int, Tensor], new) -> Optional[tuple]:
+    """Write layer i's new (k, k2, v) rows (B, H, G, dk) in place: at
+    positions ``pos .. pos + G - 1`` of every batch row (``pos`` an int), or
+    row b's at ``pos[b]`` (a (B, G) tensor; positions past the window are
+    clamped to its last column, which no live row reads). Int8 caches get
+    the rows quantized per row, their scales beside. Returns the layer's
+    int8 scales, else None."""
+    if isinstance(pos, Tensor):
+        pos = pos.clamp_max(cache["k"].shape[3] - 1)
+        rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    for key, r in zip(("k", "k2", "v"), new):
         if "k_s" in cache:
             r, s = _q8_rows(r)
-            cache[key + "_s"][i, :, :, pos:pos + g] = s
-        cache[key][i, :, :, pos:pos + g] = r.to(cache[key].dtype)
+            if isinstance(pos, Tensor):
+                cache[key + "_s"][i, rows, :, pos] = s.transpose(1, 2)
+            else:
+                cache[key + "_s"][i, :, :, pos:pos + s.shape[-1]] = s
+        if isinstance(pos, Tensor):
+            cache[key][i, rows, :, pos] = r.transpose(1, 2).to(cache[key].dtype)
+        else:
+            cache[key][i, :, :, pos:pos + r.shape[2]] = r.to(cache[key].dtype)
     if "k_s" in cache:
         return cache["k_s"][i], cache["k2_s"][i], cache["v_s"][i]
     return None
@@ -638,80 +770,54 @@ def _params(model: nn.Module, params: Optional[dict]) -> dict:
     return (decode_params(model) if params is None else params)["params"]
 
 
-def decode_step(model: nn.Module, params: Optional[dict], cache: dict, token: Tensor):
-    """One cached decode step: (B,) tokens -> (logits (B, vocab), cache).
+def decode_step_rows(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor,
+                     lens: Union[int, Tensor]):
+    """Advance every row one token, each at its own position.
 
-    The token's rows are written at ``cache["len"]`` into the cache's
-    buffers in place (the caller keeps the window from filling); the
-    returned dict shares them and has ``len`` advanced by one. ``params``:
-    ``decode_params(model)`` or its ``ops.quant`` form (None: the model's
-    own). GPT-MoP's gate is applied between attention and MLP from the view
-    history: exact for the causal gate, frontier-approximate for the
-    centred one (``_mop_taps``)."""
-    cfg = model.config
-    p = _params(model, params)
-    pos = cache["len"]
-    n_valid = pos + 1
-    causal_gate = bool(getattr(model, "causal_gate", False))
-    with torch.no_grad():
-        x = p["wte"]["embedding"][token][:, None, :]
-        if cfg.use_abs_pos_emb:
-            x = x + p["wpe"]["embedding"][pos][None, None, :]
-        for i in range(cfg.n_layer):
-            bp = p[f"blocks_{i}"]
-            hx = _ln(x, bp["ln1"])
-            scales = _write_rows(cache, i, pos, _kv_rows(bp["attn"], cfg, hx))
-            x = x + _attn_step(bp["attn"], cfg, hx, cache["k"][i], cache["k2"][i],
-                               cache["v"][i], n_valid, scales=scales)
-            if "views" in bp:  # the MoP gate between attention and MLP
-                cache["mv"][i, :, pos] = _lin(x, bp["views"]["proj"])[:, 0]
-                gate = _mop_gates(bp, cache["mv"][i],
-                                  torch.full((x.shape[0],), pos, device=x.device), causal_gate)
-                x = x * gate[..., None]
-            x = _mlp(x, bp)
-        logits = (_ln(x, p["ln_f"]) @ p["wte"]["embedding"].t())[:, 0]
-    return logits, dict(cache, len=pos + 1)
+    ``tokens`` (B,): each row's current token, appended this step; ``lens``:
+    each row's live length before the append, a (B,) tensor, or an int
+    shared by every row. Returns ``(logits (B, vocab), cache)``: the new
+    K/K2/V rows are written in place at each row's length, and the returned
+    dict (sharing the buffers) has ``len = lens + 1``. Row b's output
+    depends on row b's tokens only. GPT-MoP's gate is applied between
+    attention and MLP from the view history: exact for the causal gate,
+    frontier-approximate for the centred one (``_mop_taps``)."""
+    logits, cache = decode_chunk_rows(model, params, cache, tokens[:, None], lens)
+    return logits[:, 0], cache
 
 
-def decode_chunk(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor):
-    """A cached forward over G new tokens at positions ``len .. len + G - 1``:
-    (B, G) tokens -> (logits (B, G, vocab), cache with ``len`` advanced by G).
-
-    Equal to G sequential ``decode_step`` calls: row i standardizes and
-    attends over its ``len + i + 1`` live columns, and the chunk's own rows
-    are written (in place) before the attention, so that the causal mask
-    covers the chunk. The verify pass of speculative decoding."""
+def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor,
+                      lens: Union[int, Tensor]):
+    """Advance every row G tokens, each from its own position: (B, G) tokens
+    appended at ``lens[b] .. lens[b] + G - 1`` (``lens`` a (B,) tensor, or
+    an int shared by every row) -> ``(logits (B, G, vocab), cache)`` with
+    ``len = lens + G``. Chunk position g of row b standardizes and attends
+    over its ``lens[b] + g + 1`` live columns: the composition of G
+    ``decode_step_rows`` calls. The chunk's rows are written (in place)
+    before the attention, so that the causal mask covers the chunk."""
     cfg = model.config
     p = _params(model, params)
     b, g = tokens.shape
     h = cfg.n_head
-    pos0 = cache["len"]
     dev = tokens.device
-    positions = pos0 + torch.arange(g, device=dev)
-    block = cache["k"].shape[3]
-    nv = positions + 1  # row i's live-prefix length
-    cols4 = (torch.arange(block, device=dev)[None, :] < nv[:, None])[None, None]
-    nvf = nv.float()[None, None, :, None]
-    zero = torch.zeros((), device=dev)
-
-    def std(s, eps):  # unbiased, over each row's live prefix
-        mu = torch.where(cols4, s, zero).sum(-1, keepdim=True) / nvf
-        var = (torch.where(cols4, (s - mu).square(), zero).sum(-1, keepdim=True)
-               / (nvf - 1.0).clamp_min(1.0))
-        return (s - mu) / (torch.sqrt(var) + eps)
-
+    shared = not isinstance(lens, Tensor)  # one length for every row
+    steps = torch.arange(g, device=dev)
+    pos = (lens + steps)[None] if shared else lens[:, None] + steps[None, :]  # (1 | B, G)
+    # each position's live-prefix length; an int for one shared position
+    nv = lens + 1 if shared and g == 1 else pos + 1
+    cols = _cols_mask(cache["k"].shape[3], nv, dev)
     causal_gate = bool(getattr(model, "causal_gate", False))
     with torch.no_grad():
         x = p["wte"]["embedding"][tokens]
-        if cfg.use_abs_pos_emb:
-            x = x + p["wpe"]["embedding"][positions][None]
+        if cfg.use_abs_pos_emb:  # a held row may sit at the window's end
+            x = x + p["wpe"]["embedding"][pos.clamp_max(cfg.block_size - 1)]
         for i in range(cfg.n_layer):
             bp = p[f"blocks_{i}"]
             ap = bp["attn"]
             hx = _ln(x, bp["ln1"])
             q = _split_heads(_lin(hx, ap["q_proj"]), h)
             scale = 1.0 / math.sqrt(q.shape[-1])
-            sc = _write_rows(cache, i, pos0, _kv_rows(ap, cfg, hx))
+            sc = _write_rows(cache, i, lens if shared else pos, _kv_rows(ap, cfg, hx))
             qk = q @ cache["k"][i].to(q.dtype).transpose(-1, -2) * scale
             if sc is not None:
                 qk = qk * sc[0][:, :, None, :]
@@ -721,23 +827,46 @@ def decode_chunk(model: nn.Module, params: Optional[dict], cache: dict, tokens: 
                 if sc is not None:
                     q2k2 = q2k2 * sc[1][:, :, None, :]
                 m = torch.sigmoid(ap["mixture"][0])
-                s1 = std(qk, cfg.score_norm_eps)
-                s2 = std(q2k2, cfg.score_norm_eps)
+                s1 = _standardize_rows(qk, nv, cfg.score_norm_eps)
+                s2 = _standardize_rows(q2k2, nv, cfg.score_norm_eps)
                 scores = (1.0 - m) * s1 + m * (s1 * s2) * ap["quartet_scale"][0]
-            else:
-                scores = std(qk, 1e-5)
-            att = torch.softmax(scores.masked_fill(~cols4, float("-inf")), -1)
+            else:  # the single path's eps is 1e-5 whatever the config says
+                scores = _standardize_rows(qk, nv, 1e-5)
+            att = torch.softmax(scores.masked_fill(~cols, float("-inf")), -1)
             if sc is not None:
                 att = att * sc[2][:, :, None, :]
             x = x + _lin(_merge_heads(att @ cache["v"][i].to(att.dtype)), ap["o_proj"])
-            if "views" in bp:  # per chunk position, taps <= pos as in decode_step
-                cache["mv"][i, :, pos0:pos0 + g] = _lin(x, bp["views"]["proj"])
-                gate = _mop_gates(bp, cache["mv"][i], positions[None].expand(b, g),
-                                  causal_gate)
-                x = x * gate[..., None]
+            if "views" in bp:  # per row and chunk position, taps <= pos
+                views = _lin(x, bp["views"]["proj"])
+                if shared:
+                    cache["mv"][i, :, lens:lens + g] = views
+                else:
+                    rows = torch.arange(b, device=dev)[:, None]
+                    cache["mv"][i, rows, pos.clamp_max(cache["mv"].shape[2] - 1)] = views
+                x = x * _mop_gates(bp, cache["mv"][i], pos.expand(b, g), causal_gate)[..., None]
             x = _mlp(x, bp)
         logits = _ln(x, p["ln_f"]) @ p["wte"]["embedding"].t()
-    return logits, dict(cache, len=pos0 + g)
+    return logits, dict(cache, len=lens + g)
+
+
+def decode_step(model: nn.Module, params: Optional[dict], cache: dict, token: Tensor):
+    """One cached decode step: (B,) tokens -> (logits (B, vocab), cache).
+
+    ``decode_step_rows`` at the shared length ``cache["len"]`` (an int):
+    the token's rows are written there into the cache's buffers in place
+    (the caller keeps the window from filling); the returned dict shares
+    them and has ``len`` advanced by one. ``params``: ``decode_params(model)``
+    or its ``ops.quant`` form (None: the model's own)."""
+    return decode_step_rows(model, params, cache, token, cache["len"])
+
+
+def decode_chunk(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor):
+    """A cached forward over G new tokens at positions ``len .. len + G - 1``:
+    (B, G) tokens -> (logits (B, G, vocab), cache with ``len`` advanced by G).
+    ``decode_chunk_rows`` at the shared length ``cache["len"]``: equal to G
+    sequential ``decode_step`` calls. The verify pass of speculative
+    decoding."""
+    return decode_chunk_rows(model, params, cache, tokens, cache["len"])
 
 
 def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dtype):

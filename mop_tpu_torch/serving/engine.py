@@ -1,0 +1,1020 @@
+"""Continuous-batching decode engine for the GPT family, in PyTorch: the port
+of ``mop_tpu/serving/engine.py`` (``DecodeEngine``, ``decode_step_rows``,
+``decode_chunk_rows``, ``lora_params_view``); the two per-row steps live
+in ``models.generate``, whose single-stream ``decode_step`` /
+``decode_chunk`` are their shared-length case.
+
+- The KV cache is a fixed pool of ``max_batch`` slots (the
+  ``init_decode_cache`` layout, (L, B, H, block, dk); int8 pools carry their
+  per-row fp32 scales, GPT-MoP its view history ``mv``).
+- Each slot has its own length: the batched step writes each row's new
+  K/K2/V at that row's position (in place) and standardizes and masks each
+  score row over the row's own live prefix, the per-row form of
+  ``generate_cached``'s math.
+- Admission is a one-row prefill (``prefill``, or ``prefill_padded`` to a
+  bucket) pasted into a free slot; a request retires on EOS, a stop match,
+  its budget or the full window, and frees its slot for the next one.
+
+Host-side control (admission, retirement, EOS, stops, DFAs, beams) runs
+between device steps in numpy, as in the JAX engine; each step brings its
+tokens (and the logprob and beam blocks when they are on) back in one
+device-to-host copy. The step composes plain torch ops and launches no
+kernel: the Quartet scores of a cached row standardize over its live prefix,
+not over K5's whole window. Params are ``decode_params(model)`` or its
+``ops.quant`` int8 / int4 form; the engine runs on their device.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.beam import _top_k
+from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode_step_rows,
+                               init_decode_cache, model_n_views, prefill, prefill_padded)
+from .constrain import mask_row
+
+Tensor = torch.Tensor
+
+__all__ = ["DecodeEngine", "decode_chunk_rows", "decode_step_rows", "lora_params_view"]
+
+
+def lora_params_view(params: dict, rows: Dict[str, Tuple[Tensor, Tensor]]) -> dict:
+    """The params with per-row LoRA factors inserted beside each adapted
+    kernel (read by ``_lin``). ``rows``: {kernel path: (a, b)}, the path
+    slash-joined as in ``training.lora`` (``params/blocks_0/attn/q_proj/
+    kernel``), ``a`` (B, din, r) and ``b`` (B, r, dout), row i holding batch
+    row i's factors (zeros: no adapter). Only the dicts along each path are
+    copied; every tensor is shared with ``params``."""
+    def set_parent(tree, parts, a, b):
+        node = dict(tree)
+        if len(parts) == 1:  # parts[0] is the kernel's key: insert siblings
+            node["lora_a"] = a
+            node["lora_b"] = b
+            return node
+        node[parts[0]] = set_parent(node[parts[0]], parts[1:], a, b)
+        return node
+
+    for path, (a, b) in rows.items():
+        params = set_parent(params, path.split("/"), a, b)
+    return params
+
+
+def _pool_keys(cache: dict) -> Tuple[str, ...]:
+    """The cache's per-slot buffers, the slot on axis 1 of each."""
+    return tuple(k for k in ("k", "k2", "v", "k_s", "k2_s", "v_s", "mv") if k in cache)
+
+
+def _to_host(*ts: Tensor) -> List[np.ndarray]:
+    """The tensors on the host in ONE device-to-host copy: each is packed as
+    int32 words (floats by their bits) into one buffer, then split back."""
+    words = [(t.float().contiguous().view(torch.int32) if t.is_floating_point()
+              else t.to(torch.int32)).reshape(-1) for t in ts]
+    flat = torch.cat(words).cpu().numpy()
+    out, at = [], 0
+    for t, w in zip(ts, words):
+        part = flat[at:at + w.numel()].reshape(t.shape)
+        out.append(part.view(np.float32) if t.is_floating_point() else part.astype(np.int64))
+        at += w.numel()
+    return out
+
+
+# the per-slot sampling columns the batched picker reads, in order
+_SP = ("temp", "topk", "topp", "minp", "rep", "pres", "freq")
+
+
+def _seeded_generator(seed: int, ntok: int, device) -> torch.Generator:
+    """A seeded request's draw for its ``ntok``-th output token: a generator
+    seeded from (seed, ntok) alone, so that the draw depends on neither
+    co-batched traffic nor the engine's own generator. The pair is mixed
+    (splitmix64) into 32 bits, all that the CPU generator keeps of a seed."""
+    z = ((int(seed) << 32) + int(ntok) + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    gen = torch.Generator(device=device)
+    gen.manual_seed((z ^ (z >> 31)) & 0xFFFFFFFF)
+    return gen
+
+
+def _penalized(logits: Tensor, sp: Dict[str, Tensor], ocounts: Tensor, pseen: Tensor,
+               lbias: Tensor) -> Tensor:
+    """The logits with each row's bias and penalties applied (``sampling_dist``'s
+    first stage)."""
+    logits = logits + lbias
+    out = ocounts > 0
+    r = sp["rep"][:, None]
+    logits = torch.where(pseen | out, torch.where(logits > 0, logits / r, logits * r), logits)
+    logits = logits - sp["pres"][:, None] * out
+    return logits - sp["freq"][:, None] * ocounts
+
+
+def sampling_dist(logits: Tensor, sp: Dict[str, Tensor], ocounts: Tensor, pseen: Tensor,
+                  lbias: Tensor):
+    """The per-row sampler's distribution before the draw, in sorted-logit
+    space: ``(greedy (B,), order (B, V), masked (B, V))``. Per row: the logit
+    bias added first, the repetition penalty over prompt and output tokens
+    and presence / frequency penalties over the output counts (vLLM's
+    conventions), the greedy argmax of that; then the temperature and, in
+    the descending order ``order`` (ties: the higher index first, as JAX's
+    reversed ``argsort``), ranks from ``top_k`` on, tokens past the nucleus
+    ``top_p`` and under the ``min_p`` floor masked to -inf. A row's
+    ``topk`` 0, ``topp`` 1 and ``minp`` 0 are off."""
+    v = logits.shape[1]
+    logits = _penalized(logits, sp, ocounts, pseen, lbias)
+    greedy = logits.argmax(-1)
+    scaled = logits / sp["temp"].clamp_min(1e-6)[:, None]
+    order = torch.sort(scaled, dim=-1, stable=True).indices.flip(-1)
+    srt = scaled.gather(-1, order)
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    topk = sp["topk"]
+    keep = ranks < torch.where(topk > 0, topk, torch.full_like(topk, v))[:, None]
+    probs = torch.softmax(srt.masked_fill(~keep, float("-inf")), -1)
+    cum = probs.cumsum(-1)
+    keep = keep & ((cum - probs) < sp["topp"][:, None])  # the top token always kept
+    minp = sp["minp"]
+    floor = srt[:, :1] + torch.log(minp.clamp_min(1e-38))[:, None]
+    keep = keep & ((srt >= floor) | (minp[:, None] <= 0.0))
+    return greedy, order, srt.masked_fill(~keep, float("-inf"))
+
+
+class DecodeEngine:
+    """Continuous-batching greedy / sampled / beam decode over a fixed slot
+    pool.
+
+    >>> eng = DecodeEngine(model, params, max_batch=8)
+    >>> rid = eng.submit([5, 17, 3], max_new_tokens=32)
+    >>> results = eng.run()          # {rid: [tokens...]}
+
+    ``submit`` may be called at any time, also between ``step`` calls while
+    other requests are in flight. ``step`` advances every live request and
+    returns this iteration's ``{rid: [tokens]}``; ``run`` steps until the
+    queue and the slots drain. The constructor's options are the JAX
+    engine's (its docstring, ``mop_tpu/serving/engine.py:245``), except
+    ``cache_sharding`` (tensor-parallel serving, not ported: it raises) and
+    ``generator`` in place of ``rng``:
+
+    - ``params``: ``decode_params(model)`` or its int8 / int4 form (None:
+      the model's own); the pools live on its device.
+    - ``prefill_buckets``: ascending pad lengths; admission pads a prompt to
+      the smallest bucket that holds it (``prefill_padded``, the pads masked
+      out of every row statistic). The tokens are those without buckets.
+    - ``prefix_cache_entries``: an LRU of that many prompts' slot rows (each
+      entry a copy that owns its rows); a prompt sharing a prefix with one
+      reuses its rows and runs ``decode_chunk_rows`` over the tail only
+      (exact). ``prefix_cache_hits`` / ``prefix_tokens_reused`` count it.
+    - ``chunk_prefill``: a prompt longer than C is fed C tokens per engine
+      step (``decode_chunk_rows``), so that co-batched streams keep emitting.
+    - ``kv_dtype``: the pools' storage, fp32, bf16, or int8 with per-row fp32
+      scales written beside each row (``generate_cached``'s layout).
+    - ``adapters`` / ``adapter_scale``: a bank of LoRA adapters
+      (``training.lora`` format, one path set and rank); each request picks
+      one by name and its factors are gathered into its slot's rows at
+      admission, so requests with different adapters share a step.
+    - ``logprobs_topk``: record each emitted token's logprob (fp32
+      log-softmax of the raw logits) and the ``logprobs_topk`` most likely
+      alternatives (``logprobs`` / ``top_logprobs``, 1:1 with ``results``).
+    - ``max_beams``: requests may ask for beam search over k <= max_beams
+      adjacent slots; after each step the host picks the group's top k of
+      its k x k candidates and the group's cache rows are permuted by parent.
+    - ``generator``: the ``torch.Generator`` unseeded sampled rows draw from
+      (a fresh one seeded 0 when None). A request's ``seed`` gives its row a
+      generator of its own per output token instead.
+    """
+
+    def __init__(self, model, params: Optional[dict] = None, max_batch: int = 8,
+                 eos_id: Optional[int] = None, temperature: float = 0.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None, cache_sharding=None,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 prefix_cache_entries: int = 0, kv_dtype: torch.dtype = torch.float32,
+                 min_p: float = 0.0, repetition_penalty: float = 1.0,
+                 presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+                 adapters: Optional[Dict[str, dict]] = None, adapter_scale=1.0,
+                 chunk_prefill: Optional[int] = None, logprobs_topk: int = 0,
+                 max_beams: int = 0):
+        if cache_sharding is not None:
+            raise NotImplementedError(
+                "cache_sharding (tensor-parallel serving) is not ported to the PyTorch "
+                "engine; serve on one device")
+        self.model = model
+        self.params = decode_params(model) if params is None else params
+        self.device = self.params["params"]["wte"]["embedding"].device
+        self.max_batch = max_batch
+        self.eos_id = eos_id
+        if not 0 <= int(logprobs_topk) <= 32:
+            raise ValueError(f"logprobs_topk must be in [0, 32], got {logprobs_topk}")
+        self.logprobs_topk = int(logprobs_topk)
+        if not 0 <= int(max_beams) <= max_batch:
+            raise ValueError(f"max_beams must be in [0, max_batch={max_batch}], got {max_beams}")
+        self.max_beams = int(max_beams)
+        self._beam_groups: Dict[int, dict] = {}
+        self._beam_finalized: List[tuple] = []
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.min_p = min_p
+        self.repetition_penalty = repetition_penalty
+        self.presence_penalty = presence_penalty
+        self.frequency_penalty = frequency_penalty
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self._gen = generator
+        cfg = model.config
+        self.block_size = cfg.block_size
+        if kv_dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(f"kv_dtype must be float32, bfloat16 or int8, got {kv_dtype}")
+        self.kv_dtype = kv_dtype
+        self._n_views = model_n_views(model)
+        self._cache = init_decode_cache(cfg, max_batch, kv_dtype, n_views=self._n_views,
+                                        device=self.device)
+        del self._cache["len"]  # the per-row lengths live on the host, ``_lens``
+        self._pool_keys = _pool_keys(self._cache)
+        self._lens = np.zeros((max_batch,), np.int64)
+        self._tokens = torch.zeros((max_batch,), dtype=torch.long, device=self.device)
+        self._slot_rid: List[int] = [-1] * max_batch
+        self._budget = np.zeros((max_batch,), np.int64)
+        # per-slot sampling parameters, the batched picker's (B,) columns
+        self._sp = {"temp": np.zeros(max_batch, np.float32),
+                    "topk": np.zeros(max_batch, np.float32),   # 0: off
+                    "topp": np.ones(max_batch, np.float32),    # 1: off
+                    "minp": np.zeros(max_batch, np.float32),   # 0: off
+                    "rep": np.ones(max_batch, np.float32),     # 1: off
+                    "pres": np.zeros(max_batch, np.float32),
+                    "freq": np.zeros(max_batch, np.float32)}
+        self._slot_eos = np.full((max_batch,), -1, np.int64)  # -1: none
+        self._slot_seed = np.full((max_batch,), -1, np.int64)  # -1: unseeded
+        self._slot_ntok = np.zeros((max_batch,), np.int64)
+        self._vocab = model.wte.num_embeddings
+        dev = self.device
+        self._ocounts = torch.zeros((max_batch, self._vocab), dtype=torch.int32, device=dev)
+        self._pseen = torch.zeros((max_batch, self._vocab), dtype=torch.bool, device=dev)
+        self._lbias = torch.zeros((max_batch, self._vocab), dtype=torch.float32, device=dev)
+        self._slot_bias: List[Optional[np.ndarray]] = [None] * max_batch
+        self._slot_stops: List[list] = [[] for _ in range(max_batch)]
+        self._slot_constraint: List[Optional[Any]] = [None] * max_batch
+        self._slot_cstate: List[Any] = [None] * max_batch
+        self._lora_bank: Dict[str, tuple] = {}
+        self._lora_rows: Dict[str, tuple] = {}
+        self._adapter_idx: Dict[Optional[str], int] = {None: 0}
+        self._slot_adapter = np.zeros((max_batch,), np.int64)
+        if adapters:
+            self._init_lora_bank(adapters, adapter_scale, max_batch)
+        self._queue: deque = deque()
+        self._results: Dict[int, List[int]] = {}
+        self._done: Dict[int, bool] = {}
+        self._logprobs: Dict[int, List[float]] = {}
+        self._top_logprobs: Dict[int, List[list]] = {}
+        self._next_rid = 0
+        self.tokens_generated = 0
+        self.engine_steps = 0
+        self.prefill_buckets = sorted(prefill_buckets) if prefill_buckets else None
+        if self.prefill_buckets and self.prefill_buckets[-1] > self.block_size:
+            raise ValueError(f"prefill bucket {self.prefill_buckets[-1]} exceeds "
+                             f"block_size {self.block_size}")
+        self._prefix_max = prefix_cache_entries
+        self._prefix_lru: "OrderedDict[tuple, dict]" = OrderedDict()
+        self.prefix_cache_hits = 0
+        self.prefix_tokens_reused = 0
+        self.chunk_prefill = None if chunk_prefill is None else int(chunk_prefill)
+        if self.chunk_prefill is not None and not 0 < self.chunk_prefill <= self.block_size:
+            raise ValueError(f"chunk_prefill {chunk_prefill} must be in "
+                             f"(0, block_size={self.block_size}]")
+        self._chunk_state: Dict[int, dict] = {}
+
+    # ---------------- multi-LoRA ----------------
+
+    def _init_lora_bank(self, adapters: Dict[str, dict], scale, max_batch: int) -> None:
+        names = list(adapters)
+        paths = sorted(adapters[names[0]])
+        scales = ({nm: float(scale) for nm in names} if not isinstance(scale, dict)
+                  else {nm: float(scale.get(nm, 1.0)) for nm in names})
+        for nm in names:
+            if sorted(adapters[nm]) != paths:
+                raise ValueError(f"adapter {nm!r} adapts a different kernel set than "
+                                 f"{names[0]!r}; all served adapters must share one path set")
+        dev = self.device
+        for path in paths:
+            node = self.params
+            for part in path.split("/"):
+                if not isinstance(node, dict) or part not in node:
+                    raise ValueError(f"adapter path {path!r} not found in params")
+                node = node[part]
+            din, r = adapters[names[0]][path]["a"].shape
+            dout = adapters[names[0]][path]["b"].shape[1]
+            if tuple(getattr(node, "shape", ())) != (din, dout):
+                raise ValueError(f"adapter {path!r} factors ({din}, {r})x({r}, {dout}) do not "
+                                 f"match kernel shape {tuple(getattr(node, 'shape', ()))}")
+            a_stack = [torch.zeros((din, r), device=dev)]
+            b_stack = [torch.zeros((r, dout), device=dev)]
+            for nm in names:
+                fa, fb = adapters[nm][path]["a"], adapters[nm][path]["b"]
+                if tuple(fa.shape) != (din, r) or tuple(fb.shape) != (r, dout):
+                    raise ValueError(f"adapter {nm!r} path {path!r}: rank/shape differs from "
+                                     "the bank (all served adapters must share one rank)")
+                a_stack.append(torch.as_tensor(fa, dtype=torch.float32, device=dev))
+                b_stack.append(torch.as_tensor(fb, dtype=torch.float32, device=dev) * scales[nm])
+            self._lora_bank[path] = (torch.stack(a_stack).detach(), torch.stack(b_stack).detach())
+            self._lora_rows[path] = (torch.zeros((max_batch, din, r), device=dev),
+                                     torch.zeros((max_batch, r, dout), device=dev))
+        self._adapter_idx.update({nm: i + 1 for i, nm in enumerate(names)})
+
+    def _step_params(self) -> dict:
+        """The params the batched step reads: each slot's LoRA factor rows
+        inserted when the engine has an adapter bank."""
+        if not self._lora_bank:
+            return self.params
+        return lora_params_view(self.params, self._lora_rows)
+
+    def _admit_params(self, aid: int) -> dict:
+        """The params of a one-row admission: its adapter's factors."""
+        if not self._lora_bank:
+            return self.params
+        rows = {path: (a[aid][None], b[aid][None]) for path, (a, b) in self._lora_bank.items()}
+        return lora_params_view(self.params, rows)
+
+    def _set_slot_adapter(self, slot: int, aid: int) -> None:
+        if not self._lora_bank:
+            return
+        self._slot_adapter[slot] = aid
+        for path, (a, b) in self._lora_bank.items():
+            ra, rb = self._lora_rows[path]
+            ra[slot] = a[aid]
+            rb[slot] = b[aid]
+
+    def _bucket_pad(self, prompt: np.ndarray):
+        """(padded (1, bucket) tensor, t0) if a bucket holds the prompt, else None."""
+        t0 = int(prompt.size)
+        if self.prefill_buckets and t0 <= self.prefill_buckets[-1]:
+            t_pad = next(b for b in self.prefill_buckets if b >= t0)
+            padded = np.zeros((1, t_pad), np.int64)
+            padded[0, :t0] = prompt
+            return torch.from_numpy(padded).to(self.device), t0
+        return None
+
+    # ---------------- sampling ----------------
+
+    def _lp_of(self, logits: Tensor, toks: Tensor) -> tuple:
+        """``(lp, top_vals, top_ids)`` of the emitted tokens when logprobs are
+        tracked, else (): the fp32 log-softmax of the raw logits (before
+        temperature, penalties, bias and constraint masks)."""
+        if not self.logprobs_topk:
+            return ()
+        lsm = torch.log_softmax(logits.float(), -1)
+        lp = lsm.gather(-1, toks[..., None])[..., 0]
+        tv, ti = _top_k(lsm, self.logprobs_topk)
+        return lp, tv, ti
+
+    def _beam_tops(self, logits: Tensor) -> tuple:
+        """Each row's top ``max_beams`` fp32 log-probs ``(vals, ids)`` when
+        beams are on, else ()."""
+        if not self.max_beams:
+            return ()
+        return _top_k(torch.log_softmax(logits.float(), -1), self.max_beams)
+
+    @staticmethod
+    def _lp_entry(lp_h, tv_h, ti_h, idx: int):
+        return (float(lp_h[idx]), [(int(t), float(v)) for t, v in zip(ti_h[idx], tv_h[idx])])
+
+    def _pick_rows(self, logits: Tensor, slots: Sequence[int], ocounts: Tensor, pseen: Tensor,
+                   lbias: Tensor, draw: Sequence[int]) -> Tensor:
+        """The per-row sampler over the rows of ``slots`` (their parameters
+        from the slot columns): greedy where the temperature is 0, else a
+        draw from ``sampling_dist``'s masked distribution by Gumbel noise.
+        Only the rows of ``draw`` (the slots whose token is kept) are
+        sampled; the others, whose tokens are thrown away, take the greedy
+        pick. A seeded row's noise comes from its own (seed, ntok)
+        generator; the unseeded rows share one (B, V) block from the
+        engine's generator, drawn only when one of them samples."""
+        idx = np.asarray(slots)
+        temp = self._sp["temp"][idx]
+        cols = np.stack([self._sp[k][idx] for k in _SP])  # one host-to-device copy
+        sp = dict(zip(_SP, torch.from_numpy(cols).to(self.device)))
+        samp = (temp > 0) & np.isin(idx, np.asarray(list(draw), np.int64))
+        if not samp.any():  # no kept row samples: no sort, no draw
+            return _penalized(logits, sp, ocounts, pseen, lbias).argmax(-1)
+        greedy, order, masked = sampling_dist(logits, sp, ocounts, pseen, lbias)
+        noise = torch.zeros_like(masked)
+        seeds = self._slot_seed[idx]
+        if (samp & (seeds < 0)).any():
+            noise = _gumbel(masked.shape, self._gen, self.device)
+        for j in np.nonzero(samp & (seeds >= 0))[0]:
+            gen = _seeded_generator(seeds[j], self._slot_ntok[idx[j]], self.device)
+            noise[j] = _gumbel((masked.shape[1],), gen, self.device)
+        choice = (masked + noise).argmax(-1, keepdim=True)
+        sampled = order.gather(-1, choice)[:, 0]
+        return torch.where(torch.from_numpy(samp).to(self.device), sampled, greedy)
+
+    # ---------------- public API ----------------
+
+    def submit(self, prompt, max_new_tokens: int, temperature: Optional[float] = None,
+               top_k: Optional[int] = None, top_p: Optional[float] = None,
+               eos_id: Optional[int] = None, min_p: Optional[float] = None,
+               repetition_penalty: Optional[float] = None,
+               presence_penalty: Optional[float] = None,
+               frequency_penalty: Optional[float] = None, logit_bias: Optional[dict] = None,
+               stop=None, adapter: Optional[str] = None, constraint=None,
+               seed: Optional[int] = None, num_beams: Optional[int] = None,
+               length_penalty: float = 1.0) -> int:
+        """Queue a request: ``prompt`` a 1-D int sequence, 1 <= len <
+        block_size. It stops at ``max_new_tokens``, EOS, a ``stop`` match or
+        the full window. The options are the JAX engine's
+        (``mop_tpu/serving/engine.py:826``): per-request sampling overrides
+        (None: the engine's), ``logit_bias`` {token: bias}, ``stop`` (ints
+        or token sequences, kept in the result), ``adapter`` (a bank name),
+        ``constraint`` (a ``TokenDFA``; needs an ``eos_id``), ``seed`` (in
+        [0, 2**31): the request's tokens then depend only on the seed, the
+        prompt and the params) and ``num_beams`` / ``length_penalty`` (beam
+        search; deterministic, so it takes none of the others)."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if not 1 <= prompt.size < self.block_size:
+            raise ValueError(f"prompt length {prompt.size} must be in [1, {self.block_size})")
+        # ids are checked here: one that reached admission would raise in the
+        # thread that drives the engine (the HTTP server's device worker)
+        if prompt.min() < 0 or prompt.max() >= self._vocab:
+            bad = int(prompt[(prompt < 0) | (prompt >= self._vocab)][0])
+            raise ValueError(f"prompt token {bad} outside vocab [0, {self._vocab})")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        pick = lambda v, d: d if v is None else v  # noqa: E731
+        temp = pick(temperature, self.temperature)
+        tk = pick(top_k, self.top_k)
+        tp = pick(top_p, self.top_p)
+        eos = pick(eos_id, self.eos_id)
+        mp = pick(min_p, self.min_p)
+        rp = pick(repetition_penalty, self.repetition_penalty)
+        pp = pick(presence_penalty, self.presence_penalty)
+        fp = pick(frequency_penalty, self.frequency_penalty)
+        if temp < 0:
+            raise ValueError(f"temperature must be >= 0, got {temp}")
+        if tk is not None and tk < 0:
+            raise ValueError(f"top_k must be >= 0, got {tk}")
+        if tp is not None and not 0.0 < tp <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {tp}")
+        if not 0.0 <= mp <= 1.0:
+            raise ValueError(f"min_p must be in [0, 1], got {mp}")
+        if rp <= 0.0:
+            raise ValueError(f"repetition_penalty must be > 0, got {rp}")
+        # a negative eos is the explicit "never fires"; above the vocab is a bug
+        if eos is not None and int(eos) >= self._vocab:
+            raise ValueError(f"eos_id {eos} outside vocab [0, {self._vocab})")
+        sp = {"temp": float(temp), "topk": float(tk or 0), "topp": 1.0 if tp is None else float(tp),
+              "minp": float(mp), "rep": float(rp), "pres": float(pp), "freq": float(fp)}
+        eos_q = -1 if eos is None else int(eos)
+        bias_row = None
+        if logit_bias:
+            bias_row = np.zeros((self._vocab,), np.float32)
+            for t, b in logit_bias.items():
+                t = int(t)
+                if not 0 <= t < self._vocab:
+                    raise ValueError(f"logit_bias token {t} outside vocab [0, {self._vocab})")
+                bias_row[t] = float(b)
+        stops = []
+        for s in (stop or ()):
+            seq = [int(s)] if np.isscalar(s) else [int(t) for t in s]
+            if not seq:
+                raise ValueError("empty stop sequence")
+            for t in seq:
+                if not 0 <= t < self._vocab:
+                    raise ValueError(f"stop token {t} outside vocab [0, {self._vocab})")
+            stops.append(seq)
+        if adapter is not None and adapter not in self._adapter_idx:
+            raise ValueError(f"unknown adapter {adapter!r}; engine has "
+                             f"{sorted(k for k in self._adapter_idx if k)}")
+        aid = self._adapter_idx[adapter]
+        if constraint is not None:
+            if eos_q < 0:
+                raise ValueError("a constrained request needs an eos_id (constraint "
+                                 "completion is signalled through EOS)")
+            for state, edges in constraint.transitions.items():
+                for t in edges:
+                    if not 0 <= int(t) < self._vocab:
+                        raise ValueError(f"constraint state {state!r} allows token {t} "
+                                         f"outside vocab [0, {self._vocab})")
+                    if int(t) == eos_q:
+                        raise ValueError(f"constraint state {state!r} uses eos_id {eos_q} as a "
+                                         "transition token; EOS may only END a constrained "
+                                         "output (accepting states)")
+        if seed is not None and not 0 <= int(seed) < 2 ** 31:
+            raise ValueError(f"seed must be in [0, 2**31), got {seed}")
+        seed_q = -1 if seed is None else int(seed)
+        nb = None
+        if num_beams is not None and int(num_beams) == 1:
+            # one beam IS greedy decoding: no engine sampling default leaks in
+            if temperature not in (None, 0, 0.0) or top_k is not None \
+                    or top_p not in (None, 1.0) or seed is not None:
+                raise ValueError("num_beams=1 is deterministic greedy; sampling "
+                                 "overrides/seed cannot combine with it")
+            sp["temp"] = 0.0
+        if num_beams is not None and int(num_beams) != 1:
+            nb = int(num_beams)
+            if self.logprobs_topk:
+                raise ValueError("num_beams on a logprobs-tracking engine is not supported: "
+                                 "beams record no per-token logprobs, which would break the "
+                                 "results/logprobs 1:1 invariant")
+            if not 2 <= nb <= self.max_beams:
+                raise ValueError(f"num_beams {nb} needs an engine built with max_beams >= {nb} "
+                                 f"(max_beams={self.max_beams})")
+            if nb > self._vocab:
+                raise ValueError(f"num_beams {nb} exceeds vocab_size {self._vocab}")
+            if prompt.size + max_new_tokens > self.block_size:
+                raise ValueError("beam search needs t0 + max_new_tokens <= block_size "
+                                 f"({prompt.size} + {max_new_tokens} > {self.block_size}): "
+                                 "beams cannot retire early row by row")
+            if temperature not in (None, 0, 0.0) or top_k is not None \
+                    or top_p not in (None, 1.0) or min_p not in (None, 0.0) \
+                    or repetition_penalty not in (None, 1.0) \
+                    or presence_penalty not in (None, 0.0) \
+                    or frequency_penalty not in (None, 0.0) \
+                    or logit_bias or stops or adapter is not None \
+                    or constraint is not None or seed is not None:
+                raise ValueError("beam search is deterministic: sampling overrides, penalties, "
+                                 "logit_bias, stop sequences, adapters, constraints, and seeds "
+                                 "are not supported with num_beams")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append((rid, prompt, max_new_tokens, sp, eos_q, bias_row, stops, aid,
+                            constraint, seed_q, nb, float(length_penalty)))
+        self._results[rid] = []
+        self._done[rid] = False
+        if self.logprobs_topk:
+            self._logprobs[rid] = []
+            self._top_logprobs[rid] = []
+        return rid
+
+    @property
+    def n_active(self) -> int:
+        return sum(r >= 0 for r in self._slot_rid)
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def results(self) -> Dict[int, List[int]]:
+        return self._results
+
+    @property
+    def logprobs(self) -> Dict[int, List[float]]:
+        """Each request's emitted-token logprobs, 1:1 with ``results``
+        (engines built with ``logprobs_topk > 0``)."""
+        return self._logprobs
+
+    @property
+    def top_logprobs(self) -> Dict[int, List[list]]:
+        """Each emitted token's ``logprobs_topk`` most likely alternatives,
+        ``[(token_id, logprob), ...]``, most likely first."""
+        return self._top_logprobs
+
+    def is_done(self, rid: int) -> bool:
+        return self._done[rid]
+
+    def _bias_mask_row(self, slot: int) -> Optional[np.ndarray]:
+        """The slot's additive (vocab,) bias: the user's logit_bias plus the
+        constraint state's 0/-inf mask (None if it has neither)."""
+        user = self._slot_bias[slot]
+        con = self._slot_constraint[slot]
+        if con is None:
+            return user
+        row = mask_row(con, self._slot_cstate[slot], self._vocab, int(self._slot_eos[slot]))
+        return row if user is None else row + user
+
+    def _set_bias_row(self, slot: int) -> None:
+        row = self._bias_mask_row(slot)
+        if row is None:
+            self._lbias[slot] = 0.0
+        else:
+            self._lbias[slot] = torch.from_numpy(np.asarray(row, np.float32)).to(self.device)
+
+    def _emit_token(self, emitted: Dict[int, List[int]], slot: int, rid: int, tok: int,
+                    new_len: int, lp=None) -> bool:
+        """Record one emitted token; retire the slot on EOS, a stop match,
+        the full window or the budget. Returns whether the request lives on.
+        ``lp``: (logprob, [(tok, logprob), ...]), which every emit path
+        supplies when logprobs are tracked."""
+        self.tokens_generated += 1
+        self._slot_ntok[slot] += 1  # the seeded stream's next position
+        res = self._results[rid]
+        res.append(tok)
+        if self.logprobs_topk:
+            if lp is None:
+                raise RuntimeError("logprob tracking is on but an emit path supplied no "
+                                   "logprob (results/logprobs would desynchronize)")
+            self._logprobs[rid].append(lp[0])
+            self._top_logprobs[rid].append(lp[1])
+        emitted.setdefault(rid, []).append(tok)
+        self._budget[slot] -= 1
+        hit_eos = tok == self._slot_eos[slot]
+        hit_stop = any(len(res) >= len(sq) and res[-len(sq):] == sq
+                       for sq in self._slot_stops[slot])
+        if hit_eos or hit_stop or new_len >= self.block_size or self._budget[slot] <= 0:
+            self._slot_rid[slot] = -1
+            self._lens[slot] = 0  # a free slot carries no prefix
+            self._slot_constraint[slot] = None
+            self._slot_cstate[slot] = None
+            self._done[rid] = True
+            return False
+        con = self._slot_constraint[slot]
+        if con is not None:
+            ns = con.advance(self._slot_cstate[slot], tok)
+            if ns is None:  # the mask bans every illegal edge: unreachable
+                raise RuntimeError(f"constrained slot {slot} emitted banned token {tok} in "
+                                   f"state {self._slot_cstate[slot]!r}")
+            self._slot_cstate[slot] = ns
+            self._set_bias_row(slot)
+        return True
+
+    def step(self, n_tokens: int = 1) -> Dict[int, List[int]]:
+        """One engine iteration: admit whatever fits (an admission emits the
+        prefill's first token; a request whose budget is 1 or whose first
+        token is EOS completes there), feed one chunk of each chunked
+        prefill, then advance every live row ``n_tokens`` tokens, one
+        batched step at a time. Returns ``{rid: [tokens]}``.
+
+        ``n_tokens = k`` runs k single decode steps back to back, each with
+        its own host control, so its tokens are those of k ``step()`` calls
+        for every row (greedy, seeded and unseeded sampled, constrained),
+        admission apart: it happens once per call. A row that retires within
+        the k steps stops there."""
+        self.engine_steps += 1
+        emitted: Dict[int, List[int]] = {}
+        emit = lambda *a: self._emit_token(emitted, *a)  # noqa: E731
+        while self._queue:
+            adm = self._admit_one()
+            if adm is None:
+                break
+            if adm[2] is not None:
+                emit(*adm)
+        for slot in list(self._chunk_state):
+            fin = self._chunk_advance(slot)
+            if fin is not None:
+                emit(*fin)
+        with torch.no_grad():
+            for _ in range(max(1, int(n_tokens))):
+                active = [s for s, r in enumerate(self._slot_rid)
+                          if r >= 0 and s not in self._chunk_state]
+                if not active:
+                    break
+                self._decode_once(active, emit)
+        for rid, toks_f in self._beam_finalized:
+            emitted.setdefault(rid, []).extend(toks_f)
+        self._beam_finalized.clear()
+        return emitted
+
+    def _decode_once(self, active: List[int], emit) -> None:
+        """One batched decode step over the pool. Rows not in ``active``
+        (free slots, chunk-pending prompts) are held: their token, length and
+        counts stay, and the step's write at their length is overwritten by
+        their next real feed (a held row's length masks it out)."""
+        dev = self.device
+        lens = torch.from_numpy(self._lens).to(dev)
+        logits, _ = decode_step_rows(self.model, self._step_params(), self._cache, self._tokens,
+                                     lens)
+        adv_h = np.zeros((self.max_batch,), bool)
+        adv_h[active] = True
+        adv = torch.from_numpy(adv_h).to(dev)
+        nxt = self._pick_rows(logits, range(self.max_batch), self._ocounts, self._pseen,
+                              self._lbias, active)
+        nxt = torch.where(adv, nxt, self._tokens)
+        self._tokens = nxt
+        self._ocounts.index_put_((torch.arange(self.max_batch, device=dev), nxt),
+                                 adv.to(torch.int32), accumulate=True)
+        extras = self._lp_of(logits, nxt) + self._beam_tops(logits)
+        toks, *rest = _to_host(nxt, *extras)
+        lph = rest[:3] if self.logprobs_topk else None
+        bth = rest[3:] if self.logprobs_topk else rest
+        self._lens[active] += 1
+        beam_slots = {s for g in self._beam_groups.values() for s in g["slots"]}
+        for s in active:
+            if s in beam_slots:
+                continue
+            lp = self._lp_entry(*lph, s) if lph is not None else None
+            emit(s, self._slot_rid[s], int(toks[s]), int(self._lens[s]), lp)
+        if self._beam_groups:
+            perm, newtoks = self._beam_step_update(bth[0], bth[1], toks)
+            self._permute_rows(perm)
+            self._tokens = torch.from_numpy(newtoks).to(dev)
+
+    def _permute_rows(self, perm: np.ndarray) -> None:
+        """Slot s takes slot ``perm[s]``'s cache rows, for the slots that
+        move. The parents' rows are gathered (a copy) before any is written,
+        so that no row is read after it was overwritten."""
+        moved = np.nonzero(perm != np.arange(self.max_batch))[0]
+        if moved.size:
+            dst = torch.from_numpy(moved).to(self.device)
+            src = torch.from_numpy(perm[moved]).to(self.device)
+            for key in self._pool_keys:
+                self._cache[key][:, dst] = self._cache[key].index_select(1, src)
+
+    def _zero_dead_lens(self, dead) -> None:
+        """Zero retired slots' lengths, so that a free slot never carries a
+        stale prefix."""
+        if len(dead):
+            self._lens[np.asarray(dead, np.int64)] = 0
+
+    def run(self, n_tokens: int = 1) -> Dict[int, List[int]]:
+        """Step until every queued and live request completes; all results."""
+        while self._queue or self.n_active:
+            self.step(n_tokens=n_tokens)
+        return {rid: list(toks) for rid, toks in self._results.items()}
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request: queued, it never reaches the device; active, its
+        slot (or its beam group's slots) is freed and its length zeroed.
+        Tokens already emitted stay in ``results``. False if ``rid`` is
+        unknown or already finished."""
+        if self._done.get(rid, True):
+            return False
+        for i, item in enumerate(self._queue):
+            if item[0] == rid:
+                del self._queue[i]
+                self._done[rid] = True
+                return True
+        if rid in self._beam_groups:
+            g = self._beam_groups.pop(rid)
+            for s in g["slots"]:
+                self._slot_rid[s] = -1
+            self._zero_dead_lens(list(g["slots"]))
+            self._done[rid] = True
+            return True
+        slot = self._slot_rid.index(rid)
+        self._slot_rid[slot] = -1
+        self._slot_constraint[slot] = None
+        self._slot_cstate[slot] = None
+        self._chunk_state.pop(slot, None)
+        self._zero_dead_lens([slot])
+        self._done[rid] = True
+        return True
+
+    # ---------------- internals ----------------
+
+    def _set_slot_sampling(self, slot: int, sp: dict, eos: int, seed: int) -> None:
+        for k in _SP:
+            self._sp[k][slot] = sp[k]
+        self._slot_eos[slot] = eos
+        self._slot_seed[slot] = seed
+
+    def _pick_first(self, slot: int, logits: Tensor, oc: Tensor, seen: Tensor):
+        """The request's first token from its admission logits (1, V), with
+        its slot's parameters, bias row and counts; and its logprob entry."""
+        tok0 = self._pick_rows(logits, [slot], oc, seen, self._lbias[slot:slot + 1], [slot])
+        lpx = self._lp_of(logits, tok0)
+        tok0_h, *lph = _to_host(tok0, *lpx)
+        lp0 = self._lp_entry(*lph, 0) if lph else None
+        return int(tok0_h[0]), lp0
+
+    def _activate(self, slot: int, tok0: int, oc: Tensor, seen: Tensor) -> None:
+        """Install a request's penalty rows (its first token counted) and
+        first token into its slot."""
+        oc = oc.clone()
+        oc[0, tok0] += 1
+        self._ocounts[slot] = oc[0]
+        self._pseen[slot] = seen[0]
+        self._tokens[slot] = tok0
+
+    def _admit_one(self):
+        """Admit the next queued request into a free slot (a one-row prefill
+        pasted into the pool). Returns (slot, rid, tok0, prompt_len, lp0), tok0
+        None while a chunked prefill feeds, or None if no slot is free."""
+        if not self._queue:
+            return None
+        if self._queue[0][10] is not None:  # a beam request at the head
+            return self._admit_beam()
+        try:
+            slot = self._slot_rid.index(-1)
+        except ValueError:
+            return None
+        (rid, prompt, max_new, sp, eos, bias_row, stops, aid, con, seed, _nb,
+         _lpen) = self._queue.popleft()
+        t0 = int(prompt.size)
+        dev = self.device
+        self._set_slot_sampling(slot, sp, eos, seed)
+        self._slot_ntok[slot] = len(self._results[rid])
+        entry, lcp = self._prefix_lookup(prompt, aid)
+        self._set_slot_adapter(slot, aid)
+        self._slot_bias[slot] = bias_row
+        self._slot_stops[slot] = stops
+        self._slot_constraint[slot] = con
+        self._slot_cstate[slot] = None if con is None else con.init_state()
+        self._set_bias_row(slot)
+        oc = torch.zeros((1, self._vocab), dtype=torch.int32, device=dev)
+        seen = torch.zeros((1, self._vocab), dtype=torch.bool, device=dev)
+        seen[0, torch.from_numpy(prompt).to(dev)] = True
+        c = self._cache
+        base = lcp if entry is not None else 0
+        if entry is not None:
+            for key in self._pool_keys:
+                c[key][:, slot] = entry[key]
+            self.prefix_cache_hits += 1
+            self.prefix_tokens_reused += lcp
+        if self.chunk_prefill is not None and t0 - base > self.chunk_prefill:
+            # reserve the slot and feed the prompt one chunk per step
+            self._lens[slot] = base
+            self._chunk_state[slot] = {"rid": rid, "prompt": prompt, "fed": base, "t0": t0,
+                                       "oc": oc, "seen": seen, "aid": aid}
+            self._slot_rid[slot] = rid
+            self._budget[slot] = max_new
+            return slot, rid, None, t0, None
+        with torch.no_grad():
+            params = self._admit_params(aid)
+            if entry is not None:
+                logits = self._feed(slot, params, prompt[lcp:], lcp)
+            else:
+                padded = self._bucket_pad(prompt)
+                if padded is not None:
+                    logits, pc = prefill_padded(self.model, params, padded[0], padded[1],
+                                                kv_dtype=self.kv_dtype)
+                else:
+                    logits, pc = prefill(self.model, params, torch.from_numpy(prompt[None]).to(dev),
+                                         kv_dtype=self.kv_dtype)
+                for key in self._pool_keys:
+                    c[key][:, slot] = pc[key][:, 0].to(c[key].dtype)
+            self._lens[slot] = t0
+            tok0, lp0 = self._pick_first(slot, logits, oc, seen)
+        self._activate(slot, tok0, oc, seen)
+        self._slot_rid[slot] = rid
+        self._budget[slot] = max_new  # tokens still to emit, tok0 included
+        self._prefix_store(prompt, slot, aid)
+        return slot, rid, tok0, t0, lp0
+
+    def _feed(self, slot: int, params: dict, tail: np.ndarray, base: int) -> Tensor:
+        """Append ``tail``'s tokens to ``slot``'s rows from position ``base``
+        (``decode_chunk_rows`` over the slot's one-row view of the pools, which
+        it writes in place); the logits (1, V) after the last token."""
+        view = {key: self._cache[key][:, slot:slot + 1] for key in self._pool_keys}
+        toks = torch.from_numpy(np.asarray(tail, np.int64)[None]).to(self.device)
+        lens = torch.full((1,), base, dtype=torch.long, device=self.device)
+        logits, _ = decode_chunk_rows(self.model, params, view, toks, lens)
+        return logits[:, -1]
+
+    def _chunk_advance(self, slot: int):
+        """Feed the next chunk of ``slot``'s pending prompt; after the last,
+        pick the request's first token and hand the slot to the decode step:
+        (slot, rid, tok0, t0, lp0) then, None while feeding."""
+        st = self._chunk_state[slot]
+        fed, t0 = st["fed"], st["t0"]
+        g = min(self.chunk_prefill, t0 - fed)
+        with torch.no_grad():
+            logits = self._feed(slot, self._admit_params(st["aid"]),
+                                st["prompt"][fed:fed + g], fed)
+            st["fed"] = fed + g
+            self._lens[slot] = st["fed"]
+            if st["fed"] < t0:
+                return None
+            tok0, lp0 = self._pick_first(slot, logits, st["oc"], st["seen"])
+        self._activate(slot, tok0, st["oc"], st["seen"])
+        self._prefix_store(st["prompt"], slot, st["aid"])
+        del self._chunk_state[slot]
+        return slot, st["rid"], tok0, t0, lp0
+
+    # ---------------- beam groups ----------------
+
+    def _admit_beam(self):
+        """Admit the beam request at the queue head into k free slots (one
+        prefill pasted into all k, the top k first tokens). A beam request
+        emits nothing until it finalizes; None if fewer than k slots are free
+        (head-of-line wait)."""
+        free = [s for s, r in enumerate(self._slot_rid) if r < 0]
+        nb = self._queue[0][10]
+        if len(free) < nb:
+            return None
+        (rid, prompt, max_new, _sp, eos, _bias, _stops, _aid, _con, _seed, nb,
+         lpen) = self._queue.popleft()
+        slots = free[:nb]
+        t0 = int(prompt.size)
+        dev = self.device
+        with torch.no_grad():
+            logits, pc = prefill(self.model, self.params, torch.from_numpy(prompt[None]).to(dev),
+                                 kv_dtype=self.kv_dtype)
+            idx = torch.tensor(slots, device=dev)
+            for key in self._pool_keys:
+                self._cache[key][:, idx] = pc[key][:, 0:1].to(self._cache[key].dtype)
+            scores, toks = _top_k(torch.log_softmax(logits[0].float(), -1), nb)
+            self._tokens[idx] = toks
+        scores_h, toks_h = _to_host(scores, toks)
+        alive = np.ones((nb,), bool) if eos < 0 else (toks_h != eos)
+        greedy = {"temp": 0.0, "topk": 0.0, "topp": 1.0, "minp": 0.0, "rep": 1.0, "pres": 0.0,
+                  "freq": 0.0}
+        for s in slots:
+            self._slot_rid[s] = rid
+            self._set_slot_sampling(s, greedy, -1, -1)  # the host's hypotheses own EOS
+            self._slot_stops[s] = []
+            self._slot_constraint[s] = None
+            self._slot_cstate[s] = None
+            self._slot_bias[s] = None
+            self._budget[s] = max_new
+            self._lens[s] = t0
+            self._lbias[s] = 0.0
+            self._ocounts[s] = 0
+            self._pseen[s] = False
+        self._beam_groups[rid] = {
+            "slots": slots, "k": nb, "lenpen": float(lpen),
+            "scores": np.asarray(scores_h, np.float32), "alive": alive,
+            "hyp_len": np.ones((nb,), np.int32), "bufs": [[int(t)] for t in toks_h],
+            "eos": None if eos < 0 else eos, "pad": 0 if eos < 0 else eos,
+            "budget": max_new - 1}
+        if max_new <= 1 or not alive.any():
+            self._finalize_beam(rid)
+        return slots[0], rid, None, t0, None
+
+    def _finalize_beam(self, rid: int) -> None:
+        """Rank the group's hypotheses (score / length ** length_penalty),
+        record the best one as the result and free the slots, their lengths
+        zeroed as ``cancel`` zeroes them."""
+        g = self._beam_groups.pop(rid)
+        norm = np.maximum(g["hyp_len"].astype(np.float32), np.float32(1.0)) \
+            ** np.float32(g["lenpen"])
+        best = int(np.argsort(-(g["scores"] / norm), kind="stable")[0])
+        toks = g["bufs"][best][:int(g["hyp_len"][best])]
+        self._results[rid] = [int(t) for t in toks]
+        self.tokens_generated += len(toks)
+        self._done[rid] = True
+        for s in g["slots"]:
+            self._slot_rid[s] = -1
+        self._zero_dead_lens(list(g["slots"]))
+        self._beam_finalized.append((rid, self._results[rid]))
+
+    def _beam_step_update(self, btv, bti, toks_host) -> Tuple[np.ndarray, np.ndarray]:
+        """The host's beam selection after a step: each live group keeps the
+        top k of its k x k candidates (exact: a parent's own k best bound the
+        global top k; ties broken on the parent-major flat index, as
+        ``generate_beam``'s top-k). Returns (perm, next tokens): slot
+        ``perm[s]``'s rows move to slot s."""
+        perm = np.arange(self.max_batch)
+        newtoks = np.asarray(toks_host, np.int64).copy()
+        for rid in list(self._beam_groups):
+            g = self._beam_groups[rid]
+            slots, k = g["slots"], g["k"]
+            V = self._vocab
+            cand = []  # (-score, flat index, parent, token)
+            for j, s in enumerate(slots):
+                if g["alive"][j]:
+                    for r in range(k):
+                        tok = int(bti[s][r])
+                        cand.append((-(g["scores"][j] + np.float32(btv[s][r])), j * V + tok, j,
+                                     tok))
+                else:
+                    cand.append((-g["scores"][j], j * V + g["pad"], j, g["pad"]))
+            cand.sort()
+            top = cand[:k]
+            parents = [c[2] for c in top]
+            toks = [c[3] for c in top]
+            p_alive = np.asarray([g["alive"][p] for p in parents], bool)
+            g["alive"] = np.asarray([pa and (g["eos"] is None or t != g["eos"])
+                                     for pa, t in zip(p_alive, toks)], bool)
+            g["bufs"] = [g["bufs"][p] + [t if pa else g["pad"]]
+                         for p, t, pa in zip(parents, toks, p_alive)]
+            g["hyp_len"] = np.asarray([g["hyp_len"][p] + (1 if pa else 0)
+                                       for p, pa in zip(parents, p_alive)], np.int32)
+            g["scores"] = np.asarray([-c[0] for c in top], np.float32)
+            g["budget"] -= 1
+            for i, (p, t) in enumerate(zip(parents, toks)):
+                perm[slots[i]] = slots[p]
+                newtoks[slots[i]] = t if p_alive[i] else g["pad"]
+            if g["budget"] <= 0 or not g["alive"].any():
+                self._finalize_beam(rid)
+        return perm, newtoks
+
+    # ---------------- prefix cache ----------------
+
+    def _prefix_lookup(self, prompt: np.ndarray, aid: int = 0):
+        """The longest shared prefix between ``prompt`` and an entry computed
+        under the same adapter: (entry, lcp) with 1 <= lcp <= len(prompt) - 1
+        (one tail token at least gives the admission logits), or (None, 0)."""
+        if not self._prefix_max:
+            return None, 0
+        best_key, best_lcp = None, 0
+        for key, entry in self._prefix_lru.items():
+            if entry["aid"] != aid:
+                continue
+            toks = entry["tokens"]
+            m = min(toks.size, prompt.size - 1)
+            if m <= best_lcp:
+                continue
+            neq = np.nonzero(toks[:m] != prompt[:m])[0]
+            lcp = int(neq[0]) if neq.size else m
+            if lcp > best_lcp:
+                best_key, best_lcp = key, lcp
+        if best_lcp < 1:
+            return None, 0
+        self._prefix_lru.move_to_end(best_key)
+        return self._prefix_lru[best_key], best_lcp
+
+    def _prefix_store(self, prompt: np.ndarray, slot: int, aid: int = 0) -> None:
+        """LRU-store a copy of ``slot``'s rows for this prompt, keyed by
+        (adapter id, tokens). The entry owns its rows: a later request in the
+        slot does not change them."""
+        if not self._prefix_max:
+            return
+        key = (aid, prompt.tobytes())
+        if key in self._prefix_lru:
+            self._prefix_lru.move_to_end(key)
+            return
+        entry = {"tokens": prompt.copy(), "aid": aid}
+        entry.update({k: self._cache[k][:, slot].clone() for k in self._pool_keys})
+        self._prefix_lru[key] = entry
+        while len(self._prefix_lru) > self._prefix_max:
+            self._prefix_lru.popitem(last=False)

@@ -1,0 +1,169 @@
+"""Continuous-batching transcription serving for Whisper-MoP, the port of
+``mop_tpu/serving/whisper.py``.
+
+Audio requests are admitted into a fixed slot pool: admission runs the
+encoder once (on the card, K1 in every encoder layer) and freezes the
+request's cross-attention K/V into its slot; one batched decoder step
+advances every live transcription by a token, each at its own position.
+The Whisper decoder is a standard causal transformer, so the cache is exact:
+each stream's tokens are those of ``whisper_transcribe_cached`` for its mel
+alone. The decode reads the JAX-layout tree (``whisper_decode_params``)
+through ``_lin``, so its kernels may be int8 / int4; the encoder runs on the
+tree's dequantized copy.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.generate import (_lin, _split_heads, whisper_decode_params,
+                               whisper_decode_step_rows, whisper_encode)
+from ..ops.quant import Q4Tensor, QTensor, _leaves, dequantize_params
+from .engine import _to_host
+
+Tensor = torch.Tensor
+
+__all__ = ["WhisperServingEngine", "whisper_decode_step_rows"]
+
+
+class WhisperServingEngine:
+    """Continuous-batching greedy transcription over a fixed slot pool.
+
+    >>> eng = WhisperServingEngine(model, params, max_batch=4, bos_token=1)
+    >>> rid = eng.submit(mel, max_new_tokens=64)
+    >>> results = eng.run()     # {rid: [tokens...]}
+
+    Every mel has the model's ``n_audio_ctx`` frames (Whisper's fixed 30 s
+    window). A request retires at ``max_new_tokens``, its ``eos_id`` or the
+    text window. ``params``: ``whisper_decode_params(model)`` or its int8 /
+    int4 form (None: the model's own); the pools live on its device.
+    ``kv_dtype``: the pools' storage, fp32 or bf16."""
+
+    def __init__(self, model, params: Optional[dict] = None, max_batch: int = 4,
+                 bos_token: int = 1, eos_id: Optional[int] = None,
+                 kv_dtype: torch.dtype = torch.float32):
+        if kv_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the Whisper engine stores fp32 or bf16 K/V, got {kv_dtype}")
+        self.model = model
+        self.params = whisper_decode_params(model) if params is None else params
+        # the encoder's layers take no quantized weights: one dequantized copy
+        quantized = any(isinstance(w, (QTensor, Q4Tensor)) for w in _leaves(self.params))
+        self._enc_params = dequantize_params(self.params) if quantized else params
+        self.device = self.params["params"]["wte"]["embedding"].device
+        self.max_batch = max_batch
+        self.bos_token = bos_token
+        self.eos_id = eos_id
+        cfg = model.cfg
+        self.win = cfg.n_text_ctx
+        self.t_enc = cfg.n_audio_ctx
+        h, dh, L = cfg.n_head, cfg.n_embd // cfg.n_head, cfg.n_layer_dec
+        dev = self.device
+        self._ck = torch.zeros((L, max_batch, h, self.t_enc, dh), dtype=kv_dtype, device=dev)
+        self._cv = torch.zeros_like(self._ck)
+        self._ks = torch.zeros((L, max_batch, h, self.win, dh), dtype=kv_dtype, device=dev)
+        self._vs = torch.zeros_like(self._ks)
+        self._tokens = torch.full((max_batch,), bos_token, dtype=torch.long, device=dev)
+        self._lens = np.zeros((max_batch,), np.int64)
+        self._slot_rid: List[int] = [-1] * max_batch
+        self._slot_eos = np.full((max_batch,), -1, np.int64)
+        self._budget = np.zeros((max_batch,), np.int64)
+        self._queue: deque = deque()
+        self._results: Dict[int, List[int]] = {}
+        self._done: Dict[int, bool] = {}
+        self._next_rid = 0
+        self.tokens_generated = 0
+        self.engine_steps = 0
+
+    def submit(self, mel, max_new_tokens: int, eos_id: Optional[int] = None) -> int:
+        """Queue a transcription: ``mel`` (n_audio_ctx, n_mels) or
+        (1, n_audio_ctx, n_mels) floats."""
+        mel = np.asarray(mel, np.float32)
+        if mel.ndim == 2:
+            mel = mel[None]
+        if mel.shape[0] != 1 or mel.shape[1] != self.t_enc:
+            raise ValueError(f"mel must be (1, {self.t_enc}, n_mels); got {mel.shape}")
+        if not 1 <= max_new_tokens <= self.win:
+            raise ValueError(f"max_new_tokens must be in [1, {self.win}]")
+        rid = self._next_rid
+        self._next_rid += 1
+        eos = self.eos_id if eos_id is None else eos_id
+        self._queue.append((rid, mel, max_new_tokens, -1 if eos is None else int(eos)))
+        self._results[rid] = []
+        self._done[rid] = False
+        return rid
+
+    @property
+    def n_active(self) -> int:
+        return sum(r >= 0 for r in self._slot_rid)
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def results(self) -> Dict[int, List[int]]:
+        return self._results
+
+    def is_done(self, rid: int) -> bool:
+        return self._done[rid]
+
+    def _admit(self, slot: int, mel: np.ndarray) -> None:
+        """One encoder pass; this request's cross K/V frozen into ``slot``."""
+        cfg = self.model.cfg
+        enc = whisper_encode(self.model, torch.from_numpy(mel).to(self.device), self._enc_params)
+        p = self.params["params"]
+        with torch.no_grad():
+            for li in range(cfg.n_layer_dec):
+                cp = p[f"decoder_{li}"]["cross_attn"]
+                self._ck[li, slot] = _split_heads(_lin(enc, cp["k_proj"]), cfg.n_head)[0]
+                self._cv[li, slot] = _split_heads(_lin(enc, cp["v_proj"]), cfg.n_head)[0]
+
+    def step(self, n_tokens: int = 1) -> Dict[int, List[int]]:
+        """Admit whatever fits, then advance every live row ``n_tokens``
+        tokens, one batched step at a time (a row that hits EOS retires
+        there). Returns ``{rid: [tokens]}``."""
+        self.engine_steps += 1
+        emitted: Dict[int, List[int]] = {}
+        while self._queue:
+            try:
+                slot = self._slot_rid.index(-1)
+            except ValueError:
+                break
+            rid, mel, max_new, eos = self._queue.popleft()
+            self._admit(slot, mel)
+            self._slot_rid[slot] = rid
+            self._slot_eos[slot] = eos
+            self._budget[slot] = max_new
+            self._lens[slot] = 0
+            self._tokens[slot] = self.bos_token
+        for _ in range(max(1, int(n_tokens))):
+            active = [s for s, r in enumerate(self._slot_rid) if r >= 0]
+            if not active:
+                break
+            logits, self._ks, self._vs = whisper_decode_step_rows(
+                self.model, self.params, self._ck, self._cv, self._ks, self._vs, self._tokens,
+                torch.from_numpy(self._lens).to(self.device))
+            self._tokens = logits.argmax(-1)
+            toks = _to_host(self._tokens)[0]
+            self._lens[active] += 1
+            for s in active:
+                rid = self._slot_rid[s]
+                tok = int(toks[s])
+                self.tokens_generated += 1
+                self._results[rid].append(tok)
+                emitted.setdefault(rid, []).append(tok)
+                self._budget[s] -= 1
+                if tok == self._slot_eos[s] or self._budget[s] <= 0 or self._lens[s] >= self.win:
+                    self._slot_rid[s] = -1
+                    self._lens[s] = 0
+                    self._done[rid] = True
+        return emitted
+
+    def run(self, n_tokens: int = 1) -> Dict[int, List[int]]:
+        while self._queue or self.n_active:
+            self.step(n_tokens=n_tokens)
+        return {rid: list(t) for rid, t in self._results.items()}

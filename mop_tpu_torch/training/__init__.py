@@ -1,6 +1,8 @@
 """Training utilities of the port: seeding, parameter counts, checkpoints,
-the parameter EMA and the preemption guard."""
+the parameter EMA, the preemption guard and LoRA adapters."""
 
+from .lora import (lora_init, lora_merge, lora_param_count, lora_parameters,
+                   make_lora_lm_train_step, make_lora_train_step)
 from .preemption import PREEMPTED_EXIT_CODE, PreemptionGuard
 from .utils import count_params, ema_update, load_checkpoint, save_checkpoint, set_seed
 
@@ -12,4 +14,10 @@ __all__ = [
     "ema_update",
     "PreemptionGuard",
     "PREEMPTED_EXIT_CODE",
+    "lora_init",
+    "lora_merge",
+    "lora_param_count",
+    "lora_parameters",
+    "make_lora_train_step",
+    "make_lora_lm_train_step",
 ]

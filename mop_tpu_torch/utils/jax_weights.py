@@ -110,3 +110,15 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     model.load_state_dict({k: torch.as_tensor(sd[k], dtype=own[k].dtype)
                            for k in own}, strict=True)
     return model
+
+
+def load_jax_adapters(adapters: Mapping, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA adapter dict (``{path: {"a": (din, r), "b": (r, dout)}}``
+    with numpy or JAX leaves, ``mop_tpu.training.lora``'s format) as the
+    port's: the same slash paths, which name the same kernels of
+    ``decode_params`` / ``whisper_decode_params``, and fp32 tensors on
+    ``device`` (the CPU when None), copies that share no memory with the
+    given arrays (training updates them in place)."""
+    return {path: {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+                   for k, v in fac.items()}
+            for path, fac in adapters.items()}

@@ -47,7 +47,9 @@ def test_the_scan_sees_the_package():
             "mop_tpu_torch/experiments/imagenet_ab_param_budgets.py",
             "mop_tpu_torch/data/tokenizer.py", "mop_tpu_torch/ops/quant.py",
             "mop_tpu_torch/models/beam.py", "mop_tpu_torch/models/speculative.py",
-            "mop_tpu_torch/cli/generate_text.py"} <= names
+            "mop_tpu_torch/cli/generate_text.py", "mop_tpu_torch/serving/engine.py",
+            "mop_tpu_torch/serving/http.py", "mop_tpu_torch/training/lora.py",
+            "mop_tpu_torch/cli/serve_http.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
