@@ -5,6 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --phases 12,15`` builds, then runs only the named
+phases of 10-15 (15 runs 10 first, for its CSVs), and prints neither the
+kernels line nor the last line's ok: a quicker check of a later phase.
+
 Phases, one line each (a failed phase makes the script exit non-zero):
 
 1. the device, with ``nvidia-smi``'s name and power limit;
@@ -192,14 +196,34 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``/v1/completions``, ``/v1/embeddings``, ``/v1/audio/transcriptions`` through the 14c engine
    against ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The
    kernels line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
+15. the trainer and the later CLIs: 15a, ``training.train_model`` at B_bench's width
+   (``bench.py:23-29``: ``ViT_MoP`` 224 / 6 / 4, 5 views, 3 kernels, batch 256, bf16, AdamW 3e-3
+   / 0.05 with ``cosine_lr``) on random uint8 CIFAR-shaped batches, a function of the step, for
+   30 steps, eval and checkpoint every 10: K1's launches (6 in ``init``'s check forward, 6 a step
+   and a val batch) and the checkpoints kept; a second run stopped through its guard's
+   ``signal_now()`` in step 15, its exit code 75 checked, then resumed: its losses and every
+   parameter bit-equal to the uninterrupted run's (cuDNN's and PyTorch's deterministic
+   algorithms on for 15a); three ``Trainer.step``s and an ``evaluate`` under
+   ``utils.profiling.trace()`` (host and device): K1's kernel records against its launches, the
+   Chrome trace's host ops and kernels; ``Trainer.step``'s images/s by ``ThroughputMeter``, the
+   busy share and the MFU against ``chip_peak_bf16_flops()``; 15b, the later CLIs with
+   ``--synthetic --tiny`` for 5 steps at the 5M target: ``cifar100_ab4_param_budgets`` (K1 in A
+   and B, K4 at hops 3 in D's eval forwards), ``cifar10_twohop_param_budgets`` (K4 at hops 2),
+   ``cifar10_multi_seed`` (K1 at 256 / 6 / 4), ``ab5_tournament --plan_only`` and A and B
+   through the tournament: each kernel's launches predicted from the matched depths and held to
+   its wrapper's count and the profiler's records, their files and headers; then
+   ``ab5_paper_benchmark`` over phase 10's and the tournament's CSVs, its 5M row against the
+   CSVs' means. The kernels line's ``launches`` add phase 15's.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import os
 import subprocess
@@ -497,6 +521,17 @@ WHISPER_SERVE_CLIPS, WHISPER_SERVE_TOKENS, WHISPER_SERVE_MB = 8, 32, 4
 SERVE_HTTP_ARGS = ["--steps", "100", "--clients", "8"]
 
 failures = []
+# Phase 15, the trainer and the later CLIs: train_model at bench.py:23-29's
+# B (B_bench) on random uint8 CIFAR-shaped batches, a function of the step;
+# a second run stops through its guard after TRAINER_STOP steps and resumes.
+TRAINER_STEPS = 30
+TRAINER_EVERY = 10  # eval_every and ckpt_every
+TRAINER_STOP = 15
+TRAINER_VAL = 2  # val batches of BATCH
+TRAINER_TIMED = 20  # Trainer.step's timed steps, after 5 of warm-up
+TRAINER_DATA_SEED = 1500
+CLI15_STEPS = 5  # each CLI's steps (eval at steps 1 and 5)
+
 # Each kernel's launches on the main paths, for the kernels line.
 launches = {f.__name__: 0 for f in F.KERNELS}
 
@@ -779,13 +814,18 @@ def train_windows(scanned, xk, yk, gen):
     return ms / TRAIN_K, rate, per
 
 
+def wrapper_launches():
+    """Every kernel wrapper's launch count."""
+    return {f.__name__: f.launches for f in F.KERNELS}
+
+
 def counted(fn, add=True):
     """``fn()`` and every kernel's launches in it, the counts set to 0 just
     before; with ``add``, the counts are added to ``launches``."""
     F.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    counts = {f.__name__: f.launches for f in F.KERNELS}
+    counts = wrapper_launches()
     if add:
         for k_name, c in counts.items():
             launches[k_name] += c
@@ -795,6 +835,48 @@ def counted(fn, add=True):
 def launched(counts):
     """The kernels of a launch count that ran, for printing."""
     return {k: n for k, n in counts.items() if n}
+
+
+def cuda_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def profiled_records(fn, names, make_profiler=cuda_profile, tries=3, setup=None,
+                     count=wrapper_launches):
+    """``fn()`` under ``make_profiler()``, and its kernel records held to the
+    launches: ``names`` is {counter name: a substring of its kernels'
+    names}, ``count()`` reads the counters (the wrappers' by default). A
+    profile that kept fewer records of a name than its launches is taken
+    again, up to ``tries`` profiles: late in the whole script a profile could
+    miss its first 16 kernel records, three profiles in a row (on the H100,
+    not in a phase alone). So each profile opens with 64 small kernels of
+    its own and ``fn`` runs between idle spans, longer on each try.
+    ``setup()``, where given, returns the call to profile on each try (state
+    that one run uses up, as an engine's queue). Returns (records by name,
+    every counter's launches, the profiler)."""
+    lead = torch.zeros(1, device="cuda")
+    for t in range(tries):
+        pad_s = 0.05 * 4 ** t
+        run = setup() if setup is not None else fn
+        torch.cuda.synchronize()
+        with make_profiler() as prof:
+            for _ in range(64):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            n0 = count()
+            run()
+            torch.cuda.synchronize()
+            counts = {k: c - n0[k] for k, c in count().items()}
+            time.sleep(pad_s)
+        records = {n: sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name)
+                   for n, key in names.items()}
+        if all(records[n] >= counts[n] for n in names):
+            break
+    return records, counts, prof
 
 
 def cuda_generator(seed):
@@ -970,8 +1052,9 @@ def recorded_lockstep():
         harness.lockstep_train = lockstep
 
 
-def harness_phases(smi):
+def harness_phases(smi, out):
     """Phases 10 and 10b: the experiment harness through its entry points.
+    The ab5 run writes its files into ``out`` (phase 15b aggregates them).
     Returns the kernel launches of the ab5 run."""
     say(f"[10 ab5 harness] cifar100_ab5_param_budgets.run({' '.join(AB5_ARGS)})")
     train_iter, val_batches, test_batches, *_ = harness.get_loaders("cifar100", BATCH, tiny=True,
@@ -987,7 +1070,7 @@ def harness_phases(smi):
             want[k] += steps * n
         for k, n in per_fwd.items():
             want[k] += eval_fwds * n
-    with tempfile.TemporaryDirectory() as out, recorded_lockstep() as calls:
+    with recorded_lockstep() as calls:
         args = ab5.build_argparser().parse_args(AB5_ARGS + ["--out", out])
         harness._ESTIMATE_CACHE.clear()
         t0 = time.time()
@@ -1407,50 +1490,28 @@ def step_profile(step, images, label, smi, windows, window_steps):
     return ms, rate, busy, peak
 
 
-def wide_kernel_times(fn, reps=4, tries=3):
+def wide_kernel_times(fn, reps=4):
     """Device time of K2w's or K2bw's kernels by name (ms a call and
     launches a call) from torch.profiler's kernel records over ``reps``
-    calls. The records are held to the library's own launch count
-    (``mop_edgewise_wide_launches``); a profile that kept fewer is taken
-    again, up to ``tries`` profiles. Returns (times by name, records kept,
-    launches).
-
-    Late in the whole script a profile could miss its first 16 kernel
-    records, three profiles in a row (on the H100, not in the phase alone).
-    So each profile opens with 64 small kernels of its own and the calls
-    run between idle spans, longer on each try."""
+    calls, profiled by ``profiled_records`` against the library's own launch
+    count (``mop_edgewise_wide_launches``: a wrapper call launches several
+    kernels). Returns (times by name, records kept, launches)."""
     import ctypes
 
-    from torch.profiler import ProfilerActivity, profile
-
     count = F._fn("edgewise_wide", "mop_edgewise_wide_launches", [], ctypes.c_longlong)
-    lead = torch.zeros(1, device="cuda")
     fn()
-    for t in range(tries):
-        pad_s = 0.05 * 4 ** t
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(64):
-                lead.add_(1)
-            torch.cuda.synchronize()
-            time.sleep(pad_s)
-            n0 = count()
-            for _ in range(reps):
-                fn()
-            launches = count() - n0
-            torch.cuda.synchronize()
-            time.sleep(pad_s)
-        recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and "mop::wide::" in e.name]
-        if len(recs) == launches:
-            break
+    records, counts, prof = profiled_records(
+        lambda: [fn() for _ in range(reps)], {"wide": "mop::wide::"},
+        count=lambda: {"wide": count()})
     times = {}
-    for name, us in recs:
-        label = name.split("mop::wide::", 1)[1].split("(", 1)[0]
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "mop::wide::" not in e.name:
+            continue
+        label = e.name.split("mop::wide::", 1)[1].split("(", 1)[0]
         us_all, k = times.get(label, (0.0, 0))
-        times[label] = (us_all + us, k + 1)
+        times[label] = (us_all + e.time_range.elapsed_us(), k + 1)
     return ({label: (us / 1e3 / reps, k / reps) for label, (us, k) in times.items()},
-            len(recs), launches)
+            records["wide"], counts["wide"])
 
 
 def wide_kernel_checks(smi):
@@ -2166,40 +2227,6 @@ def closed_loop(eng, prompts, new, clients):
     return len(submit_t) / wall, ttft, tpot
 
 
-def k1_profile_count(wm, mels, tries=3):
-    """K1's kernel records in a profile of a Whisper engine admitting
-    ``mels`` and decoding two tokens each, and K1's launches there by its
-    wrapper's count. As in ``wide_kernel_times``, each profile opens with
-    64 small kernels of its own and idle spans around the calls, longer on
-    each try (late in the whole script a profile drops its first kernel
-    records); a profile that kept fewer records than launches is taken
-    again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    lead = torch.zeros(1, device="cuda")
-    for t in range(tries):
-        pad_s = 0.05 * 4 ** t
-        probe = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
-        for m in mels:
-            probe.submit(m, 2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(64):
-                lead.add_(1)
-            torch.cuda.synchronize()
-            time.sleep(pad_s)
-            n0 = F.flash_attention.launches
-            probe.run()
-            launches = F.flash_attention.launches - n0
-            torch.cuda.synchronize()
-            time.sleep(pad_s)
-        records = sum(1 for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd" in e.name)
-        if records == launches:
-            break
-    return records, launches
-
-
 class _IdText:
     """The Whisper model's token ids as text, for the server's
     ``whisper_tokenizer`` (its vocabulary has no text)."""
@@ -2349,7 +2376,15 @@ def serving_phases(smi):
         weng.submit(m, n) for m in mels] and weng.run()))
     got = torch.tensor([res[r] for r in sorted(res)], device="cuda")
     want_k1 = wcfg.n_layer_enc * WHISPER_SERVE_CLIPS
-    k1_records, k1_probe = k1_profile_count(wm, mels[:2])
+
+    def probe():  # a fresh engine with 2 admissions queued, run under the profile
+        eng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
+        for m in mels[:2]:
+            eng.submit(m, 2)
+        return eng.run
+
+    records, counts_p, _ = profiled_records(None, {"flash_attention": "flash_fwd"}, setup=probe)
+    k1_records, k1_probe = records["flash_attention"], counts_p["flash_attention"]
     check(counts == {**none, "flash_attention": want_k1}
           and k1_records == k1_probe == 2 * wcfg.n_layer_enc,
           f"{WHISPER_SERVE_CLIPS} admissions: launches {launched(counts)}, K1 "
@@ -2432,7 +2467,357 @@ def serving_phases(smi):
     say(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> int:
+# ------------------------- phase 15: the trainer and the later CLIs -------------------------
+
+
+def _batch15(i):
+    """Step i's batch of 15a: uint8 CIFAR-shaped images and CIFAR-100 labels
+    from a numpy generator seeded with i (a function of the step, so that a
+    resumed run sees what an uninterrupted one saw)."""
+    rng = np.random.default_rng(TRAINER_DATA_SEED + i)
+    return (rng.integers(0, 256, (BATCH, 3, 32, 32), dtype=np.uint8),
+            rng.integers(0, N_CLASSES, (BATCH,)).astype(np.int64))
+
+
+def _val15():
+    rng = np.random.default_rng(TRAINER_DATA_SEED - 1)
+    return [(rng.integers(0, 256, (BATCH, 3, 32, 32), dtype=np.uint8),
+             rng.integers(0, N_CLASSES, (BATCH,)).astype(np.int64),
+             np.ones(BATCH, np.float32)) for _ in range(TRAINER_VAL)]
+
+
+def forward_flops(model, x, attn_calls, heads):
+    """Flops of one forward: 2 x the multiply-adds of every Linear and
+    Conv2d (from their outputs' sizes) and K1's products (``flash_cost``) at
+    each of ``attn_calls`` launches over ``heads`` heads; the MoP gate's
+    elementwise work is not counted."""
+    total = [0]
+
+    def linear(m, _, out):
+        total[0] += 2 * m.in_features * out.numel()
+
+    def conv(m, _, out):
+        total[0] += 2 * (m.in_channels // m.groups) * math.prod(m.kernel_size) * out.numel()
+
+    hooks = [m.register_forward_hook(linear if isinstance(m, torch.nn.Linear) else conv)
+             for m in model.modules() if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    n, dim = 64, model.cls.in_features  # 32 x 32 images in 4 x 4 patches
+    attn = flash_cost(x.shape[0] * heads, n, n, dim // heads, x.dtype)[0]
+    return total[0] + attn_calls * attn
+
+
+def trainer_phase(smi, work):
+    """15a: ``train_model`` at B_bench's width: an uninterrupted run, a run
+    preempted through its guard, its resume (equal to the uninterrupted run
+    bit for bit), K1's launches by the profiler under the port's ``trace()``,
+    and ``Trainer.step``'s images/s by the port's ``ThroughputMeter`` with
+    the MFU. Returns the launches of the three runs."""
+    import mop_tpu_torch.training.trainer as trainer_mod
+    from mop_tpu_torch.training import AsyncCheckpointManager, Trainer, cosine_lr, train_model
+    from mop_tpu_torch.utils.profiling import ThroughputMeter, chip_peak_bf16_flops, trace
+
+    make = MODELS["B_bench"][0]
+    depth = 6
+    val = _val15()
+    guards = []
+
+    class RecordedGuard(trainer_mod.PreemptionGuard):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            guards.append(self)
+
+    def batches(start, signal_at=None):
+        for i in range(start, TRAINER_STEPS):
+            if i == signal_at:
+                guards[-1].signal_now()
+            yield _batch15(i)
+
+    def run(ckpt_dir, start=0, signal_at=None, resume=False):
+        return train_model(make(None), batches(start, signal_at), lambda: iter(val),
+                           TRAINER_STEPS, batch_size=BATCH, eval_every=TRAINER_EVERY, seed=0,
+                           mean=CIFAR100_MEAN, std=CIFAR100_STD, verbose=False,
+                           ckpt_dir=ckpt_dir, ckpt_every=TRAINER_EVERY, resume=resume)
+
+    say(f"[15a trainer] train_model: B_bench (224/6/4, 5 views, 3 kernels), batch {BATCH}, "
+        f"bf16, {TRAINER_STEPS} steps, eval and checkpoint every {TRAINER_EVERY}")
+    totals = {f.__name__: 0 for f in F.KERNELS}
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    guard_cls, trainer_mod.PreemptionGuard = trainer_mod.PreemptionGuard, RecordedGuard
+    try:
+        with tempfile.TemporaryDirectory(dir=work) as ckpt:
+            t0 = time.perf_counter()
+            (model_u, hist_u), counts = counted(lambda: run(os.path.join(ckpt, "u")), add=False)
+            wall_u = time.perf_counter() - t0
+            for k, c in counts.items():
+                totals[k] += c
+            # init's check forward, then a step's and a val batch's.
+            want_k1 = depth * (1 + TRAINER_STEPS + (TRAINER_STEPS // TRAINER_EVERY) * TRAINER_VAL)
+            with AsyncCheckpointManager(os.path.join(ckpt, "u")) as mgr:
+                steps_u = mgr.all_steps()
+            check(sorted(hist_u) == ["time_min", "train_loss", "val_acc"]
+                  and len(hist_u["train_loss"]) == TRAINER_STEPS
+                  and len(hist_u["val_acc"]) == TRAINER_STEPS // TRAINER_EVERY
+                  and all(math.isfinite(v) for v in hist_u["train_loss"])
+                  and steps_u == [TRAINER_STEPS - TRAINER_EVERY, TRAINER_STEPS]
+                  and counts["flash_attention"] == want_k1 and sum(counts.values()) == want_k1,
+                  f"uninterrupted: {TRAINER_STEPS} losses {hist_u['train_loss'][0]:.4f} .. "
+                  f"{hist_u['train_loss'][-1]:.4f}, val acc {hist_u['val_acc']}, checkpoints "
+                  f"{steps_u}; launches {launched(counts)} (expected K1 {want_k1}: {depth} in init's "
+                  f"check forward, a step and a val batch); {wall_u:.2f} s wall [{smi}]")
+
+            code = None
+            F.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                run(os.path.join(ckpt, "p"), signal_at=TRAINER_STOP - 1)
+            except SystemExit as e:  # the guard's exit, checked below
+                code = e.code
+            torch.cuda.synchronize()
+            counts = {f.__name__: f.launches for f in F.KERNELS}
+            for k, c in counts.items():
+                totals[k] += c
+            with AsyncCheckpointManager(os.path.join(ckpt, "p")) as mgr:
+                steps_p = mgr.all_steps()
+            check(code == 75 and steps_p == [TRAINER_EVERY, TRAINER_STOP],
+                  f"preempted through guard.signal_now() in step {TRAINER_STOP - 1}: exit code "
+                  f"{code} (75 expected), checkpoints {steps_p}; "
+                  f"{time.perf_counter() - t0:.2f} s [{smi}]")
+
+            t0 = time.perf_counter()
+            (model_r, hist_r), counts = counted(
+                lambda: run(os.path.join(ckpt, "p"), start=TRAINER_STOP, resume=True), add=False)
+            for k, c in counts.items():
+                totals[k] += c
+            diffs = [(a.float() - b.float()).abs().max().item()
+                     for a, b in zip(model_r.state_dict().values(), model_u.state_dict().values())]
+            same = (hist_r["train_loss"] == hist_u["train_loss"][TRAINER_STOP:]
+                    and all(torch.equal(a, b) for a, b in zip(model_r.state_dict().values(),
+                                                              model_u.state_dict().values())))
+            check(same, f"resumed at step {TRAINER_STOP}: {len(hist_r['train_loss'])} steps, "
+                  f"final loss {hist_r['train_loss'][-1]!r} vs the uninterrupted run's "
+                  f"{hist_u['train_loss'][-1]!r}; every parameter bit-equal (largest "
+                  f"difference {max(diffs):.3e}); {time.perf_counter() - t0:.2f} s [{smi}]")
+            del model_r
+    finally:
+        trainer_mod.PreemptionGuard = guard_cls
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+
+    # Trainer.step's throughput, and K1 in a traced window of steps and an eval.
+    trainer = Trainer(model_u, mean=CIFAR100_MEAN, std=CIFAR100_STD)
+    trainer.setup_optimizer(cosine_lr(3e-3, 1, 1000), weight_decay=0.05)
+    data = [_batch15(i) for i in range(4)]
+    step_i = [0]
+
+    def one_step():
+        x, y = data[step_i[0] % len(data)]
+        step_i[0] += 1
+        return trainer.step(x, y, seed=0, step_i=step_i[0])
+
+    traced = 3
+    log_dir = tempfile.mkdtemp(prefix="trace15_", dir=work)
+    records, counts, _ = profiled_records(
+        lambda: ([one_step() for _ in range(traced)], trainer.evaluate(val)),
+        {"flash_attention": "flash_fwd"}, make_profiler=lambda: trace(log_dir))
+    events = json.load(open(os.path.join(log_dir, "trace.json")))["traceEvents"]
+    host = sum(1 for e in events if e.get("cat") == "cpu_op")
+    device = sum(1 for e in events if e.get("cat") == "kernel")
+    want = depth * (traced + TRAINER_VAL)
+    check(records["flash_attention"] == counts["flash_attention"] == want and host and device,
+          f"under mop_tpu_torch.utils.profiling.trace(): {traced} Trainer.steps and an evaluate "
+          f"({TRAINER_VAL} batches): K1 {records['flash_attention']} kernel records, "
+          f"{counts['flash_attention']} launches, {want} expected ({depth} a step and a val "
+          f"batch); the Chrome trace holds {host} host ops and {device} kernels [{smi}]")
+    for k, c in counts.items():
+        totals[k] += c
+
+    meter = ThroughputMeter(warmup_steps=5)
+
+    def timed():
+        for _ in range(5 + TRAINER_TIMED):
+            one_step()
+            meter.step(BATCH)
+        return meter.samples_per_sec, meter.steps_per_sec
+
+    (ips, sps), counts = counted(timed, add=False)
+    (rows, wall_us), counts2 = counted(lambda: device_breakdown(one_step, reps=10), add=False)
+    for k in totals:
+        totals[k] += counts[k] + counts2[k]
+    busy = sum(t for _, t in rows)
+    x = cifar_eval_transform(torch.as_tensor(data[0][0]).cuda(), CIFAR100_MEAN, CIFAR100_STD)
+    step_flops = 3 * forward_flops(trainer.model, x, depth, heads=4)
+    peak = chip_peak_bf16_flops()
+    mfu = f"{100 * step_flops * sps / peak:.2f}%" if peak else "not measured (unknown card)"
+    say(f"  Trainer.step, B_bench bf16 batch {BATCH}: {ips:,.0f} images/s, "
+        f"{1e3 / sps:.2f} ms a step (ThroughputMeter, {TRAINER_TIMED} steps after 5); device "
+        f"busy {100 * busy / wall_us:.1f}% of 10 profiled steps ({by_class(rows)}); "
+        f"{step_flops / 1e12:.3f} TFLOP a step (3 x the forward's Linear, Conv2d and K1 "
+        f"flops), MFU {mfu} of chip_peak_bf16_flops() {peak} [{smi}]")
+    return totals
+
+
+def _csv_rows(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return lines[0], [dict(zip(lines[0].split(","), ln.split(","))) for ln in lines[1:]]
+
+
+def cli_phase(smi, work, ab5_out):
+    """15b: the later CLIs on the card at the 5M target, each with its
+    kernels' launches predicted from the matched depths and held to the
+    wrapper counts and the profiler's records; then ``ab5_paper_benchmark``
+    over phase 10's and the tournament's CSVs. Returns the launches."""
+    from mop_tpu_torch.experiments import _param_budgets as PB
+    from mop_tpu_torch.experiments import ab5_paper_benchmark, ab5_tournament, cifar10_multi_seed
+    from mop_tpu_torch.experiments import cifar100_ab4_param_budgets as ab4
+    from mop_tpu_torch.experiments import cifar10_twohop_param_budgets as twohop
+
+    out = os.path.join(work, "clis15")
+    k1, k4 = "flash_attention", K4
+    names = {k1: "flash_fwd", k4: "multihop"}
+    steps, every = CLI15_STEPS, CLI15_STEPS
+    evals = 2  # the lockstep evals: step 1 and every ``every`` steps
+    argv = ["--synthetic", "--tiny", "--seeds", "0", "--steps", str(steps), "--eval_every",
+            str(every), "--batch", str(BATCH), "--out", out]
+
+    def n_batches(dataset, val_frac=0.0):
+        _, val_b, test_b, *_ = harness.get_loaders(dataset, BATCH, tiny=True, val_frac=val_frac,
+                                                   synthetic=True)
+        return len(list(val_b())), len(list(test_b()))
+
+    n100, _ = n_batches("cifar100")
+    n10, _ = n_batches("cifar10")
+    n_val5, n_test5 = n_batches("cifar100", 0.1)
+    totals = {f.__name__: 0 for f in F.KERNELS}
+
+    def drive(label, fn, want):
+        t0 = time.perf_counter()
+        records, counts, _ = profiled_records(fn, names)
+        wall = time.perf_counter() - t0
+        for k, c in counts.items():
+            totals[k] += c
+        got = {k: counts[k] for k in names}
+        check(got == records == want and sum(counts.values()) == sum(want.values()),
+              f"{label}: launches {launched(counts)}, profiler records {records}, predicted "
+              f"{want}; {wall:.2f} s with the profiler [{smi}]")
+
+    # ab4: A and B through K1 in every step and eval forward, D through K4 in
+    # its eval forwards (it trains composed), C with no kernel.
+    a4 = ab4.build_argparser().parse_args(argv + ["--targets", "5000000"])
+    cfgs = PB.match_configs(a4, 100, 5_000_000, ab4.FAMILIES)
+    depth = {f: c[0]["depth"] for f, c in cfgs.items()}
+    fwds = (evals + 1) * n100
+    say(f"[15b CLIs] cifar100_ab4_param_budgets --targets 5000000: "
+        f"{ {f: (c[0]['dim'], c[0]['depth'], c[0]['heads']) for f, c in cfgs.items()} }; "
+        f"{steps} steps, {fwds} eval forwards a model")
+    drive("cifar100_ab4_param_budgets", lambda: ab4.main(argv + ["--targets", "5000000"]),
+          {k1: (depth["base"] + depth["mop"]) * (steps + fwds), k4: depth["multihop"] * fwds})
+    header, rows = _csv_rows(os.path.join(out, "cifar100_ab4_target_5000000.csv"))
+    check(header == "seed,acc_base,acc_mop,acc_xview,acc_multihop,params_base,params_mop,"
+          "params_xview,params_multihop,base_cfg,mop_cfg,xview_cfg,xview_extra,multihop_cfg,"
+          "multihop_extra" and len(rows) == 1
+          and all(0.0 <= float(rows[0][f"acc_{f}"]) <= 1.0 for f in ab4.FAMILIES),
+          f"cifar100_ab4_target_5000000.csv: {header[:40]}...; accs "
+          f"{[rows[0][f'acc_{f}'] for f in ab4.FAMILIES]}")
+
+    # twohop: ViTGated trains composed, K4 at two hops in its eval forwards.
+    a2 = twohop.build_argparser().parse_args(argv + ["--targets", "5000000"])
+    cfg, _ = twohop.match_config(a2, 10, 5_000_000)
+    fwds = (evals + 1) * n10
+    drive(f"cifar10_twohop_param_budgets at {cfg}",
+          lambda: twohop.main(argv + ["--targets", "5000000"]),
+          {k1: 0, k4: cfg["depth"] * fwds})
+    header, rows = _csv_rows(os.path.join(out, "cifar10_twohop_target_5000000.csv"))
+    check(header == "seed,acc" and len(rows) == 1 and 0.0 <= float(rows[0]["acc"]) <= 1.0,
+          f"cifar10_twohop_target_5000000.csv: {header}, {rows}")
+
+    # multi_seed: A and B at 256 / 6 / 4 through K1, and the last seed's
+    # per-sample pass for McNemar.
+    fwds = (evals + 2) * n10
+    drive("cifar10_multi_seed (256 / 6 / 4)", lambda: cifar10_multi_seed.main(argv),
+          {k1: 2 * 6 * (steps + fwds), k4: 0})
+    header, rows = _csv_rows(os.path.join(out, "cifar10_acc.csv"))
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    check(header == "seed,baseline,mop,diff" and len(rows) == 1
+          and {"mcnemar_chi2", "delta_acc_lo", "test_acc_A"} <= set(summary),
+          f"cifar10_acc.csv: {header}, {rows}; summary.json {sorted(summary)}")
+
+    # The tournament: its plan, then A and B trained through the ab5 harness.
+    ab5_tournament.main(["--plan_only", "--out", out])
+    with open(os.path.join(out, "tournament_plan_5000000.txt")) as f:
+        plan = f.read().splitlines()
+    check([ln.split(":")[0] for ln in plan] == list("ABCDE"),
+          f"ab5_tournament --plan_only: {plan}")
+    ta = ab5_tournament.build_argparser().parse_args(
+        argv + ["--targets", "5000000", "--models", "A", "B"])
+    cfgs5 = ab5.match_configs(ta, 5_000_000)
+    fwds = (evals + 1) * n_val5 + 2 * n_test5
+    drive("ab5_tournament --models A B --targets 5000000",
+          lambda: ab5_tournament.main(argv + ["--targets", "5000000", "--models", "A", "B"]),
+          {k1: (cfgs5["A"][0]["depth"] + cfgs5["B"][0]["depth"]) * (steps + fwds), k4: 0})
+
+    # The paper tables over phase 10's ab5 CSVs and the tournament's.
+    res = ab5_paper_benchmark.main(["--inputs", ab5_out, out, "--out_dir", out])
+    with open(os.path.join(out, "ab5_benchmark.md")) as f:
+        md = f.read().splitlines()
+    row = next((r for r in md if r.startswith("| 5000000 |")), "")
+    accs = {}
+    for path in (os.path.join(ab5_out, "cifar100_ab5_target_5000000.csv"),
+                 os.path.join(out, "tournament_target_5000000.csv")):
+        for r in _csv_rows(path)[1]:
+            for k, v in r.items():
+                if k.startswith("acc_"):
+                    accs.setdefault(k[4:], []).append(float(v))
+    cells = [f"{np.mean(accs[k]):.4f}±{np.std(accs[k]):.4f}" if k in accs else "-"
+             for k in "ABCDE"]
+    check(row == "| 5000000 | " + " | ".join(cells) + " |" and len(accs["A"]) == 2,
+          f"ab5_paper_benchmark: {row!r}, the CSVs' means {cells} (A and B over "
+          f"{len(accs['A'])} runs); targets {sorted(res)}")
+    return totals
+
+
+def later_phases(phases, smi) -> int:
+    """``--phases``: only the named phases of 10-15, after the build."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        if 10 in phases or 15 in phases:
+            harness_phases(smi, os.path.join(work, "ab5"))
+        if 11 in phases:
+            whisper_phases(smi)
+        if 12 in phases:
+            moe_voc_imagenet_phases(smi)
+        if 13 in phases:
+            decode_phases(smi)
+        if 14 in phases:
+            serving_phases(smi)
+        if 15 in phases:
+            trainer_phase(smi, work)
+            cli_phase(smi, work, os.path.join(work, "ab5"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        say(f"FAILED: {failures}")
+        return 1
+    say(f"phases {phases}: every check passed")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", type=lambda v: sorted({int(p) for p in v.split(",")}),
+                    help="comma-separated phases of 10-15 to run alone after the build")
+    args = ap.parse_args(argv)
+    if args.phases and not set(args.phases) <= set(range(10, 16)):
+        ap.error(f"--phases takes phases of 10-15, not {args.phases}")
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
         return 1
@@ -2460,6 +2845,8 @@ def main() -> int:
             say(f"    K3b (both instantiations) spills: {spills}")
     say(f"[2 build] {len(libs)} kernels from mop_tpu_torch/csrc in {time.time() - t0:.1f} s")
     check_byte_counts()
+    if args.phases:
+        return later_phases(args.phases, smi)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     # The dense head's phases draw from their own generator, so that the
@@ -3420,16 +3807,25 @@ def main() -> int:
           f"every kernel but K2w and K2bw (phase 12's) launched on the main path: {launches}")
     # The ab5 run's totals (20 steps and its eval forwards) in a field of
     # their own: ``launches`` stays per train step and per forward.
-    ab5_counts = harness_phases(smi)
-    whisper_phases(smi)
-    k1_rows, wide_records = moe_voc_imagenet_phases(smi)
-    k1_record.update(k1_rows)
-    records.extend(wide_records)
-    k5_record.update(decode_phases(smi))
-    serving_phases(smi)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 10's files, read in 15b
+    try:
+        ab5_counts = harness_phases(smi, os.path.join(work, "ab5"))
+        whisper_phases(smi)
+        k1_rows, wide_records = moe_voc_imagenet_phases(smi)
+        k1_record.update(k1_rows)
+        records.extend(wide_records)
+        k5_record.update(decode_phases(smi))
+        serving_phases(smi)
+        t15 = time.perf_counter()
+        for counts in (trainer_phase(smi, work), cli_phase(smi, work, os.path.join(work, "ab5"))):
+            for k_name, c in counts.items():
+                launches[k_name] += c
+        say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main paths: {launches}")
-    for rec in records:  # K1's main-path launches now include Whisper's, MoE's and VOC's
+    for rec in records:  # K1's main-path launches now include Whisper's, MoE's, VOC's and 15's
         rec["launches"] = launches[rec["name"]]
         rec["launches_ab5"] = ab5_counts[rec["name"]]
     say(f"total {time.time() - t_start:.1f} s")

@@ -46,7 +46,18 @@ checkpoints and preemption, statistics, output files) with its CLIs:
 - ``python -m mop_tpu_torch.experiments.voc_localization_vit``: the VOC
   single-box localizer, mode A, B or E;
 - ``python -m mop_tpu_torch.experiments.imagenet_ab_param_budgets``: A/B/E at
-  matched budgets on ImageNet-style data, with EMA.
+  matched budgets on ImageNet-style data, with EMA;
+- the A/B, A/B/C, A/B/C/D and two-hop budget CLIs, the multi-seed A-vs-B
+  CLIs, the MoP sweep, the ab5 tournament and the paper tables
+  (``experiments/__init__.py`` lists them).
+
+The library's own trainer is ``training.Trainer`` / ``training.train_model``
+(AdamW with ``cosine_lr``, background checkpoints through
+``AsyncCheckpointManager``, SIGTERM -> checkpoint -> exit 75 -> ``resume``);
+``utils`` holds the evaluation metrics (``lm_perplexity``, ``wer``,
+``cer``, ``topk_accuracy``), NaN guards (``utils.debug``) and profiling
+(``utils.profiling``: ``trace``, ``ThroughputMeter``,
+``chip_peak_bf16_flops``); ``visualization.visualize_gates`` draws gate maps.
 
 They run on the GPU unless given ``--device cpu``. The kernel switches
 (``config.py``: ``fused_attention``, ``fused_multihop``, ``fused_quartet``,

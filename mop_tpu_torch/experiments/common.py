@@ -34,7 +34,7 @@ from ..ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100
                               cifar_eval_transform)
 from ..parallel import make_classifier_eval_step, make_classifier_train_step
 from ..training.preemption import PREEMPTED_EXIT_CODE, PreemptionGuard
-from ..training.utils import count_params, load_checkpoint, save_checkpoint
+from ..training.utils import count_params, load_checkpoint, save_checkpoint, step_seed
 from ..training.utils import set_seed  # noqa: F401  (the CLIs call it as common.set_seed)
 from ..utils.device import resolve_device
 
@@ -363,7 +363,7 @@ class ModelRun:
         reseeded from (seed, step_i), as JAX folds step_i into its key."""
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.count)
-        self.generator.manual_seed(self.seed * 1_000_003 + int(step_i))
+        self.generator.manual_seed(step_seed(self.seed, step_i))
         m = self.train_step(torch.as_tensor(xb), torch.as_tensor(yb), self.generator)
         self.count += 1
         self.loss_handle = m["loss"]

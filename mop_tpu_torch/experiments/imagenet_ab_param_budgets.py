@@ -38,7 +38,7 @@ from ..data.imagenet import (has_imagefolder, load_imagefolder, synthetic_imagen
 from ..models import ViT_Baseline, ViT_MoP, ViTEdgewise
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from ..parallel import make_classifier_eval_step, make_imagenet_train_step
-from ..training.utils import ema_update, load_checkpoint, save_checkpoint
+from ..training.utils import ema_update, load_checkpoint, save_checkpoint, step_seed
 from ..utils.device import resolve_device
 from . import common as C
 
@@ -215,7 +215,7 @@ class _Run:
     def train(self, xb, yb, seed: int, step_i: int, ema_decay: float):
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.count)
-        self.generator.manual_seed(seed * 1_000_003 + step_i)
+        self.generator.manual_seed(step_seed(seed, step_i))
         self.losses.append(self.step(xb, yb, self.generator)["loss"])
         self.count += 1
         if self.ema is not None:
