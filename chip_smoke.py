@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --phases 12,15`` builds, then runs only the named
-phases of 10-15 (15 runs 10 first, for its CSVs), and prints neither the
+phases of 10-16 (15 runs 10 first, for its CSVs), and prints neither the
 kernels line nor the last line's ok: a quicker check of a later phase.
 
 Phases, one line each (a failed phase makes the script exit non-zero):
@@ -214,12 +214,31 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    its wrapper's count and the profiler's records, their files and headers; then
    ``ab5_paper_benchmark`` over phase 10's and the tournament's CSVs, its 5M row against the
    CSVs' means. The kernels line's ``launches`` add phase 15's.
+16. paged and speculative serving and export (``mop_tpu_torch.serving``): 16a, 14a's engine and
+   32 jobs through ``DecodeEngine`` and ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense
+   slabs' capacity) and 32 (half): no kernel launch, tokens/s, busy share, peak memory,
+   ``peak_pages_in_use`` and ``preemptions``; at 64 pages every row equal to the dense engine's
+   up to its first near tie (margins from the dense engine's top-2 logprobs); at 32 the cache's
+   bytes against the dense slabs', preemptions, each row never preempted equal to the dense
+   engine's and each preempted row to its single stream re-prefilled where it was preempted;
+   ``step(n_tokens=4)`` giving the single steps' tokens; 16b, ``SpecDecodeEngine`` at the 170M
+   of ``tools/bench_speculative.py`` (12 x 1024, 16 heads, block 512) with its 2 x 128 draft
+   and with the target as its own draft, 4 slots, 16 requests of 16 + 32 tokens, gamma 4:
+   tokens equal to the plain engine's up to the first near tie, the acceptance share, engine
+   steps, tokens/s and busy share, every draft accepted and at most 1 + ceil(31 / 5) steps a
+   request with the perfect draft; 16c, ``export_apply`` on the card of A (224 / 8 / 4), the
+   Quartet LM at the comparison config and E and D at depth 2: refused without
+   ``allow_custom_calls``, naming the ``mop_tpu_torch::`` op; the loaded artifact launching
+   K1 8, K5 8, K2 2 and K4 2 times a forward, its output against the eager forward (fp32,
+   atol 2e-5, rtol 2e-4), A's one artifact at batch 1, 3 and 256; 16d, ``serve_http --spec``
+   on the card. The kernels line's ``launches`` add 16c's.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import re
@@ -264,7 +283,8 @@ from mop_tpu_torch.ops.quant import quantize_params, quantized_bytes
 from mop_tpu_torch.data.audio import log_mel, segment_frames
 from mop_tpu_torch.models.generate import (init_decode_cache, whisper_decode_params,
                                            whisper_encode)
-from mop_tpu_torch.serving import DecodeEngine, WhisperServingEngine
+from mop_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine, SpecDecodeEngine,
+                                   WhisperServingEngine, export_apply, load_exported)
 
 BATCH = 256
 N_CLASSES = 100
@@ -519,6 +539,14 @@ SLO_CFG = dict(n_layer=12, n_head=16, n_embd=1024, dropout=0.0, block_size=2048)
 SLO_MB, SLO_PROMPT, SLO_NEW, SLO_REQS = 4, 128, 32, 16
 WHISPER_SERVE_CLIPS, WHISPER_SERVE_TOKENS, WHISPER_SERVE_MB = 8, 32, 4
 SERVE_HTTP_ARGS = ["--steps", "100", "--clients", "8"]
+# Phase 16. tools/bench_serving.py:149-161's paged pools (pages of 64 rows: 64,
+# the dense slabs' capacity, and 32, half the memory) over 14a's engine and
+# jobs; tools/bench_speculative.py's 170M target and 2 x 128 draft (:41, :64-65)
+# at 16-token prompts; the exports' batches; the --spec demo.
+PAGED_PAGES, PAGED_PS = (64, 32), 64
+SPEC_MB, SPEC_REQS, SPEC_T0, SPEC_NEW, SPEC_GAMMA = 4, 16, 16, 32, 4
+EXPORT_BATCHES = (1, 3, BATCH)
+SPEC_HTTP_ARGS = ["--spec", "--steps", "50", "--clients", "4"]
 
 failures = []
 # Phase 15, the trainer and the later CLIs: train_model at bench.py:23-29's
@@ -2785,8 +2813,290 @@ def cli_phase(smi, work, ab5_out):
     return totals
 
 
+# ------------------- phase 16: paged and speculative serving, export -------------------
+
+
+class _RecordedPaged(PagedDecodeEngine):
+    """The paged engine, recording each preemption as (rid, tokens it had
+    emitted): its re-admission prefills the prompt and those tokens."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.preempted = []
+
+    def _preempt_slot(self, victim):
+        rid = self._slot_rid[victim]
+        self.preempted.append((rid, len(self._results[rid])))
+        super()._preempt_slot(victim)
+
+
+def readmitted_greedy(model, params, prompt, n, at):
+    """The single-stream greedy tokens (1, n) and margins (1, n) of a paged
+    request preempted when it had emitted k tokens, for each k of ``at``:
+    a prefill of the prompt, decode steps, and at each k a prefill of the
+    prompt and its first k tokens (its re-admission)."""
+    seq = list(prompt)
+    toks, margins = [], []
+    for i in range(n):
+        if i == 0 or i in at:
+            logits, cache = prefill(model, params, torch.tensor([seq], device="cuda"))
+        else:
+            logits, cache = decode_step(model, params, cache, toks[-1])
+        margins.append(top2_margin(logits))
+        toks.append(logits.argmax(-1))
+        seq.append(int(toks[-1]))
+    return torch.stack(toks, 1), torch.stack(margins, 1)
+
+
+def lp_margins(eng, rids):
+    """Each row's top-two logit margins (B, T) from an engine's recorded
+    top-2 logprobs (log-softmax keeps the logits' differences)."""
+    return torch.tensor([[a[0][1] - a[1][1] for a in eng.top_logprobs[r]] for r in rids],
+                        device="cuda")
+
+
+def paged_phase(smi, none):
+    """16a: tools/bench_serving.py's engines, dense against paged at the dense
+    slabs' capacity and at half of it."""
+    rs = np.random.RandomState(0)  # phase 14a's jobs
+    say(f"[16 serving] 16a: PagedDecodeEngine at tools/bench_serving.py's GPT-Quartet "
+        f"{SERVE_CFG}, vocab {SERVE_VOCAB}, buckets {SERVE_BUCKETS}, max_batch "
+        f"{SERVE_MAX_BATCH}, {SERVE_JOBS} mixed jobs of {SERVE_NEW} new tokens; pages of "
+        f"{PAGED_PS} rows, {PAGED_PAGES} pages")
+    model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SERVE_CFG),
+                               generator=torch.Generator().manual_seed(50)).eval()
+    params = decode_params(model)
+    jobs = serve_jobs(SERVE_JOBS, rs)
+    warm = [(p[:SERVE_WARM], 4) for p, _ in jobs[:SERVE_MAX_BATCH]]
+    # every engine records each token's top-2 logprobs: the dense engine's are
+    # the reference's near-tie margins, and the three are timed alike
+    engines = {"dense": lambda: DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH,
+                                             prefill_buckets=SERVE_BUCKETS, logprobs_topk=2)}
+    for n_pages in PAGED_PAGES:
+        engines[f"paged {n_pages}"] = functools.partial(
+            _RecordedPaged, model, params, max_batch=SERVE_MAX_BATCH, n_pages=n_pages,
+            page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS, logprobs_topk=2)
+    runs = {}
+    for label, make in engines.items():
+        eng = make()
+        serve_all(eng, warm)
+        base = eng._next_rid
+        eng.engine_steps = 0  # count the jobs' run alone
+        if label != "dense":
+            eng.preemptions, eng.peak_pages_in_use, eng.preempted = 0, 0, []
+        torch.cuda.reset_peak_memory_stats()
+        (got, secs), counts = counted(lambda: seconds_of(lambda: serve_all(eng, jobs)))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = eng.engine_steps
+        pre = (eng.preemptions, eng.peak_pages_in_use, list(eng.preempted)) \
+            if label != "dense" else None
+        margins = lp_margins(eng, range(base, base + SERVE_JOBS))
+        busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
+        n_out = sum(len(g) for g in got)
+        extra = "" if pre is None else (f", peak_pages_in_use {pre[1]} of {eng.n_pages}, "
+                                        f"preemptions {pre[0]}, cache {eng.cache_bytes()} B "
+                                        f"(dense slabs {eng.dense_equivalent_bytes()} B)")
+        check(counts == none and all(len(g) == SERVE_NEW for g in got),
+              f"{label}: {n_out} tokens in {secs:.3f} s, {n_out / secs:.1f} tokens/s (top-2 "
+              f"logprobs tracked), {steps} engine steps, busy {100 * busy:.1f}% of "
+              f"{wall:.1f} ms over {SERVE_MAX_BATCH} requests (profiled), peak {peak:.3f} "
+              f"GiB{extra}; kernel launches {launched(counts) or 'none'} (K5 0) [{smi}]")
+        runs[label] = (eng, torch.tensor(got, device="cuda"), pre, margins)
+    _, want, _, margins = runs["dense"]
+    big, small = (f"paged {n}" for n in PAGED_PAGES)
+    ok, ties = tie_prefix(runs[big][1], want, margins)
+    check(ok and runs[big][2][0] == 0,
+          f"{big}: no preemption; every row equals the dense engine's up to its first near "
+          f"tie ({sum(t == SERVE_NEW for t in ties)} of {SERVE_JOBS} rows without one; "
+          f"{int((runs[big][1] == want).all(1).sum())} equal throughout)")
+    eng, got, (n_pre, peak_pages, preempted), _ = runs[small]
+    dk = SERVE_CFG["n_embd"] // SERVE_CFG["n_head"]
+    per_row = 3 * SERVE_CFG["n_layer"] * SERVE_CFG["n_head"] * dk * 4  # K/K2/V, fp32
+    check(eng.cache_bytes() == per_row * (PAGED_PAGES[1] + 1) * PAGED_PS
+          and eng.dense_equivalent_bytes() == per_row * SERVE_MAX_BATCH * SERVE_CFG["block_size"]
+          and n_pre > 0 and peak_pages == PAGED_PAGES[1],
+          f"{small}: cache_bytes {eng.cache_bytes() / 1e6:.2f} MB ({PAGED_PAGES[1]} pages and "
+          f"the scratch page) against dense_equivalent_bytes "
+          f"{eng.dense_equivalent_bytes() / 1e6:.2f} MB; {n_pre} preemptions, the pool full")
+    at = {}
+    for rid, k in preempted:
+        at.setdefault(rid - SERVE_MAX_BATCH, set()).add(k)  # the warm-up took the first rids
+    oks, firsts = [], []
+    for i, (prompt, n) in enumerate(jobs):
+        if i in at:  # re-admitted: its prefix re-prefilled, the state its reference builds
+            ref_t, ref_m = readmitted_greedy(model, params, prompt, n, at[i])
+            ok_r, first = tie_prefix(got[i:i + 1], ref_t, ref_m)
+        else:
+            ok_r, first = tie_prefix(got[i:i + 1], want[i:i + 1], margins[i:i + 1])
+        oks.append(ok_r)
+        firsts.append(first[0])
+    agree = (got == want).float().mean().item()
+    check(all(oks), f"{small}: each of the {SERVE_JOBS - len(at)} rows never preempted equals the "
+          f"dense engine's, and each of the {len(at)} preempted rows its single stream "
+          f"re-prefilled at its preemptions ({sorted(at.items())[:4]}...), up to its first near "
+          f"tie ({firsts}); {100 * agree:.1f}% of tokens equal the dense engine's")
+    burst = PagedDecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[0],
+                              page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS)
+    (multi, multi_s), counts = counted(lambda: seconds_of(
+        lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST)))
+    check(torch.equal(torch.tensor(multi, device="cuda"), runs[big][1]) and counts == none,
+          f"{big} step(n_tokens={SERVE_BURST}): the tokens of single steps, "
+          f"{SERVE_JOBS * SERVE_NEW / multi_s:.1f} tokens/s in {burst.engine_steps} engine "
+          f"steps, peak_pages_in_use {burst.peak_pages_in_use} [{smi}]")
+
+
+def spec_phase(smi, none):
+    """16b: SpecDecodeEngine at tools/bench_speculative.py's 170M target and
+    2 x 128 draft, against the plain engine, and with the target as its own
+    draft."""
+    rs = np.random.RandomState(1)
+    say(f"[16 serving] 16b: SpecDecodeEngine, target {DECODE_170M}, draft {DECODE_DRAFT}, vocab "
+        f"{SERVE_VOCAB}, {SPEC_MB} slots, {SPEC_REQS} requests of {SPEC_T0} + {SPEC_NEW} "
+        f"tokens, gamma {SPEC_GAMMA}")
+    t0 = time.perf_counter()
+    target = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**DECODE_170M),
+                                generator=torch.Generator().manual_seed(60)).eval()
+    draft = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**DECODE_DRAFT),
+                               generator=torch.Generator().manual_seed(61)).eval()
+    tp, dp = decode_params(target), decode_params(draft)
+    say(f"  target and draft built in {time.perf_counter() - t0:.1f} s")
+    jobs = [([int(t) for t in rs.randint(0, SERVE_VOCAB, SPEC_T0)], SPEC_NEW)
+            for _ in range(SPEC_REQS)]
+    plain = DecodeEngine(target, tp, max_batch=SPEC_MB, prefill_buckets=[SPEC_T0],
+                         logprobs_topk=2)
+    serve_all(plain, jobs[:2])  # warm
+    base = plain._next_rid
+    plain.engine_steps = 0
+    (want, plain_s), counts = counted(lambda: seconds_of(lambda: serve_all(plain, jobs)))
+    want = torch.tensor(want, device="cuda")
+    margins = lp_margins(plain, range(base, base + SPEC_REQS))
+    check(counts == none, f"the plain engine: {SPEC_REQS * SPEC_NEW / plain_s:.1f} tokens/s "
+          f"(logprobs tracked), {plain.engine_steps} engine steps [{smi}]")
+    bound = 1 + -(-(SPEC_NEW - 1) // (SPEC_GAMMA + 1))
+    for label, d, d_params in (("the 2 x 128 draft", draft, dp), ("draft = target", target, tp)):
+        eng = SpecDecodeEngine(target, tp, d, d_params, max_batch=SPEC_MB, gamma=SPEC_GAMMA,
+                               prefill_buckets=[SPEC_T0])
+        serve_all(eng, jobs[:2])  # warm
+        eng.engine_steps = eng.drafts_proposed = eng.drafts_accepted = 0
+        steps = {}
+
+        def run():
+            rids = [eng.submit(p, n) for p, n in jobs]
+            while eng.n_queued or eng.n_active:
+                for rid in eng.step():
+                    steps[rid] = steps.get(rid, 0) + 1
+            return [eng.results[r] for r in rids]
+
+        (got, secs), counts = counted(lambda: seconds_of(run))
+        got = torch.tensor(got, device="cuda")
+        n_steps, accepted, proposed = eng.engine_steps, eng.drafts_accepted, eng.drafts_proposed
+        share = accepted / max(proposed, 1)
+        perfect = d is target
+        busy = ""
+        if not perfect:  # one profile of the phase's speculative rounds
+            b, w = busy_share(lambda: serve_all(eng, jobs[:SPEC_MB]))
+            busy = f", busy {100 * b:.1f}% of {w:.1f} ms over {SPEC_MB} requests (profiled)"
+        ok, ties = tie_prefix(got, want, margins)
+        check(ok and counts == none and (not perfect or (
+            accepted == proposed and max(steps.values()) <= bound)),
+              f"{label}: {SPEC_REQS * SPEC_NEW / secs:.1f} tokens/s, {n_steps} engine steps, "
+              f"acceptance {100 * share:.1f}% ({accepted} of {proposed} drafts), at most "
+              f"{max(steps.values())} steps a request"
+              + (f" (bound {bound})" if perfect else "")
+              + busy + "; every row equals the plain engine's up to its first near tie "
+              f"({sum(t == SPEC_NEW for t in ties)} of {SPEC_REQS} rows without one); launches "
+              f"{launched(counts) or 'none'} [{smi}]")
+
+
+def export_phase(smi, none):
+    """16c: export_apply on the card: A and the Quartet LM through K1 and K5
+    as registered ops (refused without ``allow_custom_calls``), E and D at
+    depth 2 through K2 and K4; each artifact against the eager forward."""
+    say("[16 export] 16c: export_apply / load_exported of A, the Quartet LM, E and D (depth 2) "
+        "on the card")
+    gx = cuda_generator(70)
+    x = torch.randn(BATCH, 3, 32, 32, device="cuda", generator=gx)
+    tok = torch.randint(0, LM_VOCAB, (LM_BATCH, LM_CONFIG["block_size"]), device="cuda",
+                        generator=gx)
+    cases = [
+        ("A", MODELS["A"][0](torch.Generator().manual_seed(71)), x, "flash_attention", 8),
+        ("the Quartet LM", create_gpt_quartet(LM_VOCAB, TransformerConfig(**LM_CONFIG),
+                                              generator=torch.Generator().manual_seed(72)),
+         tok, K5, LM_CONFIG["n_layer"]),
+        ("E at depth 2", ViTEdgewise(dim=224, depth=2, heads=4, n_classes=N_CLASSES, n_views=5,
+                                     share_qkv=False, gate_mode="lowrank", gate_rank=4,
+                                     gate_init="mix5", mlp_ratio=4.0,
+                                     generator=torch.Generator().manual_seed(73)),
+         x, "fused_edgewise_lowrank_attention", 2),
+        ("D at depth 2", ViTMultiHop(dim=256, depth=2, heads=4, n_classes=N_CLASSES, hops=3,
+                                     beta_not=0.5, generator=torch.Generator().manual_seed(74)),
+         x, K4, 2),
+    ]
+    for name, model, inputs, kernel, per_fwd in cases:
+        model.eval()
+        params = dict(model.state_dict())
+        try:
+            export_apply(model, params, inputs[:2])
+            refused = "not refused"
+        except ValueError as e:
+            refused = str(e)
+        t0 = time.perf_counter()
+        fn = load_exported(export_apply(model, params, inputs[:2], allow_custom_calls=True))
+        secs = time.perf_counter() - t0
+        batches = EXPORT_BATCHES if name == "A" else (inputs.shape[0],)
+        for b in batches:
+            out, counts = counted(lambda: fn(params, inputs[:b]))
+            out = out[0] if isinstance(out, tuple) else out
+            with torch.no_grad():
+                ref = model(inputs[:b])
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            check(counts == {**none, kernel: per_fwd},
+                  f"{name} artifact at batch {b}: launches {launched(counts)}")
+            compare(f"{name} artifact at batch {b} vs the eager forward", out, ref, 2e-5, 2e-4)
+        op = F.EXPORT_OPS[["flash_attention", "fused_edgewise_lowrank_attention",
+                           "edgewise_lowrank_wide_fwd", "fused_edgewise_dense_attention", K4,
+                           K5].index(kernel)]
+        check(op in refused, f"{name}: without allow_custom_calls export refuses: {refused[:160]}")
+        b = inputs.shape[0]
+        with torch.no_grad():
+            eager_ms = time_ms(lambda: model(inputs), iters=5, reps=3)
+        art_ms = time_ms(lambda: fn(params, inputs), iters=5, reps=3)
+        say(f"  {name}: traced, saved and loaded in {secs:.1f} s; batch {b}: artifact "
+            f"{art_ms:.3f} ms, eager {eager_ms:.3f} ms [{smi}]")
+
+
+def spec_http_phase(smi):
+    """16d: the demo CLI with --spec on the card."""
+    say(f"[16 serving] 16d: python -m mop_tpu_torch.cli.serve_http {' '.join(SPEC_HTTP_ARGS)}")
+    (out, secs), counts = counted(lambda: seconds_of(lambda: serve_http.run(
+        serve_http._parser().parse_args(SPEC_HTTP_ARGS))))
+    eng, m = out["engine"], out["metrics"]
+    check(isinstance(eng, SpecDecodeEngine) and out["drained"] and len(out["texts"]) == 4
+          and all(out["texts"]) and out["completion"]["finish_reason"] in ("stop", "length")
+          and len(out["embeddings"]) == 2 and int(m.get("mop_tpot_seconds_count", 0)) >= 4,
+          f"serve_http --spec: 4 text clients, a stream, /v1/completions "
+          f"({out['completion']['finish_reason']}), /v1/embeddings, drained {out['drained']}; "
+          f"{m.get('mop_engine_steps_total')} engine steps for {m.get('mop_tokens_generated_total')}"
+          f" tokens, acceptance {eng.drafts_accepted} of {eng.drafts_proposed} drafts; target "
+          f"loss {out['loss']:.3f}; launches {launched(counts)} (K5: the training); {secs:.1f} s "
+          f"[{smi}]")
+
+
+def serving_export_phases(smi):
+    """Phase 16: the paged and speculative engines and export."""
+    none = {f.__name__: 0 for f in F.KERNELS}
+    t_phase = time.perf_counter()
+    for part in (paged_phase, spec_phase, export_phase):
+        t0 = time.perf_counter()
+        part(smi, none)
+        say(f"  {part.__name__} took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    spec_http_phase(smi)
+    say(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def later_phases(phases, smi) -> int:
-    """``--phases``: only the named phases of 10-15, after the build."""
+    """``--phases``: only the named phases of 10-16, after the build."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if 10 in phases or 15 in phases:
@@ -2802,6 +3112,8 @@ def later_phases(phases, smi) -> int:
         if 15 in phases:
             trainer_phase(smi, work)
             cli_phase(smi, work, os.path.join(work, "ab5"))
+        if 16 in phases:
+            serving_export_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -2814,10 +3126,10 @@ def later_phases(phases, smi) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", type=lambda v: sorted({int(p) for p in v.split(",")}),
-                    help="comma-separated phases of 10-15 to run alone after the build")
+                    help="comma-separated phases of 10-16 to run alone after the build")
     args = ap.parse_args(argv)
-    if args.phases and not set(args.phases) <= set(range(10, 16)):
-        ap.error(f"--phases takes phases of 10-15, not {args.phases}")
+    if args.phases and not set(args.phases) <= set(range(10, 17)):
+        ap.error(f"--phases takes phases of 10-16, not {args.phases}")
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
         return 1
@@ -3821,6 +4133,7 @@ def main(argv=None) -> int:
             for k_name, c in counts.items():
                 launches[k_name] += c
         say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+        serving_export_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(all(c > 0 for c in launches.values()),

@@ -6,16 +6,18 @@ The port's counterpart of ``examples/serve_http.py``: tokenizer training,
 LM training (4 layers, 128 wide, 4 heads, block 256, AdamW 3e-4 with
 optax.adamw's weight decay 1e-4, 32 random 64-token windows a step), int8 /
 int4 weights on request, the continuous-batching ``DecodeEngine`` with a
-prefix cache, and the server with server-side encode / decode. The
-self-test sends ``--clients`` concurrent ``/generate`` text requests, one
-streamed request, an OpenAI ``/v1/completions`` and a ``/v1/embeddings``
-request, reads ``/metrics`` and drains the server. Runs on the GPU unless
-given ``--device cpu``. ``--spec`` (speculative serving) is not ported yet.
+prefix cache (with ``--spec``: a ``SpecDecodeEngine`` whose draft, 2 layers,
+64 wide, 2 heads, is trained like the target, gamma 4), and the server with
+server-side encode / decode. The self-test sends ``--clients`` concurrent
+``/generate`` text requests, one streamed request, an OpenAI
+``/v1/completions`` and a ``/v1/embeddings`` request, reads ``/metrics`` and
+drains the server. Runs on the GPU unless given ``--device cpu``.
 
 Usage:
   python -m mop_tpu_torch.cli.serve_http                 # train, serve, self-test
   python -m mop_tpu_torch.cli.serve_http --port 8000 --keep-serving
   python -m mop_tpu_torch.cli.serve_http --quant int4 --device cpu --steps 20
+  python -m mop_tpu_torch.cli.serve_http --spec --device cpu --steps 20
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..data.tokenizer import ByteBPETokenizer
 from ..models import TransformerConfig, create_gpt_quartet
 from ..models.generate import decode_params
 from ..ops.quant import quantize_params, quantized_bytes
-from ..serving import DecodeEngine, ServingServer
+from ..serving import DecodeEngine, ServingServer, SpecDecodeEngine
 from ..utils.device import resolve_device
 
 CORPUS = ("the quick brown fox jumps over the lazy dog. "
@@ -148,6 +150,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--max_batch", type=int, default=4)
     ap.add_argument("--quant", choices=["none", "int8", "int4"], default="none")
+    ap.add_argument("--spec", action="store_true",
+                    help="serve with speculative decoding (a 2-layer draft)")
     ap.add_argument("--prefix_cache", type=int, default=4,
                     help="prefix-cache LRU entries (0 disables)")
     ap.add_argument("--clients", type=int, default=3, help="concurrent text clients")
@@ -169,17 +173,24 @@ def run(args, whisper_engine=None, whisper_tokenizer=None,
     data = np.asarray(tok.encode(CORPUS), np.int64)
     print(f"vocab {tok.vocab_size}, corpus {len(CORPUS)} chars -> {data.size} tokens",
           flush=True)
-    print(f"training the LM ({args.steps} steps)...", flush=True)
+    print(f"training the target LM ({args.steps} steps)...", flush=True)
     model, loss = train_lm(4, 128, 4, args.steps, 0, tok.vocab_size, data, device)
-    print(f"loss {loss:.3f}", flush=True)
+    print(f"target loss {loss:.3f}", flush=True)
     params = decode_params(model)
     if args.quant != "none":
         params = quantize_params(params, bits=8 if args.quant == "int8" else 4)
         stored, fp32 = quantized_bytes(params)
         print(f"{args.quant} weights: {stored / 1e6:.2f} MB stored "
               f"(fp32 would be {fp32 / 1e6:.2f} MB)", flush=True)
-    eng = DecodeEngine(model, params, max_batch=args.max_batch,
-                       prefix_cache_entries=args.prefix_cache)
+    if args.spec:
+        draft, dloss = train_lm(2, 64, 2, args.steps, 1, tok.vocab_size, data, device)
+        print(f"draft loss {dloss:.3f}", flush=True)
+        eng = SpecDecodeEngine(model, params, draft, decode_params(draft),
+                               max_batch=args.max_batch, gamma=4,
+                               prefix_cache_entries=args.prefix_cache)
+    else:
+        eng = DecodeEngine(model, params, max_batch=args.max_batch,
+                           prefix_cache_entries=args.prefix_cache)
     srv = ServingServer(eng, port=args.port, tokenizer=tok, whisper_engine=whisper_engine,
                         whisper_tokenizer=whisper_tokenizer)
     srv.start()

@@ -786,15 +786,45 @@ def decode_step_rows(model: nn.Module, params: Optional[dict], cache: dict, toke
     return logits[:, 0], cache
 
 
-def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor,
-                      lens: Union[int, Tensor]):
-    """Advance every row G tokens, each from its own position: (B, G) tokens
-    appended at ``lens[b] .. lens[b] + G - 1`` (``lens`` a (B,) tensor, or
-    an int shared by every row) -> ``(logits (B, G, vocab), cache)`` with
-    ``len = lens + G``. Chunk position g of row b standardizes and attends
-    over its ``lens[b] + g + 1`` live columns: the composition of G
-    ``decode_step_rows`` calls. The chunk's rows are written (in place)
-    before the attention, so that the causal mask covers the chunk."""
+class SlotRows:
+    """The dense cache's access for ``decode_rows``: row b's window is slot b
+    of every (L, B, H, W, dk) pool (GPT-MoP's view history (L, B, W, V)),
+    written in place at each row's positions (``_write_rows``)."""
+
+    def __init__(self, cache: dict):
+        self.cache = cache
+        self.width = cache["k"].shape[3]
+
+    def write(self, i: int, pos: Union[int, Tensor], new) -> Optional[tuple]:
+        return _write_rows(self.cache, i, pos, new)
+
+    def window(self, key: str, i: int) -> Tensor:
+        return self.cache[key][i]
+
+    def write_views(self, i: int, pos: Union[int, Tensor], views: Tensor) -> None:
+        mv = self.cache["mv"]
+        if isinstance(pos, Tensor):
+            rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+            mv[i, rows, pos.clamp_max(mv.shape[2] - 1)] = views
+        else:
+            mv[i, :, pos:pos + views.shape[1]] = views
+
+    def views(self, i: int) -> Tensor:
+        return self.cache["mv"][i]
+
+
+def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
+                lens: Union[int, Tensor]) -> Tensor:
+    """The per-layer body of every cached step: (B, G) tokens appended at
+    ``lens[b] .. lens[b] + G - 1`` (``lens`` a (B,) tensor, or an int shared
+    by every row) -> logits (B, G, vocab). ``rows`` is the cache's access
+    (``SlotRows``, or the paged engine's page tables): ``write`` puts layer
+    i's new K/K2/V rows at the positions (returning int8 scales or None),
+    ``window`` gives layer i's (B, H, W, dk) window of a buffer in position
+    order, ``write_views`` / ``views`` the same for GPT-MoP's view history.
+    Chunk position g of row b standardizes and attends over its
+    ``lens[b] + g + 1`` live columns, masked with ``where`` / -inf, so that
+    nothing in a column past them reaches a result."""
     cfg = model.config
     p = _params(model, params)
     b, g = tokens.shape
@@ -803,9 +833,10 @@ def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tok
     shared = not isinstance(lens, Tensor)  # one length for every row
     steps = torch.arange(g, device=dev)
     pos = (lens + steps)[None] if shared else lens[:, None] + steps[None, :]  # (1 | B, G)
+    wpos = lens if shared else pos  # where the new rows go
     # each position's live-prefix length; an int for one shared position
     nv = lens + 1 if shared and g == 1 else pos + 1
-    cols = _cols_mask(cache["k"].shape[3], nv, dev)
+    cols = _cols_mask(rows.width, nv, dev)
     causal_gate = bool(getattr(model, "causal_gate", False))
     with torch.no_grad():
         x = p["wte"]["embedding"][tokens]
@@ -817,13 +848,13 @@ def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tok
             hx = _ln(x, bp["ln1"])
             q = _split_heads(_lin(hx, ap["q_proj"]), h)
             scale = 1.0 / math.sqrt(q.shape[-1])
-            sc = _write_rows(cache, i, lens if shared else pos, _kv_rows(ap, cfg, hx))
-            qk = q @ cache["k"][i].to(q.dtype).transpose(-1, -2) * scale
+            sc = rows.write(i, wpos, _kv_rows(ap, cfg, hx))
+            qk = q @ rows.window("k", i).to(q.dtype).transpose(-1, -2) * scale
             if sc is not None:
                 qk = qk * sc[0][:, :, None, :]
             if cfg.use_quartet:
                 q2 = _split_heads(_lin(hx, ap["q2_proj"]), h)
-                q2k2 = q2 @ cache["k2"][i].to(q2.dtype).transpose(-1, -2) * scale
+                q2k2 = q2 @ rows.window("k2", i).to(q2.dtype).transpose(-1, -2) * scale
                 if sc is not None:
                     q2k2 = q2k2 * sc[1][:, :, None, :]
                 m = torch.sigmoid(ap["mixture"][0])
@@ -835,18 +866,25 @@ def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tok
             att = torch.softmax(scores.masked_fill(~cols, float("-inf")), -1)
             if sc is not None:
                 att = att * sc[2][:, :, None, :]
-            x = x + _lin(_merge_heads(att @ cache["v"][i].to(att.dtype)), ap["o_proj"])
+            x = x + _lin(_merge_heads(att @ rows.window("v", i).to(att.dtype)), ap["o_proj"])
             if "views" in bp:  # per row and chunk position, taps <= pos
-                views = _lin(x, bp["views"]["proj"])
-                if shared:
-                    cache["mv"][i, :, lens:lens + g] = views
-                else:
-                    rows = torch.arange(b, device=dev)[:, None]
-                    cache["mv"][i, rows, pos.clamp_max(cache["mv"].shape[2] - 1)] = views
-                x = x * _mop_gates(bp, cache["mv"][i], pos.expand(b, g), causal_gate)[..., None]
+                rows.write_views(i, wpos, _lin(x, bp["views"]["proj"]))
+                x = x * _mop_gates(bp, rows.views(i), pos.expand(b, g), causal_gate)[..., None]
             x = _mlp(x, bp)
-        logits = _ln(x, p["ln_f"]) @ p["wte"]["embedding"].t()
-    return logits, dict(cache, len=lens + g)
+        return _ln(x, p["ln_f"]) @ p["wte"]["embedding"].t()
+
+
+def decode_chunk_rows(model: nn.Module, params: Optional[dict], cache: dict, tokens: Tensor,
+                      lens: Union[int, Tensor]):
+    """Advance every row G tokens, each from its own position: (B, G) tokens
+    appended at ``lens[b] .. lens[b] + G - 1`` (``lens`` a (B,) tensor, or
+    an int shared by every row) -> ``(logits (B, G, vocab), cache)`` with
+    ``len = lens + G``. Chunk position g of row b standardizes and attends
+    over its ``lens[b] + g + 1`` live columns: the composition of G
+    ``decode_step_rows`` calls. The chunk's rows are written (in place)
+    before the attention, so that the causal mask covers the chunk."""
+    logits = decode_rows(model, params, SlotRows(cache), tokens, lens)
+    return logits, dict(cache, len=lens + tokens.shape[1])
 
 
 def decode_step(model: nn.Module, params: Optional[dict], cache: dict, token: Tensor):

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -88,6 +88,15 @@ def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return _P(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _cuda_route(launch):
+    """The CUDA route of a forward: its ctypes ``launch``, or, while
+    ``torch.export`` traces (a ctypes launch reads ``data_ptr`` and cannot
+    trace), the launch's registered op ``mop_tpu_torch::...`` (``EXPORT_OPS``),
+    whose CUDA kernel is that launch. The eager path keeps the direct launch,
+    with no dispatcher between the host and the kernel."""
+    return _TRACED[launch] if torch.compiler.is_exporting() else launch
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -233,7 +242,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
-    fwd = _flash_fwd_cuda if q.is_cuda else flash_attention_plain
+    fwd = _cuda_route(_flash_fwd_cuda) if q.is_cuda else flash_attention_plain
     if _needs_grad(q, k, v):
         out = _FlashAttention.apply(fwd, q, k, v, causal)
     else:
@@ -985,9 +994,9 @@ def fused_edgewise_lowrank_attention(
     """
     b, h, nv, n, dk = qs.shape
     if qs.is_cuda and not _lowrank_one_program(qs.dtype, nv, n, dk, wrow.shape[-1] // 4):
-        fwd, bwd = edgewise_lowrank_wide_fwd, edgewise_lowrank_wide_bwd
+        fwd, bwd = _cuda_route(edgewise_lowrank_wide_fwd), edgewise_lowrank_wide_bwd
     elif qs.is_cuda:
-        fwd, bwd = _edgewise_fwd_cuda, fused_edgewise_lowrank_attention_bwd
+        fwd, bwd = _cuda_route(_edgewise_fwd_cuda), fused_edgewise_lowrank_attention_bwd
     else:
         fwd, bwd = (fused_edgewise_lowrank_attention_plain,
                     fused_edgewise_lowrank_attention_bwd_plain)
@@ -1020,7 +1029,7 @@ def fused_edgewise_dense_attention(
         raise ValueError("fused_edgewise_dense_attention: the use_k3 mid conv has no fused "
                          "kernel; EdgewiseMSA composes that head")
     if qs.is_cuda:
-        fwd, bwd = _dense_fwd_cuda, fused_edgewise_dense_attention_bwd
+        fwd, bwd = _cuda_route(_dense_fwd_cuda), fused_edgewise_dense_attention_bwd
     else:
         fwd, bwd = fused_edgewise_dense_attention_plain, fused_edgewise_dense_attention_bwd_plain
     return _edgewise_op(fwd, bwd, qs, ks, vs, (w1, b1, w2, b2), beta_not, chain_w)
@@ -1188,7 +1197,7 @@ def fused_multihop_attention(
     """
     chain_w = _scalar_tensor(chain_w, q1.device)
     gates = dict(gates)
-    fwd = _multihop_fwd_cuda if q1.is_cuda else fused_multihop_attention_plain
+    fwd = _cuda_route(_multihop_fwd_cuda) if q1.is_cuda else fused_multihop_attention_plain
     ins = (q1, k1, v1, q2, k2, v2, chain_w)
     if _needs_grad(*ins):
         return _RecomputeFunction.apply(
@@ -1324,7 +1333,7 @@ def fused_quartet_attention(
     """
     mixture, quartet_scale = (_scalar_tensor(x, q.device).reshape(())
                               for x in (mixture, quartet_scale))
-    fwd = _quartet_fwd_cuda if q.is_cuda else fused_quartet_attention_plain
+    fwd = _cuda_route(_quartet_fwd_cuda) if q.is_cuda else fused_quartet_attention_plain
     ins = (q, k, v, q2, k2, mixture, quartet_scale)
     if _needs_grad(*ins):
         return _RecomputeFunction.apply(lambda *t: fwd(*t, eps),
@@ -1344,3 +1353,89 @@ KERNELS = (flash_attention, fused_edgewise_lowrank_attention,
 def reset_launch_counts() -> None:
     for f in KERNELS:
         f.launches = 0
+
+
+# ------------------- registered ops, for torch.export -------------------
+#
+# Each kernel forward as a ``torch.library`` op: its CUDA kernel is the ctypes
+# launch (which counts its launches), its CPU kernel the plain version, and
+# its fake gives the output's shape, dtype and layout (a (B, H, N, dk) view of
+# a (B, N, H, dk) buffer, as every launch returns). An exported program keeps
+# them as calls of ``mop_tpu_torch::<name>``, so it replays only where this
+# module is imported (``serving.export.load_exported`` imports it) and, on
+# the card, the kernels are built. Inference only: no backward is registered.
+
+Tensor = torch.Tensor
+_GATES = ("base", "and_", "or_", "not_", "chain")
+
+
+def _out_like(q: Tensor) -> Tensor:
+    """The launches' output for (B, H, [V,] N, dk) inputs ``q``."""
+    b, h, n, dk = q.shape[0], q.shape[1], q.shape[-2], q.shape[-1]
+    return q.new_empty(b, n, h, dk).transpose(1, 2)
+
+
+@torch.library.custom_op("mop_tpu_torch::flash_fwd", mutates_args=(), device_types="cuda")
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tensor:
+    return _flash_fwd_cuda(q, k, v, causal)
+
+
+@torch.library.custom_op("mop_tpu_torch::edgewise_lowrank_fwd", mutates_args=(),
+                         device_types="cuda")
+def _edgewise_op_k2(qs: Tensor, ks: Tensor, vs: Tensor, wrow: Tensor, brow: Tensor,
+                    wcol: Tensor, bcol: Tensor, beta_not: float, chain_w: Tensor) -> Tensor:
+    return _edgewise_fwd_cuda(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+
+
+@torch.library.custom_op("mop_tpu_torch::edgewise_lowrank_wide_fwd", mutates_args=(),
+                         device_types="cuda")
+def _edgewise_op_k2w(qs: Tensor, ks: Tensor, vs: Tensor, wrow: Tensor, brow: Tensor,
+                     wcol: Tensor, bcol: Tensor, beta_not: float, chain_w: Tensor) -> Tensor:
+    return edgewise_lowrank_wide_fwd(qs, ks, vs, wrow, brow, wcol, bcol, beta_not, chain_w)
+
+
+@torch.library.custom_op("mop_tpu_torch::edgewise_dense_fwd", mutates_args=(),
+                         device_types="cuda")
+def _edgewise_op_k3(qs: Tensor, ks: Tensor, vs: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,
+                    b2: Tensor, beta_not: float, chain_w: Tensor) -> Tensor:
+    return _dense_fwd_cuda(qs, ks, vs, w1, b1, w2, b2, beta_not, chain_w)
+
+
+@torch.library.custom_op("mop_tpu_torch::multihop_fwd", mutates_args=(), device_types="cuda")
+def _multihop_op(q1: Tensor, k1: Tensor, v1: Tensor, q2: Tensor, k2: Tensor, v2: Tensor,
+                 gates: List[float], beta_not: float, hops: int, chain_w: Tensor) -> Tensor:
+    return _multihop_fwd_cuda(q1, k1, v1, q2, k2, v2, dict(zip(_GATES, gates)), beta_not, hops,
+                              chain_w)
+
+
+@torch.library.custom_op("mop_tpu_torch::quartet_fwd", mutates_args=(), device_types="cuda")
+def _quartet_op(q: Tensor, k: Tensor, v: Tensor, q2: Tensor, k2: Tensor, mixture: Tensor,
+                quartet_scale: Tensor, eps: float) -> Tensor:
+    return _quartet_fwd_cuda(q, k, v, q2, k2, mixture, quartet_scale, eps)
+
+
+_flash_op.register_kernel("cpu")(flash_attention_plain)
+_edgewise_op_k2.register_kernel("cpu")(fused_edgewise_lowrank_attention_plain)
+_edgewise_op_k2w.register_kernel("cpu")(fused_edgewise_lowrank_attention_plain)
+_edgewise_op_k3.register_kernel("cpu")(fused_edgewise_dense_attention_plain)
+_multihop_op.register_kernel("cpu")(
+    lambda q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w: fused_multihop_attention_plain(
+        q1, k1, v1, q2, k2, v2, dict(zip(_GATES, gates)), beta_not, hops, chain_w))
+_quartet_op.register_kernel("cpu")(fused_quartet_attention_plain)
+for _op in (_flash_op, _edgewise_op_k2, _edgewise_op_k2w, _edgewise_op_k3, _multihop_op,
+            _quartet_op):
+    _op.register_fake(lambda q, *args: _out_like(q))
+
+# each launch -> its traced form, called with the launch's own arguments
+_TRACED = {
+    _flash_fwd_cuda: _flash_op,
+    _edgewise_fwd_cuda: _edgewise_op_k2,
+    edgewise_lowrank_wide_fwd: _edgewise_op_k2w,
+    _dense_fwd_cuda: _edgewise_op_k3,
+    _multihop_fwd_cuda: lambda q1, k1, v1, q2, k2, v2, gates, beta_not, hops, chain_w: _multihop_op(
+        q1, k1, v1, q2, k2, v2, list(_gate_values(gates)), float(beta_not), int(hops), chain_w),
+    _quartet_fwd_cuda: _quartet_op,
+}
+EXPORT_OPS = tuple(f"mop_tpu_torch::{n}" for n in (
+    "flash_fwd", "edgewise_lowrank_fwd", "edgewise_lowrank_wide_fwd", "edgewise_dense_fwd",
+    "multihop_fwd", "quartet_fwd"))

@@ -1,8 +1,10 @@
 """Continuous-batching decode engine for the GPT family, in PyTorch: the port
-of ``mop_tpu/serving/engine.py`` (``DecodeEngine``, ``decode_step_rows``,
-``decode_chunk_rows``, ``lora_params_view``); the two per-row steps live
-in ``models.generate``, whose single-stream ``decode_step`` /
-``decode_chunk`` are their shared-length case.
+of ``mop_tpu/serving/engine.py`` (``DecodeEngine``, ``SpecDecodeEngine``,
+``decode_step_rows``, ``decode_chunk_rows``, ``lora_params_view``); the two
+per-row steps live in ``models.generate``, whose single-stream
+``decode_step`` / ``decode_chunk`` are their shared-length case. A subclass
+with another cache layout replaces ``_make_cache`` and ``_step_logits``
+(``serving.paged``); ``_on_admit`` runs after each admission.
 
 - The KV cache is a fixed pool of ``max_batch`` slots (the
   ``init_decode_cache`` layout, (L, B, H, block, dk); int8 pools carry their
@@ -39,7 +41,8 @@ from .constrain import mask_row
 
 Tensor = torch.Tensor
 
-__all__ = ["DecodeEngine", "decode_chunk_rows", "decode_step_rows", "lora_params_view"]
+__all__ = ["DecodeEngine", "SpecDecodeEngine", "decode_chunk_rows", "decode_step_rows",
+           "lora_params_view"]
 
 
 def lora_params_view(params: dict, rows: Dict[str, Tuple[Tensor, Tensor]]) -> dict:
@@ -61,6 +64,14 @@ def lora_params_view(params: dict, rows: Dict[str, Tuple[Tensor, Tensor]]) -> di
     for path, (a, b) in rows.items():
         params = set_parent(params, path.split("/"), a, b)
     return params
+
+
+def _no_int8_pools(kv_dtype: torch.dtype) -> None:
+    """The paged and speculative engines' pools are fp32 or bf16, as JAX's
+    engines'; the dense engine's int8 pool is an addition of the port."""
+    if kv_dtype == torch.int8:
+        raise ValueError("the serving engines support fp32/bfloat16 KV pools; the int8 "
+                         "per-row-scale layout is a generate_cached feature")
 
 
 def _pool_keys(cache: dict) -> Tuple[str, ...]:
@@ -229,10 +240,8 @@ class DecodeEngine:
             raise ValueError(f"kv_dtype must be float32, bfloat16 or int8, got {kv_dtype}")
         self.kv_dtype = kv_dtype
         self._n_views = model_n_views(model)
-        self._cache = init_decode_cache(cfg, max_batch, kv_dtype, n_views=self._n_views,
-                                        device=self.device)
-        del self._cache["len"]  # the per-row lengths live on the host, ``_lens``
-        self._pool_keys = _pool_keys(self._cache)
+        self._cache = self._make_cache(cfg, max_batch, kv_dtype)
+        self._pool_keys = () if self._cache is None else _pool_keys(self._cache)
         self._lens = np.zeros((max_batch,), np.int64)
         self._tokens = torch.zeros((max_batch,), dtype=torch.long, device=self.device)
         self._slot_rid: List[int] = [-1] * max_batch
@@ -284,6 +293,18 @@ class DecodeEngine:
             raise ValueError(f"chunk_prefill {chunk_prefill} must be in "
                              f"(0, block_size={self.block_size}]")
         self._chunk_state: Dict[int, dict] = {}
+
+    def _make_cache(self, cfg, max_batch: int, kv_dtype: torch.dtype) -> Optional[dict]:
+        """The per-slot KV pools. A subclass with another cache layout
+        (``PagedDecodeEngine``) returns None, so that the dense
+        ``max_batch x block_size`` slabs are never allocated."""
+        cache = init_decode_cache(cfg, max_batch, kv_dtype, n_views=self._n_views,
+                                  device=self.device)
+        del cache["len"]  # the per-row lengths live on the host, ``_lens``
+        return cache
+
+    def _on_admit(self, slot: int, prompt: np.ndarray) -> None:
+        """Subclass hook: called after a request's prompt is in ``slot``."""
 
     # ---------------- multi-LoRA ----------------
 
@@ -670,9 +691,7 @@ class DecodeEngine:
         counts stay, and the step's write at their length is overwritten by
         their next real feed (a held row's length masks it out)."""
         dev = self.device
-        lens = torch.from_numpy(self._lens).to(dev)
-        logits, _ = decode_step_rows(self.model, self._step_params(), self._cache, self._tokens,
-                                     lens)
+        logits = self._step_logits(torch.from_numpy(self._lens).to(dev))
         adv_h = np.zeros((self.max_batch,), bool)
         adv_h[active] = True
         adv = torch.from_numpy(adv_h).to(dev)
@@ -698,6 +717,12 @@ class DecodeEngine:
             self._permute_rows(perm)
             self._tokens = torch.from_numpy(newtoks).to(dev)
 
+    def _step_logits(self, lens: Tensor) -> Tensor:
+        """The batched step's logits (B, V), each row's new K/K2/V written at
+        its length ``lens[b]``: the cache access a subclass replaces."""
+        return decode_step_rows(self.model, self._step_params(), self._cache, self._tokens,
+                                lens)[0]
+
     def _permute_rows(self, perm: np.ndarray) -> None:
         """Slot s takes slot ``perm[s]``'s cache rows, for the slots that
         move. The parents' rows are gathered (a copy) before any is written,
@@ -716,9 +741,14 @@ class DecodeEngine:
             self._lens[np.asarray(dead, np.int64)] = 0
 
     def run(self, n_tokens: int = 1) -> Dict[int, List[int]]:
-        """Step until every queued and live request completes; all results."""
+        """Step until every queued and live request completes; all results.
+        ``n_tokens`` > 1 goes to ``step`` (``SpecDecodeEngine``'s takes none:
+        its step advances up to gamma + 1 tokens already)."""
         while self._queue or self.n_active:
-            self.step(n_tokens=n_tokens)
+            if n_tokens == 1:
+                self.step()
+            else:
+                self.step(n_tokens=n_tokens)
         return {rid: list(toks) for rid, toks in self._results.items()}
 
     def cancel(self, rid: int) -> bool:
@@ -838,6 +868,7 @@ class DecodeEngine:
         self._slot_rid[slot] = rid
         self._budget[slot] = max_new  # tokens still to emit, tok0 included
         self._prefix_store(prompt, slot, aid)
+        self._on_admit(slot, prompt)
         return slot, rid, tok0, t0, lp0
 
     def _feed(self, slot: int, params: dict, tail: np.ndarray, base: int) -> Tensor:
@@ -867,6 +898,7 @@ class DecodeEngine:
             tok0, lp0 = self._pick_first(slot, logits, st["oc"], st["seen"])
         self._activate(slot, tok0, st["oc"], st["seen"])
         self._prefix_store(st["prompt"], slot, st["aid"])
+        self._on_admit(slot, st["prompt"])
         del self._chunk_state[slot]
         return slot, st["rid"], tok0, t0, lp0
 
@@ -1018,3 +1050,152 @@ class DecodeEngine:
         self._prefix_lru[key] = entry
         while len(self._prefix_lru) > self._prefix_max:
             self._prefix_lru.popitem(last=False)
+
+
+class SpecDecodeEngine(DecodeEngine):
+    """Continuous batching with speculative decoding (greedy only), the port
+    of JAX's ``SpecDecodeEngine`` (``mop_tpu/serving/engine.py:1718``).
+
+    Every live slot advances 1 to gamma + 1 tokens an engine step: a draft
+    model proposes gamma tokens per row from its own slot pool (filled at
+    admission by a prefill of the prompt), the target verifies every row at
+    every position in one ``decode_chunk_rows`` call, and each row keeps its
+    longest matching prefix plus the target's correction token. Every
+    emitted token is the target's argmax given the same prefix, so the
+    tokens are ``DecodeEngine``'s for any draft (up to the verify chunk's
+    summation order, as ``decode_chunk``'s); the draft changes only the
+    number of target passes. A slot retires when the next round would not
+    fit the window (``len + gamma + 1 > block_size``): budget that close to
+    the edge is truncated, as in JAX's engine. The pools are fp32 or bf16
+    (int8 raises, as JAX's). ``drafts_proposed`` / ``drafts_accepted``
+    count the draft tokens of every round and those the target kept.
+    """
+
+    def __init__(self, model, params, draft_model, draft_params, max_batch: int = 8,
+                 gamma: int = 4, eos_id: Optional[int] = None, cache_sharding=None,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 prefix_cache_entries: int = 0, kv_dtype: torch.dtype = torch.float32,
+                 logprobs_topk: int = 0):
+        _no_int8_pools(kv_dtype)
+        super().__init__(model, params, max_batch=max_batch, eos_id=eos_id, temperature=0.0,
+                         cache_sharding=cache_sharding, prefill_buckets=prefill_buckets,
+                         prefix_cache_entries=prefix_cache_entries, kv_dtype=kv_dtype,
+                         logprobs_topk=logprobs_topk)
+        if gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        self.draft_model = draft_model
+        self.draft_params = decode_params(draft_model) if draft_params is None else draft_params
+        self.gamma = int(gamma)
+        dcfg = draft_model.config
+        if dcfg.block_size < self.block_size:
+            raise ValueError(f"draft block_size {dcfg.block_size} must be >= target's "
+                             f"{self.block_size}")
+        # the draft's slot pool; its lengths are the target's, ``_lens``
+        self._dcache = init_decode_cache(dcfg, max_batch, kv_dtype,
+                                         n_views=model_n_views(draft_model), device=self.device)
+        del self._dcache["len"]
+        self._d_keys = _pool_keys(self._dcache)
+        self.drafts_proposed = 0  # gamma per live row and round
+        self.drafts_accepted = 0
+
+    def submit(self, prompt, max_new_tokens: int, temperature: Optional[float] = None,
+               top_k: Optional[int] = None, top_p: Optional[float] = None,
+               eos_id: Optional[int] = None, min_p: Optional[float] = None,
+               repetition_penalty: Optional[float] = None,
+               presence_penalty: Optional[float] = None,
+               frequency_penalty: Optional[float] = None, logit_bias: Optional[dict] = None,
+               stop=None, adapter: Optional[str] = None, constraint=None,
+               seed: Optional[int] = None) -> int:
+        """Greedy only: the verify compares the target's argmax with the
+        draft's, which penalties, a bias, a constraint or an adapter (the
+        draft has none) would break, so per-request overrides other than
+        ``eos_id`` and ``stop`` are rejected. ``seed`` is accepted and
+        ignored: greedy decoding is deterministic already."""
+        if temperature not in (None, 0, 0.0) or top_k is not None \
+                or top_p not in (None, 1.0) or min_p not in (None, 0.0) \
+                or repetition_penalty not in (None, 1.0) \
+                or presence_penalty not in (None, 0.0) or logit_bias \
+                or frequency_penalty not in (None, 0.0) \
+                or adapter is not None or constraint is not None:
+            raise ValueError("SpecDecodeEngine is greedy-only; per-request temperature/top_k/"
+                             "top_p/min_p/penalties/logit_bias/adapter/constraint are not "
+                             "supported (use DecodeEngine)")
+        return super().submit(prompt, max_new_tokens, eos_id=eos_id, stop=stop)
+
+    def _on_admit(self, slot: int, prompt: np.ndarray) -> None:
+        """The draft's prefill of the whole prompt (bucketed as the target's)
+        into its slot."""
+        with torch.no_grad():
+            padded = self._bucket_pad(prompt)
+            if padded is not None:
+                _, pc = prefill_padded(self.draft_model, self.draft_params, padded[0],
+                                       padded[1], kv_dtype=self.kv_dtype)
+            else:
+                _, pc = prefill(self.draft_model, self.draft_params,
+                                torch.from_numpy(prompt[None]).to(self.device),
+                                kv_dtype=self.kv_dtype)
+            for key in self._d_keys:
+                self._dcache[key][:, slot] = pc[key][:, 0].to(self._dcache[key].dtype)
+
+    def _round(self, lens: Tensor):
+        """One speculative round over every row: gamma greedy draft steps
+        and one more, whose rows the rows that accept every draft need (the
+        others get a row past their length, overwritten by their next
+        write); then the target's verify over [token, drafts]. Returns the
+        emitted tokens (B, gamma + 1), the accepted counts (B,) and the
+        verify logits (B, gamma + 1, V)."""
+        g = self.gamma
+        tok, drafts = self._tokens, []
+        for j in range(g):
+            logits, _ = decode_step_rows(self.draft_model, self.draft_params, self._dcache, tok,
+                                         lens + j)
+            tok = logits.argmax(-1)
+            drafts.append(tok)
+        decode_step_rows(self.draft_model, self.draft_params, self._dcache, tok, lens + g)
+        drafts = torch.stack(drafts, 1)  # (B, gamma)
+        chunk = torch.cat([self._tokens[:, None], drafts], 1)
+        logits, _ = decode_chunk_rows(self.model, self.params, self._cache, chunk, lens)
+        tpred = logits.argmax(-1)  # (B, gamma + 1)
+        n_acc = (tpred[:, :g] == drafts).long().cumprod(1).sum(1)
+        corr = tpred.gather(1, n_acc[:, None])
+        i = torch.arange(g + 1, device=lens.device)[None, :]
+        emit = torch.where(i < n_acc[:, None], torch.cat([drafts, drafts[:, -1:]], 1), corr)
+        return emit, n_acc, corr[:, 0], logits
+
+    def step(self) -> Dict[int, List[int]]:
+        """One engine iteration: admit, retire the rows whose next round would
+        overflow the window, then advance every live row by 1 to gamma + 1
+        tokens with one draft pass and one target verify."""
+        self.engine_steps += 1
+        emitted: Dict[int, List[int]] = {}
+        while self._queue:
+            adm = self._admit_one()
+            if adm is None:
+                break
+            self._emit_token(emitted, *adm)
+        for s, rid in enumerate(self._slot_rid):
+            if rid >= 0 and int(self._lens[s]) + self.gamma + 1 > self.block_size:
+                self._slot_rid[s] = -1
+                self._done[rid] = True
+                self._zero_dead_lens([s])
+        active = [s for s, r in enumerate(self._slot_rid) if r >= 0]
+        if not active:
+            return emitted
+        with torch.no_grad():
+            emit, n_acc, self._tokens, logits = self._round(
+                torch.from_numpy(self._lens).to(self.device))
+            et, na, *lph = _to_host(emit, n_acc, *self._lp_of(logits, emit))
+        live = np.zeros((self.max_batch,), bool)
+        live[active] = True
+        self._lens = np.where(live, self._lens + na + 1, 0)
+        self.drafts_proposed += self.gamma * len(active)
+        self.drafts_accepted += int(na[active].sum())
+        for s in active:
+            rid = self._slot_rid[s]
+            n_emit = int(na[s]) + 1
+            base = int(self._lens[s]) - n_emit
+            for j in range(n_emit):
+                lp = self._lp_entry(lph[0][s], lph[1][s], lph[2][s], j) if lph else None
+                if not self._emit_token(emitted, s, rid, int(et[s, j]), base + j + 1, lp):
+                    break
+        return emitted

@@ -30,5 +30,5 @@ def test_demo_runs_on_the_gpu_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_http.main(["--steps", "1"])
-    with pytest.raises(SystemExit):  # speculative serving is not ported yet
-        serve_http.main(["--spec"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # speculative serving too
+        serve_http.main(["--spec", "--steps", "1"])
