@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --phases 12,15`` builds, then runs only the named
-phases of 10-16 (15 runs 10 first, for its CSVs), and prints neither the
+phases of 10-17 (15 runs 10 first, for its CSVs), and prints neither the
 kernels line nor the last line's ok: a quicker check of a later phase.
 
 Phases, one line each (a failed phase makes the script exit non-zero):
@@ -232,6 +232,23 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    K1 8, K5 8, K2 2 and K4 2 times a forward, its output against the eager forward (fp32,
    atol 2e-5, rtol 2e-4), A's one artifact at batch 1, 3 and 256; 16d, ``serve_http --spec``
    on the card. The kernels line's ``launches`` add 16c's.
+17. the multi-GPU modes (``mop_tpu_torch.parallel``) over NCCL at world size 1 (one process
+   drives one card; the multi-rank numerics are the CPU tests' over gloo): 17a, data parallel
+   over the bench.py recipe (B 224 / 6 / 4, batch 256, bf16), the plain and the scanned (K =
+   20) step against the one-device step, losses and parameters bit-equal after 3 steps (20
+   scanned), K1 6 launches a step (plain and scanned), the ms a step beside the one-device
+   step's (interleaved), each step's device time, busy share and host time from one trace with
+   the kernels and host ops that differ most, and the gradient reduction alone; 17b, FSDP and
+   ZeRO-1 of LM_quartet (8 x 640, 64 x 256, bf16) against ``make_lm_train_step``: losses within
+   1e-3, K5 8 launches a step, peak memory; 17c, tensor parallel A and GPT_MoP (with and
+   without sequence parallelism) against the one-device steps: losses within 1e-3, K1 8 and
+   K5 6 launches a step, the heads they launch on; 17d, ring attention at Whisper_20M's (8, 6,
+   750, 64) against K1 and full attention (output and the three grads), the expert-parallel
+   op against ``dense_top1_mlp`` at MoE B_bench's shapes; 17e, multi-seed (2 seeds of B_bench)
+   against two one-seed runs, bit-equal; each mode's collectives (recorded) equal to its row
+   of ``MODE_COLLECTIVES`` (none for the ring, which has no neighbour at world 1), from which the modes two ranks could run on one card over gloo are
+   printed; 17f, ``cli.launch_multihost --nproc 1`` running ``cli.multihost_train`` over NCCL
+   (and at the card count where it is above 1). The kernels line's ``launches`` add 17's.
 """
 
 from __future__ import annotations
@@ -3095,8 +3112,502 @@ def serving_export_phases(smi):
     say(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 17, the multi-GPU modes (mop_tpu_torch.parallel). One process drives
+# one card, and NCCL puts no two ranks on one card, so on a one-card machine
+# every mode runs at world size 1 over NCCL: its code, its collectives and
+# the kernels inside it, at full width; its multi-rank numerics are held to
+# the one-device steps on the CPU over gloo (tests/test_torch_parallel_*.py).
+MG_STEPS = 3  # steps of each mode against its one-device step
+MG_LM = dict(LM_CONFIG, dropout=0.0)  # LM_quartet at dropout 0: K5 8 a step
+MG_RING = (8, 6, 750, 64)  # Whisper_20M's encoder attention
+MG_MOE = dict(tokens=BATCH * 64, dim=224, hidden=896, experts=MOE_EXPERTS)  # MoE B_bench
+# Two ranks can share one card only over gloo, which takes CUDA tensors for
+# all_reduce and broadcast alone (torch.distributed's backend table; its
+# all_gather, reduce_scatter, all_to_all and send / recv are CPU-only). The
+# collectives each mode's step calls (utils.collectives names, checked against
+# a record of one step below) decide which modes could run so.
+GLOO_CUDA = {"all-reduce", "broadcast"}
+MODE_COLLECTIVES = {
+    "data parallel": {"all-reduce"},
+    "tensor parallel": {"all-reduce"},
+    "tensor + sequence parallel": {"all-gather", "reduce-scatter", "all-reduce"},
+    "FSDP": {"all-gather", "reduce-scatter", "all-reduce"},
+    "ZeRO-1": {"all-gather", "reduce-scatter", "all-reduce"},
+    "ring attention": {"collective-permute"},
+    "expert parallel": {"all-to-all"},
+    "multi-seed (seeds over ranks)": {"all-reduce"},
+}
+GLOO_CUDA_MODES = tuple(m for m, ops in MODE_COLLECTIVES.items() if ops <= GLOO_CUDA)
+
+
+def _mg_run(step, batches, gen_seed):
+    """The losses of ``step`` over ``batches`` (x, y pairs) from a fresh
+    generator."""
+    g = cuda_generator(gen_seed)
+    return torch.stack([step(x, y, generator=g)["loss"].float() for x, y in batches])
+
+
+def _same(name, got, want, exact=True, atol=0.0):
+    """got equal to want (bit for bit, or within atol), each a tensor or a
+    state dict."""
+    if isinstance(want, dict):
+        diffs = {k: (got[k].float() - want[k].float()).abs().max().item() for k in want}
+        worst = max(diffs.items(), key=lambda kv: kv[1])
+        ok = sorted(got) == sorted(want) and (
+            all(torch.equal(got[k], want[k]) for k in want) if exact else worst[1] <= atol)
+        check(ok, f"{name}: {'bit-equal' if exact else f'within {atol}'} (largest difference "
+                  f"{worst[1]:.3e} at {worst[0]})")
+        return
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.equal(got, want) if exact else err <= atol
+    check(ok, f"{name}: {'bit-equal' if exact else f'within {atol}'} (max difference {err:.3e})")
+
+
+def _state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _records_of(stdout):
+    return [json.loads(line[line.find("{"):]) for line in stdout.splitlines()
+            if line.startswith("[proc ") and '"param_l2"' in line]
+
+
+def kernel_split(fn, reps=3):
+    """Over ``reps`` calls of ``fn`` (after one unprofiled call), from one
+    torch.profiler trace of the card: each kernel's device ms a call (user
+    annotations, which span idle time, left out) and the wall ms a call
+    (profiler overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False):
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    return dev, wall
+
+
+def card_and_host_ms(fn, iters=5, reps=2):
+    """Medians over ``reps`` of the mean ms of one call of ``fn`` (after two
+    calls of warm-up), from the same calls: on the card's clock (CUDA events)
+    and on the host's, from an idle card to the last call's return."""
+    for _ in range(2):
+        fn()
+    card, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+        e1.record()
+        e1.synchronize()
+        card.append(e0.elapsed_time(e1) / iters)
+    return statistics.median(card), statistics.median(host)
+
+
+def _dp_overhead(steps, x, y, grads, group, smi):
+    """17a's data-parallel step against the one-device step at world 1: their
+    ms a step on the card's clock and the host's issue time a step, three
+    rounds interleaved one device / DP / DP / one device (medians); their
+    device time and busy share from one trace each, with the kernels that
+    differ most; and the DP step's two additions alone, on the card's clock
+    and the host's: the gradient reduction (``comm.all_reduce_flat_`` over
+    the DP model's grads) and the mean of the loss and accuracy."""
+    from mop_tpu_torch.parallel import comm
+
+    def call(label):
+        return lambda: steps[label](x, y, cuda_generator(173))
+
+    ms = {label: [] for label in steps}
+    host = {label: [] for label in steps}
+    for _ in range(3):
+        for label in ("one device", "data parallel", "data parallel", "one device"):
+            card, on_host = card_and_host_ms(call(label))
+            ms[label].append(card)
+            host[label].append(on_host)
+    med = {k: (statistics.median(ms[k]), statistics.median(host[k])) for k in steps}
+    (one, one_h), (dp, dp_h) = med["one device"], med["data parallel"]
+    say(f"  17a B_bench train step, batch {BATCH}, bf16, 3 rounds of one device / DP / DP / one "
+        f"device, medians: data parallel {dp:.3f} ms vs one device {one:.3f} ms "
+        f"({100 * (dp / one - 1):+.1f}% at world 1; every sample DP "
+        f"{', '.join(f'{v:.3f}' for v in ms['data parallel'])}, one device "
+        f"{', '.join(f'{v:.3f}' for v in ms['one device'])}); the host's issue time a step "
+        f"{dp_h:.3f} vs {one_h:.3f} ms ({dp_h - one_h:+.3f}) [{smi}]")
+    split = {label: kernel_split(call(label)) for label in steps}
+    for label, (dev, wall) in split.items():
+        d = sum(dev.values())
+        say(f"  17a {label} (profiled): kernels {d:.3f} ms a step, busy {100 * d / wall:.1f}% "
+            f"of {wall:.3f} ms")
+    a, b = split["data parallel"][0], split["one device"][0]
+    diff = sorted(((k, a.get(k, 0.0) - b.get(k, 0.0)) for k in set(a) | set(b)),
+                  key=lambda kv: -abs(kv[1]))[:6]
+    say(f"  17a DP minus one device, kernels (ms a step; total "
+        f"{sum(a.values()) - sum(b.values()):+.3f}): "
+        + "; ".join(f"{k[:60]} {v:+.3f}" for k, v in diff))
+    n = sum(g.numel() for g in grads)
+    loss, acc = (torch.ones((), device="cuda") for _ in range(2))
+    for what, fn in ((f"the gradient reduction ({len(grads)} grads, {n * 4 / 1e6:.2f} MB "
+                      "fp32)", lambda: comm.all_reduce_flat_(grads, group)),
+                     ("the mean of loss and accuracy",
+                      lambda: tuple(comm.all_reduce_(torch.stack([loss.float(), acc.float()]), group) / 1))):
+        card, on_host = card_and_host_ms(fn, iters=20)
+        say(f"  17a {what} alone: {card:.3f} ms a call on the card's clock, {on_host:.3f} ms of "
+            f"host a call [{smi}]")
+
+
+def multi_gpu_phases(smi):
+    """Phase 17: every mode of mop_tpu_torch.parallel at world size 1 over NCCL
+    (and the worker at the visible card count where it is above 1)."""
+    import torch.distributed as dist
+
+    from mop_tpu_torch.cli.launch_multihost import free_port
+    from mop_tpu_torch.ops import ring_attention as ring
+    from mop_tpu_torch.parallel import (fsdp_init_opt_state, fsdp_shard_params,
+                                        make_fsdp_lm_train_step,
+                                        make_multiseed_scanned_train_step,
+                                        make_tp_classifier_train_step, make_tp_lm_train_step,
+                                        multiseed_init, multiseed_opt_init, tp_init_opt_state,
+                                        tp_shard_params, unstack_seed, zero1_init_opt_state)
+    from mop_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh, replicate, shard_batch
+    from mop_tpu_torch.utils.collectives import collective_summary, record_collectives
+
+    t_phase = time.perf_counter()
+    say("[17 multi-GPU modes] mop_tpu_torch.parallel over NCCL at world size 1 on "
+        f"{torch.cuda.get_device_name(0)}: the code and kernels of each mode, not multi-card "
+        f"numerics or speed [{smi}]")
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    mesh = make_mesh(device="cuda")
+    check(dist.get_backend() == "nccl" and mesh.size == 1 and mesh.device == torch.device("cuda", 0),
+          f"make_mesh() under WORLD_SIZE=1: {mesh}, backend {dist.get_backend()}")
+    say(f"  modes that two ranks could run on one shared card over gloo (it takes CUDA tensors "
+        f"for {sorted(GLOO_CUDA)} only): {list(GLOO_CUDA_MODES)}")
+    seen_ops = {}
+    # Bit-equality at world 1 asks for the same kernels run to run (15a's switches).
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        xs = torch.randint(0, 256, (TRAIN_K, BATCH, 3, 32, 32), dtype=torch.uint8, device="cuda",
+                           generator=cuda_generator(170))
+        ys = torch.randint(0, N_CLASSES, (TRAIN_K, BATCH), device="cuda",
+                           generator=cuda_generator(171))
+        batches = [(xs[i], ys[i]) for i in range(MG_STEPS)]
+        make_b = MODELS["B_bench"][0]
+
+        # 17a: data parallel, the bench.py recipe (B 224/6/4, batch 256, bf16).
+        t0 = time.perf_counter()
+        runs, steps, grads = {}, {}, None
+        for label, m in (("one device", None), ("data parallel", mesh)):
+            model = make_b(torch.Generator().manual_seed(17))
+            if m is not None:
+                replicate(model, m)
+            opt = torch.optim.AdamW(model.parameters(), LR, weight_decay=WD)
+            step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD, mesh=m)
+            (losses, counts) = counted(lambda: _mg_run(step, batches, 172), add=m is not None)
+            runs[label] = (losses, _state(model), counts)
+            steps[label] = step
+            if m is not None:
+                with record_collectives() as rec:
+                    step(xs[0], ys[0], cuda_generator(173))
+                seen_ops["data parallel"] = set(collective_summary(rec))
+                grads = [p_.grad for p_ in model.parameters() if p_.grad is not None]
+        (l1, p1, c1), (l2, p2, c2) = runs["one device"], runs["data parallel"]
+        _same("17a DP losses vs one device, 3 steps", l2, l1)
+        _same("17a DP params vs one device", p2, p1)
+        check(c1[F.flash_attention.__name__] == c2[F.flash_attention.__name__] == 6 * MG_STEPS,
+              f"17a K1 6 launches a step under DP and alone: {launched(c2)} / {launched(c1)}")
+        _dp_overhead(steps, xs[0], ys[0], grads, mesh.group(DATA_AXIS), smi)
+        del steps, grads
+        sc = {}
+        for label, m in (("one device", None), ("data parallel", mesh)):
+            model = make_b(torch.Generator().manual_seed(17))
+            if m is not None:
+                replicate(model, m)
+            opt = torch.optim.AdamW(model.parameters(), LR, weight_decay=WD)
+            scanned = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN,
+                                                         CIFAR100_STD, TRAIN_K, mesh=m)
+            if m is not None:
+                xk, yk = shard_batch((xs.transpose(0, 1), ys.transpose(0, 1)), m)
+                xk, yk = xk.transpose(0, 1), yk.transpose(0, 1)
+            else:
+                xk, yk = xs, ys
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, counts = counted(lambda: scanned(xk, yk, cuda_generator(174)), add=m is not None)
+            sc[label] = (out["loss"], _state(model), counts, time.perf_counter() - t1)
+            del model, opt, scanned
+        _same(f"17a scanned K={TRAIN_K} DP losses vs one device", sc["data parallel"][0],
+              sc["one device"][0])
+        _same(f"17a scanned K={TRAIN_K} DP params vs one device", sc["data parallel"][1],
+              sc["one device"][1])
+        check(sc["data parallel"][2]["flash_attention"] == 6 * TRAIN_K
+              == sc["one device"][2]["flash_attention"],
+              f"17a scanned K={TRAIN_K}: K1 6 launches a step under DP and alone: "
+              f"{launched(sc['data parallel'][2])} / {launched(sc['one device'][2])}")
+        say(f"  17a scanned K={TRAIN_K}: {1e3 * sc['data parallel'][3] / TRAIN_K:.3f} ms a step "
+            f"DP vs {1e3 * sc['one device'][3] / TRAIN_K:.3f} ms one device (one call each, "
+            f"first-call overheads included); K1 {sc['data parallel'][2]['flash_attention']} "
+            f"launches [{smi}]")
+        say(f"  17a took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 17b: FSDP and ZeRO-1 of LM_quartet against make_lm_train_step.
+        t0 = time.perf_counter()
+        cfg = TransformerConfig(**MG_LM)
+        t_lm = cfg.block_size
+        idx = torch.randint(0, LM_VOCAB, (MG_STEPS, LM_BATCH, t_lm), device="cuda",
+                            generator=cuda_generator(175))
+        lm_batches = [(idx[i], idx[i].roll(-1, -1)) for i in range(MG_STEPS)]
+
+        def make_opt(ps):
+            return torch.optim.AdamW(ps, LM_LR, weight_decay=LM_WD)
+
+        lm_runs = {}
+        for label in ("one device", "FSDP", "ZeRO-1"):
+            lm = create_gpt_quartet(LM_VOCAB, cfg, generator=torch.Generator().manual_seed(176))
+            if label == "one device":
+                opt = make_opt(lm.parameters())
+                step = make_lm_train_step(lm, opt)
+            elif label == "FSDP":
+                fsdp_shard_params(replicate(lm, mesh), mesh)
+                opt = fsdp_init_opt_state(make_opt, lm, mesh)
+                step = make_fsdp_lm_train_step(lm, opt, mesh)
+            else:
+                opt = zero1_init_opt_state(make_opt, replicate(lm, mesh), mesh)
+                step = make_fsdp_lm_train_step(lm, opt, mesh, shard_params=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, counts = counted(lambda: _mg_run(step, lm_batches, 177),
+                                     add=label != "one device")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if label != "one device":
+                with record_collectives() as rec:
+                    step(*lm_batches[0], generator=cuda_generator(177))
+                seen_ops[label] = set(collective_summary(rec))
+            lm_runs[label] = (losses, counts, peak)
+            del lm, opt, step
+            torch.cuda.empty_cache()
+        ref_l, ref_c, ref_peak = lm_runs["one device"]
+        for label in ("FSDP", "ZeRO-1"):
+            losses, counts, peak = lm_runs[label]
+            _same(f"17b {label} LM_quartet losses vs make_lm_train_step, bf16", losses, ref_l,
+                  exact=False, atol=1e-3)
+            check(counts[K5] == ref_c[K5] == 8 * MG_STEPS,
+                  f"17b {label} K5 8 launches a step: {counts[K5]} vs {ref_c[K5]}")
+            say(f"  17b {label}: peak memory {peak:.2f} GiB vs {ref_peak:.2f} GiB one device "
+                f"(world 1: every shard is whole) [{smi}]")
+        say(f"  17b took {time.perf_counter() - t0:.1f} s")
+
+        # 17c: tensor parallel, A (the classifier) and GPT_MoP with and without
+        # sequence parallelism, against the one-device steps.
+        t0 = time.perf_counter()
+        shapes = []
+
+        def heads_of(model):
+            """Record the (B, heads, N, dk) each attention module computes on
+            (its kernel's launch shape): its own share of the heads under TP."""
+            def hook(mod, args):
+                x = args[0]
+                heads = getattr(mod, "heads", None) or mod.n_head
+                width = mod.qkv.weight.shape[0] // 3 if hasattr(mod, "qkv") else \
+                    mod.q_proj.weight.shape[0]
+                shapes.append((x.shape[0], heads, x.shape[1], width // heads))
+
+            return [m.register_forward_pre_hook(hook) for m in model.modules()
+                    if type(m).__name__ in ("MSA", "CausalSelfAttention")]
+
+        make_a = MODELS["A"][0]
+        tp_runs = {}
+        for label in ("one device", "tensor parallel"):
+            model = make_a(torch.Generator().manual_seed(178))
+            opt = torch.optim.AdamW(model.parameters(), LR, weight_decay=WD)
+            if label == "one device":
+                step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD)
+            else:
+                tp_shard_params(replicate(model, mesh), mesh)
+                opt = tp_init_opt_state(lambda ps: torch.optim.AdamW(ps, LR, weight_decay=WD),
+                                        model)
+                step = make_tp_classifier_train_step(model, opt, mesh, CIFAR100_MEAN,
+                                                     CIFAR100_STD)
+            shapes.clear()
+            hooks = heads_of(model)
+            losses, counts = counted(lambda: _mg_run(step, batches, 179),
+                                     add=label != "one device")
+            for h in hooks:
+                h.remove()
+            tp_runs[label] = (losses, counts, sorted(set(shapes)))
+            del model, opt, step
+        _same("17c TP A losses vs one device, bf16", tp_runs["tensor parallel"][0],
+              tp_runs["one device"][0], exact=False, atol=1e-3)
+        check(tp_runs["tensor parallel"][1]["flash_attention"] == 8 * MG_STEPS
+              == tp_runs["one device"][1]["flash_attention"],
+              f"17c TP A: K1 8 launches a step on the local heads, "
+              f"{tp_runs['tensor parallel'][2]} (one device {tp_runs['one device'][2]})")
+        mop_cfg = TransformerConfig(**GPT_MOP_CONFIG)
+        gidx = torch.randint(0, LM_VOCAB, (MG_STEPS, LM_BATCH, mop_cfg.block_size), device="cuda",
+                             generator=cuda_generator(180))
+        g_batches = [(gidx[i], gidx[i].roll(-1, -1)) for i in range(MG_STEPS)]
+        g_runs = {}
+        for label in ("one device", "tensor parallel", "tensor + sequence parallel"):
+            lm = create_gpt_mop(LM_VOCAB, mop_cfg, generator=torch.Generator().manual_seed(181))
+            if label == "one device":
+                step = make_lm_train_step(lm, make_opt(lm.parameters()))
+            else:
+                tp_shard_params(replicate(lm, mesh), mesh)
+                step = make_tp_lm_train_step(lm, tp_init_opt_state(make_opt, lm), mesh,
+                                             sequence_parallel="sequence" in label)
+            shapes.clear()
+            hooks = heads_of(lm)
+            losses, counts = counted(lambda: _mg_run(step, g_batches, 182),
+                                     add=label != "one device")
+            for h in hooks:
+                h.remove()
+            if label != "one device":
+                with record_collectives() as rec:
+                    step(*g_batches[0], generator=cuda_generator(182))
+                seen_ops[label] = set(collective_summary(rec))
+            g_runs[label] = (losses, counts, sorted(set(shapes)))
+            del lm, step
+            torch.cuda.empty_cache()
+        for label in ("tensor parallel", "tensor + sequence parallel"):
+            _same(f"17c {label} GPT_MoP losses vs make_lm_train_step, bf16", g_runs[label][0],
+                  g_runs["one device"][0], exact=False, atol=1e-3)
+            check(g_runs[label][1][K5] == g_runs["one device"][1][K5] == 6 * MG_STEPS,
+                  f"17c {label} GPT_MoP: K5 6 launches a step on the local heads, "
+                  f"{g_runs[label][2]}")
+        say(f"  17c took {time.perf_counter() - t0:.1f} s")
+
+        # 17d: the ring at world 1 against K1 and full attention, and the
+        # expert-parallel op against dense_top1_mlp at MoE B_bench's shapes.
+        t0 = time.perf_counter()
+        gr = cuda_generator(183)
+        q, k, v = (torch.randn(*MG_RING, device="cuda", generator=gr).requires_grad_()
+                   for _ in range(3))
+        w = torch.randn(*MG_RING, device="cuda", generator=gr)
+        with record_collectives() as rec:
+            out = ring.ring_attention(q, k, v, mesh)
+        seen_ops["ring attention"] = set(collective_summary(rec))
+        grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+        with torch.no_grad():
+            k1 = F.flash_attention(q, k, v)
+        full = F.flash_attention_plain(q, k, v)
+        want = torch.autograd.grad((full * w).sum(), (q, k, v))
+        compare(f"17d ring {MG_RING} vs K1, fp32", out.detach(), k1, 2e-5, 0.0)
+        compare(f"17d ring {MG_RING} vs full attention, fp32", out.detach(), full.detach(),
+                2e-5, 0.0)
+        for name, g_, w_ in zip("qkv", grads, want):
+            compare(f"17d ring d{name} vs full attention's", g_, w_, 5e-5, 5e-5)
+        del q, k, v, w, out, grads, want, full, k1
+        mo = MG_MOE
+        gm = cuda_generator(184)
+        x = torch.randn(mo["tokens"], mo["dim"], device="cuda", generator=gm)
+        gw = torch.randn(mo["dim"], mo["experts"], device="cuda", generator=gm) * 0.1
+        gb = torch.zeros(mo["experts"], device="cuda")
+        w1 = torch.randn(mo["experts"], mo["dim"], mo["hidden"], device="cuda",
+                         generator=gm) / mo["dim"] ** 0.5
+        w2 = torch.randn(mo["experts"], mo["hidden"], mo["dim"], device="cuda",
+                         generator=gm) / mo["hidden"] ** 0.5
+        with torch.no_grad(), record_collectives() as rec:
+            ep = ops_moe.expert_parallel_top1_mlp(x, gw, gb, w1, w2, gelu_tanh, mesh,
+                                                  capacity_factor=float(mo["experts"]))
+        seen_ops["expert parallel"] = set(collective_summary(rec))
+        with torch.no_grad():
+            dense = ops_moe.dense_top1_mlp(x, gw, gb, w1, w2, gelu_tanh)
+        compare(f"17d expert parallel vs dense_top1_mlp, {mo}, fp32", ep, dense, 1e-4, 1e-4)
+        del x, w1, w2, ep, dense
+        say(f"  17d took {time.perf_counter() - t0:.1f} s")
+
+        # 17e: multi-seed, 2 seeds of B_bench, against two one-seed runs.
+        t0 = time.perf_counter()
+        seeds = [0, 1]
+        k_ms = MG_STEPS
+        xk = torch.stack([xs[:k_ms], xs[k_ms:2 * k_ms]], 1)
+        yk = torch.stack([ys[:k_ms], ys[k_ms:2 * k_ms]], 1)
+        stack = multiseed_init(lambda s: make_b(torch.Generator().manual_seed(190 + s)), seeds,
+                               mesh)
+        opts = multiseed_opt_init(lambda ps: torch.optim.AdamW(ps, LR, weight_decay=WD), stack)
+        step = make_multiseed_scanned_train_step(stack, opts, mesh, CIFAR100_MEAN, CIFAR100_STD,
+                                                 n_seeds=2, unroll_steps=k_ms)
+        with record_collectives() as rec:
+            m_ms, c_ms = counted(lambda: step(xk, yk, [cuda_generator(200 + s) for s in seeds]))
+        seen_ops["multi-seed (seeds over ranks)"] = set(collective_summary(rec))
+        for i, s in enumerate(seeds):
+            model = make_b(torch.Generator().manual_seed(190 + s))
+            opt = torch.optim.AdamW(model.parameters(), LR, weight_decay=WD)
+            one = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD, k_ms)
+            got = one(xk[:, i], yk[:, i], cuda_generator(200 + s))
+            _same(f"17e seed {s}: multi-seed losses vs its own run", m_ms["loss"][:, i],
+                  got["loss"])
+            _same(f"17e seed {s}: multi-seed params vs its own run",
+                  {k_: v_.to("cuda") for k_, v_ in unstack_seed(stack, i).items()}, _state(model))
+            del model, opt, one
+        check(not torch.equal(m_ms["loss"][:, 0], m_ms["loss"][:, 1]), "17e the seeds differ")
+        check(c_ms["flash_attention"] == 6 * k_ms * 2, f"17e K1 launches: {launched(c_ms)}")
+        del stack, opts, step
+        torch.cuda.empty_cache()
+        say(f"  17e took {time.perf_counter() - t0:.1f} s")
+
+        # Each mode's recorded collectives against the table the gloo list
+        # comes from (at world 1 a collective still runs: its group is there);
+        # the ring at world 1 has no neighbour, so it sends nothing.
+        check(sorted(seen_ops) == sorted(MODE_COLLECTIVES),
+              f"17 every mode's collectives recorded: {sorted(seen_ops)}")
+        for mode, ops in seen_ops.items():
+            want = set() if mode == "ring attention" else MODE_COLLECTIVES[mode]
+            check(ops == want, f"17 {mode}: collectives of one step {sorted(ops)}, "
+                               f"expected {sorted(want)}")
+
+        # 17f: the launcher with --nproc 1 running the worker over NCCL; and
+        # at the visible card count where it is above 1.
+        t0 = time.perf_counter()
+        first = None
+        for nproc in sorted({1, torch.cuda.device_count()}):
+            cmd = [sys.executable, "-m", "mop_tpu_torch.cli.launch_multihost", "--nproc",
+                   str(nproc), "--timeout", "300", "--", sys.executable, "-m",
+                   "mop_tpu_torch.cli.multihost_train", "--steps", "3"]
+            env_child = {k_: v_ for k_, v_ in os.environ.items() if k_ not in env}
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=360, env=env_child)
+            recs = sorted(_records_of(out.stdout), key=lambda r: r["process"])
+            check(out.returncode == 0 and len(recs) == nproc
+                  and all(math.isfinite(r["loss"]) for r in recs),
+                  f"17f launch_multihost --nproc {nproc} -- multihost_train over NCCL: rc "
+                  f"{out.returncode}, records {recs}{'' if recs else out.stdout[-2000:]}")
+            if recs:
+                first = first or recs[0]
+                same = all((r["loss"], r["param_l2"]) == (recs[0]["loss"], recs[0]["param_l2"])
+                           for r in recs)
+                close = abs(recs[0]["loss"] - first["loss"]) <= 2e-4 * abs(first["loss"]) + 2e-5
+                check(same and close, f"17f {nproc} process(es): the same record on each, the "
+                                      f"one process's loss {first['loss']:.6f} within 2e-4")
+        say(f"  17f took {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+        dist.destroy_process_group()
+        for k_, v_ in saved.items():
+            if v_ is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v_
+    say(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def later_phases(phases, smi) -> int:
-    """``--phases``: only the named phases of 10-16, after the build."""
+    """``--phases``: only the named phases of 10-17, after the build."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if 10 in phases or 15 in phases:
@@ -3114,6 +3625,8 @@ def later_phases(phases, smi) -> int:
             cli_phase(smi, work, os.path.join(work, "ab5"))
         if 16 in phases:
             serving_export_phases(smi)
+        if 17 in phases:
+            multi_gpu_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -3126,10 +3639,10 @@ def later_phases(phases, smi) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", type=lambda v: sorted({int(p) for p in v.split(",")}),
-                    help="comma-separated phases of 10-16 to run alone after the build")
+                    help="comma-separated phases of 10-17 to run alone after the build")
     args = ap.parse_args(argv)
-    if args.phases and not set(args.phases) <= set(range(10, 17)):
-        ap.error(f"--phases takes phases of 10-16, not {args.phases}")
+    if args.phases and not set(args.phases) <= set(range(10, 18)):
+        ap.error(f"--phases takes phases of 10-17, not {args.phases}")
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
         return 1
@@ -4134,6 +4647,7 @@ def main(argv=None) -> int:
                 launches[k_name] += c
         say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
         serving_export_phases(smi)
+        multi_gpu_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(all(c > 0 for c in launches.values()),

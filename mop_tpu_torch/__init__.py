@@ -59,6 +59,12 @@ The library's own trainer is ``training.Trainer`` / ``training.train_model``
 (``utils.profiling``: ``trace``, ``ThroughputMeter``,
 ``chip_peak_bf16_flops``); ``visualization.visualize_gates`` draws gate maps.
 
+``parallel`` holds the steps and the multi-GPU modes over
+``torch.distributed``, one process per device: the mesh, data parallelism
+through every step and CLI (``cli.launch_multihost`` or torchrun), FSDP /
+ZeRO-1, tensor and sequence parallelism, multi-seed; beside them
+``ops.ring_attention`` and ``ops.moe.expert_parallel_top1_mlp``.
+
 They run on the GPU unless given ``--device cpu``. The kernel switches
 (``config.py``: ``fused_attention``, ``fused_multihop``, ``fused_quartet``,
 ``fused_edgewise_train``, by the JAX package's environment variables) send a

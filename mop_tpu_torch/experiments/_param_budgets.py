@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models import ViT_Baseline, ViT_MoP, ViTCrossView, ViTMultiHop
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 CLASSES = {"base": ViT_Baseline, "mop": ViT_MoP, "xview": ViTCrossView,
@@ -125,26 +125,28 @@ def match_configs(args, n_classes: int, target: int, families: List[str]
 
 
 def start(args, dataset: str):
-    """The output directory, the device (printed) and the loaders."""
+    """The output directory, the mesh over the device (printed) and the
+    loaders."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
-    print(f"Device: {C.get_device_str(device)}")
+    mesh = make_mesh(device=args.device)
+    print(f"Device: {C.get_device_str(mesh.device)}")
     loaders = C.get_loaders(dataset, args.batch, tiny=args.tiny, val_frac=0.0,
                             synthetic=args.synthetic)
-    return device, loaders
+    return mesh, loaders
 
 
 def _report(seed: int, accs: Dict[str, float]) -> None:
     print("seed", seed, " ".join(f"{k}={a:.4f}" for k, a in accs.items()))
 
 
-def train_seeds(args, device, loaders, n_classes: int, runs_spec: Dict[str, str],
+def train_seeds(args, mesh, loaders, n_classes: int, runs_spec: Dict[str, str],
                 cfgs, lr: float, warmup_frac: float, report=_report) -> Dict[str, List[float]]:
     """Per seed, one run per key of ``runs_spec`` (key -> family) in lockstep
     on the same batches, each model initialised from the seed, then
     ``report(seed, {key: final val accuracy})``; returns each key's final
     val accuracy per seed."""
     train_iter_f, val_batches, _, mean, std, _ = loaders
+    device = mesh.device
     accs: Dict[str, List[float]] = {k: [] for k in runs_spec}
     for s in args.seeds:
         print(f"\nSeed {s}")
@@ -155,8 +157,9 @@ def train_seeds(args, device, loaders, n_classes: int, runs_spec: Dict[str, str]
                                     **extra_kwargs(args, family), device=device,
                                     generator=torch.Generator().manual_seed(s))
             runs[key] = C.ModelRun(key, model, lr, mean, std, args.steps, warmup_frac,
-                                   args.weight_decay, seed=s, device=device)
-        C.lockstep_train(runs, train_iter_f(s), val_batches, args.steps, args.eval_every)
+                                   args.weight_decay, seed=s, device=device, mesh=mesh)
+        C.lockstep_train(runs, train_iter_f(s), val_batches, args.steps, args.eval_every,
+                         mesh=mesh)
         for key, run in runs.items():
             accs[key].append(run.evaluate(val_batches()))
         report(s, {k: v[-1] for k, v in accs.items()})
@@ -173,7 +176,7 @@ def run(args, dataset: str, n_classes: int, families: List[str], csv_prefix: str
     ``--large_threshold`` on) and ``{csv_prefix}_target_{N}.csv`` with
     ``seed``, ``acc_{family}``, ``params_{family}`` and each config (C's and
     D's extras too). Returns {target: {"configs", "accs"}}."""
-    device, loaders = start(args, dataset)
+    mesh, loaders = start(args, dataset)
     results = {}
     for target in args.targets:
         print(f"\nTarget parameters: {int(target):,}")
@@ -181,7 +184,7 @@ def run(args, dataset: str, n_classes: int, families: List[str], csv_prefix: str
         cfgs = match_configs(args, n_classes, target, families)
         for f in families:
             print(f"{LABELS[f]}: {cfgs[f][0]} | params={cfgs[f][1]:,}")
-        accs = train_seeds(args, device, loaders, n_classes, {f: f for f in families}, cfgs,
+        accs = train_seeds(args, mesh, loaders, n_classes, {f: f for f in families}, cfgs,
                            lr, args.warmup_frac)
         cfg_cols, cfg_vals = [], []
         for f in families:

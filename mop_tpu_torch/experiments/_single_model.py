@@ -13,7 +13,7 @@ import os
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 
@@ -24,7 +24,8 @@ def run_single_model_seeds(args, dataset: str, model_factory, csv_name: str,
     ``model_factory(device, generator)`` builds the model on ``device``,
     initialised from ``generator``."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
     train_iter_f, val_batches, _, mean, std, _ = C.get_loaders(
         dataset, args.batch, tiny=args.tiny, val_frac=0.0,
@@ -38,11 +39,11 @@ def run_single_model_seeds(args, dataset: str, model_factory, csv_name: str,
         C.set_seed(s)
         run = C.ModelRun(
             "m", model_factory(device, torch.Generator().manual_seed(s)), args.lr, mean, std,
-            args.steps, 0.0, args.weight_decay, seed=s, device=device,
+            args.steps, 0.0, args.weight_decay, seed=s, device=device, mesh=mesh,
         )
         print(f"Params: {run.n_params:,}")
         C.lockstep_train({"m": run}, train_iter_f(s), val_batches, args.steps,
-                         args.eval_every)
+                         args.eval_every, mesh=mesh)
         final_acc = run.evaluate(val_batches())
         accs.append(final_acc)
         print(f"seed {s}: acc={final_acc:.4f}")

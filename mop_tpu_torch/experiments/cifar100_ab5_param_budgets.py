@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..models import ViT_Baseline, ViT_MoP, ViTCrossView, ViTEdgewise, ViTMultiHop
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 
@@ -290,7 +290,8 @@ def run(args, csv_prefix: str = "cifar100_ab5") -> Dict[int, Dict]:
     ``configs`` ({key: (cfg, params)}), each run's ``params``, the last
     seed's ``hist`` (val acc and loss at each eval step) and ``test_acc``."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
 
     train_iter_f, val_batches, test_batches, mean, std, _ = C.get_loaders(
@@ -331,6 +332,7 @@ def run(args, csv_prefix: str = "cifar100_ab5") -> Dict[int, Dict]:
                 runs[key] = C.ModelRun(
                     key, model, lr_for_model, mean, std,
                     args.steps, args.warmup_frac, args.weight_decay, seed=s, device=device,
+                    mesh=mesh,
                 )
             print("Params | " + " | ".join(
                 f"{k}: {r.n_params:,}" for k, r in runs.items()))
@@ -338,7 +340,7 @@ def run(args, csv_prefix: str = "cifar100_ab5") -> Dict[int, Dict]:
             hist = C.lockstep_train(
                 runs, train_iter_f(s), val_batches, args.steps, args.eval_every,
                 ckpt_dir=os.path.join(args.out, f"ckpt_t{int(target)}_s{s}"),
-                ckpt_every=args.ckpt_every, resume=args.resume,
+                ckpt_every=args.ckpt_every, resume=args.resume, mesh=mesh,
             )
             if s == args.seeds[-1]:
                 last_seed_hist = hist

@@ -28,7 +28,7 @@ def _report(seed, accs):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device, loaders = PB.start(args, "cifar10")
+    mesh, loaders = PB.start(args, "cifar10")
     results = {}
     for target in args.targets:
         print(f"\nTarget parameters: {int(target):,}")
@@ -36,7 +36,7 @@ def main(argv=None):
         (base_cfg, base_p, _), (mop_cfg, mop_p, within) = cfgs["base"], cfgs["mop"]
         print(f"Baseline cfg: {base_cfg} | params={base_p:,}")
         print(f"MoP cfg     : {mop_cfg} | params={mop_p:,} (within 1%: {within})")
-        accs = PB.train_seeds(args, device, loaders, 10, {"b": "base", "m": "mop"}, cfgs,
+        accs = PB.train_seeds(args, mesh, loaders, 10, {"b": "base", "m": "mop"}, cfgs,
                               args.lr, 0.0, report=_report)
         accs_base, accs_mop = accs["b"], accs["m"]
         csv_path = os.path.join(args.out, f"cifar10_ab_target_{int(target)}.csv")

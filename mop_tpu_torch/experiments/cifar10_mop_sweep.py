@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models import ViT_MoP
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 
@@ -44,7 +44,8 @@ def main(argv=None):
     """Returns [(seed, views, kernels, final val accuracy)]."""
     args = build_argparser().parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
     train_iter_f, val_batches, _, mean, std, _ = C.get_loaders(
         "cifar10", args.batch, tiny=args.tiny, val_frac=0.0, synthetic=args.synthetic)
@@ -61,10 +62,10 @@ def main(argv=None):
                         n_kernels=n_kernels, device=device,
                         generator=torch.Generator().manual_seed(seed)),
                 args.lr, mean, std, args.steps, 0.0, args.weight_decay, seed=seed,
-                device=device)
+                device=device, mesh=mesh)
             print(f"Params: {run.n_params:,}")
             C.lockstep_train({"m": run}, train_iter_f(seed), val_batches, args.steps,
-                             args.eval_every)
+                             args.eval_every, mesh=mesh)
             final_acc = run.evaluate(val_batches())
             results.append((seed, n_views, n_kernels, final_acc))
             print(f"done {cfg_name}: acc={final_acc:.4f}")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..models import ViT_Baseline, ViT_MoP
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 
@@ -47,7 +47,8 @@ def run(args, dataset: str, n_classes: int, depth: int, csv_name: str):
     CSV and the last seed's ``summary.json``. Returns (A's, B's) final val
     accuracies per seed."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
     train_iter_f, val_batches, _, mean, std, _ = C.get_loaders(
         dataset, args.batch, tiny=args.tiny, val_frac=0.0, synthetic=args.synthetic)
@@ -60,17 +61,18 @@ def run(args, dataset: str, n_classes: int, depth: int, csv_name: str):
         runs = {
             "b": C.ModelRun("b", ViT_Baseline(**kw, generator=torch.Generator().manual_seed(s)),
                             args.lr, mean, std, args.steps, 0.0, args.weight_decay, seed=s,
-                            device=device),
+                            device=device, mesh=mesh),
             "m": C.ModelRun("m", ViT_MoP(**kw, n_views=5, n_kernels=3,
                                          generator=torch.Generator().manual_seed(s)),
                             args.lr, mean, std, args.steps, 0.0, args.weight_decay, seed=s,
-                            device=device),
+                            device=device, mesh=mesh),
         }
         print(f"Baseline params: {runs['b'].n_params:,}")
         print(f"MoP params: {runs['m'].n_params:,}")
         print(f"Param ratio: {runs['m'].n_params / runs['b'].n_params:.3f}")
 
-        C.lockstep_train(runs, train_iter_f(s), val_batches, args.steps, args.eval_every)
+        C.lockstep_train(runs, train_iter_f(s), val_batches, args.steps, args.eval_every,
+                         mesh=mesh)
 
         a_b = runs["b"].evaluate(val_batches())
         a_m = runs["m"].evaluate(val_batches())

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models import ViTGated
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
 from . import common as C
 
 
@@ -63,7 +63,8 @@ def run(args, dataset: str, n_classes: int):
     """Every target: the matched config, one run per seed, the CSV.
     Returns {target: {"config", "params", "accs"}}."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
     train_iter_f, val_batches, _, mean, std, _ = C.get_loaders(
         dataset, args.batch, tiny=args.tiny, val_frac=0.0, synthetic=args.synthetic)
@@ -81,10 +82,11 @@ def run(args, dataset: str, n_classes: int):
             run_ = C.ModelRun(
                 "m", ViTGated(n_classes=n_classes, **cfg, **gated_extra(args), device=device,
                               generator=torch.Generator().manual_seed(s)),
-                args.lr, mean, std, args.steps, 0.0, args.weight_decay, seed=s, device=device)
+                args.lr, mean, std, args.steps, 0.0, args.weight_decay, seed=s, device=device,
+                mesh=mesh)
             print(f"Params: {run_.n_params:,}")
             C.lockstep_train({"m": run_}, train_iter_f(s), val_batches, args.steps,
-                             args.eval_every)
+                             args.eval_every, mesh=mesh)
             a = run_.evaluate(val_batches())
             accs.append(a)
             print(f"seed {s}: acc={a:.4f}")

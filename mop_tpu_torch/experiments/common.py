@@ -17,6 +17,11 @@
   the two plots.
 
 Entry points run on the GPU unless a device is given (``device="cpu"``).
+Every CLI builds a mesh with ``parallel.make_mesh`` (a world-1 mesh with no
+process group when started alone) and passes it to ``ModelRun`` and
+``lockstep_train``: under ``cli/launch_multihost.py`` or torchrun each
+process trains on its rows of every batch (data parallel), and only the main
+process writes files.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from ..data import BatchIterator, eval_batches, load_cifar, native_loader, train
 from ..ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
                               cifar_eval_transform)
 from ..parallel import make_classifier_eval_step, make_classifier_train_step
+from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, replicate, shard_batch
 from ..training.preemption import PREEMPTED_EXIT_CODE, PreemptionGuard
 from ..training.utils import count_params, load_checkpoint, save_checkpoint, step_seed
 from ..training.utils import set_seed  # noqa: F401  (the CLIs call it as common.set_seed)
@@ -42,10 +49,21 @@ Device = Optional[Union[str, torch.device]]
 
 
 def get_device_str(device: Device = None) -> str:
+    """This process's device (``cuda:LOCAL_RANK`` under a process group), its
+    name, and the number of processes."""
     device = resolve_device(device)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_available() and torch.distributed.is_initialized() else 1)
     if device.type == "cuda":
-        return f"cuda:{torch.cuda.get_device_name(device)} x{torch.cuda.device_count()}"
-    return f"{device.type} x1"
+        return f"{device}:{torch.cuda.get_device_name(device)} x{world}"
+    return f"{device.type} x{world}"
+
+
+def is_main_process() -> bool:
+    """Under a multi-process launch every process holds the same replicated
+    results; only rank 0 writes files."""
+    return not (torch.distributed.is_available() and torch.distributed.is_initialized()) \
+        or torch.distributed.get_rank() == 0
 
 
 # ----------------------------- data -----------------------------
@@ -336,21 +354,25 @@ class ModelRun:
     its fp32 eval step and a generator on the device seeded from ``seed``.
 
     The model comes built and initialised (the harness seeds it from
-    ``seed``); it is moved to ``device`` (the GPU unless given).
+    ``seed``); it is moved to ``device`` (the GPU unless given). Under
+    ``mesh`` it goes to the mesh's device with rank 0's values, and the steps
+    are data parallel: each process trains and evaluates on its rows.
     """
 
     def __init__(self, key, model, lr, mean, std, steps, warmup_frac, weight_decay, seed,
-                 grad_clip=None, augment=True, device: Device = None):
+                 grad_clip=None, augment=True, device: Device = None, mesh=None):
         self.key = key
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.model = model.to(self.device) if mesh is None else replicate(model, mesh)
         self.n_params = count_parameters(model)
         self.opt, self.schedule = make_opt(model.parameters(), lr, steps, warmup_frac,
                                            weight_decay)
         self.train_step = make_classifier_train_step(model, self.opt, mean, std,
                                                      augment=augment, grad_clip=grad_clip,
-                                                     device=self.device)
-        self.eval_step = make_classifier_eval_step(model, mean, std, device=self.device)
+                                                     device=self.device, mesh=mesh)
+        self.eval_step = make_classifier_eval_step(model, mean, std, device=self.device,
+                                                   mesh=mesh)
         self.seed = int(seed)
         self.generator = torch.Generator(device=self.device)
         self.count = 0  # updates so far: the schedule's step, as optax's count
@@ -382,10 +404,15 @@ class ModelRun:
             )
         return self.last_loss
 
+    def _rows(self, *batch):
+        """This process's rows of an eval batch (all of it without a mesh)."""
+        batch = tuple(torch.as_tensor(np.asarray(a)) for a in batch)
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
+
     def evaluate(self, batches) -> float:
         correct, total = 0.0, 0.0
         for xb, yb, mb in batches:
-            c, t = self.eval_step(torch.as_tensor(xb), torch.as_tensor(yb), torch.as_tensor(mb))
+            c, t = self.eval_step(*self._rows(xb, yb, mb))
             correct += float(c)
             total += float(t)
         return correct / total if total else 0.0
@@ -404,14 +431,20 @@ class ModelRun:
         # bf16 argmax flips on borderline samples.
         self.model.eval()
         mean, std = self._mean_std
-        x = cifar_eval_transform(torch.as_tensor(xb).to(self.device), mean, std)
+        xb, yb = self._rows(xb, yb)
+        x = cifar_eval_transform(xb.to(self.device), mean, std)
         logits = self.model(x).float()
-        return (logits.argmax(-1) == torch.as_tensor(yb).to(self.device)).cpu().numpy()
+        hit = logits.argmax(-1) == yb.to(self.device)
+        if self.mesh is not None:  # every process's rows, in batch order
+            hit = comm.gather_dim(hit.to(torch.uint8), 0, self.mesh.group(DATA_AXIS)).bool()
+        return hit.cpu().numpy()
 
     def save(self, path: str, step: int) -> None:
-        """Write the model's and the optimizer's state and the step."""
-        save_checkpoint(path, self.model.state_dict(), opt_state=self.opt.state_dict(),
-                        step=step, loss=self.last_loss)
+        """Write the model's and the optimizer's state and the step (the main
+        process only: every process holds the same)."""
+        if is_main_process():
+            save_checkpoint(path, self.model.state_dict(), opt_state=self.opt.state_dict(),
+                            step=step, loss=self.last_loss)
 
     def load(self, path: str) -> int:
         payload = load_checkpoint(path, map_location=self.device)
@@ -431,8 +464,10 @@ def lockstep_train(
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 0,
     resume: bool = False,
+    mesh=None,
 ):
-    """Lockstep multi-model training on identical batches.
+    """Lockstep multi-model training on identical batches; under ``mesh``
+    each process steps on its rows of every batch.
 
     With ``ckpt_dir``/``ckpt_every``: periodic per-model checkpoints; with
     ``resume``: restart from the smallest step restored. When ``ckpt_dir`` is
@@ -460,12 +495,17 @@ def lockstep_train(
         os.makedirs(ckpt_dir, exist_ok=True)
         for k, run in runs.items():
             run.save(os.path.join(ckpt_dir, f"{k}.ckpt"), step_i)
+        if mesh is not None and mesh.device_mesh is not None:
+            torch.distributed.barrier()  # written before any process goes on
 
     try:
         for step_i in range(start_step, steps + 1):
             xb, yb = next(train_iter)
-            # One copy to the device for every run.
-            xb, yb = (torch.from_numpy(np.asarray(a)).to(device) for a in (xb, yb))
+            # One copy to the device for every run (this process's rows).
+            if mesh is not None:
+                xb, yb = shard_batch((np.asarray(xb), np.asarray(yb)), mesh)
+            else:
+                xb, yb = (torch.from_numpy(np.asarray(a)).to(device) for a in (xb, yb))
             for run in runs.values():
                 run.step(xb, yb, step_i)
             if step_i % max(eval_every, 1) == 0 or step_i == 1:
@@ -535,6 +575,8 @@ def bootstrap_delta(correct_a, correct_b, n_boot: int = 1000, seed: int = 0):
 
 
 def save_csv(path: str, header: List[str], rows: List[List]) -> None:
+    if not is_main_process():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(",".join(header) + "\n")
@@ -543,6 +585,8 @@ def save_csv(path: str, header: List[str], rows: List[List]) -> None:
 
 
 def save_val_curve_plot(path, hist, title):
+    if not is_main_process():
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -562,6 +606,8 @@ def save_val_curve_plot(path, hist, title):
 
 
 def save_test_bar_plot(path, labels, vals, title):
+    if not is_main_process():
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

@@ -39,7 +39,8 @@ from ..models import ViT_Baseline, ViT_MoP, ViTEdgewise
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from ..parallel import make_classifier_eval_step, make_imagenet_train_step
 from ..training.utils import ema_update, load_checkpoint, save_checkpoint, step_seed
-from ..utils.device import resolve_device
+from ..parallel import make_mesh
+from ..parallel.mesh import replicate, shard_batch
 from . import common as C
 
 IMAGENET_DIMS = (192, 224, 256, 320, 384, 448, 512, 640, 768, 1024, 1280)
@@ -192,10 +193,12 @@ def make_model(args, cfgs, key: str, n_classes: int, device, generator):
 
 class _Run:
     """One model of the lockstep run: its optimizer and schedule, train and
-    eval steps, generator and, with ``--ema``, its shadow copy."""
+    eval steps, generator and, with ``--ema``, its shadow copy. Under
+    ``mesh`` the steps are data parallel over each process's rows."""
 
-    def __init__(self, args, model, lr, n_classes, device):
-        self.model = model
+    def __init__(self, args, model, lr, n_classes, device, mesh=None):
+        self.mesh = mesh
+        self.model = model if mesh is None else replicate(model, mesh)
         self.opt, self.schedule = C.make_opt(model.parameters(), lr, args.steps,
                                              args.warmup_frac, args.weight_decay)
         self.step = make_imagenet_train_step(
@@ -204,10 +207,10 @@ class _Run:
             randaug_n=args.randaug_n, randaug_m=args.randaug_m,
             random_erasing=args.random_erasing, mixup_alpha=args.mixup_alpha,
             cutmix_alpha=args.cutmix_alpha, mix_prob=args.mix_prob, grad_clip=args.grad_clip,
-            device=device)
+            device=device, mesh=mesh)
         self.ema = copy.deepcopy(model).requires_grad_(False) if args.ema else None
         self.eval_step = make_classifier_eval_step(self.ema or model, IMAGENET_MEAN,
-                                                   IMAGENET_STD, device=device)
+                                                   IMAGENET_STD, device=device, mesh=mesh)
         self.generator = torch.Generator(device=device)
         self.count = 0  # updates so far: the schedule's step
         self.losses: List[torch.Tensor] = []
@@ -225,12 +228,16 @@ class _Run:
         """Accuracy over ``batches``, by the EMA weights where kept."""
         correct = total = 0.0
         for xb, yb, mb in batches:
-            c, t = self.eval_step(torch.as_tensor(xb), torch.as_tensor(yb), torch.as_tensor(mb))
+            batch = tuple(torch.as_tensor(np.asarray(a)) for a in (xb, yb, mb))
+            c, t = self.eval_step(*(batch if self.mesh is None else
+                                    shard_batch(batch, self.mesh)))
             correct += float(c)
             total += float(t)
         return correct / max(total, 1)
 
     def save(self, path: str, step_i: int) -> None:
+        if not C.is_main_process():
+            return
         save_checkpoint(path, self.model.state_dict(), opt_state=self.opt.state_dict(),
                         step=step_i, extra=None if self.ema is None else self.ema.state_dict())
 
@@ -248,7 +255,8 @@ def run(args) -> Dict[int, Dict]:
     ``configs``, each run's ``params``, the last seed's per-step ``losses``,
     the per-seed ``val_acc`` and the last seed's ``test_acc``."""
     os.makedirs(args.out, exist_ok=True)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     print(f"Device: {C.get_device_str(device)}")
     tr_x, tr_y, va_x, va_y, te_x, te_y, n_classes = load_data(args)
 
@@ -270,7 +278,7 @@ def run(args) -> Dict[int, Dict]:
             C.set_seed(s)
             runs = {key: _Run(args, make_model(args, cfgs, key, n_classes, device,
                                                torch.Generator().manual_seed(s)),
-                              lr_current, n_classes, device) for key in model_keys}
+                              lr_current, n_classes, device, mesh) for key in model_keys}
 
             def ckpt_path(key, step_i):
                 return os.path.join(args.out, f"ckpt_s{s}_{key}_step{step_i}.pkl")
@@ -289,12 +297,14 @@ def run(args) -> Dict[int, Dict]:
 
             it = BatchIterator(tr_x, tr_y, args.batch, seed=s)
             for step_i in range(start_step, args.steps + 1):
-                xb, yb = (torch.from_numpy(np.asarray(a)).to(device) for a in next(it))
+                xb, yb = shard_batch(tuple(np.asarray(a) for a in next(it)), mesh)
                 for r in runs.values():
                     r.train(xb, yb, s, step_i, args.ema_decay)
                 if args.ckpt_every and step_i % args.ckpt_every == 0:
                     for key, r in runs.items():
                         r.save(ckpt_path(key, step_i), step_i)
+                    if mesh.device_mesh is not None:
+                        torch.distributed.barrier()  # written before any process reads
                 if step_i % max(args.eval_every, 1) == 0 or step_i == 1:
                     report = [(k, r.evaluate(eval_batches(va_x, va_y, args.batch)))
                               for k, r in runs.items()]

@@ -70,16 +70,17 @@ class MSA(nn.Module):
         self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: Tensor) -> Tensor:
-        b, n, d = x.shape
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, d // self.heads).permute(
-            2, 0, 3, 1, 4)
-        if (kernel_switches.fused_attention and ops_fused.flash_fits(d // self.heads)
+        # The head width comes from qkv's output, so that a tensor-parallel
+        # qkv holding ``heads`` of the heads (parallel.tp) reads the same.
+        b, n, _ = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
+        if (kernel_switches.fused_attention and ops_fused.flash_fits(q.shape[-1])
                 and (self.attn_drop.p == 0.0 or not self.training)):
             y = ops_fused.flash_attention(q, k, v, causal=False)
         else:
             a = self.attn_drop(torch.softmax(A.scaled_scores(q, k), -1))
             y = a.to(v.dtype) @ v
-        return self.proj_drop(self.proj(y.transpose(1, 2).reshape(b, n, d)))
+        return self.proj_drop(self.proj(y.transpose(1, 2).reshape(b, n, -1)))
 
 
 class MLP(nn.Module):

@@ -9,7 +9,7 @@ model from an explicit ``torch.Generator`` with those same distributions.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,6 +110,11 @@ class RandomDrop(nn.Module):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        # ((dim, index, count), ...): the input is block ``index`` of
+        # ``count`` along ``dim`` of the tensor one device would hold (a
+        # parallel mode's local rows, heads or tokens), so the mask is drawn
+        # for that whole tensor and this block kept (set by the parallel steps).
+        self.shards: Tuple[Tuple[int, int, int], ...] = ()
 
     def drop(self, x: Tensor, mask_shape) -> Tensor:
         if self.p == 0.0 or not self.training:
@@ -120,7 +125,12 @@ class RandomDrop(nn.Module):
                 "torch.Generator on the input's device; attach one with "
                 "set_generator(model, generator) (the train steps do) or call model.eval()")
         keep = 1.0 - self.p
-        mask = torch.rand(mask_shape, device=x.device, generator=self.generator) < keep
+        full = list(mask_shape)
+        for dim, _, count in self.shards:
+            full[dim] *= count
+        mask = torch.rand(full, device=x.device, generator=self.generator) < keep
+        for dim, index, _ in self.shards:
+            mask = mask.narrow(dim, index * mask_shape[dim], mask_shape[dim])
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -74,6 +74,9 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         cfg = self.config = config
         c = cfg.n_embd
+        # The heads this module computes: all of them, or its share under
+        # tensor parallelism (parallel.tp), which shards the projections.
+        self.n_head = cfg.n_head
         self.q_proj = GPTLinear(c, c, cfg.bias)
         self.k_proj = GPTLinear(c, c, cfg.bias)
         self.v_proj = GPTLinear(c, c, cfg.bias)
@@ -98,11 +101,11 @@ class CausalSelfAttention(nn.Module):
         """``attention_mask`` is additive, added to the causally masked
         scores. Returns y, or (y, att) with ``need_weights``."""
         cfg = self.config
-        b, t, c = x.shape
-        h = cfg.n_head
+        b, t, _ = x.shape
+        h = self.n_head
 
         def split(y):
-            return y.reshape(b, t, h, c // h).transpose(1, 2)
+            return y.reshape(b, t, h, -1).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         std = A.standardize_scores_causal if cfg.causal_std else A.standardize_scores
@@ -112,10 +115,10 @@ class CausalSelfAttention(nn.Module):
             if (kernel_switches.fused_quartet and attention_mask is None
                     and (not self.training or cfg.dropout == 0.0)
                     and not need_weights and not cfg.causal_std
-                    and ops_fused.quartet_fits(c // h)):
+                    and ops_fused.quartet_fits(q.shape[-1])):
                 y = ops_fused.fused_quartet_attention(q, k, v, q2, k2, m[0], self.quartet_scale[0],
                                                       eps=cfg.score_norm_eps)
-                return self.resid_drop(self.o_proj(y.transpose(1, 2).reshape(b, t, c)))
+                return self.resid_drop(self.o_proj(y.transpose(1, 2).reshape(b, t, -1)))
             qk_norm = std(A.scaled_scores(q, k), cfg.score_norm_eps)
             q2k2_norm = std(A.scaled_scores(q2, k2), cfg.score_norm_eps)
             scores = (1.0 - m) * qk_norm + m * (qk_norm * q2k2_norm) * self.quartet_scale
@@ -125,7 +128,7 @@ class CausalSelfAttention(nn.Module):
         if attention_mask is not None:
             scores = scores + attention_mask
         att = self.attn_drop(torch.softmax(scores, -1))
-        y = (att.to(v.dtype) @ v).transpose(1, 2).reshape(b, t, c)
+        y = (att.to(v.dtype) @ v).transpose(1, 2).reshape(b, t, -1)
         y = self.resid_drop(self.o_proj(y))
         return (y, att) if need_weights else y
 

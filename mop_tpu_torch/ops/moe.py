@@ -9,7 +9,11 @@ O(T * E * D * H), with C ~= T / E * capacity_factor. Tokens beyond their
 expert's capacity come back as zeros (the usual MoE overflow); with a
 capacity that holds the worst expert load the two paths agree.
 
-Both are plain PyTorch ops: the JAX package has no Pallas kernel here.
+``expert_parallel_top1_mlp`` spreads the experts over a mesh axis: each
+process holds E / M experts' weights and T / M tokens, and dispatch and
+combine are two ``all_to_all_single`` exchanges.
+
+All are plain PyTorch ops: the JAX package has no Pallas kernel here.
 """
 
 from __future__ import annotations
@@ -98,3 +102,41 @@ def dense_top1_mlp(x: Tensor, gate_w: Tensor, gate_b: Tensor, w1: Tensor, w2: Te
     h = act(torch.einsum("td,edh->teh", x, w1))
     y = torch.einsum("teh,ehd->ted", h, w2)
     return torch.einsum("ted,te->td", y, one_hot)
+
+
+def expert_parallel_top1_mlp(x: Tensor, gate_w: Tensor, gate_b: Tensor, w1: Tensor, w2: Tensor,
+                             act: Callable[[Tensor], Tensor], mesh,
+                             capacity_factor: float = 1.25, model_axis: str = "model") -> Tensor:
+    """Expert-parallel top-1 MoE over ``mesh``'s ``model_axis`` of M processes.
+
+    x: this process's (T / M, D) tokens; w1: its (E / M, D, H) experts, w2
+    (E / M, H, D) — process i holds experts [i E / M, (i + 1) E / M); gate_w
+    (D, E) and gate_b (E,) whole on every process. Returns this process's
+    (T / M, D) outputs. Each source process may send at most ``c_src =
+    max(1, min(ceil(T_loc / E * cf), T_loc))`` tokens to any one expert (the
+    JAX op's per-source capacity); a token beyond it comes back as zeros.
+    With a capacity that holds every expert's load the result equals
+    ``dense_top1_mlp``.
+    """
+    from ..parallel import comm
+
+    group = mesh.group(model_axis)
+    m = mesh.shape[model_axis]
+    t_loc, d = x.shape
+    e_loc = w1.shape[0]
+    e = e_loc * m
+    c_src = max(1, min(int(math.ceil(t_loc / e * capacity_factor)), t_loc))
+    gate = _Top1.apply(x @ gate_w + gate_b)  # (T_loc, E)
+    slot, keep = top1_dispatch(gate.argmax(-1), e, c_src)
+    # This process's tokens in per-destination-expert buffers: (E, c_src, D).
+    buf = x.new_zeros(e * c_src + 1, d).index_put((slot,), x)[: e * c_src]
+    # Dispatch: block j (experts of process j) to process j; what comes back
+    # is (M sources, E_loc, c_src, D), concatenated source-major per expert.
+    buf = comm.all_to_all(buf.reshape(m, e_loc * c_src, d), group)
+    buf = buf.reshape(m, e_loc, c_src, d).transpose(0, 1).reshape(e_loc, m * c_src, d)
+    y = torch.bmm(act(torch.bmm(buf, w1)), w2)  # (E_loc, M * c_src, D)
+    # Combine: each source's slots back to it, in expert order.
+    y = y.reshape(e_loc, m, c_src, d).transpose(0, 1).reshape(m, e_loc * c_src, d)
+    out = comm.all_to_all(y.contiguous(), group).reshape(e * c_src, d)
+    out = torch.cat([out, out.new_zeros(1, d)])[slot]
+    return out * (gate * keep[:, None].to(x.dtype)).sum(-1, keepdim=True)

@@ -10,11 +10,16 @@ from the same seed.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 Tensor = torch.Tensor
+# (index, count): this call's rows are block ``index`` of ``count`` equal
+# blocks of the global batch. Each per-sample draw is then taken for the
+# global batch and this block kept, so a data-parallel step draws what the
+# single-device step draws for the same rows.
+Shard = Optional[Tuple[int, int]]
 
 CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR10_STD = (0.2470, 0.2435, 0.2616)
@@ -36,31 +41,46 @@ def to_float(x: Tensor) -> Tensor:
     return x.to(torch.float32) / 255.0
 
 
-def random_crop(generator: torch.Generator, x: Tensor, padding: int = 4) -> Tensor:
+def global_rows(b: int, shard: Shard) -> Tuple[int, slice]:
+    """The rows a per-sample draw takes for a batch of ``b`` rows that is
+    block ``shard`` of a global batch, and the slice of them that is its own."""
+    if shard is None:
+        return b, slice(0, b)
+    index, count = shard
+    return b * count, slice(index * b, (index + 1) * b)
+
+
+def random_crop(generator: torch.Generator, x: Tensor, padding: int = 4,
+                shard: Shard = None) -> Tensor:
     """Pad-and-crop (torchvision ``RandomCrop(size, padding)``): per-sample
     offsets in [0, 2 * padding], zero padding, two index gathers on the
     device."""
     b, c, h, w = x.shape
+    n, own = global_rows(b, shard)
     xp = torch.nn.functional.pad(x, (padding, padding, padding, padding))
-    off_h = torch.randint(0, 2 * padding + 1, (b,), device=x.device, generator=generator)
-    off_w = torch.randint(0, 2 * padding + 1, (b,), device=x.device, generator=generator)
+    off_h = torch.randint(0, 2 * padding + 1, (n,), device=x.device, generator=generator)[own]
+    off_w = torch.randint(0, 2 * padding + 1, (n,), device=x.device, generator=generator)[own]
     rows = off_h[:, None] + torch.arange(h, device=x.device)  # (B, H)
     cols = off_w[:, None] + torch.arange(w, device=x.device)  # (B, W)
     out = xp.gather(2, rows[:, None, :, None].expand(b, c, h, w + 2 * padding))
     return out.gather(3, cols[:, None, None, :].expand(b, c, h, w))
 
 
-def random_hflip(generator: torch.Generator, x: Tensor, p: float = 0.5) -> Tensor:
+def random_hflip(generator: torch.Generator, x: Tensor, p: float = 0.5,
+                 shard: Shard = None) -> Tensor:
     """Per-sample horizontal flip with probability ``p``."""
-    flip = torch.rand(x.shape[0], device=x.device, generator=generator) < p
+    n, own = global_rows(x.shape[0], shard)
+    flip = torch.rand(n, device=x.device, generator=generator)[own] < p
     return torch.where(flip[:, None, None, None], x.flip(-1), x)
 
 
-def cifar_train_augment(generator: torch.Generator, x_uint8: Tensor, mean, std) -> Tensor:
+def cifar_train_augment(generator: torch.Generator, x_uint8: Tensor, mean, std,
+                        shard: Shard = None) -> Tensor:
     """The reference CIFAR train transform: RandomCrop(32, pad 4) + flip +
-    normalize, on the device."""
-    x = random_crop(generator, to_float(x_uint8), padding=4)
-    return normalize(random_hflip(generator, x), mean, std)
+    normalize, on the device. ``shard``: the batch is that block of a global
+    batch (the draws are the global batch's)."""
+    x = random_crop(generator, to_float(x_uint8), padding=4, shard=shard)
+    return normalize(random_hflip(generator, x, shard=shard), mean, std)
 
 
 def cifar_eval_transform(x_uint8: Tensor, mean, std) -> Tensor:
@@ -85,18 +105,21 @@ def label_smoothing_onehot(y: Tensor, n_classes: int, smoothing: float = 0.0) ->
 
 def erasing_draws(generator: torch.Generator, b: int, device, p: float = 0.25,
                   scale: Tuple[float, float] = (0.02, 0.33),
-                  ratio: Tuple[float, float] = (0.3, 3.3)) -> Tuple[Tensor, ...]:
+                  ratio: Tuple[float, float] = (0.3, 3.3), shard: Shard = None
+                  ) -> Tuple[Tensor, ...]:
     """RandomErasing's draws for ``b`` samples: the box's area as a share of
     the image in [scale), its log aspect ratio in [log ratio), two uniforms
     that place its top and left edges, and whether to erase (probability
     ``p``); each (b,) float32 (bool for the last)."""
+    n, own = global_rows(b, shard)
+
     def uniform(lo, hi):
-        return torch.rand(b, device=device, generator=generator) * (hi - lo) + lo
+        return torch.rand(n, device=device, generator=generator)[own] * (hi - lo) + lo
 
     share = uniform(*scale)
     log_ratio = uniform(math.log(ratio[0]), math.log(ratio[1]))
     u_top, u_left = uniform(0.0, 1.0), uniform(0.0, 1.0)
-    apply = torch.rand(b, device=device, generator=generator) < p
+    apply = torch.rand(n, device=device, generator=generator)[own] < p
     return share, log_ratio, u_top, u_left, apply
 
 
@@ -122,10 +145,10 @@ def erase(x: Tensor, share: Tensor, log_ratio: Tensor, u_top: Tensor, u_left: Te
 
 def random_erasing(generator: torch.Generator, x: Tensor, p: float = 0.25,
                    scale: Tuple[float, float] = (0.02, 0.33),
-                   ratio: Tuple[float, float] = (0.3, 3.3)) -> Tensor:
+                   ratio: Tuple[float, float] = (0.3, 3.3), shard: Shard = None) -> Tensor:
     """RandomErasing: zero a random rectangle of each sample with
     probability ``p`` (static shapes, one mask)."""
-    return erase(x, *erasing_draws(generator, x.shape[0], x.device, p, scale, ratio))
+    return erase(x, *erasing_draws(generator, x.shape[0], x.device, p, scale, ratio, shard))
 
 
 def _gamma_draw(generator: torch.Generator, alpha: float, device, tries: int = 32) -> Tensor:
@@ -155,16 +178,27 @@ def beta_draw(generator: torch.Generator, alpha: float, device) -> Tensor:
     return g1 / (g1 + g2)
 
 
-def mix(x: Tensor, y_onehot: Tensor, lam: Tensor) -> Tuple[Tensor, Tensor]:
+def _flip(t: Tensor) -> Tensor:
+    return t.flip(0)
+
+
+# ``reverse(t)``: the rows of the reversed global batch that pair with this
+# batch's rows, in its order. One device: ``t.flip(0)``; a data-parallel
+# step passes its exchange with the mirror rank.
+Reverse = Callable[[Tensor], Tensor]
+
+
+def mix(x: Tensor, y_onehot: Tensor, lam: Tensor, reverse: Reverse = _flip
+        ) -> Tuple[Tensor, Tensor]:
     """Mixup's transform: ``lam`` of the batch and ``1 - lam`` of its
     reversed copy, images and soft targets alike."""
-    return lam * x + (1.0 - lam) * x.flip(0), lam * y_onehot + (1.0 - lam) * y_onehot.flip(0)
+    return lam * x + (1.0 - lam) * reverse(x), lam * y_onehot + (1.0 - lam) * reverse(y_onehot)
 
 
-def mixup(generator: torch.Generator, x: Tensor, y_onehot: Tensor, alpha: float = 0.2
-          ) -> Tuple[Tensor, Tensor]:
+def mixup(generator: torch.Generator, x: Tensor, y_onehot: Tensor, alpha: float = 0.2,
+          reverse: Reverse = _flip) -> Tuple[Tensor, Tensor]:
     """Mixup: lam ~ Beta(alpha, alpha); mixes the batch with its reversed copy."""
-    return mix(x, y_onehot, beta_draw(generator, alpha, x.device))
+    return mix(x, y_onehot, beta_draw(generator, alpha, x.device), reverse)
 
 
 def cutmix_draws(generator: torch.Generator, h: int, w: int, alpha: float, device
@@ -177,8 +211,8 @@ def cutmix_draws(generator: torch.Generator, h: int, w: int, alpha: float, devic
     return lam, cy, cx
 
 
-def paste_box(x: Tensor, y_onehot: Tensor, lam: Tensor, cy: Tensor, cx: Tensor
-              ) -> Tuple[Tensor, Tensor]:
+def paste_box(x: Tensor, y_onehot: Tensor, lam: Tensor, cy: Tensor, cx: Tensor,
+              reverse: Reverse = _flip) -> Tuple[Tensor, Tensor]:
     """CutMix's transform: the box of sides ``trunc(H sqrt(1 - lam))`` and
     ``trunc(W sqrt(1 - lam))`` centred at (cy, cx), clipped to the image
     (half-sides by floor division), taken from the reversed batch; the
@@ -192,17 +226,17 @@ def paste_box(x: Tensor, y_onehot: Tensor, lam: Tensor, cy: Tensor, cx: Tensor
     rows = torch.arange(h, device=x.device)
     cols = torch.arange(w, device=x.device)
     box = ((rows >= y1) & (rows < y2))[:, None] & ((cols >= x1) & (cols < x2))[None, :]
-    mixed = torch.where(box[None, None], x.flip(0), x)
+    mixed = torch.where(box[None, None], reverse(x), x)
     lam_adj = 1.0 - ((y2 - y1) * (x2 - x1)).to(torch.float32) / (h * w)
-    return mixed, lam_adj * y_onehot + (1.0 - lam_adj) * y_onehot.flip(0)
+    return mixed, lam_adj * y_onehot + (1.0 - lam_adj) * reverse(y_onehot)
 
 
-def cutmix(generator: torch.Generator, x: Tensor, y_onehot: Tensor, alpha: float = 1.0
-           ) -> Tuple[Tensor, Tensor]:
+def cutmix(generator: torch.Generator, x: Tensor, y_onehot: Tensor, alpha: float = 1.0,
+           reverse: Reverse = _flip) -> Tuple[Tensor, Tensor]:
     """CutMix: paste a random box from the reversed batch; the target weight
     is the share of the image outside the box."""
     return paste_box(x, y_onehot, *cutmix_draws(generator, x.shape[2], x.shape[3], alpha,
-                                                x.device))
+                                                x.device), reverse)
 
 
 # RandAugment's ops: (B, C, H, W) images in [0, 1] and a (B, 1, 1, 1) signed
@@ -258,12 +292,14 @@ RANDAUG_OPS = (_adjust_brightness, _adjust_contrast, _adjust_saturation, _poster
                _solarize, _invert, _translate_x, _translate_y)
 
 
-def rand_augment_draws(generator: torch.Generator, b: int, n: int, device
-                       ) -> Tuple[Tensor, Tensor]:
+def rand_augment_draws(generator: torch.Generator, b: int, n: int, device,
+                       shard: Shard = None) -> Tuple[Tensor, Tensor]:
     """RandAugment's draws: each sample's op index in [0, 8) and sign (+1 or
     -1, even odds) for each of its ``n`` rounds, both (B, n)."""
-    ops = torch.randint(0, len(RANDAUG_OPS), (b, n), device=device, generator=generator)
-    signs = torch.where(torch.rand(b, n, device=device, generator=generator) < 0.5, 1.0, -1.0)
+    rows, own = global_rows(b, shard)
+    ops = torch.randint(0, len(RANDAUG_OPS), (rows, n), device=device, generator=generator)[own]
+    signs = torch.where(torch.rand(rows, n, device=device, generator=generator)[own] < 0.5,
+                        1.0, -1.0)
     return ops, signs
 
 
@@ -281,9 +317,11 @@ def apply_rand_augment(x: Tensor, ops: Tensor, signs: Tensor, m: int = 9) -> Ten
     return x
 
 
-def rand_augment(generator: torch.Generator, x: Tensor, n: int = 2, m: int = 9) -> Tensor:
+def rand_augment(generator: torch.Generator, x: Tensor, n: int = 2, m: int = 9,
+                 shard: Shard = None) -> Tensor:
     """RandAugment on the device: ``n`` random ops per sample at magnitude
     ``m`` / 30 with a random sign, from the photometric and translation
     subset (brightness, contrast, saturation, posterize, solarize, invert,
     translate x and y). x: (B, C, H, W) float in [0, 1]."""
-    return apply_rand_augment(x, *rand_augment_draws(generator, x.shape[0], n, x.device), m)
+    return apply_rand_augment(x, *rand_augment_draws(generator, x.shape[0], n, x.device, shard),
+                              m)

@@ -12,6 +12,19 @@ parameters in place. Random draws (augment, drop-path, dropout) come from the
 RNG. Eval: normalize, forward in eval mode, ``(#correct, #valid)`` out.
 Each step sets the model's mode on every call. The LM step takes token ids
 and targets, which stay integer, and the model's fp32 mean cross-entropy.
+
+Data parallel: every step takes ``mesh`` (``parallel.mesh.make_mesh``).
+Under a mesh each process passes its own B / D rows (``shard_batch``) and
+holds the whole model; the step all-reduces the fp32 grads to their mean over
+the data axis before the clip (one flat buffer per dtype), reports the global
+mean loss and accuracy, and the eval step the summed counts. The per-sample
+draws (augment, drop-path, dropout) are taken for the global batch from the
+same generator on every process, which keeps its own rows
+(``preprocess.global_rows``, ``layers.RandomDrop.shards``), so a D-process step
+draws what the one-device step draws for the same rows. Mixup and CutMix pair
+each row with the reversed global batch's: the rows held by the mirror
+process, exchanged point to point. ``mesh=None`` (or a world-1 mesh with no
+process group) is the one-device step and runs no collective.
 """
 
 from __future__ import annotations
@@ -21,15 +34,18 @@ import functools
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
-from ..models.layers import set_generator
+from ..models.layers import RandomDrop, set_generator
 from ..ops import preprocess as pp
 from ..utils.device import resolve_device
+from . import comm
+from .mesh import DATA_AXIS
 
 Tensor = torch.Tensor
 Device = Optional[Union[str, torch.device]]
@@ -60,6 +76,62 @@ def _call(model: nn.Module, compute_dtype: Optional[torch.dtype], *args, **kwarg
 def _forward(model: nn.Module, x: Tensor, compute_dtype: Optional[torch.dtype]) -> Tensor:
     """The model on ``x``, with input and float params cast to ``compute_dtype``."""
     return _call(model, compute_dtype, x if compute_dtype is None else x.to(compute_dtype))
+
+
+class _DataParallel:
+    """The data axis of a step's mesh: its group (None: no collective), its
+    size and this process's index on it, and the model's random-drop
+    modules."""
+
+    def __init__(self, mesh, model: nn.Module):
+        self.group = mesh.group(DATA_AXIS) if mesh is not None else None
+        self.size = mesh.shape[DATA_AXIS] if mesh is not None else 1
+        self.index = mesh.axis_index(DATA_AXIS) if mesh is not None else 0
+        # The per-sample draws' block of the global batch (preprocess.Shard).
+        self.shard = (self.index, self.size) if self.size > 1 else None
+        self.drops = [m for m in model.modules() if isinstance(m, RandomDrop)]
+
+    def draw_shards(self, extra=lambda m: ()) -> None:
+        """Each drop module's mask is the global batch's, plus ``extra(m)``."""
+        own = ((0, self.index, self.size),) if self.size > 1 else ()
+        for m in self.drops:
+            m.shards = own + extra(m)
+
+    def mean_grads(self, params) -> None:
+        """Each grad replaced by its mean over the data axis."""
+        grads = [p.grad for p in params if p.grad is not None]
+        comm.all_reduce_flat_(grads, self.group, 1.0 / self.size)
+
+    def mean(self, *values: Tensor):
+        """The mean over the data axis of each of these scalars."""
+        if self.group is None:
+            return values
+        v = torch.stack([t.float() for t in values])
+        comm.all_reduce_(v, self.group)
+        return tuple(v / self.size)
+
+    def mirror(self, t: Tensor) -> Tensor:
+        """The rows of the reversed global batch that pair with ``t``'s rows:
+        the mirror process's (data index D - 1 - i) rows, reversed."""
+        j = self.size - 1 - self.index
+        if self.group is None or j == self.index:
+            return t.flip(0)
+        peer = dist.get_global_rank(self.group, j)
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t.contiguous(), peer, self.group),
+               dist.P2POp(dist.irecv, out, peer, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.flip(0)
+
+
+def _step_device(device, mesh):
+    """The step's device: the mesh's, which ``device`` (if given) must name."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    return mesh.device
 
 
 # The ops whose outputs remat="dots" saves: the matmuls, as JAX's
@@ -167,13 +239,15 @@ def _remat_forward(model, compute_dtype, remat):
 
 
 def _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype, n_classes,
-                     remat):
+                     remat, shard=None):
     """``loss_fn(x_u8, y, generator) -> (loss, acc)`` of one (micro)batch."""
     forward = _remat_forward(model, compute_dtype, remat)
 
+    kw = {} if shard is None else {"shard": shard}
+
     def loss_fn(x_u8, y, generator):
         if augment:
-            x = pp.cifar_train_augment(generator, x_u8, mean, std)
+            x = pp.cifar_train_augment(generator, x_u8, mean, std, **kw)
         else:
             x = pp.cifar_eval_transform(x_u8, mean, std)
         logits = forward(x, generator).float()
@@ -189,10 +263,11 @@ def _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype, 
 
 
 def _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
-                compute_dtype, n_classes, accum_steps, remat, device):
-    device = resolve_device(device)
+                compute_dtype, n_classes, accum_steps, remat, device, mesh=None):
+    device = _step_device(device, mesh)
+    dp = _DataParallel(mesh, model)
     loss_fn = _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype,
-                               n_classes, remat)
+                               n_classes, remat, dp.shard)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(x_u8: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
@@ -202,11 +277,14 @@ def _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip
                              "pass one on the step's device")
         model.train()
         set_generator(model, generator)
+        dp.draw_shards()
         x_u8 = x_u8.to(device, non_blocking=True)
         y = y.to(device, non_blocking=True).long()
         optimizer.zero_grad(set_to_none=True)
         loss, acc = _accumulate(lambda x, t: loss_fn(x, t, generator), (x_u8, y), accum_steps)
+        dp.mean_grads(params)
         _clip_and_update(params, optimizer, grad_clip)
+        loss, acc = dp.mean(loss, acc)
         return {"loss": loss, "acc": acc}
 
     return step
@@ -247,7 +325,7 @@ def make_classifier_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, mean, std, augment: bool = True,
     label_smoothing: float = 0.0, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, n_classes: Optional[int] = None,
-    accum_steps: int = 1, device: Device = None,
+    accum_steps: int = 1, device: Device = None, mesh=None,
 ) -> Callable[..., Dict[str, Tensor]]:
     """Train step: returns ``step(x_u8, y, generator) -> {"loss", "acc"}``.
 
@@ -259,17 +337,19 @@ def make_classifier_train_step(
     ``accum_steps > 1`` splits the batch into interleaved microbatches whose
     fp32 grads are summed before one update. The step runs on ``device``
     (the GPU unless given) and moves its inputs there; the model must
-    already live on it.
+    already live on it. Under ``mesh`` (data parallel, see the module's
+    docstring) the step takes this process's rows and runs on the mesh's
+    device.
     """
     return _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
-                       compute_dtype, n_classes, accum_steps, "none", device)
+                       compute_dtype, n_classes, accum_steps, "none", device, mesh)
 
 
 def make_scanned_classifier_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, mean, std, unroll_steps: int,
     augment: bool = True, label_smoothing: float = 0.0, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, remat: str = "none",
-    device: Device = None,
+    device: Device = None, mesh=None,
 ) -> Callable[..., Dict[str, Tensor]]:
     """K = ``unroll_steps`` train steps over a stacked (K, B, ...) super-batch:
     ``step(x_u8 (K, B, C, H, W), y (K, B), generator) -> {"loss": (K,),
@@ -283,7 +363,7 @@ def make_scanned_classifier_train_step(
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat mode {remat!r}")
     one = _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
-                      compute_dtype, None, 1, remat, device)
+                      compute_dtype, None, 1, remat, device, mesh)
 
     def step(x_u8: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
              ) -> Dict[str, Tensor]:
@@ -298,7 +378,7 @@ def make_scanned_classifier_train_step(
 
 def make_classifier_eval_step(
     model: nn.Module, mean, std, compute_dtype: Optional[torch.dtype] = None,
-    device: Device = None,
+    device: Device = None, mesh=None,
 ) -> Callable[[Tensor, Tensor, Tensor], Tuple[Tensor, Tensor]]:
     """Eval step: returns ``step(x_u8, y, valid_mask) -> (#correct, #valid)``.
 
@@ -308,9 +388,11 @@ def make_classifier_eval_step(
     it at every call, as the JAX step casts its params. Every call puts the
     model in eval mode (a train step in between leaves it in train mode). The
     step runs on ``device`` (the GPU unless given) and moves its inputs
-    there; the model must already live on it.
+    there; the model must already live on it. Under ``mesh`` each process
+    passes its rows and the counts are summed over the data axis.
     """
-    device = resolve_device(device)
+    device = _step_device(device, mesh)
+    group = mesh.group(DATA_AXIS) if mesh is not None else None
 
     @torch.inference_mode()
     def step(x_u8: Tensor, y: Tensor, valid_mask: Tensor) -> Tuple[Tensor, Tensor]:
@@ -319,7 +401,8 @@ def make_classifier_eval_step(
         logits = _forward(model, x, compute_dtype).float()
         valid = valid_mask.to(device, torch.float32)
         correct = (logits.argmax(-1) == y.to(device)).to(torch.float32) * valid
-        return correct.sum(), valid.sum()
+        counts = comm.all_reduce_(torch.stack([correct.sum(), valid.sum()]), group)
+        return counts[0], counts[1]
 
     return step
 
@@ -330,7 +413,7 @@ def make_imagenet_train_step(
     randaug_m: int = 9, random_erasing: float = 0.25, mixup_alpha: float = 0.8,
     cutmix_alpha: float = 1.0, mix_prob: float = 0.5, grad_clip: Optional[float] = 1.0,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, remat: str = "none",
-    device: Device = None,
+    device: Device = None, mesh=None,
 ) -> Callable[..., Dict[str, Tensor]]:
     """ImageNet-style train step with the full regularization suite, on the
     device: returns ``step(x_u8, y, generator) -> {"loss"}``.
@@ -350,28 +433,33 @@ def make_imagenet_train_step(
     network; the augment is never recomputed. ``generator`` (on the step's device) feeds
     the augment and the model's drop masks. The step runs on ``device``
     (the GPU unless given) and moves its inputs there; the model must
-    already live on it.
+    already live on it. Under ``mesh``, data parallel (module docstring).
     """
-    device = resolve_device(device)
+    device = _step_device(device, mesh)
+    dp = _DataParallel(mesh, model)
     forward = _remat_forward(model, compute_dtype, remat)
     params = [p for p in model.parameters() if p.requires_grad]
     both = mixup_alpha > 0 and cutmix_alpha > 0
 
+    # The data-parallel arguments, given only under a data axis above 1.
+    shard = {} if dp.shard is None else {"shard": dp.shard}
+    pair = {} if dp.shard is None else {"reverse": dp.mirror}
+
     def loss_fn(x_u8, y, generator):
         use_mixup = both and float(torch.rand((), device=device, generator=generator)) < mix_prob
         x = pp.to_float(x_u8)
-        x = pp.random_crop(generator, x, padding=x.shape[-1] // 8)
-        x = pp.random_hflip(generator, x)
+        x = pp.random_crop(generator, x, padding=x.shape[-1] // 8, **shard)
+        x = pp.random_hflip(generator, x, **shard)
         if use_randaug:
-            x = pp.rand_augment(generator, x, randaug_n, randaug_m)
+            x = pp.rand_augment(generator, x, randaug_n, randaug_m, **shard)
         if random_erasing > 0:
-            x = pp.random_erasing(generator, x, p=random_erasing)
+            x = pp.random_erasing(generator, x, p=random_erasing, **shard)
         x = pp.normalize(x, mean, std)
         tgt = pp.label_smoothing_onehot(y, n_classes, label_smoothing)
         if use_mixup or (mixup_alpha > 0 and not both):
-            x, tgt = pp.mixup(generator, x, tgt, alpha=mixup_alpha)
+            x, tgt = pp.mixup(generator, x, tgt, alpha=mixup_alpha, **pair)
         elif cutmix_alpha > 0:
-            x, tgt = pp.cutmix(generator, x, tgt, alpha=cutmix_alpha)
+            x, tgt = pp.cutmix(generator, x, tgt, alpha=cutmix_alpha, **pair)
         logits = forward(x, generator).float()
         return -(tgt * torch.log_softmax(logits, -1)).sum(-1).mean()
 
@@ -381,14 +469,17 @@ def make_imagenet_train_step(
                              "pass one on the step's device")
         model.train()
         set_generator(model, generator)
+        dp.draw_shards()
         x_u8 = x_u8.to(device, non_blocking=True)
         y = y.to(device, non_blocking=True).long()
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(x_u8, y, generator)
         loss.backward()
+        dp.mean_grads(params)
         _clip_and_update(params, optimizer,
                          grad_clip if grad_clip is not None and grad_clip > 0 else None)
-        return {"loss": loss.detach()}
+        (loss,) = dp.mean(loss.detach())
+        return {"loss": loss}
 
     return step
 
@@ -396,7 +487,7 @@ def make_imagenet_train_step(
 def make_lm_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, accum_steps: int = 1,
-    device: Device = None,
+    device: Device = None, mesh=None,
 ) -> Callable[..., Dict[str, Tensor]]:
     """Causal-LM train step for the GPT family: returns ``step(idx, targets,
     generator=None) -> {"loss"}``.
@@ -413,9 +504,10 @@ def make_lm_train_step(
     grads by ``min(1, clip / (norm + 1e-6))`` wherever it is not None, as
     the JAX LM step: a clip of 0 zeroes them. The step runs on ``device``
     (the GPU unless given) and moves its inputs there; the model must
-    already live on it.
+    already live on it. Under ``mesh``, data parallel (module docstring).
     """
-    device = resolve_device(device)
+    device = _step_device(device, mesh)
+    dp = _DataParallel(mesh, model)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def loss_fn(idx, targets):
@@ -425,10 +517,13 @@ def make_lm_train_step(
              ) -> Dict[str, Tensor]:
         model.train()
         set_generator(model, generator)
+        dp.draw_shards()
         batch = (idx.to(device, non_blocking=True), targets.to(device, non_blocking=True))
         optimizer.zero_grad(set_to_none=True)
         (loss,) = _accumulate(loss_fn, batch, accum_steps)
+        dp.mean_grads(params)
         _clip_and_update(params, optimizer, grad_clip)
+        (loss,) = dp.mean(loss)
         return {"loss": loss}
 
     return step

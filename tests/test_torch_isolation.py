@@ -49,7 +49,13 @@ def test_the_scan_sees_the_package():
             "mop_tpu_torch/models/beam.py", "mop_tpu_torch/models/speculative.py",
             "mop_tpu_torch/cli/generate_text.py", "mop_tpu_torch/serving/engine.py",
             "mop_tpu_torch/serving/http.py", "mop_tpu_torch/training/lora.py",
-            "mop_tpu_torch/cli/serve_http.py"} <= names
+            "mop_tpu_torch/cli/serve_http.py", "mop_tpu_torch/parallel/mesh.py",
+            "mop_tpu_torch/parallel/multihost.py", "mop_tpu_torch/parallel/fsdp.py",
+            "mop_tpu_torch/parallel/tp.py", "mop_tpu_torch/parallel/multiseed.py",
+            "mop_tpu_torch/parallel/comm.py", "mop_tpu_torch/parallel/paths.py",
+            "mop_tpu_torch/ops/ring_attention.py", "mop_tpu_torch/utils/collectives.py",
+            "mop_tpu_torch/cli/launch_multihost.py",
+            "mop_tpu_torch/cli/multihost_train.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
