@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --phases 12,15`` builds, then runs only the named
-phases of 10-17 (15 runs 10 first, for its CSVs), and prints neither the
+phases of 10-18 (15 runs 10 first, for its CSVs), and prints neither the
 kernels line nor the last line's ok: a quicker check of a later phase.
 
 Phases, one line each (a failed phase makes the script exit non-zero):
@@ -249,6 +249,21 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    of ``MODE_COLLECTIVES`` (none for the ring, which has no neighbour at world 1), from which the modes two ranks could run on one card over gloo are
    printed; 17f, ``cli.launch_multihost --nproc 1`` running ``cli.multihost_train`` over NCCL
    (and at the card count where it is above 1). The kernels line's ``launches`` add 17's.
+18. multi-GPU, part 2 (``mop_tpu_torch.parallel.pp``, TP serving, the sharded checkpoint), over
+   NCCL at world size 1: 18a, GPipe and 1F1B of LM_quartet (8 x 640, 64 x 256, bf16) at one
+   stage and 4 microbatches against ``make_lm_train_step`` (17b's run of it): losses within 1e-3
+   after 3 steps, K5 32 launches a step (by its counter and by the profiler's kernel records),
+   peak memory beside the one-device step's; 18b, 1F1B at dropout 0.1 against
+   ``reference_1f1b_composition``, the model's own forward with the step's masks (loss within
+   1e-3, grads); 18c, the composed dp x tp x pp step on ``make_mesh3``'s mesh (losses within
+   1e-3, K5 32 a step) and the ring over its 'stage' axis at (8, 6, 750, 64), causal, against
+   full attention; 18d, Serve_6x512 with a tensor-parallel model on 16 mixed jobs of 14a's kind
+   over its 8 slots, in the dense engine (head-split ``cache_sharding``), the paged engine (64
+   pages) and the speculative engine (a 2 x 128 draft): every token the same plain engine's,
+   tokens/s beside it; 18e, LM_quartet under FSDP saved with its optimizer
+   (``torch.distributed.checkpoint``), restored into FSDP (two resumed steps bit-equal to the
+   uninterrupted run), tensor parallel and whole (params bit-equal), the save and restore times.
+   The kernels line's ``launches`` add 18's (K5: 192 in 18a, 96 in 18c, 48 in 18e).
 """
 
 from __future__ import annotations
@@ -581,7 +596,13 @@ CLI15_STEPS = 5  # each CLI's steps (eval at steps 1 and 5)
 launches = {f.__name__: 0 for f in F.KERNELS}
 
 
+_T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
+    """Print ``msg``; a phase's header (``[N ...]``) with the script's time so far."""
+    if msg.startswith("[") and msg[1:2].isdigit():
+        msg = f"{msg} (at {time.perf_counter() - _T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -3147,6 +3168,45 @@ def _mg_run(step, batches, gen_seed):
     return torch.stack([step(x, y, generator=g)["loss"].float() for x, y in batches])
 
 
+def mg_lm_batches():
+    """Phases 17b and 18's MG_STEPS LM_quartet batches (x, y) on the card."""
+    idx = torch.randint(0, LM_VOCAB, (MG_STEPS, LM_BATCH, MG_LM["block_size"]), device="cuda",
+                        generator=cuda_generator(175))
+    return [(idx[i], idx[i].roll(-1, -1)) for i in range(MG_STEPS)]
+
+
+def mg_lm(cfg=None):
+    """LM_quartet as phases 17b and 18 build it (seed 176)."""
+    return create_gpt_quartet(LM_VOCAB, cfg or TransformerConfig(**MG_LM),
+                              generator=torch.Generator().manual_seed(176))
+
+
+def mg_make_opt(ps):
+    return torch.optim.AdamW(ps, LM_LR, weight_decay=LM_WD)
+
+
+_MG_ONE = {}
+
+
+def mg_one_device():
+    """``make_lm_train_step`` over ``mg_lm_batches()``: (losses, launches,
+    peak GiB, ms a step over the steps, first-call costs included), which
+    17b's and 18's modes are held to. Run once, by the first phase that asks
+    for it, and kept."""
+    if not _MG_ONE:
+        lm = mg_lm()
+        step = make_lm_train_step(lm, mg_make_opt(lm.parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (losses, secs), counts = counted(
+            lambda: seconds_of(lambda: _mg_run(step, mg_lm_batches(), 177)), add=False)
+        _MG_ONE.update(run=(losses, counts, torch.cuda.max_memory_allocated() / 2**30,
+                            1e3 * secs / MG_STEPS))
+        del lm, step
+        torch.cuda.empty_cache()
+    return _MG_ONE["run"]
+
+
 def _same(name, got, want, exact=True, atol=0.0):
     """got equal to want (bit for bit, or within atol), each a tensor or a
     state dict."""
@@ -3367,41 +3427,28 @@ def multi_gpu_phases(smi):
 
         # 17b: FSDP and ZeRO-1 of LM_quartet against make_lm_train_step.
         t0 = time.perf_counter()
-        cfg = TransformerConfig(**MG_LM)
-        t_lm = cfg.block_size
-        idx = torch.randint(0, LM_VOCAB, (MG_STEPS, LM_BATCH, t_lm), device="cuda",
-                            generator=cuda_generator(175))
-        lm_batches = [(idx[i], idx[i].roll(-1, -1)) for i in range(MG_STEPS)]
-
-        def make_opt(ps):
-            return torch.optim.AdamW(ps, LM_LR, weight_decay=LM_WD)
-
+        lm_batches = mg_lm_batches()
+        ref_l, ref_c, ref_peak, _ = mg_one_device()
         lm_runs = {}
-        for label in ("one device", "FSDP", "ZeRO-1"):
-            lm = create_gpt_quartet(LM_VOCAB, cfg, generator=torch.Generator().manual_seed(176))
-            if label == "one device":
-                opt = make_opt(lm.parameters())
-                step = make_lm_train_step(lm, opt)
-            elif label == "FSDP":
+        for label in ("FSDP", "ZeRO-1"):
+            lm = mg_lm()
+            if label == "FSDP":
                 fsdp_shard_params(replicate(lm, mesh), mesh)
-                opt = fsdp_init_opt_state(make_opt, lm, mesh)
+                opt = fsdp_init_opt_state(mg_make_opt, lm, mesh)
                 step = make_fsdp_lm_train_step(lm, opt, mesh)
             else:
-                opt = zero1_init_opt_state(make_opt, replicate(lm, mesh), mesh)
+                opt = zero1_init_opt_state(mg_make_opt, replicate(lm, mesh), mesh)
                 step = make_fsdp_lm_train_step(lm, opt, mesh, shard_params=False)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            losses, counts = counted(lambda: _mg_run(step, lm_batches, 177),
-                                     add=label != "one device")
+            losses, counts = counted(lambda: _mg_run(step, lm_batches, 177))
             peak = torch.cuda.max_memory_allocated() / 2**30
-            if label != "one device":
-                with record_collectives() as rec:
-                    step(*lm_batches[0], generator=cuda_generator(177))
-                seen_ops[label] = set(collective_summary(rec))
+            with record_collectives() as rec:
+                step(*lm_batches[0], generator=cuda_generator(177))
+            seen_ops[label] = set(collective_summary(rec))
             lm_runs[label] = (losses, counts, peak)
             del lm, opt, step
             torch.cuda.empty_cache()
-        ref_l, ref_c, ref_peak = lm_runs["one device"]
         for label in ("FSDP", "ZeRO-1"):
             losses, counts, peak = lm_runs[label]
             _same(f"17b {label} LM_quartet losses vs make_lm_train_step, bf16", losses, ref_l,
@@ -3465,10 +3512,10 @@ def multi_gpu_phases(smi):
         for label in ("one device", "tensor parallel", "tensor + sequence parallel"):
             lm = create_gpt_mop(LM_VOCAB, mop_cfg, generator=torch.Generator().manual_seed(181))
             if label == "one device":
-                step = make_lm_train_step(lm, make_opt(lm.parameters()))
+                step = make_lm_train_step(lm, mg_make_opt(lm.parameters()))
             else:
                 tp_shard_params(replicate(lm, mesh), mesh)
-                step = make_tp_lm_train_step(lm, tp_init_opt_state(make_opt, lm), mesh,
+                step = make_tp_lm_train_step(lm, tp_init_opt_state(mg_make_opt, lm), mesh,
                                              sequence_parallel="sequence" in label)
             shapes.clear()
             hooks = heads_of(lm)
@@ -3606,8 +3653,270 @@ def multi_gpu_phases(smi):
     say(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 18: multi-GPU, part 2, at world size 1 over NCCL. The pipeline steps
+# take LM_quartet (MG_LM) in PP_M microbatches at one stage; each microbatch
+# runs the 8 layers once, K5 in each (1F1B's last stage runs its forward with
+# the graph: its recompute is that forward), so every pipelined step
+# launches K5 PP_K5_STEP times; the FSDP steps of 18e launch it 8 times each.
+PP_M = 4
+PP_K5_STEP = MG_LM["n_layer"] * PP_M
+PP_SERVE_JOBS = 16  # mixed jobs as 14a's, SERVE_NEW tokens each: twice the slots
+PP_PAGES = 64
+PP_FSDP_STEPS = 2  # before the save, and each run after it
+
+
+def _pp_losses(step, batches, *rng):
+    return torch.stack([step(x, y, *rng)["loss"].float() for x, y in batches])
+
+
+def _k5_profiled(label, fn, want, smi):
+    """One call of ``fn`` under the profiler: K5's kernel records and launches
+    against ``want``."""
+    records, counts, _ = profiled_records(fn, {K5: "quartet"})
+    check(records[K5] == counts[K5] == want,
+          f"{label}: K5 {counts[K5]} launches, {records[K5]} kernel records in the profile, "
+          f"predicted {want} a step [{smi}]")
+
+
+def pipeline_phases(smi):
+    """Phase 18: pipeline parallelism (GPipe, 1F1B), the composed dp x tp x pp
+    step and the ring over its stage axis, tensor-parallel serving and the
+    sharded checkpoint, over NCCL at world size 1."""
+    import torch.distributed as dist
+
+    from mop_tpu_torch.cli.launch_multihost import free_port
+    from mop_tpu_torch.ops import ring_attention as ring
+    from mop_tpu_torch.parallel import (fsdp_init_opt_state, fsdp_param_shardings,
+                                        fsdp_shard_params, make_fsdp_lm_train_step, pp,
+                                        tp_param_shardings, tp_shard_params)
+    from mop_tpu_torch.parallel.fsdp import full_state_dict as fsdp_full
+    from mop_tpu_torch.parallel.mesh import (STAGE_AXIS, Sharding, make_mesh, make_mesh3,
+                                             replicate, replicated)
+    from mop_tpu_torch.parallel.tp import full_state_dict as tp_full
+    from mop_tpu_torch.serving.engine import HEAD_SPLIT
+    from mop_tpu_torch.training import restore_checkpoint_sharded, save_checkpoint_orbax
+
+    t_phase = time.perf_counter()
+    say("[18 multi-GPU, part 2] pipelines, the composed step, TP serving and the sharded "
+        f"checkpoint over NCCL at world size 1 on {torch.cuda.get_device_name(0)}: the code and "
+        f"kernels of each mode, not multi-card numerics or speed [{smi}]")
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    mesh = make_mesh(device="cuda")
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_18_")
+    try:
+        n_layer = MG_LM["n_layer"]
+        batches = mg_lm_batches()
+        make_opt = mg_make_opt
+
+        def placed(model, place, m):
+            """The model's tensors placed for a pipeline step; its own weights
+            dropped (the steps read its config and block type)."""
+            stem, stacked, head = place(model, m, n_layer)
+            model.to("meta")
+            return (stem, stacked, head), pp.pp_init_opt_state(make_opt, stem, stacked, head)
+
+        # 18a: GPipe and 1F1B at one stage against make_lm_train_step (17b's
+        # run of it, made here when 17 did not run).
+        t0 = time.perf_counter()
+        ref_l, ref_c, ref_peak, ref_ms = mg_one_device()
+        for label in ("GPipe", "1F1B"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model = mg_lm()
+            tensors, opt = placed(model, pp.place_pp_params, mesh)
+            make = pp.make_pp_lm_train_step if label == "GPipe" else \
+                pp.make_pp_lm_train_step_1f1b
+            pstep = make(model, opt, mesh, PP_M, compute_dtype=torch.bfloat16)
+            rng = () if label == "GPipe" else (0,)
+
+            def run(bs):
+                return _pp_losses(lambda a, b, *r: pstep(*tensors, a, b, *r), bs, *rng)
+            (losses, secs), counts = counted(lambda: seconds_of(lambda: run(batches)))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _same(f"18a {label} LM_quartet, {PP_M} microbatches, losses vs make_lm_train_step, "
+                  "bf16", losses, ref_l, exact=False, atol=1e-3)
+            check(counts[K5] == PP_K5_STEP * MG_STEPS,
+                  f"18a {label}: K5 {counts[K5]} launches in {MG_STEPS} steps, predicted "
+                  f"{PP_K5_STEP} a step (one device: {ref_c[K5]})")
+            _k5_profiled(f"18a {label}, one more step", lambda: run(batches[:1]), PP_K5_STEP,
+                         smi)
+            check(tensors[1]["attn.q_proj.weight"].shape[0] == n_layer,
+                  f"18a {label}: the one stage holds the {n_layer} layers")
+            say(f"  18a {label}: peak memory {peak:.2f} GiB vs {ref_peak:.2f} GiB one device; "
+                f"{1e3 * secs / MG_STEPS:.1f} ms a step vs {ref_ms:.1f} over the first "
+                f"{MG_STEPS} steps, first-call costs included [{smi}]")
+            del model, tensors, opt, pstep, run
+            torch.cuda.empty_cache()
+        say(f"  18a took {time.perf_counter() - t0:.1f} s")
+
+        # 18b: 1F1B with dropout against its one-process composition.
+        t0 = time.perf_counter()
+        model = mg_lm(TransformerConfig(**dict(MG_LM, dropout=0.1)))
+        x, y = batches[0]
+        ref_loss, ref_grads = pp.reference_1f1b_composition(
+            model, *pp.split_gpt_params(model, n_layer), x, y, 7, PP_M,
+            compute_dtype=torch.bfloat16)
+        tensors, opt = placed(model, pp.place_pp_params, mesh)
+        step = pp.make_pp_lm_train_step_1f1b(model, opt, mesh, PP_M, compute_dtype=torch.bfloat16)
+        out, counts = counted(lambda: step(*tensors, x, y, 7))
+        _same("18b 1F1B LM_quartet_drop (dropout 0.1) loss vs reference_1f1b_composition, bf16",
+              out["loss"].float(), ref_loss.float(), exact=False, atol=1e-3)
+        g_err = max((tensors[1][n].grad - g).abs().max().item() / (g.abs().max().item() + 1e-12)
+                    for n, g in ref_grads[1].items())
+        check(g_err <= 1e-2 and counts[K5] == 0,
+              f"18b 1F1B grads vs the composition's: largest difference {g_err:.3e} of the "
+              f"largest grad; K5 {counts[K5]} launches (dropout: composed)")
+        del model, tensors, opt, step, ref_grads
+        torch.cuda.empty_cache()
+        say(f"  18b took {time.perf_counter() - t0:.1f} s")
+
+        # 18c: the composed step on make_mesh3's (1, 1, 1) mesh; the ring over
+        # its stage axis at Whisper_20M's encoder shape.
+        t0 = time.perf_counter()
+        mesh3 = make_mesh3(device="cuda")
+        model = mg_lm()
+        tensors, opt = placed(model, pp.place_pp_tp_params, mesh3)
+        step = pp.make_pp_tp_lm_train_step(model, opt, mesh3, PP_M, compute_dtype=torch.bfloat16)
+        losses, counts = counted(lambda: _pp_losses(lambda a, b: step(*tensors, a, b), batches))
+        _same("18c dp x tp x pp LM_quartet losses vs make_lm_train_step, bf16", losses, ref_l,
+              exact=False, atol=1e-3)
+        check(counts[K5] == PP_K5_STEP * MG_STEPS,
+              f"18c composed: K5 {counts[K5]} launches in {MG_STEPS} steps")
+        _k5_profiled("18c composed, one more step", lambda: step(*tensors, *batches[0]),
+                     PP_K5_STEP, smi)
+        del model, tensors, opt, step
+        gr = cuda_generator(188)
+        q, k, v = (torch.randn(*MG_RING, device="cuda", generator=gr).requires_grad_()
+                   for _ in range(3))
+        w = torch.randn(*MG_RING, device="cuda", generator=gr)
+        out = ring.ring_attention(q, k, v, mesh3, axis=STAGE_AXIS, causal=True, manual_only=True)
+        grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+        full = F.flash_attention_plain(q, k, v, causal=True)
+        want = torch.autograd.grad((full * w).sum(), (q, k, v))
+        compare(f"18c ring over 'stage' {MG_RING}, causal, vs full attention, fp32",
+                out.detach(), full.detach(), 2e-5, 0.0)
+        for name, g_, w_ in zip("qkv", grads, want):
+            compare(f"18c ring d{name} vs full attention's", g_, w_, 5e-5, 5e-5)
+        del q, k, v, w, out, grads, want, full
+        torch.cuda.empty_cache()
+        say(f"  18c took {time.perf_counter() - t0:.1f} s")
+
+        # 18d: Serve_6x512 with a tensor-parallel model in the three engines.
+        t0 = time.perf_counter()
+        jobs = serve_jobs(PP_SERVE_JOBS, np.random.RandomState(18))
+        scfg = TransformerConfig(**SERVE_CFG)
+        plain = create_gpt_quartet(SERVE_VOCAB, scfg,
+                                   generator=torch.Generator().manual_seed(50)).eval()
+        tpm = create_gpt_quartet(SERVE_VOCAB, scfg,
+                                 generator=torch.Generator().manual_seed(50)).eval()
+        tp_shard_params(replicate(tpm, mesh), mesh)
+        draft = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**DECODE_DRAFT),
+                                   generator=torch.Generator().manual_seed(51)).eval()
+        kv = Sharding(mesh, HEAD_SPLIT)
+        served = {}
+        for label, make in (
+                ("plain dense", lambda: DecodeEngine(plain, max_batch=SERVE_MAX_BATCH)),
+                ("plain paged", lambda: PagedDecodeEngine(plain, max_batch=SERVE_MAX_BATCH,
+                                                          n_pages=PP_PAGES, page_size=PAGED_PS)),
+                ("plain speculative", lambda: SpecDecodeEngine(
+                    plain, None, draft, None, max_batch=SERVE_MAX_BATCH, gamma=DECODE_GAMMA)),
+                ("dense", lambda: DecodeEngine(tpm, max_batch=SERVE_MAX_BATCH,
+                                               cache_sharding=kv)),
+                ("paged", lambda: PagedDecodeEngine(tpm, max_batch=SERVE_MAX_BATCH,
+                                                    n_pages=PP_PAGES, page_size=PAGED_PS)),
+                ("speculative", lambda: SpecDecodeEngine(
+                    tpm, None, draft, None, max_batch=SERVE_MAX_BATCH, gamma=DECODE_GAMMA,
+                    cache_sharding=kv))):
+            served[label] = counted(lambda: seconds_of(lambda: serve_all(make(), jobs)),
+                                    add=False)
+        for name, ref in (("dense", "plain dense"), ("paged", "plain paged"),
+                          ("speculative", "plain speculative")):
+            (got, s_tp), c_tp = served[name]
+            (want, s_plain), _ = served[ref]
+            n_out = sum(len(g) for g in got)
+            check(got == want and sum(c_tp.values()) == 0,
+                  f"18d {name} engine, tensor-parallel Serve_6x512 (model axis 1"
+                  f"{', cache_sharding ' + str(HEAD_SPLIT) if name != 'paged' else ''}): every "
+                  f"token of {PP_SERVE_JOBS} requests on {SERVE_MAX_BATCH} slots the {ref} "
+                  f"engine's; {n_out / s_tp:.0f} tokens/s vs {n_out / s_plain:.0f} (one call "
+                  f"each, first-call costs included) [{smi}]")
+        del plain, tpm, draft
+        say(f"  18d took {time.perf_counter() - t0:.1f} s")
+
+        # 18e: LM_quartet under FSDP, saved with its optimizer; restored into
+        # FSDP (resumed bit-equal), tensor parallel and whole.
+        t0 = time.perf_counter()
+        path = os.path.join(work, "ckpt")
+
+        def lm(seed):
+            return create_gpt_quartet(LM_VOCAB, TransformerConfig(**MG_LM),
+                                      generator=torch.Generator().manual_seed(seed))
+
+        def fsdp_lm(seed):
+            m = lm(seed)
+            fsdp_shard_params(replicate(m, mesh), mesh)
+            o = fsdp_init_opt_state(make_opt, m, mesh)
+            return m, o, make_fsdp_lm_train_step(m, o, mesh)
+
+        def fsdp_steps(step, at):
+            return _pp_losses(lambda a, b: step(a, b), batches[at:at + PP_FSDP_STEPS])
+
+        model, opt, step = fsdp_lm(189)
+        counted(lambda: fsdp_steps(step, 0))
+        (_, save_s), _ = counted(lambda: seconds_of(
+            lambda: save_checkpoint_orbax(path, model, opt_state=opt, step=PP_FSDP_STEPS)))
+        at_save = fsdp_full(model)
+        want_l, _ = counted(lambda: fsdp_steps(step, 1))
+        want_p = fsdp_full(model)
+        del model, opt, step
+        model, opt, step = fsdp_lm(190)
+        like = {"step": 0, "params": model, "opt_state": opt}
+        (r, restore_s), _ = counted(lambda: seconds_of(lambda: restore_checkpoint_sharded(
+            path, like, {"params": fsdp_param_shardings(model, mesh)})))
+        got_l, _ = counted(lambda: fsdp_steps(step, 1))
+        check(r["step"] == PP_FSDP_STEPS, f"18e restored step {r['step']}")
+        _same(f"18e FSDP -> FSDP: {PP_FSDP_STEPS} resumed steps' losses vs uninterrupted",
+              got_l, want_l)
+        _same("18e FSDP -> FSDP: params after them vs uninterrupted", fsdp_full(model), want_p)
+        say(f"  18e save {save_s:.2f} s, restore into FSDP {restore_s:.2f} s "
+            f"({sum(t.numel() for t in at_save.values()) * 3 * 4 / 2**20:.0f} MiB of params "
+            f"and AdamW moments) [{smi}]")
+        del model, opt, step
+        tpm = lm(190)
+        tp_shard_params(replicate(tpm, mesh), mesh)
+        (_, s_tp), _ = counted(lambda: seconds_of(lambda: restore_checkpoint_sharded(
+            path, {"params": tpm}, {"params": tp_param_shardings(tpm, mesh)})), add=False)
+        _same("18e FSDP -> tensor parallel: params vs the saved", tp_full(tpm), at_save)
+        rep = replicate(lm(190), mesh)
+        (_, s_rep), _ = counted(lambda: seconds_of(lambda: restore_checkpoint_sharded(
+            path, {"params": rep},
+            {"params": {n: replicated(mesh) for n, _ in rep.named_parameters()}})), add=False)
+        _same("18e FSDP -> whole: params vs the saved", _state(rep), at_save)
+        say(f"  18e restore into TP {s_tp:.2f} s, whole {s_rep:.2f} s [{smi}]")
+        del tpm, rep
+        torch.cuda.empty_cache()
+        say(f"  18e took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+        dist.destroy_process_group()
+        for k_, v_ in saved.items():
+            if v_ is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v_
+    say(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def later_phases(phases, smi) -> int:
-    """``--phases``: only the named phases of 10-17, after the build."""
+    """``--phases``: only the named phases of 10-18, after the build."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if 10 in phases or 15 in phases:
@@ -3627,6 +3936,8 @@ def later_phases(phases, smi) -> int:
             serving_export_phases(smi)
         if 17 in phases:
             multi_gpu_phases(smi)
+        if 18 in phases:
+            pipeline_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -3639,10 +3950,10 @@ def later_phases(phases, smi) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", type=lambda v: sorted({int(p) for p in v.split(",")}),
-                    help="comma-separated phases of 10-17 to run alone after the build")
+                    help="comma-separated phases of 10-18 to run alone after the build")
     args = ap.parse_args(argv)
-    if args.phases and not set(args.phases) <= set(range(10, 18)):
-        ap.error(f"--phases takes phases of 10-17, not {args.phases}")
+    if args.phases and not set(args.phases) <= set(range(10, 19)):
+        ap.error(f"--phases takes phases of 10-18, not {args.phases}")
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
         return 1
@@ -4648,6 +4959,7 @@ def main(argv=None) -> int:
         say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
         serving_export_phases(smi)
         multi_gpu_phases(smi)
+        pipeline_phases(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(all(c > 0 for c in launches.values()),

@@ -49,7 +49,8 @@ from __future__ import annotations
 import contextlib
 import math
 import re
-from typing import Dict, Optional, Tuple, Union
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as nnF
@@ -393,10 +394,46 @@ def whisper_transcribe_auto(model: WhisperMoP, mel: Tensor, bos_token: int, max_
 # ------------------------------ GPT family ------------------------------
 
 
-def _lin_params(lin: nn.Linear) -> dict:
+@dataclass(frozen=True, eq=False)
+class DecodeSplit:
+    """How a tensor-parallel model splits the decode, made and kept at
+    ``model.decode_split`` by ``parallel.tp.tp_shard_params``: this
+    process's ``index`` of ``size`` on the model axis, its share of the
+    heads ``n_head``, and each split linear's mode by its name in a block
+    (``"attn.q_proj"``, ``"mlp.proj"``, ``"views.proj"``): ``"column"``
+    (the output features split; the decode tree's bias is this process's
+    slice), ``"row"`` (the input features split: the partial products
+    summed by ``all_reduce``, the bias added once) or ``"row_alone"`` (a
+    row linear whose input is whole, sliced first). ``all_reduce`` sums a
+    tensor over the model axis in place, ``broadcast`` sends one in place
+    from the axis' first process."""
+
+    index: int
+    size: int
+    n_head: int
+    modes: Dict[str, str]
+    all_reduce: Callable[[Tensor], Tensor]
+    broadcast: Callable[[Tensor], Tensor]
+
+
+def decode_split_of(model: nn.Module) -> Optional[DecodeSplit]:
+    """The model's ``DecodeSplit``: None unless it is tensor-parallel."""
+    return getattr(model, "decode_split", None)
+
+
+def local_heads(model: nn.Module) -> int:
+    """The heads this process's decode computes and caches."""
+    sp = decode_split_of(model)
+    return model.config.n_head if sp is None else sp.n_head
+
+
+def _lin_params(lin: nn.Linear, sp: Optional[DecodeSplit] = None, name: str = "") -> dict:
     p = {"kernel": lin.weight.detach().t()}
     if lin.bias is not None:
         p["bias"] = lin.bias.detach()
+        if sp is not None and sp.modes.get(name) == "column":  # this process's rows
+            n = p["kernel"].shape[1]
+            p["bias"] = p["bias"].narrow(0, sp.index * n, n)
     return p
 
 
@@ -411,8 +448,14 @@ def decode_params(model: nn.Module) -> dict:
     ``quartet_scale``, ``ln2``, ``mlp``; GPT-MoP's ``views``, ``kernels``
     (ks, V, K) and ``fuse``) and ``ln_f``. The leaves are detached views of
     the parameters, so the dict follows the model as it trains;
-    ``ops.quant.quantize_params`` maps over it."""
+    ``ops.quant.quantize_params`` maps over it. A tensor-parallel model's
+    tree (``parallel.tp.tp_shard_params``) holds this process's slices, the
+    column biases sliced as the weights; ``decode_rows`` reads the model's
+    ``DecodeSplit`` beside it: each process computes its heads and the row
+    products' partial sums, summed over the model axis, so that the logits
+    come out whole on every process."""
     cfg = model.config
+    sp = decode_split_of(model)
     p = {"wte": {"embedding": model.wte.weight.detach()}}
     if cfg.use_abs_pos_emb:
         p["wpe"] = {"embedding": model.wpe.weight.detach()}
@@ -420,14 +463,15 @@ def decode_params(model: nn.Module) -> dict:
     if cfg.use_quartet:
         names += ("q2_proj", "k2_proj")
     for i, blk in enumerate(model.blocks):
-        attn = {n: _lin_params(getattr(blk.attn, n)) for n in names}
+        attn = {n: _lin_params(getattr(blk.attn, n), sp, f"attn.{n}") for n in names}
         if cfg.use_quartet:
             attn["mixture"] = blk.attn.mixture.detach()
             attn["quartet_scale"] = blk.attn.quartet_scale.detach()
         bp = {"ln1": _ln_params(blk.ln1), "attn": attn, "ln2": _ln_params(blk.ln2),
-              "mlp": {"fc": _lin_params(blk.mlp.fc), "proj": _lin_params(blk.mlp.proj)}}
+              "mlp": {"fc": _lin_params(blk.mlp.fc, sp, "mlp.fc"),
+                      "proj": _lin_params(blk.mlp.proj, sp, "mlp.proj")}}
         if hasattr(blk, "views"):  # GPT-MoP: torch's (out, in, k) convs as (k, in, out)
-            bp["views"] = {"proj": _lin_params(blk.views.proj)}
+            bp["views"] = {"proj": _lin_params(blk.views.proj, sp, "views.proj")}
             bp["kernels"] = {"conv": {"kernel": blk.kernels.conv.weight.detach().permute(2, 1, 0)}}
             bp["fuse"] = {"conv": {"kernel": blk.fuse.conv.weight.detach().permute(2, 1, 0)},
                           "alpha": blk.fuse.alpha.detach()}
@@ -596,13 +640,26 @@ def _ln(x: Tensor, p: dict, eps: float = 1e-5) -> Tensor:
     return nnF.layer_norm(x.float(), x.shape[-1:], p["scale"], p["bias"], eps)
 
 
-def _lin(x: Tensor, p: dict) -> Tensor:
+def _lin(x: Tensor, p: dict, sp: Optional[DecodeSplit] = None, name: str = "") -> Tensor:
     """``x @ kernel (+ bias)``, the kernel fp32, ``QTensor`` or ``Q4Tensor``,
     plus the per-row LoRA delta where the node carries ``lora_a``/``lora_b``
-    (the serving engine's adapter bank, ``serving.engine.lora_params_view``)."""
+    (the serving engine's adapter bank, ``serving.engine.lora_params_view``).
+    Under a ``DecodeSplit`` the linear ``name`` of a block computes this
+    process's share and a row one sums it with ``sp.all_reduce``."""
+    mode = None if sp is None else sp.modes.get(name)
+    if mode is None or mode == "column":
+        return _lin_local(x, p, p.get("bias"))
+    if mode == "row_alone":  # this process's features of a whole input
+        n = x.shape[-1] // sp.size
+        x = x.narrow(-1, sp.index * n, n)
+    y = sp.all_reduce(_lin_local(x, p, None))
+    return y + p["bias"] if "bias" in p else y
+
+
+def _lin_local(x: Tensor, p: dict, bias: Optional[Tensor]) -> Tensor:
     k = p["kernel"]
     if "lora_a" not in p and not isinstance(k, (QTensor, Q4Tensor)):
-        return nnF.linear(x, k.t(), p.get("bias"))  # one fused product and bias
+        return nnF.linear(x, k.t(), bias)  # one fused product and bias
     if isinstance(k, QTensor):
         y = qmatmul(x, k)
     elif isinstance(k, Q4Tensor):
@@ -614,8 +671,8 @@ def _lin(x: Tensor, p: dict) -> Tensor:
         # row b holds its request's adapter (zeros: none), y_b += x_b A_b B_b
         t = torch.einsum("b...d,bdr->b...r", x, p["lora_a"])
         y = y + torch.einsum("b...r,bro->b...o", t, p["lora_b"]).to(y.dtype)
-    if "bias" in p:
-        y = y + p["bias"]
+    if bias is not None:
+        y = y + bias
     return y
 
 
@@ -648,16 +705,17 @@ def _standardize_rows(s: Tensor, n_valid: Union[int, Tensor], eps: float) -> Ten
 
 
 def init_decode_cache(config, batch: int, dtype: torch.dtype = torch.float32, n_views: int = 0,
-                      device=None) -> dict:
+                      device=None, n_head: Optional[int] = None) -> dict:
     """Per-layer (k, k2, v) caches of shape (L, B, H, block, dk) and the live
     length ``len`` (an int). ``dtype=torch.int8`` stores int8 rows with
     per-row fp32 scales ``k_s``/``k2_s``/``v_s`` (L, B, H, block), applied
     after the products. ``n_views > 0`` (GPT-MoP) adds the view history
-    ``mv`` (L, B, block, V) in fp32, the gate conv's taps. On the GPU unless
-    ``device`` is given."""
+    ``mv`` (L, B, block, V) in fp32, the gate conv's taps. ``n_head``: the
+    heads this process holds (a tensor-parallel model's share; default all).
+    On the GPU unless ``device`` is given."""
     device = resolve_device(device)
-    L, h = config.n_layer, config.n_head
-    shape = (L, batch, h, config.block_size, config.n_embd // h)
+    L, h = config.n_layer, n_head or config.n_head
+    shape = (L, batch, h, config.block_size, config.n_embd // config.n_head)
     cache = {key: torch.zeros(shape, dtype=dtype, device=device) for key in ("k", "k2", "v")}
     cache["len"] = 0
     if dtype == torch.int8:
@@ -703,14 +761,15 @@ def _mop_gates(bp: dict, mv: Tensor, pos: Tensor, causal: bool) -> Tensor:
     return 1.0 + alpha[0] * gates[..., 0] - alpha[1] * gates[..., 1]
 
 
-def _mop_gate_full(bp: dict, x: Tensor, t_live=None, causal: bool = False):
+def _mop_gate_full(bp: dict, x: Tensor, t_live=None, causal: bool = False,
+                   sp: Optional[DecodeSplit] = None):
     """The full-window gate for prefill from the post-attention activations
     x (B, T, C): ``(gate (B, T), views (B, T, V))`` as the module computes
     them (views, the k-tap conv left-padded when ``causal``, else centred,
     the 1x1 fuse). ``t_live`` (an int or a (B,) tensor): views at positions
     from it on are zeroed before the conv, so that pads do not reach the
-    taps."""
-    v = _lin(x, bp["views"]["proj"])
+    taps. ``sp``: the model's ``DecodeSplit``, if any."""
+    v = _lin(x, bp["views"]["proj"], sp, "views.proj")
     t = v.shape[1]
     if t_live is not None:
         lv = torch.as_tensor(t_live, device=x.device).reshape(-1, 1)
@@ -726,17 +785,17 @@ def _mop_gate_full(bp: dict, x: Tensor, t_live=None, causal: bool = False):
     return 1.0 + alpha[0] * gates[..., 0] - alpha[1] * gates[..., 1], v
 
 
-def _mlp(x: Tensor, bp: dict) -> Tensor:
-    return x + _lin(gelu_tanh(_lin(_ln(x, bp["ln2"]), bp["mlp"]["fc"])), bp["mlp"]["proj"])
+def _mlp(x: Tensor, bp: dict, sp: Optional[DecodeSplit] = None) -> Tensor:
+    h = gelu_tanh(_lin(_ln(x, bp["ln2"]), bp["mlp"]["fc"], sp, "mlp.fc"))
+    return x + _lin(h, bp["mlp"]["proj"], sp, "mlp.proj")
 
 
-def _kv_rows(p: dict, cfg, x: Tensor):
+def _kv_rows(p: dict, cfg, x: Tensor, h: int, sp: Optional[DecodeSplit] = None):
     """This token's k, k2, v rows (B, H, 1, dk) from the ln1 activations
-    (k2 is k without Quartet)."""
-    h = cfg.n_head
-    k = _split_heads(_lin(x, p["k_proj"]), h)
-    v = _split_heads(_lin(x, p["v_proj"]), h)
-    k2 = _split_heads(_lin(x, p["k2_proj"]), h) if cfg.use_quartet else k
+    (k2 is k without Quartet), over ``h`` heads."""
+    k = _split_heads(_lin(x, p["k_proj"], sp, "attn.k_proj"), h)
+    v = _split_heads(_lin(x, p["v_proj"], sp, "attn.v_proj"), h)
+    k2 = _split_heads(_lin(x, p["k2_proj"], sp, "attn.k2_proj"), h) if cfg.use_quartet else k
     return k, k2, v
 
 
@@ -828,7 +887,8 @@ def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
     cfg = model.config
     p = _params(model, params)
     b, g = tokens.shape
-    h = cfg.n_head
+    sp = decode_split_of(model)
+    h = local_heads(model)
     dev = tokens.device
     shared = not isinstance(lens, Tensor)  # one length for every row
     steps = torch.arange(g, device=dev)
@@ -846,14 +906,14 @@ def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
             bp = p[f"blocks_{i}"]
             ap = bp["attn"]
             hx = _ln(x, bp["ln1"])
-            q = _split_heads(_lin(hx, ap["q_proj"]), h)
+            q = _split_heads(_lin(hx, ap["q_proj"], sp, "attn.q_proj"), h)
             scale = 1.0 / math.sqrt(q.shape[-1])
-            sc = rows.write(i, wpos, _kv_rows(ap, cfg, hx))
+            sc = rows.write(i, wpos, _kv_rows(ap, cfg, hx, h, sp))
             qk = q @ rows.window("k", i).to(q.dtype).transpose(-1, -2) * scale
             if sc is not None:
                 qk = qk * sc[0][:, :, None, :]
             if cfg.use_quartet:
-                q2 = _split_heads(_lin(hx, ap["q2_proj"]), h)
+                q2 = _split_heads(_lin(hx, ap["q2_proj"], sp, "attn.q2_proj"), h)
                 q2k2 = q2 @ rows.window("k2", i).to(q2.dtype).transpose(-1, -2) * scale
                 if sc is not None:
                     q2k2 = q2k2 * sc[1][:, :, None, :]
@@ -866,11 +926,12 @@ def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
             att = torch.softmax(scores.masked_fill(~cols, float("-inf")), -1)
             if sc is not None:
                 att = att * sc[2][:, :, None, :]
-            x = x + _lin(_merge_heads(att @ rows.window("v", i).to(att.dtype)), ap["o_proj"])
+            y = _merge_heads(att @ rows.window("v", i).to(att.dtype))
+            x = x + _lin(y, ap["o_proj"], sp, "attn.o_proj")
             if "views" in bp:  # per row and chunk position, taps <= pos
-                rows.write_views(i, wpos, _lin(x, bp["views"]["proj"]))
+                rows.write_views(i, wpos, _lin(x, bp["views"]["proj"], sp, "views.proj"))
                 x = x * _mop_gates(bp, rows.views(i), pos.expand(b, g), causal_gate)[..., None]
-            x = _mlp(x, bp)
+            x = _mlp(x, bp, sp)
         return _ln(x, p["ln_f"]) @ p["wte"]["embedding"].t()
 
 
@@ -917,8 +978,10 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
     p = _params(model, params)
     b, t = prompt.shape
     dev = prompt.device
-    h = cfg.n_head
-    cache = init_decode_cache(cfg, b, kv_dtype, n_views=model_n_views(model), device=dev)
+    sp = decode_split_of(model)
+    h = local_heads(model)
+    cache = init_decode_cache(cfg, b, kv_dtype, n_views=model_n_views(model), device=dev,
+                              n_head=h)
     causal_gate = bool(getattr(model, "causal_gate", False))
     padded = t0 != t
     live = torch.arange(t, device=dev) < t0
@@ -947,12 +1010,13 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
             bp = p[f"blocks_{i}"]
             ap = bp["attn"]
             hx = _ln(x, bp["ln1"])
-            q, k, v = (_split_heads(_lin(hx, ap[n]), h) for n in ("q_proj", "k_proj", "v_proj"))
+            q, k, v = (_split_heads(_lin(hx, ap[n], sp, f"attn.{n}"), h)
+                       for n in ("q_proj", "k_proj", "v_proj"))
             scale = 1.0 / math.sqrt(q.shape[-1])
             qk = q @ k.transpose(-1, -2) * scale
             if cfg.use_quartet:
-                q2 = _split_heads(_lin(hx, ap["q2_proj"]), h)
-                k2 = _split_heads(_lin(hx, ap["k2_proj"]), h)
+                q2 = _split_heads(_lin(hx, ap["q2_proj"], sp, "attn.q2_proj"), h)
+                k2 = _split_heads(_lin(hx, ap["k2_proj"], sp, "attn.k2_proj"), h)
                 m = torch.sigmoid(ap["mixture"][0])
                 scores = ((1.0 - m) * std(qk)
                           + m * (std(qk) * std(q2 @ k2.transpose(-1, -2) * scale))
@@ -963,13 +1027,13 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
             att = torch.softmax(scores.masked_fill(~keep, float("-inf")), -1)
             # a pad row's scores are all masked: its NaN weights become 0
             att = torch.nan_to_num(att, nan=0.0) if padded else att
-            x = x + _lin(_merge_heads(att @ v), ap["o_proj"])
+            x = x + _lin(_merge_heads(att @ v), ap["o_proj"], sp, "attn.o_proj")
             if "views" in bp:  # the MoP gate; pad views zeroed before the conv
                 gate, vmaps = _mop_gate_full(bp, x, t_live=t0 if padded else None,
-                                             causal=causal_gate)
+                                             causal=causal_gate, sp=sp)
                 cache["mv"][i, :, :t] = vmaps
                 x = x * gate[..., None]
-            x = _mlp(x, bp)
+            x = _mlp(x, bp, sp)
             _write_rows(cache, i, 0, (k, k2, v))
         x = _ln(x, p["ln_f"])
     cache["len"] = int(t0)

@@ -109,11 +109,22 @@ class _Ring(torch.autograd.Function):
 
 
 def ring_attention(q: Tensor, k: Tensor, v: Tensor, mesh, axis: str = "model",
-                   causal: bool = False, scale: Optional[float] = None) -> Tensor:
+                   causal: bool = False, scale: Optional[float] = None,
+                   manual_only: bool = False) -> Tensor:
     """Context-parallel attention over ``mesh``'s ``axis``. q / k / v: this
     process's (B, H, N / S, dk) blocks, block i of the sequence on the
     process with index i on the axis. Returns this process's block of the
-    output, in q's dtype."""
+    output, in q's dtype.
+
+    ``manual_only`` is JAX's keyword, kept so that its callers run: there it
+    makes the ``shard_map`` manual over ``axis`` alone, leaving the other
+    mesh axes to GSPMD, which is how the ring composes inside a
+    tensor-parallel block. Here it selects nothing: every op of the port is
+    manual over its one axis, and the ring only ever talks to ``axis``'s
+    group, so the heads a process holds (its share under tensor
+    parallelism, over ``model``) and its batch rows (over ``data``) go
+    through as they are."""
+    del manual_only
     if not (q.shape[2] == k.shape[2] == v.shape[2]):
         raise ValueError(f"ring_attention: blocks of {q.shape[2]}, {k.shape[2]} and "
                          f"{v.shape[2]} tokens; every block has N / S")

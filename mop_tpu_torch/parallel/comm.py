@@ -21,6 +21,8 @@ transpose does backward.
   and backward (the inverse of an equal-split exchange is the same exchange).
 - ``ring_shift``: send to the next rank of the group and receive from the
   previous one, one ``batch_isend_irecv``.
+- ``exchange``: the sends and receives of one pipeline tick with the
+  neighbouring ranks, one ``batch_isend_irecv``.
 
 Every call goes through ``torch.distributed``'s functions, so
 ``utils.collectives.record_collectives`` sees each of them.
@@ -212,9 +214,26 @@ def ring_shift(tensors: List[Tensor], group, step: int = 1) -> List[Tensor]:
     r = group_rank(group)
     nxt = dist.get_global_rank(group, (r + step) % w)
     prv = dist.get_global_rank(group, (r - step) % w)
-    outs = [torch.empty_like(t) for t in tensors]
+    outs = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in tensors]
     ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, group) for t in tensors]
     ops += [dist.P2POp(dist.irecv, o, prv, group) for o in outs]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    return outs
+
+
+def exchange(group, sends: Sequence, recvs: Sequence) -> List[Tensor]:
+    """One ``batch_isend_irecv`` over ``group``: each ``(tensor, rank)`` of
+    ``sends`` sent to that group rank, and for each ``(like, rank)`` of
+    ``recvs`` a tensor shaped like ``like`` received from it (returned in
+    order). Every rank of a pair posts the matching half in the same call,
+    so no rank waits on a neighbour's compute."""
+    outs = [torch.empty_like(like, memory_format=torch.contiguous_format) for like, _ in recvs]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), dist.get_global_rank(group, r), group)
+           for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, o, dist.get_global_rank(group, r), group)
+            for o, (_, r) in zip(outs, recvs)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return outs

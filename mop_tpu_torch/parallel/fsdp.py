@@ -153,7 +153,7 @@ def fsdp_shard_params(model: nn.Module, mesh: Mesh,
         dim = sh.spec.index(DATA_AXIS) if sh.spec else None
         with torch.no_grad():
             local = nn.Parameter((_slice(p, dim, group) if dim is not None else p).clone())
-        local.full_shape, local.shard_dim = tuple(p.shape), dim
+        local.full_shape, local.shard_dim, local.sharding = tuple(p.shape), dim, sh
         owner._parameters[leaf] = local
         parametrize.register_parametrization(owner, leaf, FSDPParam(dim, group, n), unsafe=True)
     model._fsdp_mesh = mesh
@@ -194,6 +194,7 @@ class Zero1Optimizer:
                 with torch.no_grad():
                     own = nn.Parameter(_slice(p, dim, self.group).clone())
                 own.full_shape, own.shard_dim = tuple(p.shape), dim
+                own.sharding = specs[name]
                 self.entries.append((p, dim, own))
         self.optimizer = make_optimizer([own for _, _, own in self.entries])
         self.param_groups = self.optimizer.param_groups

@@ -46,17 +46,20 @@ replicated one (``tests/test_torch_parallel_tp.py``).
 
 from __future__ import annotations
 
+import functools
 import re
 import types
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..models import components as vit
 from ..models import gpt_mop
 from ..models import quartet_attn_patch as gpt
+from ..models.generate import DecodeSplit
 from ..models.layers import set_generator
 from ..ops import preprocess as pp
 from . import comm
@@ -131,6 +134,7 @@ class _TPState:
         self.sequence_parallel = False
         self.sp_hooks: list = []  # the token split's and gather's pre-hooks
         self.paired: List[nn.Module] = []
+        self.modes: Dict[nn.Linear, str] = {}  # each split linear's, ``DecodeSplit.modes``
 
 
 def _take(t: Tensor, dim: int, st: _TPState, by_head: bool = False) -> Tensor:
@@ -146,6 +150,9 @@ def _shard_weight(lin: nn.Linear, dim: int, st: _TPState, by_head: bool = False)
         w = nn.Parameter(_take(lin.weight, dim, st, by_head).clone())
     w.full_shape, w.shard_dim, w.shard_axis = tuple(lin.weight.shape), dim, MODEL_AXIS
     w.by_head = by_head
+    spec = [None] * w.dim()
+    spec[dim] = MODEL_AXIS
+    w.sharding = Sharding(st.mesh, tuple(spec))
     lin._parameters["weight"] = w
 
 
@@ -154,6 +161,7 @@ def _column(lin: nn.Linear, st: _TPState, paired: bool, by_head: bool = False) -
     share; alone: its input is copied in and its output all-gathered."""
     full_out = lin.weight.shape[0]
     _shard_weight(lin, 0, st, by_head)
+    st.modes[lin] = "column" if paired else "column_alone"
     if lin.bias is not None:
         st.partial.append(lin.bias)
     rows = None
@@ -175,6 +183,7 @@ def _row(lin: nn.Linear, st: _TPState, paired: bool) -> None:
     and the output partial sums (the module reduces them); alone: the whole
     input is sliced here and the output all-reduced."""
     _shard_weight(lin, 1, st)
+    st.modes[lin] = "row" if paired else "row_alone"
     if lin.bias is not None:
         st.partial.append(lin.bias)
 
@@ -211,7 +220,9 @@ def tp_shard_params(model: nn.Module, mesh: Mesh, rules: Optional[Sequence] = No
     """Split ``model``'s weights over the mesh's model axis in place, by
     ``tp_param_shardings``, and set its modules to compute on the split (the
     module docstring). The model must already be on the mesh's device with
-    the same values on every process (``mesh.replicate``). Returns it."""
+    the same values on every process (``mesh.replicate``). A GPT-family
+    model gets its ``decode_split`` for the cached decode and the serving
+    engines. Returns it."""
     if hasattr(model, "_tp"):
         raise ValueError("the model is tensor-parallel already")
     st = _TPState(mesh)
@@ -254,7 +265,27 @@ def tp_shard_params(model: nn.Module, mesh: Mesh, rules: Optional[Sequence] = No
         if isinstance(blk, gpt.Block):
             st.sp_partial += list(blk.ln1.parameters()) + list(blk.ln2.parameters())
     model._tp = st
+    model.decode_split = decode_split(model)
     return model
+
+
+def decode_split(model: nn.Module) -> Optional[DecodeSplit]:
+    """The ``models.generate.DecodeSplit`` of a tensor-parallel GPT-family
+    model (None for any other): this process's heads, each split linear's
+    mode by its name in a block, and the sum and broadcast over the model
+    axis."""
+    st = getattr(model, "_tp", None)
+    if st is None or not isinstance(model, gpt.TinyTransformerLM):
+        return None
+    modes = [{n: st.modes[m] for n, m in blk.named_modules() if m in st.modes}
+             for blk in model.blocks]
+    if any(m != modes[0] for m in modes) or "column_alone" in modes[0].values():
+        raise NotImplementedError(f"decode of a tensor-parallel split {modes}")
+    g = st.group
+    src = 0 if g is None else dist.get_global_rank(g, 0)
+    return DecodeSplit(st.index, st.size, model.blocks[0].attn.n_head, modes[0],
+                       all_reduce=functools.partial(comm.all_reduce_, group=g),
+                       broadcast=functools.partial(comm.broadcast_, group=g, src=src))
 
 
 def _sequence_parallel(model: nn.Module, on: bool) -> None:

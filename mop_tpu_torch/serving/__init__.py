@@ -4,8 +4,9 @@ the prefix cache and chunked prefill), over a paged pool with preemption
 (``PagedDecodeEngine``) and with speculative decoding (``SpecDecodeEngine``),
 prompt scoring, embeddings, Whisper transcription serving, the
 OpenAI-compatible HTTP server and model export over ``torch.export``, the
-counterpart of ``mop_tpu.serving``. Not ported yet: tensor-parallel serving
-(``cache_sharding``)."""
+counterpart of ``mop_tpu.serving``. A tensor-parallel model serves in the
+dense, paged and speculative engines, each process holding its heads of the
+pools (``cache_sharding``)."""
 
 from .constrain import TokenDFA, choices, token_set
 from .embeddings import EmbeddingModel, embeddings_body, parse_embedding_input

@@ -24,6 +24,16 @@ device-to-host copy. The step composes plain torch ops and launches no
 kernel: the Quartet scores of a cached row standardize over its live prefix,
 not over K5's whole window. Params are ``decode_params(model)`` or its
 ``ops.quant`` int8 / int4 form; the engine runs on their device.
+
+Tensor parallel: a model through ``parallel.tp.tp_shard_params`` serves
+with every process of its model axis running the same engine on the same
+requests. Each holds its share of the heads in every pool (the
+``cache_sharding`` of the JAX engine, ``Sharding(mesh, (None, None,
+'model', None, None))``, is the only layout), computes them, and all-reduces
+the row products (the model's ``generate.DecodeSplit``), so the logits come out
+whole on every process; the model group's first process picks each step's
+tokens and broadcasts them, so every process advances the same streams
+whatever its generator holds.
 """
 
 from __future__ import annotations
@@ -35,8 +45,10 @@ import numpy as np
 import torch
 
 from ..models.beam import _top_k
-from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode_step_rows,
-                               init_decode_cache, model_n_views, prefill, prefill_padded)
+from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode_split_of,
+                               decode_step_rows, init_decode_cache, local_heads, model_n_views,
+                               prefill, prefill_padded)
+from ..parallel.mesh import MODEL_AXIS
 from .constrain import mask_row
 
 Tensor = torch.Tensor
@@ -64,6 +76,26 @@ def lora_params_view(params: dict, rows: Dict[str, Tuple[Tensor, Tensor]]) -> di
     for path, (a, b) in rows.items():
         params = set_parent(params, path.split("/"), a, b)
     return params
+
+
+# The one cache layout of a tensor-parallel engine: (L, B, H, W, dk) split by head.
+HEAD_SPLIT = (None, None, MODEL_AXIS, None, None)
+
+
+def _check_cache_sharding(cache_sharding, tp) -> None:
+    """``cache_sharding`` must be None or the head split ``HEAD_SPLIT``; a
+    head split over a model axis above 1 needs a tensor-parallel model,
+    whose pools then hold its heads."""
+    if cache_sharding is None:
+        return
+    spec = tuple(getattr(cache_sharding, "spec", ("?",)))
+    if spec + (None,) * (5 - len(spec)) != HEAD_SPLIT:
+        raise ValueError(f"cache_sharding: the engines keep each process's heads of the "
+                         f"(L, B, H, W, dk) pools, Sharding(mesh, {HEAD_SPLIT}); got "
+                         f"{cache_sharding!r}")
+    if tp is None and cache_sharding.mesh.shape.get(MODEL_AXIS, 1) > 1:
+        raise ValueError("cache_sharding splits the heads over the model axis: serve a model "
+                         "through parallel.tp.tp_shard_params")
 
 
 def _no_int8_pools(kv_dtype: torch.dtype) -> None:
@@ -163,8 +195,7 @@ class DecodeEngine:
     other requests are in flight. ``step`` advances every live request and
     returns this iteration's ``{rid: [tokens]}``; ``run`` steps until the
     queue and the slots drain. The constructor's options are the JAX
-    engine's (its docstring, ``mop_tpu/serving/engine.py:245``), except
-    ``cache_sharding`` (tensor-parallel serving, not ported: it raises) and
+    engine's (its docstring, ``mop_tpu/serving/engine.py:245``), with
     ``generator`` in place of ``rng``:
 
     - ``params``: ``decode_params(model)`` or its int8 / int4 form (None:
@@ -193,6 +224,10 @@ class DecodeEngine:
     - ``generator``: the ``torch.Generator`` unseeded sampled rows draw from
       (a fresh one seeded 0 when None). A request's ``seed`` gives its row a
       generator of its own per output token instead.
+    - ``cache_sharding``: None, or ``Sharding(mesh, HEAD_SPLIT)``, the pools
+      split by head over the model axis. A tensor-parallel model's pools
+      hold its heads either way (the module docstring); any other spec
+      raises.
     """
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 8,
@@ -206,12 +241,10 @@ class DecodeEngine:
                  adapters: Optional[Dict[str, dict]] = None, adapter_scale=1.0,
                  chunk_prefill: Optional[int] = None, logprobs_topk: int = 0,
                  max_beams: int = 0):
-        if cache_sharding is not None:
-            raise NotImplementedError(
-                "cache_sharding (tensor-parallel serving) is not ported to the PyTorch "
-                "engine; serve on one device")
         self.model = model
         self.params = decode_params(model) if params is None else params
+        self._tp = decode_split_of(model)  # a tensor-parallel model's
+        _check_cache_sharding(cache_sharding, self._tp)
         self.device = self.params["params"]["wte"]["embedding"].device
         self.max_batch = max_batch
         self.eos_id = eos_id
@@ -299,9 +332,20 @@ class DecodeEngine:
         (``PagedDecodeEngine``) returns None, so that the dense
         ``max_batch x block_size`` slabs are never allocated."""
         cache = init_decode_cache(cfg, max_batch, kv_dtype, n_views=self._n_views,
-                                  device=self.device)
+                                  device=self.device, n_head=self.n_local_heads)
         del cache["len"]  # the per-row lengths live on the host, ``_lens``
         return cache
+
+    @property
+    def n_local_heads(self) -> int:
+        """The heads this process's pools hold: its share of a
+        tensor-parallel model's, else all."""
+        return local_heads(self.model)
+
+    def _agree(self, toks: Tensor) -> Tensor:
+        """A tensor-parallel engine's tokens: the model group's first
+        process's, broadcast to the others (in place)."""
+        return toks if self._tp is None else self._tp.broadcast(toks)
 
     def _on_admit(self, slot: int, prompt: np.ndarray) -> None:
         """Subclass hook: called after a request's prompt is in ``slot``."""
@@ -416,7 +460,7 @@ class DecodeEngine:
         sp = dict(zip(_SP, torch.from_numpy(cols).to(self.device)))
         samp = (temp > 0) & np.isin(idx, np.asarray(list(draw), np.int64))
         if not samp.any():  # no kept row samples: no sort, no draw
-            return _penalized(logits, sp, ocounts, pseen, lbias).argmax(-1)
+            return self._agree(_penalized(logits, sp, ocounts, pseen, lbias).argmax(-1))
         greedy, order, masked = sampling_dist(logits, sp, ocounts, pseen, lbias)
         noise = torch.zeros_like(masked)
         seeds = self._slot_seed[idx]
@@ -427,7 +471,7 @@ class DecodeEngine:
             noise[j] = _gumbel((masked.shape[1],), gen, self.device)
         choice = (masked + noise).argmax(-1, keepdim=True)
         sampled = order.gather(-1, choice)[:, 0]
-        return torch.where(torch.from_numpy(samp).to(self.device), sampled, greedy)
+        return self._agree(torch.where(torch.from_numpy(samp).to(self.device), sampled, greedy))
 
     # ---------------- public API ----------------
 

@@ -37,18 +37,19 @@ __all__ = ["PagedDecodeEngine", "PagedRows", "init_paged_pool", "paged_decode_st
 
 
 def init_paged_pool(config, n_pages: int, page_size: int, dtype: torch.dtype = torch.float32,
-                    n_views: int = 0, device=None) -> dict:
+                    n_views: int = 0, device=None, n_head: Optional[int] = None) -> dict:
     """K/K2/V page pools of shape (L, n_pages + 1, H, page_size, dk).
 
     Physical page 0 is the scratch page: every unallocated page-table entry
     points at it, so that rows that are not live write there and every
     gather reads valid indices. Usable pages are 1..n_pages. ``n_views > 0``
     (GPT-MoP) adds the view-history pool ``mv`` (L, n_pages + 1, page_size,
-    V) in fp32, paged with the same tables. On the GPU unless ``device`` is
-    given."""
+    V) in fp32, paged with the same tables. ``n_head``: the heads this
+    process holds (a tensor-parallel model's share; default all). On the GPU
+    unless ``device`` is given."""
     device = resolve_device(device)
-    L, h = config.n_layer, config.n_head
-    shape = (L, n_pages + 1, h, page_size, config.n_embd // h)
+    L, h = config.n_layer, n_head or config.n_head
+    shape = (L, n_pages + 1, h, page_size, config.n_embd // config.n_head)
     pool = {key: torch.zeros(shape, dtype=dtype, device=device) for key in ("k", "k2", "v")}
     if n_views:
         pool["mv"] = torch.zeros(L, n_pages + 1, page_size, n_views, device=device)
@@ -151,7 +152,8 @@ class PagedDecodeEngine(DecodeEngine):
                          adapters=adapters, adapter_scale=adapter_scale,
                          logprobs_topk=logprobs_topk)
         self._pool = init_paged_pool(cfg, n_pages, page_size, kv_dtype,
-                                     n_views=model_n_views(model), device=self.device)
+                                     n_views=model_n_views(model), device=self.device,
+                                     n_head=self.n_local_heads)
         self._pool_keys = tuple(self._pool)
         self._free: List[int] = list(range(n_pages, 0, -1))  # a stack; 0 is the scratch page
         self._table = np.zeros((max_batch, self.pages_per_slot), np.int64)

@@ -1,8 +1,9 @@
 """Training utilities of the port (the counterpart of ``mop_tpu/training``):
 ``Trainer`` and ``train_model``, the schedule, seeding, parameter counts,
 checkpoints (one file, step directories, the background manager), the
-meters, the parameter EMA, the preemption guard and LoRA adapters.
-``restore_checkpoint_sharded`` waits for the multi-GPU port."""
+meters, the parameter EMA, the preemption guard and LoRA adapters. A
+sharded model's checkpoints go through ``torch.distributed.checkpoint`` and
+``restore_checkpoint_sharded`` reads them into another layout."""
 
 from .lora import (lora_init, lora_merge, lora_param_count, lora_parameters,
                    make_lora_lm_train_step, make_lora_train_step)
@@ -10,7 +11,8 @@ from .preemption import PREEMPTED_EXIT_CODE, PreemptionGuard, resume_latest
 from .trainer import Trainer, train_model
 from .utils import (AsyncCheckpointManager, AverageMeter, EarlyStopping, cosine_lr, count_params,
                     ema_update, format_time, load_checkpoint, load_checkpoint_orbax,
-                    print_model_info, save_checkpoint, save_checkpoint_orbax, set_seed, step_seed)
+                    print_model_info, restore_checkpoint_sharded, save_checkpoint,
+                    save_checkpoint_orbax, set_seed, step_seed)
 
 __all__ = [
     "Trainer",
@@ -27,6 +29,7 @@ __all__ = [
     "load_checkpoint",
     "save_checkpoint_orbax",
     "load_checkpoint_orbax",
+    "restore_checkpoint_sharded",
     "AsyncCheckpointManager",
     "print_model_info",
     "lora_init",

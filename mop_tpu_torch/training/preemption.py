@@ -105,14 +105,16 @@ class PreemptionGuard:
             self.checkpoint_and_exit(step, params, opt_state=opt_state, extra=extra)
 
 
-def resume_latest(manager, model_or_state, opt_state=None) -> Tuple[int, object, Optional[object]]:
+def resume_latest(manager, model_or_state, opt_state=None, shardings=None
+                  ) -> Tuple[int, object, Optional[object]]:
     """Resume from ``manager``'s latest checkpoint, if one exists.
 
     Returns ``(start_step, model_or_state, opt_state)``. A module or an
     optimizer passed in loads the checkpoint in place and is returned; a
     state dict passed in is replaced by the saved one, on its tensors'
-    devices and dtypes. With no checkpoint on disk the arguments come back
-    unchanged at step 0.
+    devices and dtypes. ``shardings`` restores into a distributed layout
+    (``AsyncCheckpointManager.restore(..., shardings=)``). With no
+    checkpoint on disk the arguments come back unchanged at step 0.
     """
     step = manager.latest_step()
     if step is None:
@@ -120,5 +122,8 @@ def resume_latest(manager, model_or_state, opt_state=None) -> Tuple[int, object,
     like = {"params": model_or_state}
     if opt_state is not None:
         like["opt_state"] = opt_state
-    restored = manager.restore(step, like=like)
+    if shardings is not None:
+        restored = manager.restore(step, like=like, shardings=shardings)
+    else:
+        restored = manager.restore(step, like=like)
     return step, restored["params"], restored.get("opt_state", opt_state)

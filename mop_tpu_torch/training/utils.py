@@ -8,10 +8,11 @@
   {step, state_dict, opt_state, loss, extra}), and the step-directory format
   of ``save_checkpoint_orbax`` / ``load_checkpoint_orbax`` and
   ``AsyncCheckpointManager`` ({params[, opt_state][, extra]} under
-  ``<dir>/<step>/``, written with ``torch.save``).
-
-``restore_checkpoint_sharded`` (a restore into a layout over several
-devices) waits for the multi-GPU port.
+  ``<dir>/<step>/``, written with ``torch.save``); a sharded model's (FSDP,
+  ZeRO-1, tensor parallel, a pipeline stage) through
+  ``torch.distributed.checkpoint`` instead, every process writing its shards
+  (``parallel.checkpoint``), and ``restore_checkpoint_sharded`` /
+  ``restore(..., shardings=)`` read either into another layout.
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel import checkpoint as ckpt
 
 
 def set_seed(seed: int) -> torch.Generator:
@@ -193,9 +197,20 @@ def _write_step_dir(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def _read_step_dir(path: str, like=None) -> Dict[str, Any]:
-    payload = torch.load(os.path.join(os.path.abspath(path), _PAYLOAD), map_location="cpu",
-                         weights_only=True)
+def _read_step_dir(path: str, like=None, shardings=None) -> Dict[str, Any]:
+    """A step directory into ``like``: a sharded one (``parallel.checkpoint``)
+    read into its targets' layouts, a ``torch.save`` one loaded, and placed
+    into sharded targets when ``shardings`` names their layouts."""
+    path = os.path.abspath(path)
+    if ckpt.is_sharded_checkpoint(path):
+        if like is None or like.get("params") is None:
+            raise ValueError("a sharded checkpoint restores into targets: pass like={'params': "
+                             "model[, 'opt_state': optimizer]}")
+        return ckpt.restore_sharded(path, like, shardings)
+    payload = torch.load(os.path.join(path, _PAYLOAD), map_location="cpu", weights_only=True)
+    if like is not None and like.get("params") is not None and (
+            shardings is not None or ckpt.is_sharded(like["params"])):
+        return ckpt.place_whole(payload, like, shardings)
     return _restore_into(payload, like)
 
 
@@ -204,8 +219,15 @@ def save_checkpoint_orbax(path: str, params, opt_state=None, step: int = 0) -> N
     ``path``, in ``AsyncCheckpointManager``'s step-directory format.
 
     The name is the JAX package's, kept so that callers find it; no orbax is
-    involved: the payload is written with ``torch.save``. ``params`` and
-    ``opt_state`` are modules, optimizers or their state dicts."""
+    involved: the payload is written with ``torch.save``, or, for a sharded
+    model or optimizer (FSDP, ZeRO-1, tensor parallel, a pipeline stage),
+    with ``torch.distributed.checkpoint``, every process writing its shards
+    with their place in the global tensor (every process calls it then).
+    ``params`` and ``opt_state`` are modules, optimizers or their state
+    dicts (a sharded model's tensors: a module or a dict of tensors)."""
+    if ckpt.is_sharded(params, opt_state):
+        ckpt.save_sharded(path, params, opt_state, step)
+        return
     payload = {"step": int(step), "params": _to_host(_state(params))}
     if opt_state is not None:
         payload["opt_state"] = _to_host(_state(opt_state))
@@ -213,10 +235,30 @@ def save_checkpoint_orbax(path: str, params, opt_state=None, step: int = 0) -> N
 
 
 def load_checkpoint_orbax(path: str, like=None) -> Dict[str, Any]:
-    """Read a ``save_checkpoint_orbax`` directory (no orbax: ``torch.load``).
-    ``like``, a dict over the payload's keys, loads a module or an optimizer
-    in place and puts a state dict's tensors on its devices and dtypes."""
+    """Read a ``save_checkpoint_orbax`` directory (no orbax: ``torch.load``,
+    or ``torch.distributed.checkpoint`` for a sharded one). ``like``, a dict
+    over the payload's keys, loads a module or an optimizer in place and
+    puts a state dict's tensors on its devices and dtypes; a sharded
+    checkpoint reads into its targets' own layouts."""
     return _read_step_dir(path, like)
+
+
+def restore_checkpoint_sharded(path: str, like: Dict[str, Any], shardings: Dict[str, Any]
+                               ) -> Dict[str, Any]:
+    """Restore a checkpoint directly into a distributed layout.
+
+    ``like``: ``{"params": model (or a dict of tensors)[, "opt_state":
+    optimizer]}``, the targets, already in the layout to restore into (a
+    model through ``fsdp_shard_params`` or ``tp_shard_params``, or whole);
+    ``shardings``: ``{"params": {name: Sharding}}`` (``fsdp_param_shardings``,
+    ``tp_param_shardings``, ``replicated``), each target tensor's layout
+    (default: its own ``sharding``). The layout need not be the one the
+    checkpoint was saved under: save from FSDP, restore onto a
+    tensor-parallel mesh of another shape, or whole; each process reads the
+    parts of the saved shards that its tensors hold, and the optimizer's
+    moments follow their parameters. Returns ``like`` with ``step``. Every
+    process calls it."""
+    return _read_step_dir(path, like, shardings)
 
 
 class AsyncCheckpointManager:
@@ -231,8 +273,11 @@ class AsyncCheckpointManager:
     ``restore`` waits for the saves in flight first. ``params`` and
     ``opt_state`` are modules, optimizers or their state dicts.
 
-    The counterpart of the JAX package's orbax manager, on one device:
-    ``restore(..., shardings=...)`` waits for the multi-GPU port.
+    The counterpart of the JAX package's orbax manager. A sharded model's
+    save (every process calls it) is written through
+    ``torch.distributed.checkpoint`` when it is called, each process its
+    shards, and only the retention runs behind; ``restore(...,
+    shardings=...)`` reads into another layout (``restore_checkpoint_sharded``).
     """
 
     def __init__(self, directory: str, keep: int = 3):
@@ -244,10 +289,22 @@ class AsyncCheckpointManager:
 
     def _write(self, step: int, payload: Dict[str, Any]) -> None:
         _write_step_dir(os.path.join(self.directory, str(step)), payload)
+        self._retain()
+
+    def _retain(self) -> None:
         for old in self.all_steps()[:-self.keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
 
     def save(self, step: int, params, opt_state=None, extra=None) -> None:
+        if ckpt.is_sharded(params, opt_state):
+            if extra is not None:
+                raise ValueError("a sharded save takes no extra")
+            self.wait_until_finished()
+            ckpt.save_sharded(os.path.join(self.directory, str(int(step))), params, opt_state,
+                              step)
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                self._pending.append(self._pool.submit(self._retain))
+            return
         payload = {"params": _to_host(_state(params))}
         if opt_state is not None:
             payload["opt_state"] = _to_host(_state(opt_state))
@@ -262,16 +319,17 @@ class AsyncCheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like=None) -> Dict[str, Any]:
+    def restore(self, step: Optional[int] = None, like=None, shardings=None) -> Dict[str, Any]:
         """The payload of ``step`` (default: the latest). ``like`` as in
         ``load_checkpoint_orbax``: e.g. ``{"params": model, "opt_state":
-        optimizer}`` loads both in place."""
+        optimizer}`` loads both in place; with ``shardings`` (or a sharded
+        checkpoint) into the targets' layouts, as ``restore_checkpoint_sharded``."""
         self.wait_until_finished()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints saved yet under {self.directory}")
-        return _read_step_dir(os.path.join(self.directory, str(step)), like)
+        return _read_step_dir(os.path.join(self.directory, str(step)), like, shardings)
 
     def is_saving(self) -> bool:
         """True while a save is still being written."""

@@ -72,5 +72,5 @@ def test_engine_device_follows_params_and_sharding_raises():
     _, _, pm = lm_pair("quartet")
     eng = DecodeEngine(pm, None, max_batch=2)
     assert eng.device == torch.device("cpu") and eng._cache["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="cache_sharding"):
+    with pytest.raises(ValueError, match="cache_sharding"):
         DecodeEngine(pm, None, max_batch=2, cache_sharding=object())

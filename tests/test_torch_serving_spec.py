@@ -99,7 +99,7 @@ def test_validation(pair):
         SpecDecodeEngine(target, None, small, None)
     with pytest.raises(ValueError, match="fp32/bfloat16"):
         SpecDecodeEngine(target, None, draft, None, kv_dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="cache_sharding"):
+    with pytest.raises(ValueError, match="cache_sharding"):
         SpecDecodeEngine(target, None, draft, None, cache_sharding=object())
 
 
