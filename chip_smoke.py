@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --phases 12,15`` builds, then runs only the named
-phases of 10-18 (15 runs 10 first, for its CSVs), and prints neither the
+phases of 10-19 (15 runs 10 first, for its CSVs), and prints neither the
 kernels line nor the last line's ok: a quicker check of a later phase.
 
 Phases, one line each (a failed phase makes the script exit non-zero):
@@ -264,6 +264,19 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    (``torch.distributed.checkpoint``), restored into FSDP (two resumed steps bit-equal to the
    uninterrupted run), tensor parallel and whole (params bit-equal), the save and restore times.
    The kernels line's ``launches`` add 18's (K5: 192 in 18a, 96 in 18c, 48 in 18e).
+19. one dispatch per step (``cuda_graph=True``, ``utils.cuda_graph.StepGraph``): each captured
+   entry point eager and graphed on the same seeds, inputs and generator state, with capturable
+   AdamW on both sides: B_bench's scanned step (K = 20 in one replay, the generator drawn on
+   across calls), E's one step in bf16 (the generator reseeded before each step), LM_quartet at
+   dropout 0 and 0.1 and GPT_MoP, 3 steps each at 64 x 256; Decode_6x384's ``generate_cached``
+   (greedy fp32, 240 tokens; sampled 64); Serve_6x512's dense engine over 16 of 14a's jobs. Each
+   form's ms a step, images or tokens/s, busy share (eager B_bench's over 2 steps, the decoder's
+   over 16 tokens, the engine's over 8 requests of 16 tokens: the profiler's parse of a longer
+   eager call takes tens of seconds), the mean device ms of a K1, K2, K2b or K5 launch, captures
+   and their seconds, the graph pool's bytes and the peak memory; the gates: losses and parameters bit-equal or within 1e-5, every
+   token equal, the launches equal with each replay counting its capture's. Phase 10's ab5 run
+   and the lockstep CLIs of 15b run graphed through ``ModelRun`` (its captures reported in 10).
+   The kernels line's ``launches`` add 19's.
 """
 
 from __future__ import annotations
@@ -315,13 +328,14 @@ from mop_tpu_torch.ops.quant import quantize_params, quantized_bytes
 from mop_tpu_torch.data.audio import log_mel, segment_frames
 from mop_tpu_torch.models.generate import (init_decode_cache, whisper_decode_params,
                                            whisper_encode)
+from mop_tpu_torch.utils.cuda_graph import StepGraph
 from mop_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine, SpecDecodeEngine,
                                    WhisperServingEngine, export_apply, load_exported)
 
 BATCH = 256
 N_CLASSES = 100
 TRAIN_K = 20  # scanned steps per call, as bench.py's SCAN_STEPS
-TRAIN_WINDOWS = 5  # timed scanned calls per config
+TRAIN_WINDOWS = 3  # timed scanned calls per config (5 before phase 19 joined the budget)
 LR, WD = 3e-3, 0.05  # bench.py's AdamW
 # bf16 grads, kernel vs plain: both round a cotangent where it passes back
 # through a cast, but the kernel's products sum in another order on the
@@ -652,12 +666,14 @@ def time_ms(fn, iters=30, reps=5):
     return statistics.median(times)
 
 
-def device_breakdown(fn, reps=5):
+def device_breakdown(fn, reps=5, warm=True):
     """Device time by kernel name over ``reps`` calls of ``fn`` (torch.profiler),
-    and the wall time of those calls, profiler overhead included."""
+    after one warm call unless ``warm`` is false, and the wall time of those
+    calls, profiler overhead included."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1144,7 +1160,8 @@ def harness_phases(smi, out):
         match_s = time.time() - t0
         F.reset_launch_counts()
         t0 = time.time()
-        res = ab5.run(args)[AB5_TARGET]
+        with captures() as caps:
+            res = ab5.run(args)[AB5_TARGET]
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {f.__name__: f.launches for f in F.KERNELS}
@@ -1184,6 +1201,11 @@ def harness_phases(smi, out):
     check(counts == want, f"ab5 run launches {launched(counts)} ({steps} steps, {eval_fwds} "
           f"eval forwards a run; expected {launched(want)}) [{smi}]")
     runs, _, loop_s = calls[0]
+    check(all(r.graphed and r.train_step.graph.captured for r in runs.values())
+          and len(caps) == len(runs),
+          f"ab5: every ModelRun's train step is one CUDA graph: {len(caps)} captures, "
+          f"{sum(c for c, _ in caps):.2f} s in all, graph pools "
+          f"{', '.join(f'{b / 2 ** 20:.0f}' for _, b in caps)} MiB [{smi}]")
     say(f"  ab5 at the {AB5_TARGET:,} target, {len(keys)} models, batch {BATCH}: matcher "
         f"{match_s:.2f} s (host); run() {wall:.2f} s wall, of it the lockstep loop "
         f"{loop_s:.2f} s ({steps} steps of all {len(keys)} models and {n_evals} val evals: "
@@ -3915,8 +3937,264 @@ def pipeline_phases(smi):
     say(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------- phase 19: one dispatch per step -------------------------
+
+GRAPH_TOL = 1e-5  # graphed against eager, where not bit-equal (phase 17's gate)
+# the kernels of phase 19's pairs, by a substring of their names
+GRAPH_KERNELS = {"K1": "flash_fwd", "K2": "edgewise_fwd", "K2b": "edgewise_bwd", "K5": "quartet"}
+GRAPH_SERVE_JOBS = 16  # of phase 14a's jobs
+
+
+@contextlib.contextmanager
+def captures():
+    """Every ``StepGraph`` capture in the context, as (capture seconds, pool
+    bytes), appended as it happens."""
+    seen = []
+    capture = StepGraph._capture
+
+    def recording(self):
+        capture(self)
+        seen.append((self.capture_s, self.pool_bytes))
+
+    StepGraph._capture = recording
+    try:
+        yield seen
+    finally:
+        StepGraph._capture = capture
+
+
+def _params_of(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _busy(call):
+    """The device's busy share over one call (torch.profiler's device time of
+    every kernel, graph replays' included, over the call's wall time), and
+    the mean device ms of a launch of each of GRAPH_KERNELS that ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()]
+    per = {}
+    for label, key in GRAPH_KERNELS.items():
+        hit = [(t, n) for name, t, n in rows if key in name and t > 0]
+        if hit:
+            per[label] = sum(t for t, _ in hit) / sum(n for _, n in hit) / 1e3
+    return sum(t for _, t, _ in rows) / 1e6 / wall, per
+
+
+def _form(call, state, n_calls, timed, profiled):
+    """One form of an entry point: ``n_calls`` calls (their outputs and
+    launches, the state after them), then ``timed`` more calls timed with the
+    peak memory (with ``timed`` 0, the ``n_calls`` calls are timed: a call
+    that captures its own graphs, as ``generate_cached``), then
+    ``profiled()`` under the profiler for the busy share (a shorter call
+    where a whole one would hold too many kernel records to parse in the
+    time budget), and the captures of all of it."""
+    with captures() as caps:
+        torch.cuda.reset_peak_memory_stats()
+        (outs, secs), counts = counted(
+            lambda: seconds_of(lambda: [call() for _ in range(n_calls)]))
+        snap = state()
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            _, secs = seconds_of(lambda: [call() for _ in range(timed)])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, per_kernel = _busy(profiled)
+    return dict(outs=outs, snap=snap, counts=counts, secs=secs, peak=peak, busy=busy,
+                per_kernel=per_kernel, caps=list(caps), timed=timed or n_calls)
+
+
+def _max_diff(a, b):
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def _graph_pair(label, make, n_calls, timed, per_call, unit, items, smi):
+    """``make(graphed) -> (call, state[, profiled])`` on the same seeds,
+    inputs and generator state, eager then graphed: each form's line, then the
+    gates (outputs and state bit-equal or within GRAPH_TOL, launches equal
+    with replays counted). ``timed``: the timed calls, or (eager's, graphed's).
+    ``per_call`` steps (or a function of the state, as an engine's steps) and
+    ``items`` images or tokens a call. Returns both forms' records."""
+    forms, t0 = {}, time.perf_counter()
+    for graphed in (False, True):
+        call, state, *profiled = make(graphed)
+        n_timed = timed[graphed] if isinstance(timed, tuple) else timed
+        forms[graphed] = f = _form(call, state, n_calls, n_timed, (profiled or [call])[0])
+        del call, state, profiled
+        steps = per_call(f["snap"]) if callable(per_call) else per_call
+        ms = 1e3 * f["secs"] / (f["timed"] * steps)
+        cap_s = sum(c for c, _ in f["caps"])
+        pool = sum(b for _, b in f["caps"])
+        say(f"  {label} {'graphed' if graphed else 'eager  '}: {ms:.3f} ms a step, "
+            f"{f['timed'] * items / f['secs']:.0f} {unit}/s, device busy "
+            f"{100 * f['busy']:.1f}%, {len(f['caps'])} capture(s) {cap_s:.3f} s, graph pool "
+            f"{pool / 2 ** 20:.1f} MiB, peak {f['peak']:.2f} GiB"
+            + "".join(f"; {k} {t:.4f} ms a launch" for k, t in f["per_kernel"].items())
+            + f" [{smi}]")
+        torch.cuda.empty_cache()
+    e, g = forms[False], forms[True]
+    check(e["counts"] == g["counts"],
+          f"{label}: launches over {n_calls} call(s), eager {launched(e['counts']) or 'none'}, "
+          f"graphed with replays counted {launched(g['counts']) or 'none'} (the pair took "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return e, g
+
+
+def _same_floats(label, got, want):
+    err = _max_diff(got, want)
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(err <= GRAPH_TOL, f"{label}: graphed vs eager {'bit-equal' if exact else ''} "
+          f"(max abs diff {err:.3e}, limit {GRAPH_TOL:g})")
+
+
+def _from_start(model):
+    """``start() -> model`` with its first weights back: both forms of a pair
+    train one model from the same start."""
+    first = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def start():
+        model.load_state_dict(first)
+        return model
+
+    return start
+
+
+def one_dispatch_phase(smi):
+    """Phase 19: each captured entry point, eager and graphed on the same
+    seeds, inputs and generator state."""
+    t_phase = time.perf_counter()
+    say(f"[19 one dispatch] CUDA graphs: each entry point eager and with cuda_graph=True")
+    gi = cuda_generator(190)
+    xk = torch.randint(0, 256, (TRAIN_K, BATCH, 3, 32, 32), dtype=torch.uint8, device="cuda",
+                       generator=gi)
+    yk = torch.randint(0, N_CLASSES, (TRAIN_K, BATCH), device="cuda", generator=gi)
+
+    start = _from_start(MODELS["B_bench"][0](torch.Generator().manual_seed(190)))
+
+    def scanned(graphed):
+        model = start()
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD, capturable=True)
+        step = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
+                                                  unroll_steps=TRAIN_K, cuda_graph=graphed)
+        gen = cuda_generator(191)  # drawn on across calls, never reseeded
+        call = lambda: step(xk, yk, gen)["loss"]  # noqa: E731
+        if graphed:
+            return call, lambda: _params_of(model)
+        # the eager busy share over 2 steps: 20 eager steps' kernel and
+        # launch records take the profiler several seconds to parse
+        two = make_scanned_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
+                                                 unroll_steps=2)
+        return call, lambda: _params_of(model), lambda: two(xk[:2], yk[:2], gen)
+
+    e, g = _graph_pair(f"B_bench scanned K={TRAIN_K} (one replay a call)", scanned, 2, (0, 1),
+                       TRAIN_K, "images", BATCH * TRAIN_K, smi)
+    _same_floats(f"B_bench scanned: {2 * TRAIN_K} losses", g["outs"], e["outs"])
+    _same_floats("B_bench scanned: parameters after 2 calls", g["snap"], e["snap"])
+
+    start = _from_start(MODELS["E"][0](torch.Generator().manual_seed(192)))
+
+    def one_step(graphed):
+        model = start()
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD, capturable=True)
+        step = make_classifier_train_step(model, opt, CIFAR100_MEAN, CIFAR100_STD,
+                                          cuda_graph=graphed)
+        gen, n = cuda_generator(0), [0]
+
+        def call():  # reseeded before each step, as ModelRun does
+            gen.manual_seed(193 + n[0])
+            n[0] += 1
+            return step(xk[0], yk[0], gen)["loss"]
+
+        return call, lambda: _params_of(model)
+
+    e, g = _graph_pair("E one step, bf16", one_step, 3, 3, 1, "images", BATCH, smi)
+    _same_floats("E: 3 losses (the generator reseeded each step)", g["outs"], e["outs"])
+    _same_floats("E: parameters after 3 steps", g["snap"], e["snap"])
+
+    gl = cuda_generator(194)
+    idx = torch.randint(0, LM_VOCAB, (LM_BATCH, 256), device="cuda", generator=gl)
+    tgt = torch.randint(0, LM_VOCAB, (LM_BATCH, 256), device="cuda", generator=gl)
+    for name, create, cfg, clip, seed in (
+            ("LM_quartet", create_gpt_quartet, MG_LM, LM_CLIP, 195),
+            ("LM_quartet_drop", create_gpt_quartet, LM_CONFIG, LM_CLIP, 196),
+            ("GPT_MoP", create_gpt_mop, GPT_MOP_CONFIG, None, 197)):
+        start = _from_start(create(LM_VOCAB, TransformerConfig(**cfg),
+                                   generator=torch.Generator().manual_seed(seed)))
+
+        def lm(graphed):
+            model = start()
+            opt = torch.optim.AdamW(model.parameters(), lr=LM_LR, weight_decay=LM_WD,
+                                    capturable=True)
+            step = make_lm_train_step(model, opt, grad_clip=clip, cuda_graph=graphed)
+            gen, n = cuda_generator(0), [0]
+
+            def call():
+                gen.manual_seed(seed + n[0])
+                n[0] += 1
+                return step(idx, tgt, gen)["loss"]
+
+            return call, lambda: _params_of(model)
+
+        e, g = _graph_pair(f"{name} (dropout {cfg['dropout']}) {LM_BATCH} x 256", lm, 3, 2, 1,
+                           "tokens", idx.numel(), smi)
+        _same_floats(f"{name}: 3 losses", g["outs"], e["outs"])
+        _same_floats(f"{name}: parameters after 3 steps", g["snap"], e["snap"])
+
+    model = create_gpt_quartet(DECODE_VOCAB, TransformerConfig(**DECODE_SMALL),
+                               generator=torch.Generator().manual_seed(40)).eval()
+    params = decode_params(model)
+    prompt = torch.randint(0, DECODE_VOCAB, (DECODE_BATCH, DECODE_T0), device="cuda",
+                           generator=cuda_generator(41))
+
+    def decode(graphed):  # the busy share over 16 tokens
+        return (lambda: generate_cached(model, params, prompt, DECODE_NEW, cuda_graph=graphed),
+                lambda: None,
+                lambda: generate_cached(model, params, prompt, 16, cuda_graph=graphed))
+
+    e, g = _graph_pair(f"Decode_6x384 generate_cached, greedy fp32, batch {DECODE_BATCH}, "
+                       f"{DECODE_NEW} tokens", decode, 1, 0, DECODE_NEW - 1, "tokens",
+                       DECODE_BATCH * DECODE_NEW, smi)
+    check(torch.equal(g["outs"][0], e["outs"][0]),
+          f"Decode_6x384: every greedy token of the graphed decode equals the eager loop's "
+          f"({DECODE_BATCH} x {DECODE_NEW})")
+    sampled = [generate_cached(model, params, prompt, 64, generator=cuda_generator(42),
+                               temperature=0.8, top_k=50, cuda_graph=graphed)
+               for graphed in (False, True)]
+    check(torch.equal(sampled[1], sampled[0]),
+          "Decode_6x384 sampled (temperature 0.8, top-k 50, the same generator seed): the "
+          f"graphed decode draws the eager loop's tokens (64 x {DECODE_BATCH})")
+    del model, params
+
+    model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SERVE_CFG),
+                               generator=torch.Generator().manual_seed(50)).eval()
+    params = decode_params(model)
+    jobs = serve_jobs(SERVE_JOBS, np.random.RandomState(0))[:GRAPH_SERVE_JOBS]
+
+    def serve(graphed):
+        eng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH,
+                           prefill_buckets=SERVE_BUCKETS, cuda_graph=graphed)
+        # the busy share over 8 requests of 16 tokens, one admission each
+        return ((lambda: serve_all(eng, jobs)), lambda: eng.engine_steps,
+                lambda: serve_all(eng, [(p, 16) for p, _ in jobs[:SERVE_MAX_BATCH]]))
+
+    n_tok = sum(n for _, n in jobs)
+    e, g = _graph_pair(f"Serve_6x512 DecodeEngine, {GRAPH_SERVE_JOBS} of 14a's jobs",
+                       serve, 1, 0, lambda steps: steps, "tokens", n_tok, smi)
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"],
+          f"Serve_6x512: every request's greedy tokens from the graphed engine equal the eager "
+          f"engine's ({GRAPH_SERVE_JOBS} requests, {n_tok} tokens, {e['snap']} engine steps)")
+    del model, params
+    say(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s (its budget 45 s)")
+
+
 def later_phases(phases, smi) -> int:
-    """``--phases``: only the named phases of 10-18, after the build."""
+    """``--phases``: only the named phases of 10-19, after the build."""
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if 10 in phases or 15 in phases:
@@ -3938,6 +4216,8 @@ def later_phases(phases, smi) -> int:
             multi_gpu_phases(smi)
         if 18 in phases:
             pipeline_phases(smi)
+        if 19 in phases:
+            one_dispatch_phase(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -3950,10 +4230,10 @@ def later_phases(phases, smi) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", type=lambda v: sorted({int(p) for p in v.split(",")}),
-                    help="comma-separated phases of 10-18 to run alone after the build")
+                    help="comma-separated phases of 10-19 to run alone after the build")
     args = ap.parse_args(argv)
-    if args.phases and not set(args.phases) <= set(range(10, 19)):
-        ap.error(f"--phases takes phases of 10-18, not {args.phases}")
+    if args.phases and not set(args.phases) <= set(range(10, 20)):
+        ap.error(f"--phases takes phases of 10-19, not {args.phases}")
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke test needs an NVIDIA GPU")
         return 1
@@ -4515,7 +4795,8 @@ def main(argv=None) -> int:
         if name == "E_dense":  # the composed train route first, in the same run
             with composed("edgewise_dense_fits"):
                 ms, rate, per = train_windows(scanned, xk, yk, gen)
-                rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
+                rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1,
+                                                 warm=False)
             say(f"  {name} train step through the composed route: {ms:.3f} ms/step, {rate:.0f} "
                 f"images/s [per window {', '.join(f'{r:.0f}' for r in per)} images/s], device "
                 f"busy {100 * sum(t for _, t in rows) / wall_us:.1f}% [{smi}]")
@@ -4523,7 +4804,7 @@ def main(argv=None) -> int:
         say(f"  {name} train step, batch {BATCH} (scanned K={TRAIN_K}, {TRAIN_WINDOWS} windows "
             f"in total): {ms:.3f} ms/step, {rate:.0f} images/s "
             f"[per window {', '.join(f'{r:.0f}' for r in per)} images/s] [{smi}]")
-        rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1)
+        rows, wall_us = device_breakdown(lambda: scanned(xk, yk, gen), reps=1, warm=False)
         busy = sum(t for _, t in rows)
         top = "; ".join(f"{k[:48]} {100 * t / busy:.1f}%" for k, t in rows[:8])
         say(f"    device busy {100 * busy / wall_us:.1f}% of {wall_us / 1e3:.2f} ms "
@@ -4960,6 +5241,7 @@ def main(argv=None) -> int:
         serving_export_phases(smi)
         multi_gpu_phases(smi)
         pipeline_phases(smi)
+        one_dispatch_phase(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(all(c > 0 for c in launches.values()),

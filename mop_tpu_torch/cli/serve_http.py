@@ -11,7 +11,8 @@ prefix cache (with ``--spec``: a ``SpecDecodeEngine`` whose draft, 2 layers,
 server-side encode / decode. The self-test sends ``--clients`` concurrent
 ``/generate`` text requests, one streamed request, an OpenAI
 ``/v1/completions`` and a ``/v1/embeddings`` request, reads ``/metrics`` and
-drains the server. Runs on the GPU unless given ``--device cpu``.
+drains the server. Runs on the GPU unless given ``--device cpu``; on the GPU
+the dense engine's batched step is one CUDA graph.
 
 Usage:
   python -m mop_tpu_torch.cli.serve_http                 # train, serve, self-test
@@ -190,7 +191,8 @@ def run(args, whisper_engine=None, whisper_tokenizer=None,
                                prefix_cache_entries=args.prefix_cache)
     else:
         eng = DecodeEngine(model, params, max_batch=args.max_batch,
-                           prefix_cache_entries=args.prefix_cache)
+                           prefix_cache_entries=args.prefix_cache,
+                           cuda_graph=device.type == "cuda")
     srv = ServingServer(eng, port=args.port, tokenizer=tok, whisper_engine=whisper_engine,
                         whisper_tokenizer=whisper_tokenizer)
     srv.start()

@@ -5,7 +5,7 @@ The port's counterpart of ``examples/train_gpt_char.py``, with its flags and
 defaults: vocab 32, dropout 0, AdamW with a cosine schedule and weight decay
 0.1, grad clip 1.0, bf16 compute; ``mop`` has 4 views and 2 kernels. A loss
 well below the uniform ln(32) shows real sequence learning. Runs on the GPU
-unless given ``--device cpu``.
+unless given ``--device cpu``; on the GPU each step is one CUDA graph.
 
 Usage: python -m mop_tpu_torch.cli.train_gpt_char [--steps 200] [--model mop]
 """
@@ -72,9 +72,13 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                "mop": lambda v, c, **kw: create_gpt_mop(v, c, n_views=4, n_kernels=2, **kw)}
     model = factory[args.model](VOCAB, cfg, device=device,
                                 generator=torch.Generator().manual_seed(0))
-    opt = torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=0.1)
+    # On the card the step is one CUDA graph: AdamW capturable, its lr a
+    # tensor that the scheduler fills in place.
+    graphed = device.type == "cuda"
+    lr = torch.tensor(args.lr, device=device) if graphed else args.lr
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=0.1, capturable=graphed)
     sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=args.steps)
-    step = make_lm_train_step(model, opt, grad_clip=1.0, device=device)
+    step = make_lm_train_step(model, opt, grad_clip=1.0, device=device, cuda_graph=graphed)
     gen = torch.Generator(device=device).manual_seed(0)
 
     corpus = synthetic_corpus()

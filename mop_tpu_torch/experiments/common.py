@@ -43,6 +43,7 @@ from ..parallel.mesh import DATA_AXIS, replicate, shard_batch
 from ..training.preemption import PREEMPTED_EXIT_CODE, PreemptionGuard
 from ..training.utils import count_params, load_checkpoint, save_checkpoint, step_seed
 from ..training.utils import set_seed  # noqa: F401  (the CLIs call it as common.set_seed)
+from ..utils.cuda_graph import require_graph
 from ..utils.device import resolve_device
 
 Device = Optional[Union[str, torch.device]]
@@ -337,14 +338,22 @@ def make_lr_schedule(lr: float, steps: int, warmup_frac: float) -> Callable[[int
     return lambda count: cosine(count, decay_steps)
 
 
-def make_opt(params, lr: float, steps: int, warmup_frac: float, weight_decay: float
-             ) -> Tuple[torch.optim.AdamW, Callable[[int], float]]:
+def make_opt(params, lr: float, steps: int, warmup_frac: float, weight_decay: float,
+             lr_device=None) -> Tuple[torch.optim.AdamW, Callable[[int], float]]:
     """``torch.optim.AdamW`` with optax's adamw defaults (betas 0.9 / 0.999,
     eps 1e-8, decoupled decay scaled by the lr) and its schedule; the caller
-    sets ``lr`` to ``schedule(count)`` before update ``count``."""
+    sets ``lr`` to ``schedule(count)`` before update ``count``. With
+    ``lr_device`` the lr is an fp32 tensor there, which the caller fills in
+    place, and the optimizer is capturable where that is a CUDA device: the
+    form a CUDA graph of the train step replays."""
     schedule = make_lr_schedule(lr, steps, warmup_frac)
-    opt = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    lr0, capturable = schedule(0), False
+    if lr_device is not None:
+        lr_device = torch.device(lr_device)
+        lr0 = torch.tensor(lr0, dtype=torch.float32, device=lr_device)
+        capturable = lr_device.type == "cuda"
+    opt = torch.optim.AdamW(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=capturable)
     return opt, schedule
 
 
@@ -357,20 +366,32 @@ class ModelRun:
     ``seed``); it is moved to ``device`` (the GPU unless given). Under
     ``mesh`` it goes to the mesh's device with rank 0's values, and the steps
     are data parallel: each process trains and evaluates on its rows.
+
+    ``cuda_graph`` (None: on a CUDA device without a process group) runs the
+    train step as one CUDA graph (``make_classifier_train_step``'s
+    ``cuda_graph``), its AdamW capturable and its lr a device tensor that
+    ``step`` fills with the schedule's value.
     """
 
     def __init__(self, key, model, lr, mean, std, steps, warmup_frac, weight_decay, seed,
-                 grad_clip=None, augment=True, device: Device = None, mesh=None):
+                 grad_clip=None, augment=True, device: Device = None, mesh=None,
+                 cuda_graph: Optional[bool] = None):
         self.key = key
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model = model.to(self.device) if mesh is None else replicate(model, mesh)
         self.n_params = count_parameters(model)
+        # a mesh with no process group (world 1) runs no collective: one device
+        self._step_mesh = None if mesh is None or mesh.device_mesh is None else mesh
+        self.graphed = (self.device.type == "cuda" and self._step_mesh is None
+                        if cuda_graph is None else bool(cuda_graph))
+        if self.graphed:
+            require_graph("ModelRun", self.device, self._step_mesh)
         self.opt, self.schedule = make_opt(model.parameters(), lr, steps, warmup_frac,
-                                           weight_decay)
-        self.train_step = make_classifier_train_step(model, self.opt, mean, std,
-                                                     augment=augment, grad_clip=grad_clip,
-                                                     device=self.device, mesh=mesh)
+                                           weight_decay,
+                                           lr_device=self.device if self.graphed else None)
+        self._train_args = (mean, std, augment, grad_clip)
+        self.train_step = self._make_train_step()
         self.eval_step = make_classifier_eval_step(model, mean, std, device=self.device,
                                                    mesh=mesh)
         self.seed = int(seed)
@@ -380,11 +401,21 @@ class ModelRun:
         self.loss_handle = None
         self.last_loss = float("nan")
 
+    def _make_train_step(self):
+        mean, std, augment, grad_clip = self._train_args
+        return make_classifier_train_step(self.model, self.opt, mean, std, augment=augment,
+                                          grad_clip=grad_clip, device=self.device,
+                                          mesh=self._step_mesh, cuda_graph=self.graphed)
+
     def step(self, xb, yb, step_i):
         """One update on (xb, yb). Its random draws come from the generator
         reseeded from (seed, step_i), as JAX folds step_i into its key."""
+        lr = self.schedule(self.count)
         for group in self.opt.param_groups:
-            group["lr"] = self.schedule(self.count)
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
         self.generator.manual_seed(step_seed(self.seed, step_i))
         m = self.train_step(torch.as_tensor(xb), torch.as_tensor(yb), self.generator)
         self.count += 1
@@ -449,7 +480,15 @@ class ModelRun:
     def load(self, path: str) -> int:
         payload = load_checkpoint(path, map_location=self.device)
         self.model.load_state_dict(payload["state_dict"])
+        lr = self.opt.param_groups[0]["lr"]
         self.opt.load_state_dict(payload["opt_state"])
+        if self.graphed:  # a fresh capture over the loaded state, the lr its own tensor
+            for group in self.opt.param_groups:
+                group.update(lr=lr, capturable=lr.is_cuda)
+            for state in self.opt.state.values():
+                state["step"] = state["step"].to(self.device if lr.is_cuda else "cpu",
+                                                 torch.float32)
+            self.train_step = self._make_train_step()
         self.count = int(payload["step"])
         return self.count
 

@@ -17,7 +17,10 @@ GPT family (``TinyTransformerLM``, ``GPT_MoP`` with either gate):
   JAX package measures), and ``generate_cached`` with the grow-window
   decode. They compose plain ops (no kernel) and read a dict of the model's
   tensors in the JAX tree's layout, ``decode_params(model)``, whose linear
-  kernels may be ``ops.quant`` int8 / int4 weights.
+  kernels may be ``ops.quant`` int8 / int4 weights. ``generate_cached(...,
+  cuda_graph=True)`` runs each decode step (the cached step, the pick and
+  the counts) as a CUDA graph, one per window width, the shared length a
+  0-dim device tensor: the counterpart of JAX's ``lax.scan`` per segment.
 - the sampler: greedy or temperature / top-k / top-p / min-p, with
   repetition, presence and frequency penalties; a draw is the argmax of
   the filtered logits plus Gumbel noise from an explicit ``torch.Generator``
@@ -47,10 +50,11 @@ afterwards.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import re
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as nnF
@@ -59,6 +63,7 @@ from torch import nn
 from ..config import config as run_config
 from ..ops.attention import standardize_scores_causal
 from ..ops.quant import Q4Tensor, QTensor, _leaves, dequantize_params, q4matmul, qmatmul
+from ..utils.cuda_graph import StepGraph, require_graph
 from ..utils.device import resolve_device
 from ..utils.jax_weights import torch_name
 from .layers import gelu_tanh
@@ -488,16 +493,15 @@ def _top_p_mask(scaled: Tensor, top_p: float) -> Tensor:
     probs = torch.softmax(srt, -1)
     cum = probs.cumsum(-1)
     keep = (cum - probs) < top_p  # keep while the mass BEFORE this token < p
-    inf = torch.tensor(float("inf"), device=scaled.device)
-    thr = torch.where(keep, srt, inf).amin(-1, keepdim=True)
-    return torch.where(scaled >= thr, scaled, -inf)
+    thr = torch.where(keep, srt, srt.new_full((), float("inf"))).amin(-1, keepdim=True)
+    return torch.where(scaled >= thr, scaled, scaled.new_full((), float("-inf")))
 
 
 def _min_p_mask(scaled: Tensor, min_p: float) -> Tensor:
     """min-p filter: keep tokens of probability at least ``min_p`` times the
     largest, i.e. ``logit >= max_logit + log(min_p)`` (log taken in fp32)."""
     thr = scaled.amax(-1, keepdim=True) + torch.log(torch.tensor(min_p, dtype=torch.float32))
-    return torch.where(scaled >= thr, scaled, torch.tensor(float("-inf"), device=scaled.device))
+    return torch.where(scaled >= thr, scaled, scaled.new_full((), float("-inf")))
 
 
 def _apply_penalties(logits: Tensor, out_counts: Tensor, seen: Tensor, repetition_penalty,
@@ -537,8 +541,7 @@ def _filter_logits(logits: Tensor, temperature: float, top_k, top_p, min_p) -> T
     scaled = logits / max(temperature, 1e-6)
     if top_k is not None:
         kth = scaled.sort(-1).values[:, -top_k][:, None]
-        scaled = torch.where(scaled < kth, torch.tensor(float("-inf"), device=scaled.device),
-                             scaled)
+        scaled = torch.where(scaled < kth, scaled.new_full((), float("-inf")), scaled)
     if top_p is not None and top_p < 1.0:
         scaled = _top_p_mask(scaled, top_p)
     if min_p is not None and min_p > 0.0:
@@ -676,12 +679,18 @@ def _lin_local(x: Tensor, p: dict, bias: Optional[Tensor]) -> Tensor:
     return y
 
 
+def _per_row(n_valid: Union[int, Tensor]) -> bool:
+    """Whether a length is per row (a (B,) or (B | 1, G) tensor), not shared
+    by every row (an int, or a 0-dim tensor on the device)."""
+    return isinstance(n_valid, Tensor) and n_valid.dim() > 0
+
+
 def _cols_mask(n_cols: int, n_valid: Union[int, Tensor], device) -> Tensor:
     """(1 | B, 1, 1 | G, n_cols) bool mask of the valid prefix; ``n_valid``
-    is an int (a shared length), a (B,) tensor (per-row lengths) or a
-    (B | 1, G) tensor (per row and query position)."""
+    is a shared length (an int or a 0-dim tensor), a (B,) tensor (per-row
+    lengths) or a (B | 1, G) tensor (per row and query position)."""
     cols = torch.arange(n_cols, device=device)
-    if isinstance(n_valid, Tensor):
+    if _per_row(n_valid):
         return cols < n_valid.reshape(n_valid.shape[0], 1, -1, 1)
     return (cols < n_valid)[None, None, None, :]
 
@@ -690,12 +699,21 @@ def _standardize_rows(s: Tensor, n_valid: Union[int, Tensor], eps: float) -> Ten
     """Unbiased row standardization over the first ``n_valid`` columns: the
     mean over them, the squared deviations summed over them and divided by
     ``max(n - 1, 1)``, eps added after the sqrt. ``n_valid``: as
-    ``_cols_mask`` takes it."""
+    ``_cols_mask`` takes it. A shared length on the device (a 0-dim tensor,
+    as a CUDA graph reads it) multiplies by the reciprocals, which is what
+    CUDA's division by a host number computes: on the card its results are
+    those of the same int length."""
     cols = _cols_mask(s.shape[-1], n_valid, s.device)
     zero = s.new_zeros(())
-    if isinstance(n_valid, Tensor):
+    if _per_row(n_valid):
         n = n_valid.clamp_min(1).reshape(n_valid.shape[0], 1, -1, 1).to(s.dtype)
         dof = (n - 1.0).clamp_min(1.0)
+    elif isinstance(n_valid, Tensor):
+        n = n_valid.clamp_min(1).to(s.dtype)
+        inv_dof = (n - 1.0).clamp_min(1.0).reciprocal()
+        mu = torch.where(cols, s, zero).sum(-1, keepdim=True) * n.reciprocal()
+        var = torch.where(cols, (s - mu).square(), zero).sum(-1, keepdim=True) * inv_dof
+        return (s - mu) / (torch.sqrt(var) + eps)
     else:
         n = float(max(n_valid, 1))
         dof = max(n - 1.0, 1.0)
@@ -799,25 +817,35 @@ def _kv_rows(p: dict, cfg, x: Tensor, h: int, sp: Optional[DecodeSplit] = None):
     return k, k2, v
 
 
+def _shared_at(pos: Tensor, g: int) -> Tensor:
+    """Positions ``pos .. pos + g - 1`` of a shared length on the device."""
+    return pos + torch.arange(g, device=pos.device)
+
+
 def _write_rows(cache: dict, i: int, pos: Union[int, Tensor], new) -> Optional[tuple]:
     """Write layer i's new (k, k2, v) rows (B, H, G, dk) in place: at
-    positions ``pos .. pos + G - 1`` of every batch row (``pos`` an int), or
-    row b's at ``pos[b]`` (a (B, G) tensor; positions past the window are
-    clamped to its last column, which no live row reads). Int8 caches get
-    the rows quantized per row, their scales beside. Returns the layer's
-    int8 scales, else None."""
-    if isinstance(pos, Tensor):
+    positions ``pos .. pos + G - 1`` of every batch row (``pos`` an int or a
+    0-dim tensor), or row b's at ``pos[b]`` (a (B, G) tensor; positions
+    past the window are clamped to its last column, which no live row
+    reads). Int8 caches get the rows quantized per row, their scales beside.
+    Returns the layer's int8 scales, else None."""
+    shared = not _per_row(pos)
+    if not shared:
         pos = pos.clamp_max(cache["k"].shape[3] - 1)
         rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
     for key, r in zip(("k", "k2", "v"), new):
         if "k_s" in cache:
             r, s = _q8_rows(r)
-            if isinstance(pos, Tensor):
+            if not shared:
                 cache[key + "_s"][i, rows, :, pos] = s.transpose(1, 2)
+            elif isinstance(pos, Tensor):
+                cache[key + "_s"][i].index_copy_(2, _shared_at(pos, s.shape[-1]), s)
             else:
                 cache[key + "_s"][i, :, :, pos:pos + s.shape[-1]] = s
-        if isinstance(pos, Tensor):
+        if not shared:
             cache[key][i, rows, :, pos] = r.transpose(1, 2).to(cache[key].dtype)
+        elif isinstance(pos, Tensor):
+            cache[key][i].index_copy_(2, _shared_at(pos, r.shape[2]), r.to(cache[key].dtype))
         else:
             cache[key][i, :, :, pos:pos + r.shape[2]] = r.to(cache[key].dtype)
     if "k_s" in cache:
@@ -862,9 +890,11 @@ class SlotRows:
 
     def write_views(self, i: int, pos: Union[int, Tensor], views: Tensor) -> None:
         mv = self.cache["mv"]
-        if isinstance(pos, Tensor):
+        if _per_row(pos):
             rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
             mv[i, rows, pos.clamp_max(mv.shape[2] - 1)] = views
+        elif isinstance(pos, Tensor):
+            mv[i].index_copy_(1, _shared_at(pos, views.shape[1]), views)
         else:
             mv[i, :, pos:pos + views.shape[1]] = views
 
@@ -883,14 +913,15 @@ def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
     order, ``write_views`` / ``views`` the same for GPT-MoP's view history.
     Chunk position g of row b standardizes and attends over its
     ``lens[b] + g + 1`` live columns, masked with ``where`` / -inf, so that
-    nothing in a column past them reaches a result."""
+    nothing in a column past them reaches a result. A shared length may be a
+    0-dim tensor on the device: the form a CUDA graph of the step replays."""
     cfg = model.config
     p = _params(model, params)
     b, g = tokens.shape
     sp = decode_split_of(model)
     h = local_heads(model)
     dev = tokens.device
-    shared = not isinstance(lens, Tensor)  # one length for every row
+    shared = not _per_row(lens)  # one length for every row
     steps = torch.arange(g, device=dev)
     pos = (lens + steps)[None] if shared else lens[:, None] + steps[None, :]  # (1 | B, G)
     wpos = lens if shared else pos  # where the new rows go
@@ -1081,6 +1112,43 @@ def _resize(cache: dict, new_w: int) -> dict:
     return out
 
 
+def _advance(model: nn.Module, params: dict, cache: dict, tok: Tensor, lens: Tensor, pick,
+             generator: Optional[torch.Generator], ocounts, pcounts) -> Tensor:
+    """One decode step in place, as a CUDA graph of it replays: ``tok`` (B,)
+    becomes the token picked after it, the shared length ``lens`` (a 0-dim
+    device tensor) advances by one, the counts take the token. Returns
+    ``tok``."""
+    logits, _ = decode_step_rows(model, params, cache, tok, lens)
+    nxt = pick(logits, generator, ocounts, pcounts)
+    _add_counts(pick, ocounts, nxt)
+    tok.copy_(nxt)
+    lens.add_(1)
+    return tok
+
+
+def _decode_graphed(model: nn.Module, params: dict, cache: dict, tok: Tensor, n: int, w: int,
+                    pick, generator, ocounts, pcounts) -> List[Tensor]:
+    """``n`` tokens after ``tok`` by ``_advance`` captured once per window
+    width (a ``StepGraph`` each, the length in a device buffer), the cache
+    resized between widths outside the graphs, as JAX runs one jitted
+    segment per width."""
+    t, block = cache["len"], model.config.block_size
+    tok = tok.clone()
+    lens = torch.full((), t, dtype=torch.long, device=tok.device)
+    toks, graph = [], None
+    for _ in range(n):
+        if t == w:  # the window is full: double it
+            w = min(2 * w, block)
+            cache, graph = _resize(cache, w), None
+        if graph is None:
+            graph = StepGraph(functools.partial(_advance, model, params, cache, tok, lens, pick,
+                                                generator, ocounts, pcounts),
+                              tok.device, (generator,))
+        toks.append(graph())
+        t += 1
+    return toks
+
+
 def generate_cached(model: nn.Module, params: Optional[dict], prompt: Tensor,
                     max_new_tokens: int, generator: Optional[torch.Generator] = None,
                     temperature: float = 1.0, top_k: Optional[int] = None,
@@ -1088,7 +1156,8 @@ def generate_cached(model: nn.Module, params: Optional[dict], prompt: Tensor,
                     grow_window: bool = False, min_p: Optional[float] = None,
                     repetition_penalty: Optional[float] = None,
                     presence_penalty: Optional[float] = None,
-                    frequency_penalty: Optional[float] = None) -> Tensor:
+                    frequency_penalty: Optional[float] = None,
+                    cuda_graph: bool = False) -> Tensor:
     """KV-cached greedy or sampled decode: (B, T0 + max_new_tokens) token ids
     (the cache's approximation: rows standardize over the live prefix and
     cached keys are frozen).
@@ -1101,7 +1170,13 @@ def generate_cached(model: nn.Module, params: Optional[dict], prompt: Tensor,
     it, so early steps read and standardize over fewer columns; the masked
     columns are inert, so the tokens are those of the full window. The
     sampler's options are ``generate``'s. Requires
-    ``T0 + max_new_tokens <= block_size``."""
+    ``T0 + max_new_tokens <= block_size``.
+
+    ``cuda_graph=True`` (a CUDA device only, else a ValueError): each decode
+    step (the cached step, the pick and the counts) is one CUDA graph per
+    window width, its length a device tensor; a sampled draw comes from the
+    registered ``generator``. The tokens are the eager loop's.
+    """
     cfg = model.config
     b, t0 = prompt.shape
     if t0 + max_new_tokens > cfg.block_size:
@@ -1109,6 +1184,8 @@ def generate_cached(model: nn.Module, params: Optional[dict], prompt: Tensor,
                          f"exceeds block_size {cfg.block_size}")
     greedy = generator is None or temperature == 0.0
     params = decode_params(model) if params is None else params
+    if cuda_graph:
+        require_graph("generate_cached", params["params"]["wte"]["embedding"].device)
     prompt = prompt.long()
     logits, cache = prefill(model, params, prompt, kv_dtype=kv_dtype)
     pick = _make_pick(greedy, temperature, top_k, top_p, min_p, repetition_penalty,
@@ -1119,6 +1196,10 @@ def generate_cached(model: nn.Module, params: Optional[dict], prompt: Tensor,
     block = cfg.block_size
     w = min(1 << max(6, t0.bit_length()), block) if grow_window else block
     cache = _resize(cache, w)
+    if cuda_graph:
+        toks = [tok] + _decode_graphed(model, params, cache, tok, max_new_tokens - 1, w, pick,
+                                       generator if not greedy else None, ocounts, pcounts)
+        return torch.cat([prompt, torch.stack(toks, 1)], 1)
     toks = [tok]
     for _ in range(max_new_tokens - 1):
         if cache["len"] == w:  # the window is full: double it

@@ -1355,6 +1355,18 @@ def reset_launch_counts() -> None:
         f.launches = 0
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by the wrapper's name."""
+    return {f.__name__: f.launches for f in KERNELS}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' counts: a CUDA graph's
+    replay runs the launches its capture recorded without calling a wrapper."""
+    for f in KERNELS:
+        f.launches += counts.get(f.__name__, 0)
+
+
 # ------------------- registered ops, for torch.export -------------------
 #
 # Each kernel forward as a ``torch.library`` op: its CUDA kernel is the ctypes

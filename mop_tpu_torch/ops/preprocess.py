@@ -30,9 +30,10 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize(x: Tensor, mean, std) -> Tensor:
-    """(B,C,H,W) in [0,1] -> normalized."""
-    mean = torch.tensor(mean, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
-    std = torch.tensor(std, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    """(B,C,H,W) in [0,1] -> normalized; ``mean`` and ``std`` are sequences
+    of floats or tensors (a tensor of x's dtype on its device is taken as it is)."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
     return (x - mean) / std
 
 

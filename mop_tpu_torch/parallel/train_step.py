@@ -25,6 +25,13 @@ draws what the one-device step draws for the same rows. Mixup and CutMix pair
 each row with the reversed global batch's: the rows held by the mirror
 process, exchanged point to point. ``mesh=None`` (or a world-1 mesh with no
 process group) is the one-device step and runs no collective.
+
+One dispatch: the classifier, scanned and LM steps take ``cuda_graph=True``
+(``utils.cuda_graph``), the counterpart of the JAX steps' ``jax.jit`` and
+``lax.scan``: the step's device work (the scanned step's K steps) is one
+CUDA graph replayed per call, over static input buffers, with a capturable
+optimizer and the call's generator registered. The eager form, the
+default, is the reference it is held to.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..models.layers import RandomDrop, set_generator
 from ..ops import preprocess as pp
+from ..utils.cuda_graph import HyperGuard, StepGraph, require_graph
 from ..utils.device import resolve_device
 from . import comm
 from .mesh import DATA_AXIS
@@ -264,30 +272,68 @@ def _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype, 
 
 def _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
                 compute_dtype, n_classes, accum_steps, remat, device, mesh=None):
+    """``(device, prepare, body)`` of the classifier step: the step's
+    device; ``prepare(generator)``, the host's part of a call (the generator
+    rule, train mode, the drop modules' generator and shards); ``body(x_u8,
+    y, generator) -> (loss, acc)``, the device's, on device inputs, from the
+    grads set to None to the optimizer's update."""
     device = _step_device(device, mesh)
     dp = _DataParallel(mesh, model)
+    # the normalization's constants on the device once, not from the host in every step
+    mean, std = (v if v is None else torch.as_tensor(v, dtype=torch.float32, device=device)
+                 for v in (mean, std))
     loss_fn = _classifier_loss(model, mean, std, augment, label_smoothing, compute_dtype,
                                n_classes, remat, dp.shard)
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(x_u8: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
-             ) -> Dict[str, Tensor]:
+    def prepare(generator):
         if augment and generator is None:
             raise ValueError("the train augment draws from an explicit torch.Generator; "
                              "pass one on the step's device")
         model.train()
         set_generator(model, generator)
         dp.draw_shards()
-        x_u8 = x_u8.to(device, non_blocking=True)
-        y = y.to(device, non_blocking=True).long()
+
+    def body(x_u8, y, generator):
         optimizer.zero_grad(set_to_none=True)
         loss, acc = _accumulate(lambda x, t: loss_fn(x, t, generator), (x_u8, y), accum_steps)
         dp.mean_grads(params)
         _clip_and_update(params, optimizer, grad_clip)
-        loss, acc = dp.mean(loss, acc)
-        return {"loss": loss, "acc": acc}
+        return dp.mean(loss, acc)
 
-    return step
+    return device, prepare, body
+
+
+class _CapturedStep(StepGraph):
+    """``body(*inputs, generator)`` as a ``StepGraph``, called as
+    ``run(inputs, generator)``: the first call's generator is the one the
+    graph registers, and every later call must pass it; the optimizer's lr
+    is held to what the first call saw (``HyperGuard``)."""
+
+    def __init__(self, what, device, optimizer, body):
+        super().__init__(lambda *xs: body(*xs, self.generator), device)
+        self.what, self.optimizer = what, optimizer
+        self.generator, self.guard = None, None
+
+    def run(self, inputs, generator):
+        if self.guard is None:
+            self.generator, self.guard = generator, HyperGuard(self.optimizer)
+            self.generators = (generator,) if generator is not None else ()
+        elif generator is not self.generator:
+            raise ValueError(f"{self.what}: a captured step draws from the generator it was "
+                             "captured with; pass that one")
+        self.guard.check()
+        return self(*inputs)
+
+
+def _graphed(what, device, mesh, optimizer, remat, body) -> _CapturedStep:
+    """The step's ``_CapturedStep``, after ``require_graph`` and the remat
+    rule accepted its configuration."""
+    if remat != "none":
+        raise ValueError(f"{what}: cuda_graph=True does not take remat={remat!r} (its recompute "
+                         "rewinds the generator on the host)")
+    require_graph(what, device, mesh, optimizer)
+    return _CapturedStep(what, device, optimizer, body)
 
 
 def _accumulate(loss_fn, batch, accum_steps: int):
@@ -325,7 +371,7 @@ def make_classifier_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, mean, std, augment: bool = True,
     label_smoothing: float = 0.0, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, n_classes: Optional[int] = None,
-    accum_steps: int = 1, device: Device = None, mesh=None,
+    accum_steps: int = 1, device: Device = None, mesh=None, cuda_graph: bool = False,
 ) -> Callable[..., Dict[str, Tensor]]:
     """Train step: returns ``step(x_u8, y, generator) -> {"loss", "acc"}``.
 
@@ -340,16 +386,40 @@ def make_classifier_train_step(
     already live on it. Under ``mesh`` (data parallel, see the module's
     docstring) the step takes this process's rows and runs on the mesh's
     device.
+
+    ``cuda_graph=True``: the whole step (augment, the parameter casts,
+    forward, backward, clip and update) is one CUDA graph
+    (``utils.cuda_graph.StepGraph``): the first call runs eagerly on a side
+    stream, the second captures, every call replays. It needs a CUDA
+    device, no mesh and a capturable optimizer (``torch.optim.AdamW(...,
+    capturable=True)``; a schedule reaches it through a tensor lr filled in
+    place), and every call must pass the first call's generator and
+    batch shape; it raises a ValueError otherwise. It computes what the
+    eager step computes.
     """
-    return _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
-                       compute_dtype, n_classes, accum_steps, "none", device, mesh)
+    device, prepare, body = _train_step(model, optimizer, mean, std, augment, label_smoothing,
+                                        grad_clip, compute_dtype, n_classes, accum_steps, "none",
+                                        device, mesh)
+    graph = (_graphed("make_classifier_train_step", device, mesh, optimizer, "none", body)
+             if cuda_graph else None)
+
+    def step(x_u8: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, Tensor]:
+        prepare(generator)
+        x_u8 = x_u8.to(device, non_blocking=True)
+        y = y.to(device, non_blocking=True).long()
+        loss, acc = graph.run((x_u8, y), generator) if graph else body(x_u8, y, generator)
+        return {"loss": loss, "acc": acc}
+
+    step.graph = graph
+    return step
 
 
 def make_scanned_classifier_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, mean, std, unroll_steps: int,
     augment: bool = True, label_smoothing: float = 0.0, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, remat: str = "none",
-    device: Device = None, mesh=None,
+    device: Device = None, mesh=None, cuda_graph: bool = False,
 ) -> Callable[..., Dict[str, Tensor]]:
     """K = ``unroll_steps`` train steps over a stacked (K, B, ...) super-batch:
     ``step(x_u8 (K, B, C, H, W), y (K, B), generator) -> {"loss": (K,),
@@ -359,20 +429,36 @@ def make_scanned_classifier_train_step(
     transformer block: recompute in backward) | "dots" (selective
     checkpointing that saves the matmul outputs, ``mm``, ``bmm`` and
     ``addmm``, and recomputes the rest); see ``_remat_forward``.
+
+    ``cuda_graph=True``: the K steps are one CUDA graph, replayed once per
+    call, as JAX's ``lax.scan`` is one dispatch; memory a step frees is
+    reused by the next inside the graph's pool. Its rules are
+    ``make_classifier_train_step``'s, and ``remat`` must be "none".
     """
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat mode {remat!r}")
-    one = _train_step(model, optimizer, mean, std, augment, label_smoothing, grad_clip,
-                      compute_dtype, None, 1, remat, device, mesh)
+    device, prepare, body = _train_step(model, optimizer, mean, std, augment, label_smoothing,
+                                        grad_clip, compute_dtype, None, 1, remat, device, mesh)
+
+    def steps(x_u8, y, generator):
+        out = [body(x_u8[i], y[i], generator) for i in range(unroll_steps)]
+        return tuple(torch.stack([m[j] for m in out]) for j in range(2))
+
+    graph = (_graphed("make_scanned_classifier_train_step", device, mesh, optimizer, remat,
+                      steps) if cuda_graph else None)
 
     def step(x_u8: Tensor, y: Tensor, generator: Optional[torch.Generator] = None
              ) -> Dict[str, Tensor]:
         if x_u8.shape[0] != unroll_steps or y.shape[0] != unroll_steps:
             raise ValueError(f"expected {unroll_steps} stacked batches, got "
                              f"{x_u8.shape[0]} and {y.shape[0]}")
-        out = [one(x_u8[i], y[i], generator) for i in range(unroll_steps)]
-        return {k: torch.stack([m[k] for m in out]) for k in ("loss", "acc")}
+        prepare(generator)
+        x_u8 = x_u8.to(device, non_blocking=True)
+        y = y.to(device, non_blocking=True).long()
+        loss, acc = graph.run((x_u8, y), generator) if graph else steps(x_u8, y, generator)
+        return {"loss": loss, "acc": acc}
 
+    step.graph = graph
     return step
 
 
@@ -487,7 +573,7 @@ def make_imagenet_train_step(
 def make_lm_train_step(
     model: nn.Module, optimizer: torch.optim.Optimizer, grad_clip: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = torch.bfloat16, accum_steps: int = 1,
-    device: Device = None, mesh=None,
+    device: Device = None, mesh=None, cuda_graph: bool = False,
 ) -> Callable[..., Dict[str, Tensor]]:
     """Causal-LM train step for the GPT family: returns ``step(idx, targets,
     generator=None) -> {"loss"}``.
@@ -505,6 +591,10 @@ def make_lm_train_step(
     the JAX LM step: a clip of 0 zeroes them. The step runs on ``device``
     (the GPU unless given) and moves its inputs there; the model must
     already live on it. Under ``mesh``, data parallel (module docstring).
+
+    ``cuda_graph=True``: the step is one CUDA graph, the dropout masks
+    drawn from the registered generator; the rules of
+    ``make_classifier_train_step``'s ``cuda_graph``.
     """
     device = _step_device(device, mesh)
     dp = _DataParallel(mesh, model)
@@ -513,17 +603,24 @@ def make_lm_train_step(
     def loss_fn(idx, targets):
         return (_call(model, compute_dtype, idx, targets=targets)[1].float(),)
 
+    def body(idx, targets, generator):
+        optimizer.zero_grad(set_to_none=True)
+        (loss,) = _accumulate(loss_fn, (idx, targets), accum_steps)
+        dp.mean_grads(params)
+        _clip_and_update(params, optimizer, grad_clip)
+        (loss,) = dp.mean(loss)
+        return loss
+
+    graph = (_graphed("make_lm_train_step", device, mesh, optimizer, "none", body)
+             if cuda_graph else None)
+
     def step(idx: Tensor, targets: Tensor, generator: Optional[torch.Generator] = None
              ) -> Dict[str, Tensor]:
         model.train()
         set_generator(model, generator)
         dp.draw_shards()
         batch = (idx.to(device, non_blocking=True), targets.to(device, non_blocking=True))
-        optimizer.zero_grad(set_to_none=True)
-        (loss,) = _accumulate(loss_fn, batch, accum_steps)
-        dp.mean_grads(params)
-        _clip_and_update(params, optimizer, grad_clip)
-        (loss,) = dp.mean(loss)
-        return {"loss": loss}
+        return {"loss": graph.run(batch, generator) if graph else body(*batch, generator)}
 
+    step.graph = graph
     return step

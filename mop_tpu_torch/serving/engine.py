@@ -49,6 +49,7 @@ from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode
                                decode_step_rows, init_decode_cache, local_heads, model_n_views,
                                prefill, prefill_padded)
 from ..parallel.mesh import MODEL_AXIS
+from ..utils.cuda_graph import StepGraph, require_graph
 from .constrain import mask_row
 
 Tensor = torch.Tensor
@@ -228,6 +229,13 @@ class DecodeEngine:
       split by head over the model axis. A tensor-parallel model's pools
       hold its heads either way (the module docstring); any other spec
       raises.
+    - ``cuda_graph``: the batched step (``_step_logits``, the cached step of
+      every slot) runs as one CUDA graph over the static pools, the tokens
+      and lengths copied into static buffers before each replay; the
+      picker, host control, beams and the device-to-host copy stay eager.
+      The dense engine on a CUDA device only; a tensor-parallel model (its
+      all-reduces) raises, as do the subclasses. Per-row LoRA is captured:
+      its factor rows are buffers written in place at admission.
     """
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 8,
@@ -240,12 +248,20 @@ class DecodeEngine:
                  presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
                  adapters: Optional[Dict[str, dict]] = None, adapter_scale=1.0,
                  chunk_prefill: Optional[int] = None, logprobs_topk: int = 0,
-                 max_beams: int = 0):
+                 max_beams: int = 0, cuda_graph: bool = False):
         self.model = model
         self.params = decode_params(model) if params is None else params
         self._tp = decode_split_of(model)  # a tensor-parallel model's
         _check_cache_sharding(cache_sharding, self._tp)
         self.device = self.params["params"]["wte"]["embedding"].device
+        if cuda_graph:
+            if type(self) is not DecodeEngine:
+                raise ValueError(f"{type(self).__name__}: cuda_graph=True is the dense "
+                                 "DecodeEngine's; this engine's step is not captured")
+            if self._tp is not None:
+                raise ValueError("DecodeEngine: cuda_graph=True does not take a tensor-parallel "
+                                 "model (its step all-reduces over NCCL, which is not captured)")
+            require_graph("DecodeEngine", self.device)
         self.max_batch = max_batch
         self.eos_id = eos_id
         if not 0 <= int(logprobs_topk) <= 32:
@@ -326,6 +342,10 @@ class DecodeEngine:
             raise ValueError(f"chunk_prefill {chunk_prefill} must be in "
                              f"(0, block_size={self.block_size}]")
         self._chunk_state: Dict[int, dict] = {}
+        # the batched step over static token and length buffers, captured by
+        # a thread of the server next to others: thread-local capture errors
+        self._graph = (StepGraph(self._slot_logits, self.device,
+                                 capture_error_mode="thread_local") if cuda_graph else None)
 
     def _make_cache(self, cfg, max_batch: int, kv_dtype: torch.dtype) -> Optional[dict]:
         """The per-slot KV pools. A subclass with another cache layout
@@ -763,9 +783,14 @@ class DecodeEngine:
 
     def _step_logits(self, lens: Tensor) -> Tensor:
         """The batched step's logits (B, V), each row's new K/K2/V written at
-        its length ``lens[b]``: the cache access a subclass replaces."""
-        return decode_step_rows(self.model, self._step_params(), self._cache, self._tokens,
-                                lens)[0]
+        its length ``lens[b]``: the cache access a subclass replaces. Under
+        ``cuda_graph`` a replay over the static buffers."""
+        if self._graph is not None:
+            return self._graph(self._tokens, lens)
+        return self._slot_logits(self._tokens, lens)
+
+    def _slot_logits(self, tokens: Tensor, lens: Tensor) -> Tensor:
+        return decode_step_rows(self.model, self._step_params(), self._cache, tokens, lens)[0]
 
     def _permute_rows(self, perm: np.ndarray) -> None:
         """Slot s takes slot ``perm[s]``'s cache rows, for the slots that
