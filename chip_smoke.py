@@ -268,15 +268,25 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    entry point eager and graphed on the same seeds, inputs and generator state, with capturable
    AdamW on both sides: B_bench's scanned step (K = 20 in one replay, the generator drawn on
    across calls), E's one step in bf16 (the generator reseeded before each step), LM_quartet at
-   dropout 0 and 0.1 and GPT_MoP, 3 steps each at 64 x 256; Decode_6x384's ``generate_cached``
-   (greedy fp32, 240 tokens; sampled 64); Serve_6x512's dense engine over 16 of 14a's jobs. Each
-   form's ms a step, images or tokens/s, busy share (eager B_bench's over 2 steps, the decoder's
-   over 16 tokens, the engine's over 8 requests of 16 tokens: the profiler's parse of a longer
-   eager call takes tens of seconds), the mean device ms of a K1, K2, K2b or K5 launch, captures
-   and their seconds, the graph pool's bytes and the peak memory; the gates: losses and parameters bit-equal or within 1e-5, every
-   token equal, the launches equal with each replay counting its capture's. Phase 10's ab5 run
-   and the lockstep CLIs of 15b run graphed through ``ModelRun`` (its captures reported in 10).
-   The kernels line's ``launches`` add 19's.
+   dropout 0 and 0.1 and GPT_MoP, 3 steps each at 64 x 256; Trainer_B_bench, 3 ``Trainer.step``
+   calls with ``cosine_lr`` (eager: a float lr and AdamW as the eager Trainer makes it);
+   ``ModelRun``'s fp32 evals of A, E, E_dense and D (K1, K2, K3, K4 under capture), two batches of
+   256 (the second padded) through the eval step, then ``predict_correct``; Decode_6x384's
+   ``generate_cached`` (greedy fp32, 240 tokens; sampled 64) and its exact ``generate`` (K5 fp32,
+   kept rows: a 224-token prompt and 64 tokens, the window full after 32, then rolling; sampled,
+   32 tokens with top-k and a repetition penalty); Decode_170M's ``generate`` (K5 streaming, 16
+   tokens); Whisper_20M's two transcription routes (fp32 KV, ctx 64; int8 KV on the cached
+   route), then both graphed at ctx 64 and 256, their ratio; Serve_6x512's dense engine over 16
+   of 14a's jobs. Each form's ms a step, images or tokens/s, busy share (eager B_bench's over 2
+   steps, the decoders' over 16 tokens, the engine's over 8 requests of 16 tokens: the
+   profiler's parse of a longer eager call takes tens of seconds), the mean device ms of a K1,
+   K2, K2b, K3, K4 or K5 launch, captures and their seconds, the graph pool's bytes and the peak
+   memory; the gates: losses and parameters bit-equal or within 1e-5, counts, hits and every
+   token equal, the launches equal with each replay counting its capture's, no synchronizing
+   CUDA call in a graph's warm-up (``torch.cuda.set_sync_debug_mode``). Phase 10's ab5 run and
+   the lockstep CLIs of 15b train and evaluate graphed through ``ModelRun`` (its train and eval
+   captures reported in 10), and 15a's ``train_model`` through the graphed ``Trainer``. The
+   kernels line's ``launches`` add 19's.
 """
 
 from __future__ import annotations
@@ -294,6 +304,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -1201,11 +1213,19 @@ def harness_phases(smi, out):
     check(counts == want, f"ab5 run launches {launched(counts)} ({steps} steps, {eval_fwds} "
           f"eval forwards a run; expected {launched(want)}) [{smi}]")
     runs, _, loop_s = calls[0]
+    evals = {k: list(r.eval_step.graphs.graphs.values()) if r.eval_step.graphs else []
+             for k, r in runs.items()}
     check(all(r.graphed and r.train_step.graph.captured for r in runs.values())
-          and len(caps) == len(runs),
-          f"ab5: every ModelRun's train step is one CUDA graph: {len(caps)} captures, "
-          f"{sum(c for c, _ in caps):.2f} s in all, graph pools "
-          f"{', '.join(f'{b / 2 ** 20:.0f}' for _, b in caps)} MiB [{smi}]")
+          and all(len(g) == 1 and g[0].captured for g in evals.values())
+          and len(caps) == 2 * len(runs),
+          f"ab5: every ModelRun's train step is one CUDA graph and its evals (val and test "
+          f"batches of one shape, counts and per-sample hits) another: {len(caps)} captures, "
+          f"{sum(c for c, _ in caps):.2f} s in all; graph pools, train / eval: "
+          + ", ".join(f"{k} {r.train_step.graph.pool_bytes / 2 ** 20:.0f} / "
+                      f"{sum(g.pool_bytes for g in evals[k]) / 2 ** 20:.0f} MiB"
+                      for k, r in runs.items())
+          + f"; the eval pools {sum(g.pool_bytes for v in evals.values() for g in v) / 2 ** 30:.2f}"
+          f" GiB in all [{smi}]")
     say(f"  ab5 at the {AB5_TARGET:,} target, {len(keys)} models, batch {BATCH}: matcher "
         f"{match_s:.2f} s (host); run() {wall:.2f} s wall, of it the lockstep loop "
         f"{loop_s:.2f} s ({steps} steps of all {len(keys)} models and {n_evals} val evals: "
@@ -2620,6 +2640,13 @@ def trainer_phase(smi, work):
             super().__init__(*a, **kw)
             guards.append(self)
 
+    trainers = []
+
+    class RecordedTrainer(trainer_mod.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            trainers.append(self)
+
     def batches(start, signal_at=None):
         for i in range(start, TRAINER_STEPS):
             if i == signal_at:
@@ -2639,6 +2666,7 @@ def trainer_phase(smi, work):
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     guard_cls, trainer_mod.PreemptionGuard = trainer_mod.PreemptionGuard, RecordedGuard
+    trainer_cls, trainer_mod.Trainer = trainer_mod.Trainer, RecordedTrainer
     try:
         with tempfile.TemporaryDirectory(dir=work) as ckpt:
             t0 = time.perf_counter()
@@ -2660,6 +2688,14 @@ def trainer_phase(smi, work):
                   f"{hist_u['train_loss'][-1]:.4f}, val acc {hist_u['val_acc']}, checkpoints "
                   f"{steps_u}; launches {launched(counts)} (expected K1 {want_k1}: {depth} in init's "
                   f"check forward, a step and a val batch); {wall_u:.2f} s wall [{smi}]")
+            tr = trainers[-1]
+            graphs = [tr._train_step.graph, *tr._eval_step.graphs.graphs.values()]
+            check(tr.graphed and len(graphs) == 2 and all(g.captured for g in graphs),
+                  f"uninterrupted: train_model's Trainer graphed on the card, its train step "
+                  f"and its eval step one CUDA graph each: captures "
+                  f"{', '.join(f'{g.capture_s:.3f}' for g in graphs)} s, pools "
+                  f"{', '.join(f'{g.pool_bytes / 2 ** 20:.0f}' for g in graphs)} MiB, "
+                  f"{graphs[0].calls} train and {graphs[1].calls} eval calls [{smi}]")
 
             code = None
             F.reset_launch_counts()
@@ -2689,13 +2725,18 @@ def trainer_phase(smi, work):
             same = (hist_r["train_loss"] == hist_u["train_loss"][TRAINER_STOP:]
                     and all(torch.equal(a, b) for a, b in zip(model_r.state_dict().values(),
                                                               model_u.state_dict().values())))
-            check(same, f"resumed at step {TRAINER_STOP}: {len(hist_r['train_loss'])} steps, "
+            resumed = trainers[-1]
+            same = same and resumed.graphed and resumed._train_step.graph.captured
+            check(same, f"resumed at step {TRAINER_STOP} (graphed: the lr tensor restored, the "
+                  f"step captured again over the loaded state): "
+                  f"{len(hist_r['train_loss'])} steps, "
                   f"final loss {hist_r['train_loss'][-1]!r} vs the uninterrupted run's "
                   f"{hist_u['train_loss'][-1]!r}; every parameter bit-equal (largest "
                   f"difference {max(diffs):.3e}); {time.perf_counter() - t0:.2f} s [{smi}]")
             del model_r
     finally:
         trainer_mod.PreemptionGuard = guard_cls
+        trainer_mod.Trainer = trainer_cls
         torch.backends.cudnn.deterministic = det[0]
         torch.use_deterministic_algorithms(det[1])
 
@@ -2744,7 +2785,8 @@ def trainer_phase(smi, work):
     step_flops = 3 * forward_flops(trainer.model, x, depth, heads=4)
     peak = chip_peak_bf16_flops()
     mfu = f"{100 * step_flops * sps / peak:.2f}%" if peak else "not measured (unknown card)"
-    say(f"  Trainer.step, B_bench bf16 batch {BATCH}: {ips:,.0f} images/s, "
+    say(f"  Trainer.step ({'graphed' if trainer.graphed else 'eager'}), B_bench bf16 batch "
+        f"{BATCH}: {ips:,.0f} images/s, "
         f"{1e3 / sps:.2f} ms a step (ThroughputMeter, {TRAINER_TIMED} steps after 5); device "
         f"busy {100 * busy / wall_us:.1f}% of 10 profiled steps ({by_class(rows)}); "
         f"{step_flops / 1e12:.3f} TFLOP a step (3 x the forward's Linear, Conv2d and K1 "
@@ -3940,9 +3982,19 @@ def pipeline_phases(smi):
 # ------------------------- phase 19: one dispatch per step -------------------------
 
 GRAPH_TOL = 1e-5  # graphed against eager, where not bit-equal (phase 17's gate)
-# the kernels of phase 19's pairs, by a substring of their names
-GRAPH_KERNELS = {"K1": "flash_fwd", "K2": "edgewise_fwd", "K2b": "edgewise_bwd", "K5": "quartet"}
+# the kernels of phase 19's pairs, by substrings of their names (K2 and K3 are
+# one template over their gate heads)
+GRAPH_KERNELS = {"K1": ("flash_fwd",), "K2": ("edgewise_fwd", "LowrankGate"),
+                 "K2b": ("edgewise_bwd",), "K3": ("edgewise_fwd", "DenseGate"),
+                 "K4": ("multihop",), "K5": ("quartet",)}
 GRAPH_SERVE_JOBS = 16  # of phase 14a's jobs
+GRAPH_TRAINER_STEPS = 3  # Trainer.step calls of each form, then as many timed
+GRAPH_EVAL = ("A", "E", "E_dense", "D")  # the eval pairs' models
+GRAPH_EVAL_PAD = 56  # rows of the eval pair's second batch masked out
+GRAPH_DECODE_T0, GRAPH_DECODE_NEW = 224, 64  # Decode_6x384's prompt fills, then rolls
+GRAPH_SAMPLED = 32  # tokens of the sampled exact decode
+GRAPH_170M_NEW = 16  # tokens of the 170M's exact decode (K5 streaming)
+GRAPH_WHISPER_CTX = (64, 256)  # transcription lengths; the pairs at the first
 
 
 @contextlib.contextmanager
@@ -3963,6 +4015,42 @@ def captures():
         StepGraph._capture = capture
 
 
+@contextlib.contextmanager
+def warmup_syncs():
+    """The synchronizing CUDA calls of every ``StepGraph``'s first call (its
+    eager warm-up of the body) in the context, by
+    ``torch.cuda.set_sync_debug_mode("warn")``, each as the Python frames
+    that made it, innermost first: a body that reads the device on the host
+    would bake a stale value into its capture."""
+    seen = []
+    call = StepGraph.__call__
+
+    def record(message, *_):  # the mode's own notice ("a prototype feature") is no sync
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")][-6:]
+            seen.append(" < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                                   for f in reversed(frames)))
+
+    def checked(self, *args):
+        if self.calls or self.device.type != "cuda":
+            return call(self, *args)
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return call(self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    StepGraph.__call__ = checked
+    try:
+        yield seen
+    finally:
+        StepGraph.__call__ = call
+
+
 def _params_of(model):
     return [p.detach().clone() for p in model.parameters()]
 
@@ -3981,8 +4069,8 @@ def _busy(call):
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()]
     per = {}
-    for label, key in GRAPH_KERNELS.items():
-        hit = [(t, n) for name, t, n in rows if key in name and t > 0]
+    for label, keys in GRAPH_KERNELS.items():
+        hit = [(t, n) for name, t, n in rows if all(k in name for k in keys) and t > 0]
         if hit:
             per[label] = sum(t for t, _ in hit) / sum(n for _, n in hit) / 1e3
     return sum(t for _, t, _ in rows) / 1e6 / wall, per
@@ -3996,7 +4084,7 @@ def _form(call, state, n_calls, timed, profiled):
     ``profiled()`` under the profiler for the busy share (a shorter call
     where a whole one would hold too many kernel records to parse in the
     time budget), and the captures of all of it."""
-    with captures() as caps:
+    with captures() as caps, warmup_syncs() as syncs:
         torch.cuda.reset_peak_memory_stats()
         (outs, secs), counts = counted(
             lambda: seconds_of(lambda: [call() for _ in range(n_calls)]))
@@ -4007,7 +4095,8 @@ def _form(call, state, n_calls, timed, profiled):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         busy, per_kernel = _busy(profiled)
     return dict(outs=outs, snap=snap, counts=counts, secs=secs, peak=peak, busy=busy,
-                per_kernel=per_kernel, caps=list(caps), timed=timed or n_calls)
+                per_kernel=per_kernel, caps=list(caps), timed=timed or n_calls,
+                syncs=list(syncs))
 
 
 def _max_diff(a, b):
@@ -4039,6 +4128,9 @@ def _graph_pair(label, make, n_calls, timed, per_call, unit, items, smi):
             + f" [{smi}]")
         torch.cuda.empty_cache()
     e, g = forms[False], forms[True]
+    check(not g["syncs"], f"{label}: the graphed form's warm-ups made "
+          f"{len(g['syncs'])} synchronizing CUDA call(s) {g['syncs']} "
+          "(torch.cuda.set_sync_debug_mode)")
     check(e["counts"] == g["counts"],
           f"{label}: launches over {n_calls} call(s), eager {launched(e['counts']) or 'none'}, "
           f"graphed with replays counted {launched(g['counts']) or 'none'} (the pair took "
@@ -4068,6 +4160,8 @@ def _from_start(model):
 def one_dispatch_phase(smi):
     """Phase 19: each captured entry point, eager and graphed on the same
     seeds, inputs and generator state."""
+    from mop_tpu_torch.training import Trainer, cosine_lr
+
     t_phase = time.perf_counter()
     say(f"[19 one dispatch] CUDA graphs: each entry point eager and with cuda_graph=True")
     gi = cuda_generator(190)
@@ -4097,6 +4191,24 @@ def one_dispatch_phase(smi):
     _same_floats(f"B_bench scanned: {2 * TRAIN_K} losses", g["outs"], e["outs"])
     _same_floats("B_bench scanned: parameters after 2 calls", g["snap"], e["snap"])
 
+    def trainer(graphed):  # eager: a float lr, AdamW not capturable, as the Trainer makes it
+        model = start()
+        tr = Trainer(model, mean=CIFAR100_MEAN, std=CIFAR100_STD, cuda_graph=graphed)
+        tr.setup_optimizer(cosine_lr(LR, 1, 2 * GRAPH_TRAINER_STEPS), weight_decay=WD)
+        n = [0]
+
+        def call():  # the schedule's lr and the generator reseeded each step
+            n[0] += 1
+            return tr.step(xk[n[0] % TRAIN_K], yk[n[0] % TRAIN_K], seed=190, step_i=n[0])["loss"]
+
+        return call, lambda: _params_of(model)
+
+    e, g = _graph_pair("Trainer_B_bench Trainer.step, bf16, cosine_lr", trainer,
+                       GRAPH_TRAINER_STEPS, GRAPH_TRAINER_STEPS, 1, "images", BATCH, smi)
+    _same_floats(f"Trainer_B_bench: {GRAPH_TRAINER_STEPS} losses", g["outs"], e["outs"])
+    _same_floats(f"Trainer_B_bench: parameters after {GRAPH_TRAINER_STEPS} steps", g["snap"],
+                 e["snap"])
+
     start = _from_start(MODELS["E"][0](torch.Generator().manual_seed(192)))
 
     def one_step(graphed):
@@ -4116,6 +4228,35 @@ def one_dispatch_phase(smi):
     e, g = _graph_pair("E one step, bf16", one_step, 3, 3, 1, "images", BATCH, smi)
     _same_floats("E: 3 losses (the generator reseeded each step)", g["outs"], e["outs"])
     _same_floats("E: parameters after 3 steps", g["snap"], e["snap"])
+
+    # The fp32 evals of ModelRun (the lockstep CLIs'): the eval step's counts
+    # on two host batches, the second padded, then predict_correct's hits.
+    masks = [np.ones(BATCH, np.float32), np.ones(BATCH, np.float32)]
+    masks[1][BATCH - GRAPH_EVAL_PAD:] = 0.0
+    batches = [(xk[i].cpu().numpy(), yk[i].cpu().numpy(), masks[i]) for i in range(2)]
+    starts = {"E": start}
+    for name in GRAPH_EVAL:
+        if name not in starts:
+            starts[name] = _from_start(MODELS[name][0](torch.Generator().manual_seed(198)))
+        start = starts.pop(name)
+
+        def evals(graphed):
+            run = harness.ModelRun(name, start(), LR, CIFAR100_MEAN, CIFAR100_STD, 10, 0.1, WD,
+                                   seed=0, cuda_graph=graphed)
+
+            def call():
+                counts = [torch.stack(run.eval_step(*run._rows(*b))) for b in batches]
+                return counts + [torch.from_numpy(run.predict_correct(x, y))
+                                 for x, y, _ in batches]
+
+            return call, lambda: None
+
+        e, g = _graph_pair(f"Eval_{name} fp32 eval step, batch {BATCH}: 2 batches' counts (the "
+                           f"second {BATCH - GRAPH_EVAL_PAD} rows valid) and predict_correct's "
+                           "hits", evals, 1, 3, 4, "images", 4 * BATCH, smi)
+        check(all(torch.equal(a, b) for a, b in zip(g["outs"][0], e["outs"][0])),
+              f"Eval_{name}: the graphed counts {[c.tolist() for c in g['outs'][0][:2]]} and "
+              f"the {2 * BATCH} per-sample hits equal the eager evals'")
 
     gl = cuda_generator(194)
     idx = torch.randint(0, LM_VOCAB, (LM_BATCH, 256), device="cuda", generator=gl)
@@ -4169,6 +4310,32 @@ def one_dispatch_phase(smi):
     check(torch.equal(sampled[1], sampled[0]),
           "Decode_6x384 sampled (temperature 0.8, top-k 50, the same generator seed): the "
           f"graphed decode draws the eager loop's tokens (64 x {DECODE_BATCH})")
+
+    # The exact sampler: K5 fp32 (kept rows) in every layer of every token.
+    long_prompt = torch.randint(0, DECODE_VOCAB, (DECODE_BATCH, GRAPH_DECODE_T0), device="cuda",
+                                generator=cuda_generator(43))
+
+    def exact(graphed):  # the busy share over 16 tokens
+        return (lambda: generate(model, long_prompt, GRAPH_DECODE_NEW, cuda_graph=graphed),
+                lambda: None, lambda: generate(model, long_prompt, 16, cuda_graph=graphed))
+
+    full_at = DECODE_SMALL["block_size"] - GRAPH_DECODE_T0
+    e, g = _graph_pair(f"Decode_6x384 generate (exact), greedy fp32, batch {DECODE_BATCH}, "
+                       f"{GRAPH_DECODE_T0}-token prompt, {GRAPH_DECODE_NEW} tokens (the window "
+                       f"full after {full_at}, then rolling)", exact, 1, 0, GRAPH_DECODE_NEW,
+                       "tokens", DECODE_BATCH * GRAPH_DECODE_NEW, smi)
+    check(torch.equal(g["outs"][0], e["outs"][0]),
+          f"Decode_6x384 generate: every greedy token of the graphed sampler equals the eager "
+          f"loop's ({DECODE_BATCH} x {GRAPH_DECODE_NEW}, {full_at} filling, "
+          f"{GRAPH_DECODE_NEW - full_at} rolling)")
+    kw = dict(temperature=0.8, top_k=50, repetition_penalty=1.2)
+    sampled = [counted(lambda: generate(model, long_prompt, GRAPH_SAMPLED,
+                                        generator=cuda_generator(45), cuda_graph=graphed, **kw))
+               for graphed in (False, True)]
+    check(torch.equal(sampled[1][0], sampled[0][0]) and sampled[1][1] == sampled[0][1],
+          f"Decode_6x384 generate sampled ({kw}, the same generator seed): the graphed sampler "
+          f"draws the eager loop's tokens ({GRAPH_SAMPLED} x {DECODE_BATCH}); launches eager "
+          f"{launched(sampled[0][1])}, graphed with replays counted {launched(sampled[1][1])}")
     del model, params
 
     model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SERVE_CFG),
@@ -4190,7 +4357,71 @@ def one_dispatch_phase(smi):
           f"Serve_6x512: every request's greedy tokens from the graphed engine equal the eager "
           f"engine's ({GRAPH_SERVE_JOBS} requests, {n_tok} tokens, {e['snap']} engine steps)")
     del model, params
-    say(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s (its budget 45 s)")
+
+    # The 170M's exact sampler at block 512: K5 fp32 streaming under capture.
+    model = create_gpt_quartet(DECODE_VOCAB, TransformerConfig(**DECODE_170M),
+                               generator=torch.Generator().manual_seed(42)).eval()
+    p1 = torch.randint(0, DECODE_VOCAB, (1, DECODE_T0), device="cuda",
+                       generator=cuda_generator(44))
+
+    def exact_170m(graphed):
+        return lambda: generate(model, p1, GRAPH_170M_NEW, cuda_graph=graphed), lambda: None
+
+    e, g = _graph_pair(f"Decode_170M generate (exact, K5 streaming), greedy fp32, batch 1, "
+                       f"{GRAPH_170M_NEW} tokens", exact_170m, 1, 0, GRAPH_170M_NEW, "tokens",
+                       GRAPH_170M_NEW, smi)
+    check(torch.equal(g["outs"][0], e["outs"][0]),
+          f"Decode_170M generate: every greedy token of the graphed sampler equals the eager "
+          f"loop's ({GRAPH_170M_NEW})")
+    del model
+
+    # Whisper_20M's two transcription routes (its text context widened for
+    # the longest ctx), the kernels scaled as 11.5's so that the tokens vary:
+    # K1 fp32 in the encoder, and causal and cross in every decoder layer of
+    # the full window's steps.
+    cfg = WhisperConfig(**{**WHISPER_20M, "n_text_ctx": max(GRAPH_WHISPER_CTX) + 8})
+    model = create_whisper_mop(cfg, generator=torch.Generator().manual_seed(34)).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                m.weight.mul_(WHISPER_DECODE_SCALE)
+    b = WHISPER_BATCH["20M"]
+    mel = whisper_batch(cfg, b, 1)[0]
+    ctx = GRAPH_WHISPER_CTX[0]
+    routes = {"full window": whisper_transcribe, "cached": whisper_transcribe_cached}
+    graphed_s = {}  # each route's graphed seconds at each ctx
+    for route, fn in routes.items():
+        def transcribe(graphed):  # the busy share over 16 tokens
+            return (lambda: fn(model, mel, 1, ctx, cuda_graph=graphed), lambda: None,
+                    lambda: fn(model, mel, 1, 16, cuda_graph=graphed))
+
+        e, g = _graph_pair(f"Whisper_20M {route} transcription, fp32 KV, batch {b}, {ctx} "
+                           "tokens", transcribe, 1, 0, ctx, "tokens", b * ctx, smi)
+        check(torch.equal(g["outs"][0], e["outs"][0]),
+              f"Whisper_20M {route}: every greedy token of the graphed route equals the eager "
+              f"loop's ({b} x {ctx}, {len(set(e['outs'][0].flatten().tolist()))} distinct)")
+        graphed_s[route, ctx] = g["secs"]
+    int8 = [counted(lambda: whisper_transcribe_cached(model, mel, 1, ctx, kv_dtype=torch.int8,
+                                                      cuda_graph=graphed))
+            for graphed in (False, True)]
+    check(torch.equal(int8[1][0], int8[0][0]) and int8[1][1] == int8[0][1],
+          f"Whisper_20M cached, int8 KV: the graphed route's tokens equal the eager loop's ({b} x "
+          f"{ctx}); launches {launched(int8[0][1])} both")
+    # Both routes graphed at each ctx: the pairs' calls at the first, one call
+    # each at the others; a call captures its own step, so its capture is in
+    # its time.
+    for ctx in GRAPH_WHISPER_CTX:
+        for route, fn in routes.items():
+            if (route, ctx) not in graphed_s:
+                graphed_s[route, ctx] = seconds_of(
+                    lambda: fn(model, mel, 1, ctx, cuda_graph=True))[1]
+        t_full, t_cached = graphed_s["full window", ctx], graphed_s["cached", ctx]
+        say(f"  Whisper_20M graphed at ctx {ctx}, batch {b}: full window {1e3 * t_full:.1f} ms, "
+            f"cached {1e3 * t_cached:.1f} ms a call: cached / full window "
+            f"{t_cached / t_full:.3f}; whisper_cached_min_ctx "
+            f"{kernel_switches.whisper_cached_min_ctx} [{smi}]")
+    del model, mel
+    say(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s (its budget 75 s)")
 
 
 def later_phases(phases, smi) -> int:

@@ -6,7 +6,8 @@ The port's counterpart of ``examples/generate_text.py``, with its flags and
 defaults: 4 layers, 4 heads, 128 wide, dropout 0, block
 ``max(128, seq + tokens)``, AdamW 1e-3 (optax.adamw's weight decay 1e-4) on
 random windows of a repeated sentence. Runs on the GPU unless given
-``--device cpu``; on the GPU each cached decode step is one CUDA graph.
+``--device cpu``; on the GPU each decode step of either decoder is one CUDA
+graph.
 
 Usage: python -m mop_tpu_torch.cli.generate_text [--steps 300] [--tokens 64]
 """
@@ -75,7 +76,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return "".join(vocab[i] for i in t[0].tolist())
 
     out = {"losses": losses}
-    for name, fn in (("full", lambda: generate(model, prompt, args.tokens)),
+    for name, fn in (("full", lambda: generate(model, prompt, args.tokens,
+                                               cuda_graph=device.type == "cuda")),
                      ("cached", lambda: generate_cached(model, None, prompt, args.tokens,
                                                         cuda_graph=device.type == "cuda"))):
         t0 = time.perf_counter()

@@ -35,15 +35,14 @@ import numpy as np
 import torch
 
 from ..data import BatchIterator, eval_batches, load_cifar, native_loader, train_val_split
-from ..ops.preprocess import (CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
-                              cifar_eval_transform)
+from ..ops.preprocess import CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD
 from ..parallel import make_classifier_eval_step, make_classifier_train_step
 from ..parallel import comm
 from ..parallel.mesh import DATA_AXIS, replicate, shard_batch
 from ..training.preemption import PREEMPTED_EXIT_CODE, PreemptionGuard
 from ..training.utils import count_params, load_checkpoint, save_checkpoint, step_seed
 from ..training.utils import set_seed  # noqa: F401  (the CLIs call it as common.set_seed)
-from ..utils.cuda_graph import require_graph
+from ..utils.cuda_graph import require_graph, restore_capturable
 from ..utils.device import resolve_device
 
 Device = Optional[Union[str, torch.device]]
@@ -370,7 +369,9 @@ class ModelRun:
     ``cuda_graph`` (None: on a CUDA device without a process group) runs the
     train step as one CUDA graph (``make_classifier_train_step``'s
     ``cuda_graph``), its AdamW capturable and its lr a device tensor that
-    ``step`` fills with the schedule's value.
+    ``step`` fills with the schedule's value, and the evals (``evaluate``,
+    ``predict_correct``) as the eval step's graphs, one per batch shape, in
+    the train step's graph pool.
     """
 
     def __init__(self, key, model, lr, mean, std, steps, warmup_frac, weight_decay, seed,
@@ -391,21 +392,28 @@ class ModelRun:
                                            weight_decay,
                                            lr_device=self.device if self.graphed else None)
         self._train_args = (mean, std, augment, grad_clip)
+        # the eval graphs share the train step's pool: a run replays one at a time
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.graphed and self.device.type == "cuda" else None)
         self.train_step = self._make_train_step()
         self.eval_step = make_classifier_eval_step(model, mean, std, device=self.device,
-                                                   mesh=mesh)
+                                                   mesh=self._step_mesh, cuda_graph=self.graphed)
+        if self.eval_step.graphs is not None:
+            self.eval_step.graphs.pool = self._pool
         self.seed = int(seed)
         self.generator = torch.Generator(device=self.device)
         self.count = 0  # updates so far: the schedule's step, as optax's count
-        self._mean_std = (mean, std)
         self.loss_handle = None
         self.last_loss = float("nan")
 
     def _make_train_step(self):
         mean, std, augment, grad_clip = self._train_args
-        return make_classifier_train_step(self.model, self.opt, mean, std, augment=augment,
+        step = make_classifier_train_step(self.model, self.opt, mean, std, augment=augment,
                                           grad_clip=grad_clip, device=self.device,
                                           mesh=self._step_mesh, cuda_graph=self.graphed)
+        if step.graph is not None:
+            step.graph.pool = self._pool
+        return step
 
     def step(self, xb, yb, step_i):
         """One update on (xb, yb). Its random draws come from the generator
@@ -459,13 +467,9 @@ class ModelRun:
     @torch.inference_mode()
     def predict_correct(self, xb, yb) -> np.ndarray:
         # fp32 on purpose: McNemar's per-sample statistics must not pick up
-        # bf16 argmax flips on borderline samples.
-        self.model.eval()
-        mean, std = self._mean_std
-        xb, yb = self._rows(xb, yb)
-        x = cifar_eval_transform(xb.to(self.device), mean, std)
-        logits = self.model(x).float()
-        hit = logits.argmax(-1) == yb.to(self.device)
+        # bf16 argmax flips on borderline samples. The eval step's forward
+        # (its graph where graphed); the host copy after it.
+        hit = self.eval_step.hits(*self._rows(xb, yb))
         if self.mesh is not None:  # every process's rows, in batch order
             hit = comm.gather_dim(hit.to(torch.uint8), 0, self.mesh.group(DATA_AXIS)).bool()
         return hit.cpu().numpy()
@@ -483,11 +487,7 @@ class ModelRun:
         lr = self.opt.param_groups[0]["lr"]
         self.opt.load_state_dict(payload["opt_state"])
         if self.graphed:  # a fresh capture over the loaded state, the lr its own tensor
-            for group in self.opt.param_groups:
-                group.update(lr=lr, capturable=lr.is_cuda)
-            for state in self.opt.state.values():
-                state["step"] = state["step"].to(self.device if lr.is_cuda else "cpu",
-                                                 torch.float32)
+            restore_capturable(self.opt, lr)
             self.train_step = self._make_train_step()
         self.count = int(payload["step"])
         return self.count

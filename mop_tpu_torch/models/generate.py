@@ -8,7 +8,9 @@ GPT family (``TinyTransformerLM``, ``GPT_MoP`` with either gate):
   Quartet attention standardizes every score row over all ``block``
   columns, the pads included, before the causal mask: on the card that is
   K5 in every layer) and takes the logits at the last live position; the
-  window rolls once it is full.
+  window rolls once it is full. ``cuda_graph=True`` runs each step as one
+  CUDA graph over a static window, the live length a 0-dim device tensor:
+  the counterpart of JAX's one ``lax.scan``.
 - the KV cache: ``init_decode_cache`` (fp32, bf16 or int8 rows with per-row
   fp32 scales; GPT-MoP adds its view history ``mv``), ``prefill`` /
   ``prefill_padded`` (one forward over the prompt, standardizing over its
@@ -37,6 +39,9 @@ Whisper-MoP:
   every self-attention cache, and the cross-attention K/V are computed once
   from the encoder output (``whisper_decode_prep``). The caches are fp32,
   bf16 or int8; int8 rows carry a per-row fp32 scale, self and cross alike.
+- both routes take ``cuda_graph=True``: the encoder (or the prep) eager,
+  then one decoder step as a CUDA graph replayed per token, its position a
+  device tensor, as JAX's ``lax.scan``.
 - ``whisper_transcribe_auto``: with fp32 KV the cached route from
   ``config.whisper_cached_min_ctx`` tokens on and the full window below;
   with bf16 or int8 KV always the cached route.
@@ -91,18 +96,41 @@ def _decoding(model: nn.Module, grad: bool = False):
         model.train(was_training)
 
 
+def _transcribe_step(model: WhisperMoP, enc_out: Tensor, tokens: Tensor, i: Tensor) -> Tensor:
+    """One full-window step in place, as a CUDA graph of it replays (JAX's
+    scan body): ``decode`` of the (B, max_tokens + 1) ``tokens``, the argmax
+    at step ``i`` (a 0-dim device tensor), written at ``i + 1`` by a one-hot
+    select; ``i`` advances by one. Returns the (B,) token."""
+    logits = model.decode(enc_out, tokens).index_select(1, i.reshape(1))[:, 0]
+    nxt = logits.argmax(-1)
+    at = torch.arange(tokens.shape[1], device=tokens.device) == i + 1
+    tokens.copy_(torch.where(at, nxt[:, None], tokens))
+    i.add_(1)
+    return nxt
+
+
 def whisper_transcribe(model: WhisperMoP, mel: Tensor, bos_token: int,
-                       max_tokens: int) -> Tensor:
+                       max_tokens: int, cuda_graph: bool = False) -> Tensor:
     """Greedy transcription: (B, max_tokens) token ids.
 
     The encoder runs once; each step decodes the whole fixed window (BOS at
     0, the tokens so far after it, zeros beyond) and takes the argmax at the
-    step's position."""
+    step's position. ``cuda_graph=True`` (a CUDA model only, else a
+    ValueError): the encoder eager, then one step (``_transcribe_step``, its
+    position a device tensor) as a CUDA graph replayed ``max_tokens`` times,
+    as JAX's one ``lax.scan``; the tokens are the eager loop's."""
+    if cuda_graph:
+        require_graph("whisper_transcribe", model.wte.weight.device)
     with _decoding(model):
         enc_out = model.encode(mel)[0]
         b = mel.shape[0]
         tokens = torch.zeros(b, max_tokens + 1, dtype=torch.long, device=mel.device)
         tokens[:, 0] = bos_token
+        if cuda_graph:
+            step = StepGraph(functools.partial(_transcribe_step, model, enc_out, tokens,
+                                               torch.zeros((), dtype=torch.long,
+                                                           device=mel.device)), mel.device)
+            return torch.stack([step() for _ in range(max_tokens)], 1)
         for i in range(max_tokens):
             logits = model.decode(enc_out, tokens)
             tokens[:, i + 1] = logits[:, i].argmax(-1)
@@ -341,9 +369,23 @@ def whisper_decode_token(model: WhisperMoP, tok: Tensor, pos: int, ks: Tensor, v
     return out if scales is None else (*out, scales)
 
 
+def _cached_step(model: WhisperMoP, tree: dict, cross_k: Tensor, cross_v: Tensor, ks: Tensor,
+                 vs: Tensor, scales: Optional[Dict[str, Tensor]], tok: Tensor,
+                 pos: Tensor) -> Tensor:
+    """One cached step in place, as a CUDA graph of it replays (JAX's scan
+    body): ``whisper_decode_step_rows`` of ``tok`` at ``pos`` (a (B,) device
+    tensor), the caches (and int8 scales) written in place; ``tok`` becomes
+    the argmax and ``pos`` advances by one. Returns ``tok``."""
+    logits = whisper_decode_step_rows(model, tree, cross_k, cross_v, ks, vs, tok, pos,
+                                      scales=scales)[0]
+    tok.copy_(logits.argmax(-1))
+    pos.add_(1)
+    return tok
+
+
 def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, max_tokens: int,
                               kv_dtype: torch.dtype = torch.float32,
-                              params: Optional[dict] = None) -> Tensor:
+                              params: Optional[dict] = None, cuda_graph: bool = False) -> Tensor:
     """Greedy transcription with exact per-layer KV caches: (B, max_tokens)
     token ids, the tokens of ``whisper_transcribe``.
 
@@ -352,7 +394,15 @@ def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, ma
     self and cross, symmetrically with a per-row fp32 scale, applied after
     the products as in ``_mha``. ``params``: ``whisper_decode_params(model)``
     or its int8 / int4 form from ``ops.quant.quantize_params`` (None: the
-    model's own); the encoder runs on its dequantized copy."""
+    model's own); the encoder runs on its dequantized copy.
+
+    ``cuda_graph=True`` (a CUDA model only, else a ValueError): the prep and
+    the cross caches' quantization eager, then one cached step
+    (``_cached_step``, its position a (B,) device tensor) as a CUDA graph
+    replayed ``max_tokens`` times, as JAX's one ``lax.scan``; the tokens are
+    the eager loop's."""
+    if cuda_graph:
+        require_graph("whisper_transcribe_cached", model.wte.weight.device)
     int8 = kv_dtype == torch.int8
     cfg = model.cfg
     b, win = mel.shape[0], max_tokens + 1
@@ -371,6 +421,11 @@ def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, ma
     tok = torch.full((b,), bos_token, dtype=torch.long, device=mel.device)
     outs = []
     with _decoding(model):
+        if cuda_graph:
+            step = StepGraph(functools.partial(
+                _cached_step, model, tree, cross_k, cross_v, ks, vs, scales, tok,
+                torch.zeros(b, dtype=torch.long, device=mel.device)), mel.device)
+            return torch.stack([step() for _ in range(max_tokens)], 1)
         for i in range(max_tokens):
             logits = whisper_decode_token(model, tok, i, ks, vs, cross_k, cross_v,
                                           scales=scales, params=tree)[0]
@@ -381,19 +436,20 @@ def whisper_transcribe_cached(model: WhisperMoP, mel: Tensor, bos_token: int, ma
 
 def whisper_transcribe_auto(model: WhisperMoP, mel: Tensor, bos_token: int, max_tokens: int,
                             kv_dtype: torch.dtype = torch.float32,
-                            params: Optional[dict] = None) -> Tensor:
+                            params: Optional[dict] = None, cuda_graph: bool = False) -> Tensor:
     """Greedy transcription by the measured dispatch: with fp32 KV, the full
     window below ``config.whisper_cached_min_ctx`` tokens
     (``MOP_TPU_WHISPER_CACHED_MIN_CTX``) and the cached route from there on,
     the two giving the same tokens. Any other ``kv_dtype`` (bf16, int8)
     always takes the cached route, so that its rounding does not switch on
     and off with the requested length; so does a ``params`` tree (int8 /
-    int4 weights), which only the cached route reads."""
+    int4 weights), which only the cached route reads. ``cuda_graph`` is
+    passed to the route taken."""
     if (kv_dtype == torch.float32 and params is None
             and max_tokens < run_config.whisper_cached_min_ctx):
-        return whisper_transcribe(model, mel, bos_token, max_tokens)
+        return whisper_transcribe(model, mel, bos_token, max_tokens, cuda_graph=cuda_graph)
     return whisper_transcribe_cached(model, mel, bos_token, max_tokens, kv_dtype=kv_dtype,
-                                     params=params)
+                                     params=params, cuda_graph=cuda_graph)
 
 
 # ------------------------------ GPT family ------------------------------
@@ -592,12 +648,32 @@ def _add_counts(pick, out_counts, tok: Tensor) -> None:
         out_counts[torch.arange(tok.shape[0], device=tok.device), tok] += 1
 
 
+def _window_step(model: nn.Module, window: Tensor, length: Tensor, pick,
+                 generator: Optional[torch.Generator], ocounts, pcounts) -> Tensor:
+    """One step of the exact sampler in place, as a CUDA graph of it replays
+    (JAX's scan body): the eval forward on the (B, block) ``window``, the
+    logits at ``length - 1`` (a 0-dim device tensor), the pick and the
+    counts; then the window rolls left where it is full and the token is
+    written at ``min(length, block - 1)`` (a one-hot select), and ``length``
+    becomes ``min(length + 1, block)``. Returns the (B,) token."""
+    block = window.shape[1]
+    logits = model(window)[0].index_select(1, (length - 1).reshape(1))[:, 0]
+    nxt = pick(logits, generator, ocounts, pcounts)
+    _add_counts(pick, ocounts, nxt)
+    full = length >= block
+    shifted = torch.where(full, window.roll(-1, 1), window)
+    at = torch.arange(block, device=window.device) == torch.where(full, block - 1, length)
+    window.copy_(torch.where(at, nxt[:, None], shifted))
+    length.copy_((length + 1).clamp_max(block))
+    return nxt
+
+
 def generate(model: nn.Module, prompt: Tensor, max_new_tokens: int,
              generator: Optional[torch.Generator] = None, temperature: float = 1.0,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              min_p: Optional[float] = None, repetition_penalty: Optional[float] = None,
              presence_penalty: Optional[float] = None,
-             frequency_penalty: Optional[float] = None) -> Tensor:
+             frequency_penalty: Optional[float] = None, cuda_graph: bool = False) -> Tensor:
     """``max_new_tokens`` continuations of a (B, T0) prompt by the exact
     full-window sampler: (B, T0 + max_new_tokens) token ids.
 
@@ -609,11 +685,20 @@ def generate(model: nn.Module, prompt: Tensor, max_new_tokens: int,
     end). The model's Quartet attention standardizes each score row over
     all the window's columns before the causal mask, so that the pads are
     part of the semantics (no cache can be exact); on a CUDA model every
-    layer of every step runs K5."""
+    layer of every step runs K5.
+
+    ``cuda_graph=True`` (a CUDA model only, else a ValueError): one step
+    (``_window_step``: the forward, the pick, the counts and the fill or
+    roll, the live length a 0-dim device tensor) is one CUDA graph over a
+    static window, replayed ``max_new_tokens`` times, as JAX's one
+    ``lax.scan``; a sampled draw comes from the registered ``generator``.
+    The tokens are the eager loop's."""
     block = model.config.block_size
     b, t0 = prompt.shape
     if t0 < 1:
         raise ValueError("generate: the prompt needs at least one token")
+    if cuda_graph:
+        require_graph("generate", model.wte.weight.device)
     greedy = generator is None or temperature == 0.0
     pick = _make_pick(greedy, temperature, top_k, top_p, min_p, repetition_penalty,
                       presence_penalty, frequency_penalty)
@@ -624,17 +709,24 @@ def generate(model: nn.Module, prompt: Tensor, max_new_tokens: int,
     window[:, :length] = prompt[:, -block:]
     toks = []
     with _decoding(model):
-        for _ in range(max_new_tokens):
-            logits = model(window)[0][:, length - 1]
-            nxt = pick(logits, generator, ocounts, pcounts)
-            _add_counts(pick, ocounts, nxt)
-            if length >= block:
-                window = window.roll(-1, 1)
-                window[:, -1] = nxt
-            else:
-                window[:, length] = nxt
-                length += 1
-            toks.append(nxt)
+        if cuda_graph:
+            draws = generator if not greedy else None
+            step = StepGraph(functools.partial(
+                _window_step, model, window, torch.full((), length, device=prompt.device),
+                pick, draws, ocounts, pcounts), prompt.device, (draws,))
+            toks = [step() for _ in range(max_new_tokens)]
+        else:
+            for _ in range(max_new_tokens):
+                logits = model(window)[0][:, length - 1]
+                nxt = pick(logits, generator, ocounts, pcounts)
+                _add_counts(pick, ocounts, nxt)
+                if length >= block:
+                    window = window.roll(-1, 1)
+                    window[:, -1] = nxt
+                else:
+                    window[:, length] = nxt
+                    length += 1
+                toks.append(nxt)
     return torch.cat([prompt, *(t[:, None] for t in toks)], 1)
 
 

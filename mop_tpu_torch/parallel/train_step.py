@@ -26,12 +26,13 @@ each row with the reversed global batch's: the rows held by the mirror
 process, exchanged point to point. ``mesh=None`` (or a world-1 mesh with no
 process group) is the one-device step and runs no collective.
 
-One dispatch: the classifier, scanned and LM steps take ``cuda_graph=True``
-(``utils.cuda_graph``), the counterpart of the JAX steps' ``jax.jit`` and
-``lax.scan``: the step's device work (the scanned step's K steps) is one
-CUDA graph replayed per call, over static input buffers, with a capturable
-optimizer and the call's generator registered. The eager form, the
-default, is the reference it is held to.
+One dispatch: the classifier, scanned, LM and eval steps take
+``cuda_graph=True`` (``utils.cuda_graph``), the counterpart of the JAX steps'
+``jax.jit`` and ``lax.scan``: the step's device work (the scanned step's K
+steps) is one CUDA graph replayed per call, over static input buffers, with a
+capturable optimizer and the call's generator registered (the eval step: one
+graph per batch shape). The eager form, the default, is the reference it is
+held to.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..models.layers import RandomDrop, set_generator
 from ..ops import preprocess as pp
-from ..utils.cuda_graph import HyperGuard, StepGraph, require_graph
+from ..utils.cuda_graph import GraphPerShape, HyperGuard, StepGraph, require_graph
 from ..utils.device import resolve_device
 from . import comm
 from .mesh import DATA_AXIS
@@ -464,7 +465,7 @@ def make_scanned_classifier_train_step(
 
 def make_classifier_eval_step(
     model: nn.Module, mean, std, compute_dtype: Optional[torch.dtype] = None,
-    device: Device = None, mesh=None,
+    device: Device = None, mesh=None, cuda_graph: bool = False,
 ) -> Callable[[Tensor, Tensor, Tensor], Tuple[Tensor, Tensor]]:
     """Eval step: returns ``step(x_u8, y, valid_mask) -> (#correct, #valid)``.
 
@@ -476,20 +477,52 @@ def make_classifier_eval_step(
     step runs on ``device`` (the GPU unless given) and moves its inputs
     there; the model must already live on it. Under ``mesh`` each process
     passes its rows and the counts are summed over the data axis.
+    ``step.hits(x_u8, y)`` is the same forward's per-sample correctness,
+    (B,) bool on the device (this process's rows).
+
+    ``cuda_graph=True``: the transform, the forward, the argmax and the
+    counts are one CUDA graph under ``torch.inference_mode()``, one graph
+    per batch shape (``utils.cuda_graph.GraphPerShape``), as ``jax.jit``
+    keeps one executable per shape; ``step.hits`` replays the same graph
+    with every row valid. It needs a CUDA device and no mesh, and raises a
+    ValueError otherwise. It computes what the eager step computes.
     """
     device = _step_device(device, mesh)
+    if cuda_graph:
+        require_graph("make_classifier_eval_step", device, mesh)
     group = mesh.group(DATA_AXIS) if mesh is not None else None
+    # the normalization's constants on the device once, as the train step's
+    mean, std = (v if v is None else torch.as_tensor(v, dtype=torch.float32, device=device)
+                 for v in (mean, std))
+
+    def forward_hits(x_u8, y):
+        x = pp.cifar_eval_transform(x_u8, mean, std)
+        return _forward(model, x, compute_dtype).float().argmax(-1) == y
+
+    def body(x_u8, y, valid):
+        hit = forward_hits(x_u8, y)
+        correct = hit.to(torch.float32) * valid
+        counts = comm.all_reduce_(torch.stack([correct.sum(), valid.sum()]), group)
+        return counts[0], counts[1], hit
+
+    graphs = GraphPerShape(body, device) if cuda_graph else None
 
     @torch.inference_mode()
     def step(x_u8: Tensor, y: Tensor, valid_mask: Tensor) -> Tuple[Tensor, Tensor]:
         model.eval()
-        x = pp.cifar_eval_transform(x_u8.to(device, non_blocking=True), mean, std)
-        logits = _forward(model, x, compute_dtype).float()
-        valid = valid_mask.to(device, torch.float32)
-        correct = (logits.argmax(-1) == y.to(device)).to(torch.float32) * valid
-        counts = comm.all_reduce_(torch.stack([correct.sum(), valid.sum()]), group)
-        return counts[0], counts[1]
+        if graphs is not None:  # copied from the host into the graph's buffers
+            return graphs(x_u8, y.long(), valid_mask.to(torch.float32))[:2]
+        x_u8, y = x_u8.to(device, non_blocking=True), y.to(device)
+        return body(x_u8, y, valid_mask.to(device, torch.float32))[:2]
 
+    @torch.inference_mode()
+    def hits(x_u8: Tensor, y: Tensor) -> Tensor:
+        model.eval()
+        if graphs is not None:
+            return graphs(x_u8, y.long(), torch.ones(y.shape[0], device=y.device))[2]
+        return forward_hits(x_u8.to(device, non_blocking=True), y.to(device))
+
+    step.hits, step.graphs = hits, graphs
     return step
 
 

@@ -21,6 +21,7 @@ from torch import nn
 from ..models.layers import init_params
 from ..ops.preprocess import CIFAR10_MEAN, CIFAR10_STD
 from ..parallel import make_classifier_eval_step, make_classifier_train_step
+from ..utils.cuda_graph import require_graph, restore_capturable
 from ..utils.device import resolve_device
 from .preemption import PreemptionGuard, resume_latest
 from .utils import AsyncCheckpointManager, cosine_lr, step_seed
@@ -34,12 +35,22 @@ class Trainer:
     ``use_amp`` computes the train step in bf16 (fp32 grads and updates);
     evaluation is always fp32. ``augment`` is the CIFAR random crop and flip
     on the device; ``grad_clip`` clips the grads' global norm.
+
+    ``cuda_graph`` (None: on a CUDA device) runs the train step and the eval
+    step as CUDA graphs, the counterparts of the JAX trainer's jitted steps
+    (the eval step keeps a graph per batch shape). On a CUDA device, graphed
+    or not, the AdamW is capturable and its lr an fp32 device tensor that
+    ``step`` fills with the schedule's value, so that the eager step computes
+    what the graph replays. ``True`` on another device raises a ValueError.
     """
 
     def __init__(self, model: nn.Module, device: Device = None, use_amp: bool = True,
                  mean=CIFAR10_MEAN, std=CIFAR10_STD, augment: bool = True,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None, cuda_graph: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.graphed = self.device.type == "cuda" if cuda_graph is None else bool(cuda_graph)
+        if self.graphed:
+            require_graph("Trainer", self.device)
         self.model = model.to(self.device)
         self.compute_dtype = torch.bfloat16 if use_amp else None
         self.mean, self.std = mean, std
@@ -49,17 +60,33 @@ class Trainer:
         self.optimizer: Optional[torch.optim.AdamW] = None
         self.schedule: Optional[Callable[[int], float]] = None
         self.count = 0  # updates so far: the schedule's step, as optax's count
+        self._lr: Optional[torch.Tensor] = None  # a tensor lr, filled in place
         self._train_step = None
+        self._make_steps()
+
+    def _make_steps(self) -> None:
+        """The eval step, and the train step once there is an optimizer: new
+        ones, so that a graph is captured again over the parameters' and the
+        optimizer's storage as it is now."""
         # Eval always fp32: accuracy must not pick up bf16 argmax flips.
-        self._eval_step = make_classifier_eval_step(model, mean, std, compute_dtype=None,
-                                                    device=self.device)
+        self._eval_step = make_classifier_eval_step(self.model, self.mean, self.std,
+                                                    compute_dtype=None, device=self.device,
+                                                    cuda_graph=self.graphed)
+        if self.optimizer is not None:
+            self._train_step = make_classifier_train_step(
+                self.model, self.optimizer, self.mean, self.std, augment=self.augment,
+                grad_clip=self.grad_clip, compute_dtype=self.compute_dtype, device=self.device,
+                cuda_graph=self.graphed)
 
     def init(self, generator: torch.Generator, sample_shape=(2, 3, 32, 32)) -> nn.Module:
         """Redraw the model's parameters from ``generator`` (a CPU generator:
         the draws are the same whatever the device) and check its logits on
-        a zero batch of ``sample_shape``. Returns the model."""
+        a zero batch of ``sample_shape``. Returns the model. The move to the
+        CPU and back gives every parameter new storage, so the steps are made
+        anew: a graph captured before would read the old."""
         init_params(self.model.to("cpu"), generator)
         self.model.to(self.device)
+        self._make_steps()
         with torch.no_grad():
             was_training = self.model.training
             out = self.model.eval()(torch.zeros(sample_shape, device=self.device))
@@ -74,17 +101,31 @@ class Trainer:
         ``optax.adamw``'s defaults (betas 0.9 / 0.999, eps 1e-8, weight decay
         1e-4, decoupled and scaled by the lr); ``learning_rate`` is a number
         or a ``step -> lr`` schedule (``cosine_lr``), applied as optax applies
-        it: update ``count`` (0-based) uses ``schedule(count)``. Builds the
-        train step and returns the optimizer."""
+        it: update ``count`` (0-based) uses ``schedule(count)``. On a CUDA
+        device (or graphed) the lr is an fp32 tensor on the device, and on a
+        CUDA device the AdamW is capturable. Builds the train step and
+        returns the optimizer."""
         self.schedule = learning_rate if callable(learning_rate) else None
         lr = self.schedule(0) if self.schedule else float(learning_rate)
+        cuda = self.device.type == "cuda"
+        if cuda or self.graphed:
+            self._lr = lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=lr, betas=(0.9, 0.999),
-                                           eps=1e-8, weight_decay=weight_decay)
-        self._train_step = make_classifier_train_step(
-            self.model, self.optimizer, self.mean, self.std, augment=self.augment,
-            grad_clip=self.grad_clip, compute_dtype=self.compute_dtype, device=self.device)
+                                           eps=1e-8, weight_decay=weight_decay, capturable=cuda)
+        self._make_steps()
         self.count = 0
         return self.optimizer
+
+    def restored(self, step: int) -> None:
+        """After the model and the optimizer loaded a checkpoint of update
+        ``step`` (``resume_latest``): the schedule goes on from there, the
+        optimizer gets its tensor lr back where it has one
+        (``restore_capturable``) and the steps are made again over the
+        loaded state."""
+        self.count = step
+        if self._lr is not None:
+            restore_capturable(self.optimizer, self._lr)
+        self._make_steps()
 
     def step(self, xb, yb, seed: int, step_i: int) -> Dict[str, torch.Tensor]:
         """One update on the batch (uint8 NCHW images, int labels): the
@@ -93,8 +134,12 @@ class Trainer:
         if self._train_step is None:
             raise RuntimeError("call setup_optimizer before training")
         if self.schedule is not None:
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.schedule(self.count)
+            lr = self.schedule(self.count)
+            if self._lr is not None:
+                self._lr.fill_(lr)
+            else:
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
         self.generator.manual_seed(step_seed(seed, step_i))
         m = self._train_step(torch.as_tensor(xb), torch.as_tensor(yb), self.generator)
         self.count += 1
@@ -183,7 +228,7 @@ def train_model(
         guard = PreemptionGuard(mgr).install()
         if resume:
             start_step, _, _ = resume_latest(mgr, trainer.model, opt)
-            trainer.count = start_step
+            trainer.restored(start_step)
             if start_step and verbose:
                 print(f"resumed from step {start_step}")
 

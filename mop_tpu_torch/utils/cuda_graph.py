@@ -53,6 +53,19 @@ def require_graph(what: str, device, mesh=None, optimizer=None) -> None:
         raise ValueError(f"{what}: cuda_graph=True needs a CUDA device, not {device}")
 
 
+def restore_capturable(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> None:
+    """Put back, after ``optimizer.load_state_dict``, what a captured step
+    reads: ``lr``, the tensor lr the caller fills in place (the load puts
+    the saved one in its place), ``capturable`` where ``lr`` is on a CUDA
+    device, and every parameter's step count as an fp32 tensor on ``lr``'s
+    device. A step captured before the load reads the state it replaced:
+    build the step again over the loaded state."""
+    for group in optimizer.param_groups:
+        group.update(lr=lr, capturable=lr.is_cuda)
+    for state in optimizer.state.values():
+        state["step"] = state["step"].to(lr.device, torch.float32)
+
+
 def _reserved() -> int:
     return torch.cuda.memory_stats().get("reserved_bytes.all.current", 0)
 
@@ -101,17 +114,24 @@ class StepGraph:
     ``empty_cache`` and the graph's instantiation included) and
     ``pool_bytes`` the memory the capture reserved
     (``torch.cuda.memory_stats``' reserved bytes across it): the graph's
-    private pool. On a CPU device, reachable only where a test lifts
-    ``require_graph``, every call runs ``fn`` eagerly over the same static
-    buffers: the form the graph replays.
+    private pool. ``pool`` (set before the capture: a
+    ``torch.cuda.graph_pool_handle()``) lets graphs that are never replayed
+    at once share one pool, memory one capture frees going to another. It
+    holds where every output is cloned at its replay, as here, and no graph
+    keeps data in the pool from one replay to the next that another's
+    replay could overwrite (grads a step writes before it reads them may).
+    On a CPU device, reachable only where a test lifts ``require_graph``,
+    every call runs ``fn`` eagerly over the same static buffers: the form
+    the graph replays.
     """
 
     def __init__(self, fn: Callable, device, generators: Iterable[Optional[torch.Generator]] = (),
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global", pool=None):
         self.fn = fn
         self.device = torch.device(device)
         self.generators = tuple(g for g in generators if g is not None)
         self.capture_error_mode = capture_error_mode
+        self.pool = pool
         self.static = None
         self.graph = None
         self.out = None
@@ -159,7 +179,8 @@ class StepGraph:
         with torch.cuda.device(self.device):
             before = launch_counts()
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode=self.capture_error_mode):
                 # after the capture's own synchronize and empty_cache: what
                 # is reserved from here on is the graph's pool
                 reserved = _reserved()
@@ -170,3 +191,25 @@ class StepGraph:
         self.launches = {k: after[k] - before[k] for k in after}
         add_launches({k: -n for k, n in self.launches.items()})  # recorded, not run
         self.graph = graph
+
+
+class GraphPerShape:
+    """``fn(*static)`` as one ``StepGraph`` per input signature (the
+    arguments' shapes and dtypes), made at the signature's first call: a
+    second shape gets a graph of its own, as ``jax.jit`` keeps one
+    executable per input shape. ``graphs`` maps each signature to its
+    ``StepGraph``; each is captured into ``pool`` (set before the first
+    call; None: a pool of its own)."""
+
+    def __init__(self, fn: Callable, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.pool = None
+        self.graphs = {}
+
+    def __call__(self, *args):
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = StepGraph(self.fn, self.device, pool=self.pool)
+        return graph(*args)
