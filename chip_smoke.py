@@ -172,9 +172,13 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``decode_chunk`` against the same tokens one ``decode_step`` at a time; greedy
    ``speculative_generate`` with the 2 x 128 draft at gamma 4 and ``generate_beam`` with
    one beam giving ``generate_cached``'s tokens up to the first near tie, with the
-   acceptance and tokens/s; four beams sorted; K5 timed at both decode shapes; 13c,
-   Whisper_20M beam transcription (4 beams, 32 tokens, batch 8): K1's 4 encoder launches,
-   one beam giving ``whisper_transcribe_cached``'s tokens, int8 KV refused; 13d, the demo
+   acceptance and tokens/s; eager / graphed pairs (``cuda_graph=True``, as phase 19's) of
+   ``generate_beam`` (4 beams, 32 tokens: sorted, beams equal, scores within 1e-5) and of
+   ``speculative_generate`` greedy and sampled (one seeded generator; 32 tokens: tokens,
+   rounds and accepted drafts equal); K5 timed at both decode shapes; 13c, Whisper_20M beam
+   transcription (4 beams, 32 tokens, batch 8), eager and graphed: K1's 4 encoder launches
+   in both forms' eager prep, beams equal and scores within 1e-5, one beam giving
+   ``whisper_transcribe_cached``'s tokens, int8 KV refused; 13d, the demo
    ``mop_tpu_torch.cli.generate_text`` for 50 steps: the loss falling, both samplers'
    text. The kernels line's ``launches`` add the exact samplers' K5 launches and the beam
    encoder's K1 launches; K5's record holds the decode shapes' timings
@@ -189,11 +193,13 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    share of tokens equal to the monolithic prefill's); a 4-beam request equal to
    ``generate_beam``; int8 KV; 14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024,
    block 2048, 4 slots) under a closed loop of 4 users, fp32 and int8 weights: requests/s,
-   TTFT and TPOT; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32 tokens, 4 slots):
-   K1 4 launches an admission (held to the profiler's records), the tokens of
-   ``whisper_transcribe_cached`` up to the first near tie, int8 weights; 14d,
-   ``serve_http`` trained and served on loopback: 8 concurrent text clients, a stream,
-   ``/v1/completions``, ``/v1/embeddings``, ``/v1/audio/transcriptions`` through the 14c engine
+   TTFT and TPOT; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32 tokens, 4 slots),
+   eager and graphed (the step and the admission one graph each, K1 under capture): tokens
+   equal, K1 4 launches an admission in both forms (replays counted; held to the profiler's
+   records of 3 admissions in each), the tokens of ``whisper_transcribe_cached`` up to the
+   first near tie, int8 weights; 14d, ``serve_http`` trained and served on loopback: 8
+   concurrent text clients, a stream, ``/v1/completions``, ``/v1/embeddings``,
+   ``/v1/audio/transcriptions`` through a graphed Whisper engine
    against ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The
    kernels line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
 15. the trainer and the later CLIs: 15a, ``training.train_model`` at B_bench's width
@@ -215,23 +221,25 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``ab5_paper_benchmark`` over phase 10's and the tournament's CSVs, its 5M row against the
    CSVs' means. The kernels line's ``launches`` add phase 15's.
 16. paged and speculative serving and export (``mop_tpu_torch.serving``): 16a, 14a's engine and
-   32 jobs through ``DecodeEngine`` and ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense
-   slabs' capacity) and 32 (half): no kernel launch, tokens/s, busy share, peak memory,
-   ``peak_pages_in_use`` and ``preemptions``; at 64 pages every row equal to the dense engine's
-   up to its first near tie (margins from the dense engine's top-2 logprobs); at 32 the cache's
-   bytes against the dense slabs', preemptions, each row never preempted equal to the dense
-   engine's and each preempted row to its single stream re-prefilled where it was preempted;
-   ``step(n_tokens=4)`` giving the single steps' tokens; 16b, ``SpecDecodeEngine`` at the 170M
-   of ``tools/bench_speculative.py`` (12 x 1024, 16 heads, block 512) with its 2 x 128 draft
-   and with the target as its own draft, 4 slots, 16 requests of 16 + 32 tokens, gamma 4:
-   tokens equal to the plain engine's up to the first near tie, the acceptance share, engine
-   steps, tokens/s and busy share, every draft accepted and at most 1 + ceil(31 / 5) steps a
-   request with the perfect draft; 16c, ``export_apply`` on the card of A (224 / 8 / 4), the
+   32 jobs through ``DecodeEngine`` (timed, busy share, peak memory, top-2 logprobs as the
+   references' margins); ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense slabs'
+   capacity) on one wave of 8 jobs: no preemption, every row equal to the dense engine's up to
+   its first near tie, ``step(n_tokens=4)`` giving the single steps' tokens; with 32 pages (half)
+   on the last 16 jobs, eager and graphed: tokens, engine steps, preemptions and pages equal,
+   no kernel launch, tokens/s, busy share, the cache's bytes against the dense slabs', at least
+   one preemption, each row never preempted equal to the dense engine's and each preempted row
+   to its single stream re-prefilled where it was preempted; 16b, ``SpecDecodeEngine`` at the
+   170M of ``tools/bench_speculative.py`` (12 x 1024, 16 heads, block 512), 4 slots, gamma 4,
+   requests of 16 + 32 tokens: the plain engine over 16 requests (the reference); the target as
+   its own draft over 4, every draft accepted and at most 1 + ceil(31 / 5) steps a request; the
+   2 x 128 draft's engine eager and graphed over 8: tokens, engine steps and drafts accepted
+   equal, tokens/s, busy share, the acceptance share, every row equal to the plain engine's up
+   to its first near tie; 16c, ``export_apply`` on the card of A (224 / 8 / 4), the
    Quartet LM at the comparison config and E and D at depth 2: refused without
    ``allow_custom_calls``, naming the ``mop_tpu_torch::`` op; the loaded artifact launching
    K1 8, K5 8, K2 2 and K4 2 times a forward, its output against the eager forward (fp32,
    atol 2e-5, rtol 2e-4), A's one artifact at batch 1, 3 and 256; 16d, ``serve_http --spec``
-   on the card. The kernels line's ``launches`` add 16c's.
+   on the card (the speculative engine graphed). The kernels line's ``launches`` add 16c's.
 17. the multi-GPU modes (``mop_tpu_torch.parallel``) over NCCL at world size 1 (one process
    drives one card; the multi-rank numerics are the CPU tests' over gloo): 17a, data parallel
    over the bench.py recipe (B 224 / 6 / 4, batch 256, bf16), the plain and the scanned (K =
@@ -257,10 +265,11 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``reference_1f1b_composition``, the model's own forward with the step's masks (loss within
    1e-3, grads); 18c, the composed dp x tp x pp step on ``make_mesh3``'s mesh (losses within
    1e-3, K5 32 a step) and the ring over its 'stage' axis at (8, 6, 750, 64), causal, against
-   full attention; 18d, Serve_6x512 with a tensor-parallel model on 16 mixed jobs of 14a's kind
+   full attention; 18d, Serve_6x512 with a tensor-parallel model on 8 mixed jobs of 14a's kind
    over its 8 slots, in the dense engine (head-split ``cache_sharding``), the paged engine (64
    pages) and the speculative engine (a 2 x 128 draft): every token the same plain engine's,
-   tokens/s beside it; 18e, LM_quartet under FSDP saved with its optimizer
+   tokens/s beside it; each engine refusing ``cuda_graph=True`` with the tensor-parallel
+   model; 18e, LM_quartet under FSDP saved with its optimizer
    (``torch.distributed.checkpoint``), restored into FSDP (two resumed steps bit-equal to the
    uninterrupted run), tensor parallel and whole (params bit-equal), the save and restore times.
    The kernels line's ``launches`` add 18's (K5: 192 in 18a, 96 in 18c, 48 in 18e).
@@ -578,11 +587,12 @@ DECODE_VOCAB, DECODE_BATCH, DECODE_T0, DECODE_NEW = 512, 8, 16, 240
 DECODE_170M = dict(n_layer=12, n_head=16, n_embd=1024, dropout=0.0, block_size=512)
 DECODE_DRAFT = dict(n_layer=2, n_head=4, n_embd=128, dropout=0.0, block_size=512)
 DECODE_170M_EXACT = 32  # tokens of the exact sampler at block 512
-DECODE_170M_CACHED = 64  # tokens of the cached decoders
+DECODE_170M_CACHED = 32  # tokens of the cached decoders
 DECODE_GAMMA = 4
 DECODE_TIE = 1e-4  # a top-two logit margin below this is a near tie
 DECODE_WINDOW_CHUNK = 240  # full windows a teacher-forced forward takes at once
 WHISPER_BEAMS, WHISPER_BEAM_TOKENS = 4, 32
+GRAPH_170M_PAIR_NEW = 32  # tokens of 13b's eager / graphed beam and speculative pairs
 # Phase 14, serving. tools/bench_serving.py:34-44's GPT-Quartet and its mixed_jobs (:47).
 SERVE_CFG = dict(n_layer=6, n_head=8, n_embd=512, dropout=0.0, block_size=512)
 SERVE_VOCAB = 512
@@ -602,7 +612,9 @@ SERVE_HTTP_ARGS = ["--steps", "100", "--clients", "8"]
 # jobs; tools/bench_speculative.py's 170M target and 2 x 128 draft (:41, :64-65)
 # at 16-token prompts; the exports' batches; the --spec demo.
 PAGED_PAGES, PAGED_PS = (64, 32), 64
+GRAPH_PAGED_JOBS = 16  # 16a's eager / graphed pair: the last 16 of its jobs
 SPEC_MB, SPEC_REQS, SPEC_T0, SPEC_NEW, SPEC_GAMMA = 4, 16, 16, 32, 4
+GRAPH_SPEC_REQS = 8  # 16b's eager / graphed pair: the first 8 requests
 EXPORT_BATCHES = (1, 3, BATCH)
 SPEC_HTTP_ARGS = ["--spec", "--steps", "50", "--clients", "4"]
 
@@ -2153,22 +2165,55 @@ def decode_phases(smi):
     compare(f"decode_chunk of {DECODE_GAMMA + 1} tokens vs {DECODE_GAMMA + 1} decode_steps "
             "(170M)", chunk, torch.stack(seq, 1), 2e-5, 2e-4)
     del cache, c
-    (spec, stats), spec_s = seconds_of(lambda: speculative_generate(
-        target, params, draft, None, p1, n, gamma=DECODE_GAMMA, return_stats=True))
-    ref_s = step_s["fp32"]
-    ok, ties = tie_prefix(spec[:, t0:], ref[:, t0:], ref_margin)
-    check(ok, f"speculative_generate greedy, gamma {DECODE_GAMMA}: tokens equal "
-          f"generate_cached's up to the first near tie ({ties} of {n}); acceptance "
-          f"{stats['accepted']} / {stats['drafted']} = "
-          f"{stats['accepted'] / max(stats['drafted'], 1):.3f} over {stats['rounds']} rounds; "
-          f"{n / spec_s:.1f} tokens/s against generate_cached's {n / ref_s:.1f} [{smi}]")
     beam1 = generate_beam(target, params, p1, n, num_beams=1)
     ok, ties = tie_prefix(beam1[:, t0:], ref[:, t0:], ref_margin)
     check(ok, f"generate_beam num_beams=1: generate_cached's tokens up to the first near tie "
           f"({ties} of {n})")
-    beams, scores = generate_beam(target, params, p1, n, num_beams=4, return_all=True)
-    check(tuple(beams.shape) == (1, 4, t0 + n) and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+    nb = GRAPH_170M_PAIR_NEW
+
+    def beam(graphed):  # the busy share over 8 tokens
+        return (lambda: generate_beam(target, params, p1, nb, num_beams=4, return_all=True,
+                                      cuda_graph=graphed), lambda: None,
+                lambda: generate_beam(target, params, p1, 8, num_beams=4, cuda_graph=graphed))
+
+    e, g = _graph_pair(f"Decode_170M generate_beam, 4 beams, fp32, batch 1, {nb} tokens", beam,
+                       1, 0, nb - 1, "tokens", nb, smi)
+    (beams, scores), (g_beams, g_scores) = e["outs"][0], g["outs"][0]
+    check(tuple(beams.shape) == (1, 4, t0 + nb) and bool((scores[:, :-1] >= scores[:, 1:]).all()),
           f"generate_beam num_beams=4: scores best first {[round(v, 3) for v in scores[0].tolist()]}")
+    err = (g_scores - scores).abs().max().item()
+    check(torch.equal(g_beams, beams) and err <= GRAPH_TOL,
+          f"Decode_170M generate_beam: the graphed search's 4 beams equal the eager search's "
+          f"({nb} tokens), scores within {err:.3e} (limit {GRAPH_TOL:g})")
+    for kind, kw in (("greedy", {}), ("sampled", dict(temperature=0.8, top_k=50))):
+        def spec(graphed):  # the state: the rounds; the busy share over 8 tokens
+            rounds = [0]
+
+            def call(tokens=nb):  # a fresh generator of one seed a call
+                gen = dict(generator=cuda_generator(47)) if kw else {}
+                out = speculative_generate(target, params, draft, None, p1, tokens,
+                                           gamma=DECODE_GAMMA, return_stats=True,
+                                           cuda_graph=graphed, **gen, **kw)
+                rounds[0] = out[1]["rounds"]
+                return out
+
+            return call, lambda: rounds[0], lambda: call(8)
+
+        e, g = _graph_pair(f"Decode_170M speculative_generate {kind}, the 2 x 128 draft, gamma "
+                           f"{DECODE_GAMMA}, {nb} tokens (ms a round)", spec, 1, 0,
+                           lambda rounds: rounds, "tokens", nb, smi)
+        (e_toks, e_stats), (g_toks, g_stats) = e["outs"][0], g["outs"][0]
+        check(torch.equal(g_toks, e_toks) and g_stats == e_stats,
+              f"Decode_170M speculative_generate {kind}: the graphed rounds' tokens equal the "
+              f"eager loop's ({nb}), rounds / drafted / accepted {g_stats} equal")
+        if kind == "greedy":  # the eager loop against the cached decode
+            ok, ties = tie_prefix(e_toks[:, t0:], ref[:, t0:t0 + nb], ref_margin[:, :nb])
+            check(ok, f"speculative_generate greedy, gamma {DECODE_GAMMA}: tokens equal "
+                  f"generate_cached's up to the first near tie ({ties} of {nb}); acceptance "
+                  f"{e_stats['accepted']} / {e_stats['drafted']} = "
+                  f"{e_stats['accepted'] / max(e_stats['drafted'], 1):.3f} over "
+                  f"{e_stats['rounds']} rounds; {nb / e['secs']:.1f} tokens/s against "
+                  f"generate_cached's {n / step_s['fp32']:.1f} [{smi}]")
     small = TransformerConfig(**DECODE_SMALL)
     for dtype, shape in ((torch.float32, (DECODE_BATCH, small.n_head, small.block_size,
                                           small.n_embd // small.n_head)),
@@ -2194,16 +2239,27 @@ def decode_phases(smi):
                 m.weight.mul_(WHISPER_DECODE_SCALE)
     b, n = WHISPER_BATCH["20M"], WHISPER_BEAM_TOKENS
     mel = whisper_batch(wcfg, b, 1)[0]
-    (seqs, scores), counts = counted(lambda: whisper_transcribe_beam(
-        wm, mel, 1, n, num_beams=WHISPER_BEAMS, return_all=True))
+
+    def wbeam(graphed):  # the busy share over 8 tokens
+        return (lambda: whisper_transcribe_beam(wm, mel, 1, n, num_beams=WHISPER_BEAMS,
+                                                return_all=True, cuda_graph=graphed),
+                lambda: None,
+                lambda: whisper_transcribe_beam(wm, mel, 1, 8, num_beams=WHISPER_BEAMS,
+                                                cuda_graph=graphed))
+
+    e, g = _graph_pair(f"Whisper_20M_beam whisper_transcribe_beam, {WHISPER_BEAMS} beams, fp32 "
+                       f"KV, batch {b}, {n} tokens", wbeam, 1, 0, n - 1, "tokens", b * n, smi)
+    (seqs, scores), counts, beam_s = e["outs"][0], e["counts"], e["secs"]
     check(counts == {**none, "flash_attention": wcfg.n_layer_enc}
           and tuple(seqs.shape) == (b, WHISPER_BEAMS, n)
           and bool((scores[:, :-1] >= scores[:, 1:]).all()),
           f"whisper_transcribe_beam: launches {launched(counts)} (K1 in the "
-          f"{wcfg.n_layer_enc} encoder layers), beams {tuple(seqs.shape)}, best scores "
-          f"{[round(v, 3) for v in scores[:, 0].tolist()]}")
-    _, beam_s = seconds_of(lambda: whisper_transcribe_beam(wm, mel, 1, n,
-                                                           num_beams=WHISPER_BEAMS))
+          f"{wcfg.n_layer_enc} encoder layers of the eager prep, in both forms), beams "
+          f"{tuple(seqs.shape)}, best scores {[round(v, 3) for v in scores[:, 0].tolist()]}")
+    err = (g["outs"][0][1] - scores).abs().max().item()
+    check(torch.equal(g["outs"][0][0], seqs) and err <= GRAPH_TOL,
+          f"Whisper_20M_beam: the graphed search's beams equal the eager search's ({b} x "
+          f"{WHISPER_BEAMS} x {n}), scores within {err:.3e} (limit {GRAPH_TOL:g})")
     cached, cached_s = seconds_of(lambda: whisper_transcribe_cached(wm, mel, 1, n))
     beam1 = whisper_transcribe_beam(wm, mel, 1, n, num_beams=1)
     wtree = whisper_decode_params(wm)  # the teacher-forced reference's tree, built once
@@ -2478,27 +2534,51 @@ def serving_phases(smi):
     mel = whisper_batch(wcfg, WHISPER_SERVE_CLIPS, 1)[0]
     mels = mel.cpu().numpy()
     n = WHISPER_SERVE_TOKENS
-    weng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
     wtree = whisper_decode_params(wm)  # the teacher-forced references' tree, built once
-    (res, wsecs), counts = counted(lambda: seconds_of(lambda: [
-        weng.submit(m, n) for m in mels] and weng.run()))
-    got = torch.tensor([res[r] for r in sorted(res)], device="cuda")
+
+    def wserve(graphed):  # the state: the engine's steps; the busy share over 4 clips
+        eng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1,
+                                   cuda_graph=graphed)
+
+        def call(clips=mels, tokens=n):
+            rids = [eng.submit(m, tokens) for m in clips]
+            res = eng.run()
+            return torch.tensor([res[r] for r in rids], device="cuda")
+
+        return call, lambda: eng.engine_steps, lambda: call(mels[:WHISPER_SERVE_MB], 8)
+
+    e, g = _graph_pair(f"Whisper_20M_serve WhisperServingEngine, {WHISPER_SERVE_CLIPS} "
+                       f"admissions of {n} tokens, {WHISPER_SERVE_MB} slots", wserve, 1, 0,
+                       lambda steps: steps, "tokens", WHISPER_SERVE_CLIPS * n, smi)
+    got, counts, wsecs = e["outs"][0], e["counts"], e["secs"]
     want_k1 = wcfg.n_layer_enc * WHISPER_SERVE_CLIPS
+    check(torch.equal(g["outs"][0], got) and g["counts"] == {**none, "flash_attention": want_k1},
+          f"Whisper_20M_serve: the graphed engine's tokens equal the eager engine's "
+          f"({WHISPER_SERVE_CLIPS} x {n}); its admissions, one graph each with K1 under "
+          f"capture, launch K1 {g['counts']['flash_attention']} times, replays counted "
+          f"({wcfg.n_layer_enc} an admission)")
 
-    def probe():  # a fresh engine with 2 admissions queued, run under the profile
-        eng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1)
-        for m in mels[:2]:
-            eng.submit(m, 2)
-        return eng.run
+    def probe(graphed):  # a fresh engine with 3 admissions queued, run under the profile
+        def setup():
+            eng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1,
+                                       cuda_graph=graphed)
+            for m in mels[:3]:
+                eng.submit(m, 2)
+            return eng.run
+        return setup
 
-    records, counts_p, _ = profiled_records(None, {"flash_attention": "flash_fwd"}, setup=probe)
-    k1_records, k1_probe = records["flash_attention"], counts_p["flash_attention"]
-    check(counts == {**none, "flash_attention": want_k1}
-          and k1_records == k1_probe == 2 * wcfg.n_layer_enc,
-          f"{WHISPER_SERVE_CLIPS} admissions: launches {launched(counts)}, K1 "
-          f"{wcfg.n_layer_enc} a clip (the encoder layers), none in the decode steps; a "
-          f"profile of 2 admissions: {k1_records} K1 kernel records, {k1_probe} launches; "
-          f"{WHISPER_SERVE_CLIPS * n / wsecs:.0f} tokens/s [{smi}]")
+    for graphed in (False, True):  # graphed: the warm-up, the capture's replay, a replay
+        records, counts_p, _ = profiled_records(None, {"flash_attention": "flash_fwd"},
+                                                setup=probe(graphed))
+        k1_records, k1_probe = records["flash_attention"], counts_p["flash_attention"]
+        check((graphed or counts == {**none, "flash_attention": want_k1})
+              and k1_records == k1_probe == 3 * wcfg.n_layer_enc,
+              f"{'graphed' if graphed else 'eager'}: {WHISPER_SERVE_CLIPS} admissions' launches "
+              f"{launched(g['counts'] if graphed else counts)}, K1 {wcfg.n_layer_enc} a clip (the "
+              f"encoder layers), none in the decode steps; a profile of 3 admissions: "
+              f"{k1_records} K1 kernel records, {k1_probe} launches"
+              + ("" if graphed else f"; {WHISPER_SERVE_CLIPS * n / wsecs:.0f} tokens/s")
+              + f" [{smi}]")
     # an admission's K1 shape, (1, H, T_enc, dh), against the plain version;
     # then one admission's encoder output on the K1 route against the plain route
     gw = cuda_generator(7)
@@ -2545,6 +2625,9 @@ def serving_phases(smi):
     win = wcfg.n_text_ctx - 1  # the server's budget for a window
     seg_t = torch.from_numpy(np.stack(seg)).cuda()
     ref = whisper_transcribe_cached(wm, seg_t, 1, win)
+    # graphed: its step and admission captured by the server's device worker
+    weng = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1,
+                                cuda_graph=True)
     (out, http_s), counts = counted(lambda: seconds_of(lambda: serve_http.run(
         serve_http._parser().parse_args(SERVE_HTTP_ARGS), whisper_engine=weng,
         whisper_tokenizer=_IdText(), audio=audio)))
@@ -2920,7 +3003,10 @@ def cli_phase(smi, work, ab5_out):
 
 class _RecordedPaged(PagedDecodeEngine):
     """The paged engine, recording each preemption as (rid, tokens it had
-    emitted): its re-admission prefills the prompt and those tokens."""
+    emitted): its re-admission prefills the prompt and those tokens. Its
+    step is the paged engine's, so it declares the capture too."""
+
+    _captures_step = True
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -2958,8 +3044,10 @@ def lp_margins(eng, rids):
 
 
 def paged_phase(smi, none):
-    """16a: tools/bench_serving.py's engines, dense against paged at the dense
-    slabs' capacity and at half of it."""
+    """16a: tools/bench_serving.py's engines: the dense engine over every job
+    (timed); the paged engine at the dense slabs' capacity (one wave, single
+    steps and bursts); then at half of it, eager and graphed, on the jobs
+    that preempt there."""
     rs = np.random.RandomState(0)  # phase 14a's jobs
     say(f"[16 serving] 16a: PagedDecodeEngine at tools/bench_serving.py's GPT-Quartet "
         f"{SERVE_CFG}, vocab {SERVE_VOCAB}, buckets {SERVE_BUCKETS}, max_batch "
@@ -2969,88 +3057,104 @@ def paged_phase(smi, none):
                                generator=torch.Generator().manual_seed(50)).eval()
     params = decode_params(model)
     jobs = serve_jobs(SERVE_JOBS, rs)
-    warm = [(p[:SERVE_WARM], 4) for p, _ in jobs[:SERVE_MAX_BATCH]]
-    # every engine records each token's top-2 logprobs: the dense engine's are
-    # the reference's near-tie margins, and the three are timed alike
-    engines = {"dense": lambda: DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH,
-                                             prefill_buckets=SERVE_BUCKETS, logprobs_topk=2)}
-    for n_pages in PAGED_PAGES:
-        engines[f"paged {n_pages}"] = functools.partial(
-            _RecordedPaged, model, params, max_batch=SERVE_MAX_BATCH, n_pages=n_pages,
-            page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS, logprobs_topk=2)
-    runs = {}
-    for label, make in engines.items():
-        eng = make()
-        serve_all(eng, warm)
-        base = eng._next_rid
-        eng.engine_steps = 0  # count the jobs' run alone
-        if label != "dense":
-            eng.preemptions, eng.peak_pages_in_use, eng.preempted = 0, 0, []
-        torch.cuda.reset_peak_memory_stats()
-        (got, secs), counts = counted(lambda: seconds_of(lambda: serve_all(eng, jobs)))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        steps = eng.engine_steps
-        pre = (eng.preemptions, eng.peak_pages_in_use, list(eng.preempted)) \
-            if label != "dense" else None
-        margins = lp_margins(eng, range(base, base + SERVE_JOBS))
-        busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
-        n_out = sum(len(g) for g in got)
-        extra = "" if pre is None else (f", peak_pages_in_use {pre[1]} of {eng.n_pages}, "
-                                        f"preemptions {pre[0]}, cache {eng.cache_bytes()} B "
-                                        f"(dense slabs {eng.dense_equivalent_bytes()} B)")
-        check(counts == none and all(len(g) == SERVE_NEW for g in got),
-              f"{label}: {n_out} tokens in {secs:.3f} s, {n_out / secs:.1f} tokens/s (top-2 "
-              f"logprobs tracked), {steps} engine steps, busy {100 * busy:.1f}% of "
-              f"{wall:.1f} ms over {SERVE_MAX_BATCH} requests (profiled), peak {peak:.3f} "
-              f"GiB{extra}; kernel launches {launched(counts) or 'none'} (K5 0) [{smi}]")
-        runs[label] = (eng, torch.tensor(got, device="cuda"), pre, margins)
-    _, want, _, margins = runs["dense"]
+    # the dense engine records each token's top-2 logprobs: the reference's
+    # near-tie margins
+    eng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS,
+                       logprobs_topk=2)
+    serve_all(eng, [(p[:SERVE_WARM], 4) for p, _ in jobs[:SERVE_MAX_BATCH]])  # warm
+    base = eng._next_rid
+    eng.engine_steps = 0  # count the jobs' run alone
+    torch.cuda.reset_peak_memory_stats()
+    (want, secs), counts = counted(lambda: seconds_of(lambda: serve_all(eng, jobs)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    margins = lp_margins(eng, range(base, base + SERVE_JOBS))
+    busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
+    n_out = sum(len(g) for g in want)
+    check(counts == none and all(len(g) == SERVE_NEW for g in want),
+          f"dense: {n_out} tokens in {secs:.3f} s, {n_out / secs:.1f} tokens/s (top-2 logprobs "
+          f"tracked), {eng.engine_steps} engine steps, busy {100 * busy:.1f}% of {wall:.1f} ms "
+          f"over {SERVE_MAX_BATCH} requests (profiled), peak {peak:.3f} GiB; kernel launches "
+          f"{launched(counts) or 'none'} (K5 0) [{smi}]")
+    want = torch.tensor(want, device="cuda")
+    del eng
     big, small = (f"paged {n}" for n in PAGED_PAGES)
-    ok, ties = tie_prefix(runs[big][1], want, margins)
-    check(ok and runs[big][2][0] == 0,
-          f"{big}: no preemption; every row equals the dense engine's up to its first near "
-          f"tie ({sum(t == SERVE_NEW for t in ties)} of {SERVE_JOBS} rows without one; "
-          f"{int((runs[big][1] == want).all(1).sum())} equal throughout)")
-    eng, got, (n_pre, peak_pages, preempted), _ = runs[small]
-    dk = SERVE_CFG["n_embd"] // SERVE_CFG["n_head"]
-    per_row = 3 * SERVE_CFG["n_layer"] * SERVE_CFG["n_head"] * dk * 4  # K/K2/V, fp32
-    check(eng.cache_bytes() == per_row * (PAGED_PAGES[1] + 1) * PAGED_PS
-          and eng.dense_equivalent_bytes() == per_row * SERVE_MAX_BATCH * SERVE_CFG["block_size"]
-          and n_pre > 0 and peak_pages == PAGED_PAGES[1],
-          f"{small}: cache_bytes {eng.cache_bytes() / 1e6:.2f} MB ({PAGED_PAGES[1]} pages and "
-          f"the scratch page) against dense_equivalent_bytes "
-          f"{eng.dense_equivalent_bytes() / 1e6:.2f} MB; {n_pre} preemptions, the pool full")
-    at = {}
-    for rid, k in preempted:
-        at.setdefault(rid - SERVE_MAX_BATCH, set()).add(k)  # the warm-up took the first rids
-    oks, firsts = [], []
-    for i, (prompt, n) in enumerate(jobs):
-        if i in at:  # re-admitted: its prefix re-prefilled, the state its reference builds
-            ref_t, ref_m = readmitted_greedy(model, params, prompt, n, at[i])
-            ok_r, first = tie_prefix(got[i:i + 1], ref_t, ref_m)
-        else:
-            ok_r, first = tie_prefix(got[i:i + 1], want[i:i + 1], margins[i:i + 1])
-        oks.append(ok_r)
-        firsts.append(first[0])
-    agree = (got == want).float().mean().item()
-    check(all(oks), f"{small}: each of the {SERVE_JOBS - len(at)} rows never preempted equals the "
-          f"dense engine's, and each of the {len(at)} preempted rows its single stream "
-          f"re-prefilled at its preemptions ({sorted(at.items())[:4]}...), up to its first near "
-          f"tie ({firsts}); {100 * agree:.1f}% of tokens equal the dense engine's")
+    wave = jobs[:SERVE_MAX_BATCH]
+    spare = PagedDecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[0],
+                              page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS)
+    single = torch.tensor(serve_all(spare, wave), device="cuda")
+    ok, ties = tie_prefix(single, want[:SERVE_MAX_BATCH], margins[:SERVE_MAX_BATCH])
+    check(ok and spare.preemptions == 0,
+          f"{big}, {SERVE_MAX_BATCH} of the jobs: no preemption; every row equals the dense "
+          f"engine's up to its first near tie ({sum(t == SERVE_NEW for t in ties)} of "
+          f"{SERVE_MAX_BATCH} rows without one; "
+          f"{int((single == want[:SERVE_MAX_BATCH]).all(1).sum())} equal throughout)")
     burst = PagedDecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[0],
                               page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS)
     (multi, multi_s), counts = counted(lambda: seconds_of(
-        lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST)))
-    check(torch.equal(torch.tensor(multi, device="cuda"), runs[big][1]) and counts == none,
-          f"{big} step(n_tokens={SERVE_BURST}): the tokens of single steps, "
-          f"{SERVE_JOBS * SERVE_NEW / multi_s:.1f} tokens/s in {burst.engine_steps} engine "
-          f"steps, peak_pages_in_use {burst.peak_pages_in_use} [{smi}]")
+        lambda: serve_all(burst, wave, n_tokens=SERVE_BURST)))
+    check(torch.equal(torch.tensor(multi, device="cuda"), single) and counts == none,
+          f"{big} step(n_tokens={SERVE_BURST}), {SERVE_MAX_BATCH} of the jobs: the tokens of "
+          f"single steps, {SERVE_MAX_BATCH * SERVE_NEW / multi_s:.1f} tokens/s in "
+          f"{burst.engine_steps} engine steps, peak_pages_in_use {burst.peak_pages_in_use} "
+          f"[{smi}]")
+    del spare, burst
+
+    # half the capacity, eager and graphed, on the last jobs: they preempt
+    # there (the first ones wait for pages and never preempt)
+    first = SERVE_JOBS - GRAPH_PAGED_JOBS
+    half = jobs[first:]
+
+    def paged(graphed):  # the state: steps, preemptions, pages; the busy share over 8 jobs
+        eng = _RecordedPaged(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[1],
+                             page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS, logprobs_topk=2,
+                             cuda_graph=graphed)
+        state = lambda: (eng.engine_steps, eng.preemptions, eng.peak_pages_in_use,  # noqa: E731
+                         eng.pages_in_use, list(eng.preempted), eng.cache_bytes(),
+                         eng.dense_equivalent_bytes())
+        return (lambda: serve_all(eng, half), state,
+                lambda: serve_all(eng, [(p, 16) for p, _ in half[:SERVE_MAX_BATCH]]))
+
+    e, g = _graph_pair(f"Paged_6x512 PagedDecodeEngine, {PAGED_PAGES[1]} pages of {PAGED_PS}, "
+                       f"{GRAPH_PAGED_JOBS} jobs (top-2 logprobs tracked)", paged, 1, 0,
+                       lambda st: st[0], "tokens", GRAPH_PAGED_JOBS * SERVE_NEW, smi)
+    steps, n_pre, peak_pages, in_use, preempted, cache, dense_eq = e["snap"]
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"] and n_pre > 0,
+          f"Paged_6x512: every request's greedy tokens from the graphed engine equal the eager "
+          f"engine's ({GRAPH_PAGED_JOBS} requests); engine steps, preemptions, peak pages and "
+          f"pages in use {g['snap'][:4]} equal (eager {e['snap'][:4]}), at least one preemption")
+    dk = SERVE_CFG["n_embd"] // SERVE_CFG["n_head"]
+    per_row = 3 * SERVE_CFG["n_layer"] * SERVE_CFG["n_head"] * dk * 4  # K/K2/V, fp32
+    check(cache == per_row * (PAGED_PAGES[1] + 1) * PAGED_PS
+          and dense_eq == per_row * SERVE_MAX_BATCH * SERVE_CFG["block_size"]
+          and peak_pages == PAGED_PAGES[1] and in_use == 0 and e["counts"] == none,
+          f"{small}: cache_bytes {cache / 1e6:.2f} MB ({PAGED_PAGES[1]} pages and the scratch "
+          f"page) against dense_equivalent_bytes {dense_eq / 1e6:.2f} MB; {n_pre} preemptions, "
+          f"the pool full; kernel launches {launched(e['counts']) or 'none'} (K5 0)")
+    got = torch.tensor(e["outs"][0], device="cuda")
+    at = {}
+    for rid, k in preempted:
+        at.setdefault(rid, set()).add(k)
+    oks, firsts = [], []
+    for i, (prompt, n) in enumerate(half):
+        j = first + i  # the dense engine's row
+        if i in at:  # re-admitted: its prefix re-prefilled, the state its reference builds
+            ref_t, ref_m = readmitted_greedy(model, params, prompt, n, at[i])
+            ok_r, tie = tie_prefix(got[i:i + 1], ref_t, ref_m)
+        else:
+            ok_r, tie = tie_prefix(got[i:i + 1], want[j:j + 1], margins[j:j + 1])
+        oks.append(ok_r)
+        firsts.append(tie[0])
+    agree = (got == want[first:]).float().mean().item()
+    check(all(oks), f"{small}: each of the {GRAPH_PAGED_JOBS - len(at)} rows never preempted "
+          f"equals the dense engine's, and each of the {len(at)} preempted rows its single "
+          f"stream re-prefilled at its preemptions ({sorted(at.items())[:4]}), up to its first "
+          f"near tie ({firsts}); {100 * agree:.1f}% of tokens equal the dense engine's")
 
 
 def spec_phase(smi, none):
-    """16b: SpecDecodeEngine at tools/bench_speculative.py's 170M target and
-    2 x 128 draft, against the plain engine, and with the target as its own
-    draft."""
+    """16b: SpecDecodeEngine at tools/bench_speculative.py's 170M target:
+    the plain engine's reference; the target as its own draft; the 2 x 128
+    draft's engine eager and graphed, each held to the plain engine."""
     rs = np.random.RandomState(1)
     say(f"[16 serving] 16b: SpecDecodeEngine, target {DECODE_170M}, draft {DECODE_DRAFT}, vocab "
         f"{SERVE_VOCAB}, {SPEC_MB} slots, {SPEC_REQS} requests of {SPEC_T0} + {SPEC_NEW} "
@@ -3074,40 +3178,54 @@ def spec_phase(smi, none):
     margins = lp_margins(plain, range(base, base + SPEC_REQS))
     check(counts == none, f"the plain engine: {SPEC_REQS * SPEC_NEW / plain_s:.1f} tokens/s "
           f"(logprobs tracked), {plain.engine_steps} engine steps [{smi}]")
+    # the target as its own draft, one wave of the requests, untimed
     bound = 1 + -(-(SPEC_NEW - 1) // (SPEC_GAMMA + 1))
-    for label, d, d_params in (("the 2 x 128 draft", draft, dp), ("draft = target", target, tp)):
-        eng = SpecDecodeEngine(target, tp, d, d_params, max_batch=SPEC_MB, gamma=SPEC_GAMMA,
-                               prefill_buckets=[SPEC_T0])
-        serve_all(eng, jobs[:2])  # warm
-        eng.engine_steps = eng.drafts_proposed = eng.drafts_accepted = 0
-        steps = {}
+    eng = SpecDecodeEngine(target, tp, target, tp, max_batch=SPEC_MB, gamma=SPEC_GAMMA,
+                           prefill_buckets=[SPEC_T0])
+    steps = {}
 
-        def run():
-            rids = [eng.submit(p, n) for p, n in jobs]
-            while eng.n_queued or eng.n_active:
-                for rid in eng.step():
-                    steps[rid] = steps.get(rid, 0) + 1
-            return [eng.results[r] for r in rids]
+    def run():
+        rids = [eng.submit(p, n) for p, n in jobs[:SPEC_MB]]
+        while eng.n_queued or eng.n_active:
+            for rid in eng.step():
+                steps[rid] = steps.get(rid, 0) + 1
+        return [eng.results[r] for r in rids]
 
-        (got, secs), counts = counted(lambda: seconds_of(run))
-        got = torch.tensor(got, device="cuda")
-        n_steps, accepted, proposed = eng.engine_steps, eng.drafts_accepted, eng.drafts_proposed
-        share = accepted / max(proposed, 1)
-        perfect = d is target
-        busy = ""
-        if not perfect:  # one profile of the phase's speculative rounds
-            b, w = busy_share(lambda: serve_all(eng, jobs[:SPEC_MB]))
-            busy = f", busy {100 * b:.1f}% of {w:.1f} ms over {SPEC_MB} requests (profiled)"
-        ok, ties = tie_prefix(got, want, margins)
-        check(ok and counts == none and (not perfect or (
-            accepted == proposed and max(steps.values()) <= bound)),
-              f"{label}: {SPEC_REQS * SPEC_NEW / secs:.1f} tokens/s, {n_steps} engine steps, "
-              f"acceptance {100 * share:.1f}% ({accepted} of {proposed} drafts), at most "
-              f"{max(steps.values())} steps a request"
-              + (f" (bound {bound})" if perfect else "")
-              + busy + "; every row equals the plain engine's up to its first near tie "
-              f"({sum(t == SPEC_NEW for t in ties)} of {SPEC_REQS} rows without one); launches "
-              f"{launched(counts) or 'none'} [{smi}]")
+    got, counts = counted(run)
+    ok, ties = tie_prefix(torch.tensor(got, device="cuda"), want[:SPEC_MB], margins[:SPEC_MB])
+    check(ok and counts == none and eng.drafts_accepted == eng.drafts_proposed
+          and max(steps.values()) <= bound,
+          f"draft = target, {SPEC_MB} requests: {eng.engine_steps} engine steps, acceptance "
+          f"{eng.drafts_accepted} of {eng.drafts_proposed} drafts, at most "
+          f"{max(steps.values())} steps a request (bound {bound}); every row equals the plain "
+          f"engine's up to its first near tie ({sum(t == SPEC_NEW for t in ties)} of {SPEC_MB} "
+          f"rows without one); launches {launched(counts) or 'none'} [{smi}]")
+    del eng
+
+    def spec(graphed):  # the state: steps and drafts; the busy share over a wave of 8 tokens
+        eng = SpecDecodeEngine(target, tp, draft, dp, max_batch=SPEC_MB, gamma=SPEC_GAMMA,
+                               prefill_buckets=[SPEC_T0], cuda_graph=graphed)
+        state = lambda: (eng.engine_steps, eng.drafts_proposed,  # noqa: E731
+                         eng.drafts_accepted)
+        return (lambda: serve_all(eng, jobs[:GRAPH_SPEC_REQS]), state,
+                lambda: serve_all(eng, [(p, 8) for p, _ in jobs[:SPEC_MB]]))
+
+    e, g = _graph_pair(f"Spec_170M SpecDecodeEngine, the 2 x 128 draft, gamma {SPEC_GAMMA}, "
+                       f"{GRAPH_SPEC_REQS} requests (ms a round)", spec, 1, 0, lambda st: st[0],
+                       "tokens", GRAPH_SPEC_REQS * SPEC_NEW, smi)
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"],
+          f"Spec_170M: every request's tokens from the graphed engine equal the eager engine's "
+          f"({GRAPH_SPEC_REQS} requests); engine steps, drafts proposed and accepted {g['snap']} "
+          f"equal (eager {e['snap']})")
+    n_steps, proposed, accepted = e["snap"]
+    ok, ties = tie_prefix(torch.tensor(e["outs"][0], device="cuda"), want[:GRAPH_SPEC_REQS],
+                          margins[:GRAPH_SPEC_REQS])
+    check(ok and e["counts"] == none,
+          f"the 2 x 128 draft, {GRAPH_SPEC_REQS} requests (the pair's eager form): "
+          f"{n_steps} engine steps, acceptance {100 * accepted / max(proposed, 1):.1f}% "
+          f"({accepted} of {proposed} drafts); every row equals the plain engine's up to its "
+          f"first near tie ({sum(t == SPEC_NEW for t in ties)} of {GRAPH_SPEC_REQS} rows "
+          f"without one); launches {launched(e['counts']) or 'none'} [{smi}]")
 
 
 def export_phase(smi, none):
@@ -3724,7 +3842,7 @@ def multi_gpu_phases(smi):
 # launches K5 PP_K5_STEP times; the FSDP steps of 18e launch it 8 times each.
 PP_M = 4
 PP_K5_STEP = MG_LM["n_layer"] * PP_M
-PP_SERVE_JOBS = 16  # mixed jobs as 14a's, SERVE_NEW tokens each: twice the slots
+PP_SERVE_JOBS = 8  # mixed jobs as 14a's, SERVE_NEW tokens each: one wave of the slots
 PP_PAGES = 64
 PP_FSDP_STEPS = 2  # before the save, and each run after it
 
@@ -3910,6 +4028,19 @@ def pipeline_phases(smi):
                   f"token of {PP_SERVE_JOBS} requests on {SERVE_MAX_BATCH} slots the {ref} "
                   f"engine's; {n_out / s_tp:.0f} tokens/s vs {n_out / s_plain:.0f} (one call "
                   f"each, first-call costs included) [{smi}]")
+        refused = []
+        for make in (lambda: DecodeEngine(tpm, max_batch=SERVE_MAX_BATCH, cuda_graph=True),
+                     lambda: PagedDecodeEngine(tpm, max_batch=SERVE_MAX_BATCH, n_pages=PP_PAGES,
+                                               page_size=PAGED_PS, cuda_graph=True),
+                     lambda: SpecDecodeEngine(tpm, None, draft, None, max_batch=SERVE_MAX_BATCH,
+                                              cuda_graph=True)):
+            try:
+                make()
+            except ValueError as e:
+                refused.append(str(e))
+        check(len(refused) == 3 and all("tensor-parallel" in r for r in refused),
+              f"18d: the three engines refuse cuda_graph=True with the tensor-parallel model: "
+              f"{[r[:70] for r in refused]}")
         del plain, tpm, draft
         say(f"  18d took {time.perf_counter() - t0:.1f} s")
 

@@ -12,7 +12,8 @@ server-side encode / decode. The self-test sends ``--clients`` concurrent
 ``/generate`` text requests, one streamed request, an OpenAI
 ``/v1/completions`` and a ``/v1/embeddings`` request, reads ``/metrics`` and
 drains the server. Runs on the GPU unless given ``--device cpu``; on the GPU
-the dense engine's batched step is one CUDA graph.
+the engine's batched step (the speculative engine's round) is one CUDA
+graph.
 
 Usage:
   python -m mop_tpu_torch.cli.serve_http                 # train, serve, self-test
@@ -188,7 +189,8 @@ def run(args, whisper_engine=None, whisper_tokenizer=None,
         print(f"draft loss {dloss:.3f}", flush=True)
         eng = SpecDecodeEngine(model, params, draft, decode_params(draft),
                                max_batch=args.max_batch, gamma=4,
-                               prefix_cache_entries=args.prefix_cache)
+                               prefix_cache_entries=args.prefix_cache,
+                               cuda_graph=device.type == "cuda")
     else:
         eng = DecodeEngine(model, params, max_batch=args.max_batch,
                            prefix_cache_entries=args.prefix_cache,

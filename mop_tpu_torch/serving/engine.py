@@ -126,6 +126,27 @@ def _to_host(*ts: Tensor) -> List[np.ndarray]:
     return out
 
 
+class DeviceMirror:
+    """A (B,) device copy of a host per-slot array that host control changes
+    a few slots at a time (admission, retirement) and a device step advances
+    itself: ``sync(host)`` writes the slots where ``host`` differs from what
+    the device holds, one ``fill_`` each (no tensor made from host data),
+    and ``advanced(host)`` records that the device computed ``host``. A
+    captured step reads ``dev`` by its address."""
+
+    def __init__(self, n: int, dtype: torch.dtype, device):
+        self.dev = torch.zeros((n,), dtype=dtype, device=device)
+        self._held = np.zeros((n,), bool if dtype == torch.bool else np.int64)
+
+    def sync(self, host: np.ndarray) -> None:
+        for s in np.nonzero(host != self._held)[0]:
+            self.dev[int(s)].fill_(host[s].item())
+        self._held = host.copy()
+
+    def advanced(self, host: np.ndarray) -> None:
+        self._held = host.copy()
+
+
 # the per-slot sampling columns the batched picker reads, in order
 _SP = ("temp", "topk", "topp", "minp", "rep", "pres", "freq")
 
@@ -233,10 +254,16 @@ class DecodeEngine:
       every slot) runs as one CUDA graph over the static pools, the tokens
       and lengths copied into static buffers before each replay; the
       picker, host control, beams and the device-to-host copy stay eager.
-      The dense engine on a CUDA device only; a tensor-parallel model (its
-      all-reduces) raises, as do the subclasses. Per-row LoRA is captured:
-      its factor rows are buffers written in place at admission.
+      On a CUDA device only; a tensor-parallel model (its all-reduces)
+      raises, as does a subclass that does not declare ``_captures_step``
+      in its own body (``PagedDecodeEngine`` and ``SpecDecodeEngine``
+      declare it). Per-row LoRA is captured: its factor rows are buffers
+      written in place at admission.
     """
+
+    # ``cuda_graph=True`` captures this class's step: read from the class's
+    # own body, so that a subclass with another step declares its own
+    _captures_step = True
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 8,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
@@ -255,13 +282,12 @@ class DecodeEngine:
         _check_cache_sharding(cache_sharding, self._tp)
         self.device = self.params["params"]["wte"]["embedding"].device
         if cuda_graph:
-            if type(self) is not DecodeEngine:
+            if not type(self).__dict__.get("_captures_step", False):
                 raise ValueError(f"{type(self).__name__}: cuda_graph=True is the dense "
-                                 "DecodeEngine's; this engine's step is not captured")
-            if self._tp is not None:
-                raise ValueError("DecodeEngine: cuda_graph=True does not take a tensor-parallel "
-                                 "model (its step all-reduces over NCCL, which is not captured)")
-            require_graph("DecodeEngine", self.device)
+                                 "DecodeEngine's and that of the engines that declare "
+                                 "_captures_step in their own class body; this engine's step is "
+                                 "not captured")
+            require_graph(type(self).__name__, self.device, tensor_parallel=self._tp)
         self.max_batch = max_batch
         self.eos_id = eos_id
         if not 0 <= int(logprobs_topk) <= 32:
@@ -344,7 +370,7 @@ class DecodeEngine:
         self._chunk_state: Dict[int, dict] = {}
         # the batched step over static token and length buffers, captured by
         # a thread of the server next to others: thread-local capture errors
-        self._graph = (StepGraph(self._slot_logits, self.device,
+        self._graph = (StepGraph(self._captured, self.device,
                                  capture_error_mode="thread_local") if cuda_graph else None)
 
     def _make_cache(self, cfg, max_batch: int, kv_dtype: torch.dtype) -> Optional[dict]:
@@ -783,13 +809,19 @@ class DecodeEngine:
 
     def _step_logits(self, lens: Tensor) -> Tensor:
         """The batched step's logits (B, V), each row's new K/K2/V written at
-        its length ``lens[b]``: the cache access a subclass replaces. Under
-        ``cuda_graph`` a replay over the static buffers."""
+        its length ``lens[b]``. Under ``cuda_graph`` a replay over the static
+        buffers."""
         if self._graph is not None:
             return self._graph(self._tokens, lens)
         return self._slot_logits(self._tokens, lens)
 
+    def _captured(self, *static):
+        """What ``cuda_graph`` captures: the batched step, over static token
+        and length buffers (``SpecDecodeEngine``: its round)."""
+        return self._slot_logits(*static)
+
     def _slot_logits(self, tokens: Tensor, lens: Tensor) -> Tensor:
+        """The cache access a subclass replaces (``PagedDecodeEngine``)."""
         return decode_step_rows(self.model, self._step_params(), self._cache, tokens, lens)[0]
 
     def _permute_rows(self, perm: np.ndarray) -> None:
@@ -1138,18 +1170,31 @@ class SpecDecodeEngine(DecodeEngine):
     the edge is truncated, as in JAX's engine. The pools are fp32 or bf16
     (int8 raises, as JAX's). ``drafts_proposed`` / ``drafts_accepted``
     count the draft tokens of every round and those the target kept.
+
+    The round reads the lengths from a device buffer (``DeviceMirror``),
+    written where host control changed a slot and advanced by the round
+    itself. ``cuda_graph=True`` (a CUDA device; neither model
+    tensor-parallel) runs the round (``_round``: the draft steps, the
+    verify, the accepted counts, the corrections and, with
+    ``logprobs_topk``, the logprob extras) as one CUDA graph; admission,
+    the draft's prefill and host control stay eager.
     """
+
+    _captures_step = True
 
     def __init__(self, model, params, draft_model, draft_params, max_batch: int = 8,
                  gamma: int = 4, eos_id: Optional[int] = None, cache_sharding=None,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  prefix_cache_entries: int = 0, kv_dtype: torch.dtype = torch.float32,
-                 logprobs_topk: int = 0):
+                 logprobs_topk: int = 0, cuda_graph: bool = False):
         _no_int8_pools(kv_dtype)
         super().__init__(model, params, max_batch=max_batch, eos_id=eos_id, temperature=0.0,
                          cache_sharding=cache_sharding, prefill_buckets=prefill_buckets,
                          prefix_cache_entries=prefix_cache_entries, kv_dtype=kv_dtype,
-                         logprobs_topk=logprobs_topk)
+                         logprobs_topk=logprobs_topk, cuda_graph=cuda_graph)
+        if cuda_graph:
+            require_graph("SpecDecodeEngine (draft)", self.device,
+                          tensor_parallel=decode_split_of(draft_model))
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
         self.draft_model = draft_model
@@ -1164,6 +1209,8 @@ class SpecDecodeEngine(DecodeEngine):
                                          n_views=model_n_views(draft_model), device=self.device)
         del self._dcache["len"]
         self._d_keys = _pool_keys(self._dcache)
+        self._dlens = DeviceMirror(max_batch, torch.long, self.device)
+        self._dlive = DeviceMirror(max_batch, torch.bool, self.device)
         self.drafts_proposed = 0  # gamma per live row and round
         self.drafts_accepted = 0
 
@@ -1206,14 +1253,19 @@ class SpecDecodeEngine(DecodeEngine):
             for key in self._d_keys:
                 self._dcache[key][:, slot] = pc[key][:, 0].to(self._dcache[key].dtype)
 
-    def _round(self, lens: Tensor):
-        """One speculative round over every row: gamma greedy draft steps
-        and one more, whose rows the rows that accept every draft need (the
-        others get a row past their length, overwritten by their next
-        write); then the target's verify over [token, drafts]. Returns the
-        emitted tokens (B, gamma + 1), the accepted counts (B,) and the
-        verify logits (B, gamma + 1, V)."""
+    def _captured(self):
+        return self._round()
+
+    def _round(self):
+        """One speculative round over every row, in place: gamma greedy
+        draft steps and one more, whose rows the rows that accept every
+        draft need (the others get a row past their length, overwritten by
+        their next write); then the target's verify over [token, drafts].
+        The tokens become the corrections and the live rows' device lengths
+        advance by the accepted counts plus one. Returns the emitted tokens
+        (B, gamma + 1), the accepted counts (B,) and ``_lp_of``'s extras."""
         g = self.gamma
+        lens = self._dlens.dev
         tok, drafts = self._tokens, []
         for j in range(g):
             logits, _ = decode_step_rows(self.draft_model, self.draft_params, self._dcache, tok,
@@ -1229,7 +1281,10 @@ class SpecDecodeEngine(DecodeEngine):
         corr = tpred.gather(1, n_acc[:, None])
         i = torch.arange(g + 1, device=lens.device)[None, :]
         emit = torch.where(i < n_acc[:, None], torch.cat([drafts, drafts[:, -1:]], 1), corr)
-        return emit, n_acc, corr[:, 0], logits
+        extras = self._lp_of(logits, emit)
+        self._tokens.copy_(corr[:, 0])
+        lens.copy_(torch.where(self._dlive.dev, lens + n_acc + 1, torch.zeros_like(lens)))
+        return (emit, n_acc, *extras)
 
     def step(self) -> Dict[int, List[int]]:
         """One engine iteration: admit, retire the rows whose next round would
@@ -1250,13 +1305,15 @@ class SpecDecodeEngine(DecodeEngine):
         active = [s for s, r in enumerate(self._slot_rid) if r >= 0]
         if not active:
             return emitted
-        with torch.no_grad():
-            emit, n_acc, self._tokens, logits = self._round(
-                torch.from_numpy(self._lens).to(self.device))
-            et, na, *lph = _to_host(emit, n_acc, *self._lp_of(logits, emit))
         live = np.zeros((self.max_batch,), bool)
         live[active] = True
+        self._dlens.sync(self._lens)
+        self._dlive.sync(live)
+        with torch.no_grad():
+            out = self._graph() if self._graph is not None else self._round()
+            et, na, *lph = _to_host(*out)
         self._lens = np.where(live, self._lens + na + 1, 0)
+        self._dlens.advanced(self._lens)
         self.drafts_proposed += self.gamma * len(active)
         self.drafts_accepted += int(na[active].sum())
         for s in active:

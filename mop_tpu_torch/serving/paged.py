@@ -17,7 +17,10 @@ assembled by a gather through the page table (``models.generate.decode_rows``
 with ``PagedRows`` as its cache access). The gather copies each row's
 table-ordered window every layer, as JAX's does: paging buys memory, not
 bandwidth (``cache_bytes`` against ``dense_equivalent_bytes``). The step
-composes plain torch ops and launches no kernel, as the dense engine's.
+composes plain torch ops and launches no kernel, as the dense engine's. The
+page tables live on the device beside their host copy, written in place
+where a page is granted or freed, so that the step reads them without a
+copy from the host; ``cuda_graph=True`` runs the step as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -121,8 +124,14 @@ class PagedDecodeEngine(DecodeEngine):
     ``peak_pages_in_use`` count it. The options are the dense engine's but
     the prefix cache, chunked prefill and beams (JAX's paged engine has
     none of them either; ``num_beams`` raises); the pools are fp32 or bf16
-    (int8 raises, as JAX's).
+    (int8 raises, as JAX's). ``cuda_graph=True`` (a CUDA device, a model
+    that is not tensor-parallel) runs the batched step as one CUDA graph
+    over the pools and the device page table (``step(n_tokens=k)`` replays
+    it k times); admission, page allocation, preemption and re-prefill stay
+    on the host.
     """
+
+    _captures_step = True
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 8,
                  n_pages: int = 64, page_size: int = 16, eos_id: Optional[int] = None,
@@ -132,7 +141,7 @@ class PagedDecodeEngine(DecodeEngine):
                  kv_dtype: torch.dtype = torch.float32, min_p: float = 0.0,
                  repetition_penalty: float = 1.0, presence_penalty: float = 0.0,
                  frequency_penalty: float = 0.0, adapters: Optional[Dict[str, dict]] = None,
-                 adapter_scale=1.0, logprobs_topk: int = 0):
+                 adapter_scale=1.0, logprobs_topk: int = 0, cuda_graph: bool = False):
         cfg = model.config
         if cfg.block_size % page_size != 0:
             raise ValueError(f"page_size {page_size} must divide block_size {cfg.block_size}")
@@ -150,13 +159,16 @@ class PagedDecodeEngine(DecodeEngine):
                          kv_dtype=kv_dtype, min_p=min_p, repetition_penalty=repetition_penalty,
                          presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
                          adapters=adapters, adapter_scale=adapter_scale,
-                         logprobs_topk=logprobs_topk)
+                         logprobs_topk=logprobs_topk, cuda_graph=cuda_graph)
         self._pool = init_paged_pool(cfg, n_pages, page_size, kv_dtype,
                                      n_views=model_n_views(model), device=self.device,
                                      n_head=self.n_local_heads)
         self._pool_keys = tuple(self._pool)
         self._free: List[int] = list(range(n_pages, 0, -1))  # a stack; 0 is the scratch page
         self._table = np.zeros((max_batch, self.pages_per_slot), np.int64)
+        # the device copy the step reads, kept equal to ``_table`` in place
+        self._table_dev = torch.zeros((max_batch, self.pages_per_slot), dtype=torch.long,
+                                      device=self.device)
         self._n_alloc = np.zeros((max_batch,), np.int64)  # pages each slot holds
         self._slot_prompt: List[Optional[np.ndarray]] = [None] * max_batch
         # the length of results[rid] at admission: the tokens after it were
@@ -169,10 +181,9 @@ class PagedDecodeEngine(DecodeEngine):
         """No dense slabs: the ``max_batch x block_size`` reservation never exists."""
         return None
 
-    def _step_logits(self, lens: Tensor) -> Tensor:
-        table = torch.from_numpy(self._table).to(self.device)
-        return paged_decode_step_rows(self.model, self._step_params(), self._pool, table,
-                                      self._tokens, lens)[0]
+    def _slot_logits(self, tokens: Tensor, lens: Tensor) -> Tensor:
+        return paged_decode_step_rows(self.model, self._step_params(), self._pool,
+                                      self._table_dev, tokens, lens)[0]
 
     # ---------------- accounting ----------------
 
@@ -200,13 +211,19 @@ class PagedDecodeEngine(DecodeEngine):
         return pg
 
     def _grow(self, slot: int, pg: int) -> None:
-        self._table[slot, int(self._n_alloc[slot])] = pg
+        j = int(self._n_alloc[slot])
+        self._table[slot, j] = pg
+        self._table_dev[slot, j].fill_(pg)
         self._n_alloc[slot] += 1
+
+    def _clear_table(self, slot: int) -> None:
+        self._table[slot] = 0
+        self._table_dev[slot].fill_(0)
 
     def _free_slot_pages(self, slot: int) -> None:
         for j in range(int(self._n_alloc[slot])):
             self._free.append(int(self._table[slot, j]))
-        self._table[slot] = 0
+        self._clear_table(slot)
         self._n_alloc[slot] = 0
         self._lens[slot] = 0
         self._slot_prompt[slot] = None
@@ -297,7 +314,7 @@ class PagedDecodeEngine(DecodeEngine):
         if n_need > len(self._free):
             return None
         self._queue.popleft()
-        self._table[slot] = 0
+        self._clear_table(slot)
         for _ in range(n_need):
             self._grow(slot, self._alloc_page())
         self._lens[slot] = t0
@@ -337,7 +354,7 @@ class PagedDecodeEngine(DecodeEngine):
     def _paste(self, pc: dict, slot: int, n_pages: int) -> None:
         """The prefill's rows (one row of a block-wide cache) into the slot's
         first ``n_pages`` pages."""
-        idx = torch.from_numpy(self._table[slot, :n_pages]).to(self.device)
+        idx = self._table_dev[slot, :n_pages]
         npb, ps = self.pages_per_slot, self.page_size
         for key in self._pool_keys:
             rows = pc[key][:, 0]  # (L, H, block, dk); mv (L, block, V)

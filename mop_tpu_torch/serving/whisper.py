@@ -10,6 +10,14 @@ each stream's tokens are those of ``whisper_transcribe_cached`` for its mel
 alone. The decode reads the JAX-layout tree (``whisper_decode_params``)
 through ``_lin``, so its kernels may be int8 / int4; the encoder runs on the
 tree's dequantized copy.
+
+The step reads each slot's length and liveness from device buffers
+(``engine.DeviceMirror``) and advances the lengths itself.
+``cuda_graph=True`` runs the batched step and the admission each as one
+CUDA graph, as JAX's ``_step_fn`` and ``_admit_fn``: the admission's
+encoder (K1 in every layer, its launches counted per replay) and cross
+K/V written into the slot a device index names; the mel's shape is the
+model's, so one graph serves every admission.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 from ..models.generate import (_lin, _split_heads, whisper_decode_params,
                                whisper_decode_step_rows, whisper_encode)
 from ..ops.quant import Q4Tensor, QTensor, _leaves, dequantize_params
-from .engine import _to_host
+from ..utils.cuda_graph import StepGraph, require_graph
+from .engine import DeviceMirror, _to_host
 
 Tensor = torch.Tensor
 
@@ -41,11 +50,13 @@ class WhisperServingEngine:
     window). A request retires at ``max_new_tokens``, its ``eos_id`` or the
     text window. ``params``: ``whisper_decode_params(model)`` or its int8 /
     int4 form (None: the model's own); the pools live on its device.
-    ``kv_dtype``: the pools' storage, fp32 or bf16."""
+    ``kv_dtype``: the pools' storage, fp32 or bf16. ``cuda_graph=True`` (a
+    CUDA device only, else a ValueError): the batched step and the
+    admission each one CUDA graph (the module docstring)."""
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 4,
                  bos_token: int = 1, eos_id: Optional[int] = None,
-                 kv_dtype: torch.dtype = torch.float32):
+                 kv_dtype: torch.dtype = torch.float32, cuda_graph: bool = False):
         if kv_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"the Whisper engine stores fp32 or bf16 K/V, got {kv_dtype}")
         self.model = model
@@ -54,6 +65,8 @@ class WhisperServingEngine:
         quantized = any(isinstance(w, (QTensor, Q4Tensor)) for w in _leaves(self.params))
         self._enc_params = dequantize_params(self.params) if quantized else params
         self.device = self.params["params"]["wte"]["embedding"].device
+        if cuda_graph:
+            require_graph("WhisperServingEngine", self.device)
         self.max_batch = max_batch
         self.bos_token = bos_token
         self.eos_id = eos_id
@@ -68,6 +81,16 @@ class WhisperServingEngine:
         self._vs = torch.zeros_like(self._ks)
         self._tokens = torch.full((max_batch,), bos_token, dtype=torch.long, device=dev)
         self._lens = np.zeros((max_batch,), np.int64)
+        self._dlens = DeviceMirror(max_batch, torch.long, dev)
+        self._dlive = DeviceMirror(max_batch, torch.bool, dev)
+        self._slot_ids = torch.arange(max_batch, device=dev)
+        # each graph captured by the thread that drives the engine (the HTTP
+        # server's device worker) next to others: thread-local capture errors
+        self._step_graph = self._admit_graph = None
+        if cuda_graph:
+            self._step_graph = StepGraph(self._step_rows, dev, capture_error_mode="thread_local")
+            self._admit_graph = StepGraph(self._admit_rows, dev,
+                                          capture_error_mode="thread_local")
         self._slot_rid: List[int] = [-1] * max_batch
         self._slot_eos = np.full((max_batch,), -1, np.int64)
         self._budget = np.zeros((max_batch,), np.int64)
@@ -113,14 +136,35 @@ class WhisperServingEngine:
 
     def _admit(self, slot: int, mel: np.ndarray) -> None:
         """One encoder pass; this request's cross K/V frozen into ``slot``."""
+        args = (torch.from_numpy(mel).to(self.device), self._slot_ids[slot:slot + 1])
+        if self._admit_graph is not None:
+            self._admit_graph(*args)
+        else:
+            self._admit_rows(*args)
+
+    def _admit_rows(self, mel: Tensor, slot: Tensor) -> None:
+        """The admission in place: the encoder over the (1, T, n_mels)
+        ``mel``, every decoder layer's cross K/V written into the slot that
+        ``slot`` (a (1,) device tensor) names."""
         cfg = self.model.cfg
-        enc = whisper_encode(self.model, torch.from_numpy(mel).to(self.device), self._enc_params)
+        enc = whisper_encode(self.model, mel, self._enc_params)
         p = self.params["params"]
         with torch.no_grad():
             for li in range(cfg.n_layer_dec):
                 cp = p[f"decoder_{li}"]["cross_attn"]
-                self._ck[li, slot] = _split_heads(_lin(enc, cp["k_proj"]), cfg.n_head)[0]
-                self._cv[li, slot] = _split_heads(_lin(enc, cp["v_proj"]), cfg.n_head)[0]
+                for pool, w in ((self._ck, cp["k_proj"]), (self._cv, cp["v_proj"])):
+                    rows = _split_heads(_lin(enc, w), cfg.n_head)
+                    pool[li].index_copy_(0, slot, rows.to(pool.dtype))
+
+    def _step_rows(self) -> Tensor:
+        """The batched step in place: every row's token at its device length,
+        the tokens becoming the argmax and the live rows' lengths advancing
+        by one. Returns the (B,) tokens."""
+        logits = whisper_decode_step_rows(self.model, self.params, self._ck, self._cv, self._ks,
+                                          self._vs, self._tokens, self._dlens.dev)[0]
+        self._tokens.copy_(logits.argmax(-1))
+        self._dlens.dev.add_(self._dlive.dev)
+        return self._tokens
 
     def step(self, n_tokens: int = 1) -> Dict[int, List[int]]:
         """Admit whatever fits, then advance every live row ``n_tokens``
@@ -144,12 +188,15 @@ class WhisperServingEngine:
             active = [s for s, r in enumerate(self._slot_rid) if r >= 0]
             if not active:
                 break
-            logits, self._ks, self._vs = whisper_decode_step_rows(
-                self.model, self.params, self._ck, self._cv, self._ks, self._vs, self._tokens,
-                torch.from_numpy(self._lens).to(self.device))
-            self._tokens = logits.argmax(-1)
-            toks = _to_host(self._tokens)[0]
+            live = np.zeros((self.max_batch,), bool)
+            live[active] = True
+            self._dlens.sync(self._lens)
+            self._dlive.sync(live)
+            with torch.no_grad():
+                toks = self._step_graph() if self._step_graph is not None else self._step_rows()
+            toks = _to_host(toks)[0]
             self._lens[active] += 1
+            self._dlens.advanced(self._lens)
             for s in active:
                 rid = self._slot_rid[s]
                 tok = int(toks[s])

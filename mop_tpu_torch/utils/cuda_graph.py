@@ -35,13 +35,18 @@ import torch
 from ..ops.fused import add_launches, launch_counts
 
 
-def require_graph(what: str, device, mesh=None, optimizer=None) -> None:
+def require_graph(what: str, device, mesh=None, optimizer=None, tensor_parallel=None) -> None:
     """Raise a ValueError naming what ``what`` cannot capture: a mesh (no NCCL
-    collective is captured), an optimizer whose groups are not all
-    ``capturable``, a device that is not CUDA. Never a fallback to eager."""
+    collective is captured), a tensor-parallel model (``tensor_parallel``:
+    its ``generate.DecodeSplit``, whose all-reduces are NCCL collectives), an
+    optimizer whose groups are not all ``capturable``, a device that is not
+    CUDA. Never a fallback to eager."""
     if mesh is not None:
         raise ValueError(f"{what}: cuda_graph=True does not take a mesh (no NCCL collective is "
                          "captured); build it with cuda_graph=False")
+    if tensor_parallel is not None:
+        raise ValueError(f"{what}: cuda_graph=True does not take a tensor-parallel model (its "
+                         "step all-reduces over NCCL, which is not captured)")
     if optimizer is not None and not all(g.get("capturable", False)
                                          for g in optimizer.param_groups):
         raise ValueError(f"{what}: cuda_graph=True needs a capturable optimizer, e.g. "

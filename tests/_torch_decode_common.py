@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import mop_tpu.models as J
 import mop_tpu_torch.models as PM
@@ -89,3 +90,46 @@ def margin(logits):
     """Top-two margins of (..., V) logits."""
     top = np.sort(np.asarray(logits), -1)
     return top[..., -1] - top[..., -2]
+
+
+class HostReads(TorchDispatchMode):
+    """The ops, in ``seen``, that a captured body must not run: a read of a
+    device value on the host (``.item()``, ``int(t)``, ``bool(t)``), a
+    tensor made from host data (``torch.tensor``), ``nonzero`` and boolean
+    indexing (a data-dependent shape)."""
+
+    FLAGGED = {"_local_scalar_dense", "item", "is_nonzero", "lift_fresh", "nonzero"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.FLAGGED or (name in ("index", "index_put", "index_put_") and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in (args[1] if len(args) > 1 else ()) if i is not None)):
+            self.seen.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+def lift_graphs(monkeypatch, *modules):
+    """The graphed forms on the CPU: ``require_graph`` accepts any device in
+    ``modules``, and every ``StepGraph`` call (which runs its body eagerly
+    over the static buffers there) runs under ``HostReads``. Returns the
+    list of flagged ops, which a test holds empty."""
+    from mop_tpu_torch.utils import cuda_graph
+
+    for mod in modules:
+        monkeypatch.setattr(mod, "require_graph", lambda *a, **k: None)
+    seen = []
+    call = cuda_graph.StepGraph.__call__
+
+    def checked(self, *args):
+        with HostReads() as mode:
+            out = call(self, *args)
+        seen.extend(mode.seen)
+        return out
+
+    monkeypatch.setattr(cuda_graph.StepGraph, "__call__", checked)
+    return seen
