@@ -187,19 +187,21 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    ``tools/bench_serving.py``'s GPT-Quartet (6 x 512, 8 heads, vocab 512, block 512, buckets
    64 / 128 / 256 / 512, 8 slots) over its 32 ``mixed_jobs`` (prompts of 48 to 249 tokens, 64
    new): no kernel launch (K5 0), tokens/s, busy share and peak memory, every row against its
-   single-stream ``generate_cached`` up to the first near tie; ``step(n_tokens=4)`` giving
-   the single steps' tokens; ``chunk_prefill`` 64 and a 192-token system prompt through the
-   prefix cache, each held to the single-stream ``decode_chunk`` feed it computes (with the
-   share of tokens equal to the monolithic prefill's); a 4-beam request equal to
-   ``generate_beam``; int8 KV; 14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024,
+   single-stream ``generate_cached`` up to the first near tie; ``step(n_tokens=4)`` graphed (a
+   call one replay of a 4-step graph, the picker inside) giving the single steps' tokens, with
+   its tokens/s, busy share, graphs and captures; ``chunk_prefill`` 64 and a 192-token system
+   prompt through the prefix cache, each held to the single-stream ``decode_chunk`` feed it
+   computes (with the share of tokens equal to the monolithic prefill's); a 4-beam request equal
+   to ``generate_beam``; int8 KV; 14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024,
    block 2048, 4 slots) under a closed loop of 4 users, fp32 and int8 weights: requests/s,
    TTFT and TPOT; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32 tokens, 4 slots),
    eager and graphed (the step and the admission one graph each, K1 under capture): tokens
    equal, K1 4 launches an admission in both forms (replays counted; held to the profiler's
-   records of 3 admissions in each), the tokens of ``whisper_transcribe_cached`` up to the
-   first near tie, int8 weights; 14d, ``serve_http`` trained and served on loopback: 8
-   concurrent text clients, a stream, ``/v1/completions``, ``/v1/embeddings``,
-   ``/v1/audio/transcriptions`` through a graphed Whisper engine
+   records of 3 admissions in each), a graphed ``step(n_tokens=4)`` (a replay of 4 steps a call)
+   giving the graphed single steps' tokens with K1 4 an admission, the tokens of
+   ``whisper_transcribe_cached`` up to the first near tie, int8 weights; 14d, ``serve_http``
+   trained and served on loopback: 8 concurrent text clients, a stream, ``/v1/completions``,
+   ``/v1/embeddings``, ``/v1/audio/transcriptions`` through a graphed Whisper engine
    against ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The
    kernels line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
 15. the trainer and the later CLIs: 15a, ``training.train_model`` at B_bench's width
@@ -224,7 +226,8 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    32 jobs through ``DecodeEngine`` (timed, busy share, peak memory, top-2 logprobs as the
    references' margins); ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense slabs'
    capacity) on one wave of 8 jobs: no preemption, every row equal to the dense engine's up to
-   its first near tie, ``step(n_tokens=4)`` giving the single steps' tokens; with 32 pages (half)
+   its first near tie, ``step(n_tokens=4)`` graphed (a burst one replay) giving the single
+   steps' tokens; with 32 pages (half)
    on the last 16 jobs, eager and graphed: tokens, engine steps, preemptions and pages equal,
    no kernel launch, tokens/s, busy share, the cache's bytes against the dense slabs', at least
    one preemption, each row never preempted equal to the dense engine's and each preempted row
@@ -286,16 +289,20 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    32 tokens with top-k and a repetition penalty); Decode_170M's ``generate`` (K5 streaming, 16
    tokens); Whisper_20M's two transcription routes (fp32 KV, ctx 64; int8 KV on the cached
    route), then both graphed at ctx 64 and 256, their ratio; Serve_6x512's dense engine over 16
-   of 14a's jobs. Each form's ms a step, images or tokens/s, busy share (eager B_bench's over 2
-   steps, the decoders' over 16 tokens, the engine's over 8 requests of 16 tokens: the
-   profiler's parse of a longer eager call takes tens of seconds), the mean device ms of a K1,
-   K2, K2b, K3, K4 or K5 launch, captures and their seconds, the graph pool's bytes and the peak
-   memory; the gates: losses and parameters bit-equal or within 1e-5, counts, hits and every
-   token equal, the launches equal with each replay counting its capture's, no synchronizing
-   CUDA call in a graph's warm-up (``torch.cuda.set_sync_debug_mode``). Phase 10's ab5 run and
-   the lockstep CLIs of 15b train and evaluate graphed through ``ModelRun`` (its train and eval
-   captures reported in 10), and 15a's ``train_model`` through the graphed ``Trainer``. The
-   kernels line's ``launches`` add 19's.
+   of 14a's jobs, greedy, then with sampling on under one engine generator seed (8 greedy, 4
+   unseeded at temperature 0.8 and top-k 50, 2 seeded at top-p 0.9, 2 seeded with repetition
+   penalty 1.3 and min-p 0.05; the picker captured): tokens, engine steps and the generator's
+   offset equal, then ``step(n_tokens=4)`` graphed (one replay a burst) against eager. Each
+   form's ms a step, images or tokens/s, busy share (eager B_bench's over 2 steps, the decoders'
+   over 16 tokens, the engine's over 8 requests of 16 tokens: the profiler's parse of a longer
+   eager call takes tens of seconds), the mean device ms of a K1, K2, K2b, K3, K4 or K5 launch,
+   captures and their seconds, the graph pool's bytes and the peak memory; the gates: losses and
+   parameters bit-equal or within 1e-5, counts, hits and every token equal, the launches equal
+   with each replay counting its capture's, no synchronizing CUDA call in a graph's warm-up
+   (``torch.cuda.set_sync_debug_mode``). Phase 10's ab5 run and the lockstep CLIs of 15b train
+   and evaluate graphed through ``ModelRun`` (its train and eval captures reported in 10), and
+   15a's ``train_model`` through the graphed ``Trainer``. The kernels line's ``launches`` add
+   19's.
 """
 
 from __future__ import annotations
@@ -2425,17 +2432,51 @@ def serving_phases(smi):
           f"{n_out / secs:.0f} tokens/s, {eng.engine_steps} engine steps, peak "
           f"{peak:.2f} GiB; kernel launches {launched(counts) or 'none'} (K5 0: plain ops, as "
           f"JAX's decode_step_rows) [{smi}]")
-    busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
-    say(f"  device busy over {SERVE_MAX_BATCH} requests: {100 * busy:.1f}% of {wall:.1f} ms "
-        f"(profiled) [{smi}]")
+    # the busy shares over 8 requests of 16 tokens: the profiler's parse of
+    # longer calls takes seconds
+    short = [(p, 16) for p, _ in jobs[:SERVE_MAX_BATCH]]
+    busy, wall = busy_share(lambda: serve_all(eng, short))
+    say(f"  device busy over {SERVE_MAX_BATCH} requests of 16 tokens: {100 * busy:.1f}% of "
+        f"{wall:.1f} ms (profiled) [{smi}]")
     ok, equal, ties = stream_checks(model, params, jobs, got)
     check(ok, f"each of the {SERVE_JOBS} greedy rows equals its single-stream generate_cached "
           f"up to its first near tie: {equal} equal throughout, the others' first ties at "
           f"{ties}")
-    burst = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS)
-    (multi, multi_s) = seconds_of(lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST))
-    check(multi == got, f"step(n_tokens={SERVE_BURST}): the tokens of single steps, "
-          f"{n_out / multi_s:.0f} tokens/s in {burst.engine_steps} engine steps [{smi}]")
+    # graphed: a call one replay of a SERVE_BURST-step graph (fewer steps where
+    # every row's headroom is below it), the picker inside
+    burst = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS,
+                         cuda_graph=True)
+    admit, adm_s = burst._admit_one, [0.0]
+
+    def timed_admit():  # an admission's wall: its prefill, pick and copy to the host
+        t0 = time.perf_counter()
+        out = admit()
+        adm_s[0] += time.perf_counter() - t0
+        return out
+
+    burst._admit_one = timed_admit
+    with captures() as caps:
+        (multi, multi_s), counts = counted(lambda: seconds_of(
+            lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST)))
+    cap_s = sum(c for c, _ in caps)
+    steps_b = burst.engine_steps
+    serve_all(burst, jobs[:SERVE_MAX_BATCH])  # the single step's graph captured too
+    steady = {}
+    for k in (1, SERVE_BURST):  # every graph captured: single steps, then bursts
+        adm_s[0] = 0.0
+        out, secs = seconds_of(lambda: serve_all(burst, jobs, n_tokens=k))
+        steady[k] = (out == got, n_out / secs, 100 * adm_s[0] / secs)
+    busy_b, wall_b = busy_share(lambda: serve_all(burst, short, n_tokens=SERVE_BURST))
+    check(multi == got and all(ok for ok, _, _ in steady.values()) and counts == none,
+          f"step(n_tokens={SERVE_BURST}) graphed: the tokens of single steps, "
+          f"{n_out / multi_s:.0f} tokens/s in {steps_b} engine steps "
+          f"({n_out / (multi_s - cap_s):.0f} without its {len(caps)} captures' {cap_s:.3f} s; "
+          f"graphs (steps, form) "
+          f"{sorted(burst._graph.graphs)}), busy {100 * busy_b:.1f}% of {wall_b:.1f} ms over "
+          f"{SERVE_MAX_BATCH} requests of 16 tokens (profiled); every graph captured, the graphed "
+          f"single steps {steady[1][1]:.0f} and the bursts {steady[SERVE_BURST][1]:.0f} tokens/s, the "
+          f"admissions {steady[1][2]:.1f}% and {steady[SERVE_BURST][2]:.1f}% of the wall; kernel "
+          f"launches {launched(counts) or 'none'} [{smi}]")
     some = jobs[:SERVE_MAX_BATCH]
     chunked = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, chunk_prefill=SERVE_CHUNK)
     got_c = serve_all(chunked, some)
@@ -2557,6 +2598,31 @@ def serving_phases(smi):
           f"({WHISPER_SERVE_CLIPS} x {n}); its admissions, one graph each with K1 under "
           f"capture, launch K1 {g['counts']['flash_attention']} times, replays counted "
           f"({wcfg.n_layer_enc} an admission)")
+
+    # graphed step(n_tokens=SERVE_BURST): one replay of min(SERVE_BURST, the least
+    # budget, the least window room) steps a call
+    wb = WhisperServingEngine(wm, None, max_batch=WHISPER_SERVE_MB, bos_token=1, cuda_graph=True)
+    with captures() as caps:
+        (res_b, b_s), counts_b = counted(lambda: seconds_of(lambda: [
+            wb.submit(m, n) for m in mels] and wb.run(n_tokens=SERVE_BURST)))
+    got_b = torch.tensor([res_b[r] for r in sorted(res_b)], device="cuda")
+    steps_b, replays_b = wb.engine_steps, wb._step_graph.calls
+    wrates = {}
+    for k in (1, 1, SERVE_BURST):  # the single step's graph captured, then both timed
+        base = wb._next_rid
+        res_k, secs = seconds_of(lambda: [wb.submit(m, n) for m in mels]
+                                 and wb.run(n_tokens=k))
+        wrates[k] = (all(res_k[base + i] == got_b[i].tolist() for i in range(len(mels))),
+                     WHISPER_SERVE_CLIPS * n / secs)
+    check(torch.equal(got_b, g["outs"][0]) and counts_b == {**none, "flash_attention": want_k1}
+          and all(ok for ok, _ in wrates.values()),
+          f"Whisper_20M_serve step(n_tokens={SERVE_BURST}) graphed: the graphed single steps' "
+          f"tokens, {WHISPER_SERVE_CLIPS * n / b_s:.0f} tokens/s in {steps_b} engine steps "
+          f"and {replays_b} step replays (graphs {sorted(wb._step_graph.graphs)}; "
+          f"{len(caps)} captures {sum(c for c, _ in caps):.3f} s); every graph captured, single "
+          f"steps {wrates[1][1]:.0f} and bursts {wrates[SERVE_BURST][1]:.0f} tokens/s; K1 "
+          f"{counts_b['flash_attention']} launches ({wcfg.n_layer_enc} an admission) [{smi}]")
+    del wb
 
     def probe(graphed):  # a fresh engine with 3 admissions queued, run under the profile
         def setup():
@@ -3068,17 +3134,18 @@ def paged_phase(smi, none):
     (want, secs), counts = counted(lambda: seconds_of(lambda: serve_all(eng, jobs)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     margins = lp_margins(eng, range(base, base + SERVE_JOBS))
-    busy, wall = busy_share(lambda: serve_all(eng, jobs[:SERVE_MAX_BATCH]))
+    wave = jobs[:SERVE_MAX_BATCH]
+    # over 8 requests of 16 tokens: the profiler's parse of longer calls takes seconds
+    busy, wall = busy_share(lambda: serve_all(eng, [(p, 16) for p, _ in wave]))
     n_out = sum(len(g) for g in want)
     check(counts == none and all(len(g) == SERVE_NEW for g in want),
           f"dense: {n_out} tokens in {secs:.3f} s, {n_out / secs:.1f} tokens/s (top-2 logprobs "
           f"tracked), {eng.engine_steps} engine steps, busy {100 * busy:.1f}% of {wall:.1f} ms "
-          f"over {SERVE_MAX_BATCH} requests (profiled), peak {peak:.3f} GiB; kernel launches "
-          f"{launched(counts) or 'none'} (K5 0) [{smi}]")
+          f"over {SERVE_MAX_BATCH} requests of 16 tokens (profiled), peak {peak:.3f} GiB; kernel "
+          f"launches {launched(counts) or 'none'} (K5 0) [{smi}]")
     want = torch.tensor(want, device="cuda")
     del eng
     big, small = (f"paged {n}" for n in PAGED_PAGES)
-    wave = jobs[:SERVE_MAX_BATCH]
     spare = PagedDecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[0],
                               page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS)
     single = torch.tensor(serve_all(spare, wave), device="cuda")
@@ -3089,14 +3156,16 @@ def paged_phase(smi, none):
           f"{SERVE_MAX_BATCH} rows without one; "
           f"{int((single == want[:SERVE_MAX_BATCH]).all(1).sum())} equal throughout)")
     burst = PagedDecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[0],
-                              page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS)
-    (multi, multi_s), counts = counted(lambda: seconds_of(
-        lambda: serve_all(burst, wave, n_tokens=SERVE_BURST)))
+                              page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS, cuda_graph=True)
+    with captures() as caps:
+        (multi, multi_s), counts = counted(lambda: seconds_of(
+            lambda: serve_all(burst, wave, n_tokens=SERVE_BURST)))
     check(torch.equal(torch.tensor(multi, device="cuda"), single) and counts == none,
-          f"{big} step(n_tokens={SERVE_BURST}), {SERVE_MAX_BATCH} of the jobs: the tokens of "
-          f"single steps, {SERVE_MAX_BATCH * SERVE_NEW / multi_s:.1f} tokens/s in "
-          f"{burst.engine_steps} engine steps, peak_pages_in_use {burst.peak_pages_in_use} "
-          f"[{smi}]")
+          f"{big} step(n_tokens={SERVE_BURST}) graphed, {SERVE_MAX_BATCH} of the jobs: the tokens "
+          f"of single steps, {SERVE_MAX_BATCH * SERVE_NEW / multi_s:.1f} tokens/s in "
+          f"{burst.engine_steps} engine steps, one replay a burst (graphs "
+          f"{sorted(burst._graph.graphs)}; {len(caps)} captures {sum(c for c, _ in caps):.3f} s), "
+          f"peak_pages_in_use {burst.peak_pages_in_use} [{smi}]")
     del spare, burst
 
     # half the capacity, eager and graphed, on the last jobs: they preempt
@@ -4119,6 +4188,16 @@ GRAPH_KERNELS = {"K1": ("flash_fwd",), "K2": ("edgewise_fwd", "LowrankGate"),
                  "K2b": ("edgewise_bwd",), "K3": ("edgewise_fwd", "DenseGate"),
                  "K4": ("multihop",), "K5": ("quartet",)}
 GRAPH_SERVE_JOBS = 16  # of phase 14a's jobs
+# the sampled pair's options over those jobs, interleaved (the profiled 8
+# hold each kind): 8 greedy, 4 unseeded, 2 seeded top-p, 2 seeded penalised
+GRAPH_SERVE_SAMPLED = [
+    {}, dict(temperature=0.8, top_k=50), {}, dict(temperature=1.0, top_p=0.9, seed=900), {},
+    dict(temperature=0.8, top_k=50), {},
+    dict(temperature=1.0, repetition_penalty=1.3, min_p=0.05, seed=910), {},
+    dict(temperature=0.8, top_k=50), {}, dict(temperature=1.0, top_p=0.9, seed=901), {},
+    dict(temperature=0.8, top_k=50), {},
+    dict(temperature=1.0, repetition_penalty=1.3, min_p=0.05, seed=911)]
+GRAPH_SERVE_GEN = 191  # the sampled pair's engine generator seed
 GRAPH_TRAINER_STEPS = 3  # Trainer.step calls of each form, then as many timed
 GRAPH_EVAL = ("A", "E", "E_dense", "D")  # the eval pairs' models
 GRAPH_EVAL_PAD = 56  # rows of the eval pair's second batch masked out
@@ -4487,6 +4566,40 @@ def one_dispatch_phase(smi):
     check(g["outs"] == e["outs"] and g["snap"] == e["snap"],
           f"Serve_6x512: every request's greedy tokens from the graphed engine equal the eager "
           f"engine's ({GRAPH_SERVE_JOBS} requests, {n_tok} tokens, {e['snap']} engine steps)")
+
+    def serve_kw(eng, these, n_tokens):
+        rids = [eng.submit(p, n, **kw) for (p, n), kw in zip(these, GRAPH_SERVE_SAMPLED)]
+        res = eng.run(n_tokens=n_tokens)
+        return [res[r] for r in rids]
+
+    def sampled(graphed, n_tokens=1):  # the state: steps and the generator's offset
+        eng = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH,
+                           prefill_buckets=SERVE_BUCKETS, cuda_graph=graphed,
+                           generator=cuda_generator(GRAPH_SERVE_GEN))
+        return ((lambda: serve_kw(eng, jobs, n_tokens)),
+                lambda: (eng.engine_steps, eng._gen.get_offset()),
+                lambda: serve_kw(eng, [(p, 16) for p, _ in jobs[:SERVE_MAX_BATCH]], n_tokens))
+
+    e, g = _graph_pair(f"Serve_6x512 DecodeEngine sampled, {GRAPH_SERVE_JOBS} of 14a's jobs "
+                       "(8 greedy, 4 unseeded, 4 seeded)", sampled, 1, 0, lambda st: st[0],
+                       "tokens", n_tok, smi)
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"],
+          f"Serve_6x512 sampled: every request's tokens from the graphed engine (the picker "
+          f"captured) equal the eager engine's; engine steps and the generator's offset "
+          f"{g['snap']} equal (eager {e['snap']})")
+    bursts = {}
+    for graphed in (False, True):
+        call, state, _ = sampled(graphed, SERVE_BURST)
+        with captures() as caps:
+            out, secs = seconds_of(call)
+        bursts[graphed] = (out, state(), secs, caps)
+    (b_out, b_state, b_s, _), (gb_out, gb_state, gb_s, gb_caps) = bursts[False], bursts[True]
+    check(gb_out == b_out and gb_state == b_state,
+          f"Serve_6x512 sampled step(n_tokens={SERVE_BURST}): the graphed engine's tokens, engine "
+          f"steps and generator offset {gb_state} equal the eager engine's {b_state}; "
+          f"{n_tok / b_s:.0f} eager, {n_tok / gb_s:.0f} graphed tokens/s (its {len(gb_caps)} "
+          f"captures {sum(c for c, _ in gb_caps):.3f} s; "
+          f"{n_tok / (gb_s - sum(c for c, _ in gb_caps)):.0f} without them) [{smi}]")
     del model, params
 
     # The 170M's exact sampler at block 512: K5 fp32 streaming under capture.
@@ -4552,7 +4665,7 @@ def one_dispatch_phase(smi):
             f"{t_cached / t_full:.3f}; whisper_cached_min_ctx "
             f"{kernel_switches.whisper_cached_min_ctx} [{smi}]")
     del model, mel
-    say(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s (its budget 75 s)")
+    say(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s (its budget 95 s)")
 
 
 def later_phases(phases, smi) -> int:

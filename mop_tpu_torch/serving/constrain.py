@@ -4,7 +4,7 @@ A constraint is a deterministic finite automaton over TOKEN IDS. The
 engine keeps each constrained request's DFA state host-side and folds a
 ``0 / -inf`` additive mask for the state's allowed tokens into that
 slot's logit-bias row — the same per-row bias the batched sampler
-already consumes (`engine._pick_rows` applies it before the greedy
+already consumes (`engine.DecodeEngine._pick` applies it before the greedy
 argmax AND before sampling), so constrained, unconstrained, and
 differently-constrained requests all batch into one fixed-shape decode
 step with zero recompilation. The mask also applies to the admission

@@ -3,7 +3,7 @@ of ``mop_tpu/serving/engine.py`` (``DecodeEngine``, ``SpecDecodeEngine``,
 ``decode_step_rows``, ``decode_chunk_rows``, ``lora_params_view``); the two
 per-row steps live in ``models.generate``, whose single-stream
 ``decode_step`` / ``decode_chunk`` are their shared-length case. A subclass
-with another cache layout replaces ``_make_cache`` and ``_step_logits``
+with another cache layout replaces ``_make_cache`` and ``_slot_logits``
 (``serving.paged``); ``_on_admit`` runs after each admission.
 
 - The KV cache is a fixed pool of ``max_batch`` slots (the
@@ -20,10 +20,16 @@ with another cache layout replaces ``_make_cache`` and ``_step_logits``
 Host-side control (admission, retirement, EOS, stops, DFAs, beams) runs
 between device steps in numpy, as in the JAX engine; each step brings its
 tokens (and the logprob and beam blocks when they are on) back in one
-device-to-host copy. The step composes plain torch ops and launches no
-kernel: the Quartet scores of a cached row standardize over its live prefix,
-not over K5's whole window. Params are ``decode_params(model)`` or its
-``ops.quant`` int8 / int4 form; the engine runs on their device.
+device-to-host copy. The step reads the per-slot state from device buffers
+(``DeviceMirror``: the sampling columns, seeds, output counts, lengths and
+the rows that advance), written where host control changes a slot, and
+advances it in place: the decode, the picker, the count update and the
+extras are one body, run eagerly or as one CUDA graph (JAX's ``_step``), and
+``step(n_tokens=k)`` may run k of them as one graph (JAX's ``_mstep``). The
+step composes plain torch ops and launches no kernel: the Quartet scores of
+a cached row standardize over its live prefix, not over K5's whole window.
+Params are ``decode_params(model)`` or its ``ops.quant`` int8 / int4 form;
+the engine runs on their device.
 
 Tensor parallel: a model through ``parallel.tp.tp_shard_params`` serves
 with every process of its model axis running the same engine on the same
@@ -49,7 +55,7 @@ from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode
                                decode_step_rows, init_decode_cache, local_heads, model_n_views,
                                prefill, prefill_padded)
 from ..parallel.mesh import MODEL_AXIS
-from ..utils.cuda_graph import StepGraph, require_graph
+from ..utils.cuda_graph import GraphPerKey, StepGraph, require_graph
 from .constrain import mask_row
 
 Tensor = torch.Tensor
@@ -112,36 +118,51 @@ def _pool_keys(cache: dict) -> Tuple[str, ...]:
     return tuple(k for k in ("k", "k2", "v", "k_s", "k2_s", "v_s", "mv") if k in cache)
 
 
-def _to_host(*ts: Tensor) -> List[np.ndarray]:
-    """The tensors on the host in ONE device-to-host copy: each is packed as
-    int32 words (floats by their bits) into one buffer, then split back."""
-    words = [(t.float().contiguous().view(torch.int32) if t.is_floating_point()
-              else t.to(torch.int32)).reshape(-1) for t in ts]
-    flat = torch.cat(words).cpu().numpy()
+def _pack(*ts: Tensor) -> Tensor:
+    """The tensors as one flat buffer of int32 words (floats by their bits),
+    for one device-to-host copy; ``_layout`` gives ``_unpack`` their form."""
+    return torch.cat([(t.float().contiguous().view(torch.int32) if t.is_floating_point()
+                       else t.to(torch.int32)).reshape(-1) for t in ts])
+
+
+def _layout(*ts: Tensor) -> List[tuple]:
+    return [(tuple(t.shape), t.is_floating_point()) for t in ts]
+
+
+def _unpack(flat: np.ndarray, layout: List[tuple]) -> List[np.ndarray]:
+    """``_pack``'s buffer, on the host, split back into arrays (int64, or
+    float32 where the tensor was floating)."""
     out, at = [], 0
-    for t, w in zip(ts, words):
-        part = flat[at:at + w.numel()].reshape(t.shape)
-        out.append(part.view(np.float32) if t.is_floating_point() else part.astype(np.int64))
-        at += w.numel()
+    for shape, floating in layout:
+        n = int(np.prod(shape))
+        part = flat[at:at + n].reshape(shape)
+        out.append(part.view(np.float32) if floating else part.astype(np.int64))
+        at += n
     return out
 
 
-class DeviceMirror:
-    """A (B,) device copy of a host per-slot array that host control changes
-    a few slots at a time (admission, retirement) and a device step advances
-    itself: ``sync(host)`` writes the slots where ``host`` differs from what
-    the device holds, one ``fill_`` each (no tensor made from host data),
-    and ``advanced(host)`` records that the device computed ``host``. A
-    captured step reads ``dev`` by its address."""
+def _to_host(*ts: Tensor) -> List[np.ndarray]:
+    """The tensors on the host in ONE device-to-host copy."""
+    return _unpack(_pack(*ts).cpu().numpy(), _layout(*ts))
 
-    def __init__(self, n: int, dtype: torch.dtype, device):
-        self.dev = torch.zeros((n,), dtype=dtype, device=device)
-        self._held = np.zeros((n,), bool if dtype == torch.bool else np.int64)
+
+class DeviceMirror:
+    """A device copy of a host per-slot array ((B,), or (C, B) columns) that
+    host control changes a few slots at a time (admission, retirement) and a
+    device step advances itself: ``sync(host)`` writes the entries where
+    ``host`` differs from what the device holds, one ``fill_`` each (no
+    tensor made from host data), and ``advanced(host)`` records that the
+    device computed ``host``. A captured step reads ``dev`` by its address."""
+
+    def __init__(self, shape, dtype: torch.dtype, device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self._held = np.zeros(shape, bool if dtype == torch.bool else
+                              np.float32 if dtype.is_floating_point else np.int64)
 
     def sync(self, host: np.ndarray) -> None:
-        for s in np.nonzero(host != self._held)[0]:
-            self.dev[int(s)].fill_(host[s].item())
-        self._held = host.copy()
+        for idx in zip(*np.nonzero(host != self._held)):
+            self.dev[tuple(int(i) for i in idx)].fill_(host[idx].item())
+        self._held = np.array(host, dtype=self._held.dtype)
 
     def advanced(self, host: np.ndarray) -> None:
         self._held = host.copy()
@@ -151,17 +172,67 @@ class DeviceMirror:
 _SP = ("temp", "topk", "topp", "minp", "rep", "pres", "freq")
 
 
-def _seeded_generator(seed: int, ntok: int, device) -> torch.Generator:
-    """A seeded request's draw for its ``ntok``-th output token: a generator
-    seeded from (seed, ntok) alone, so that the draw depends on neither
-    co-batched traffic nor the engine's own generator. The pair is mixed
-    (splitmix64) into 32 bits, all that the CPU generator keeps of a seed."""
-    z = ((int(seed) << 32) + int(ntok) + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    gen = torch.Generator(device=device)
-    gen.manual_seed((z ^ (z >> 31)) & 0xFFFFFFFF)
-    return gen
+# the picker's host-known forms, each a graph of its own: no kept row
+# samples (no sort, no draw); kept rows sample, none from the engine's
+# generator; an unseeded kept row samples (the (B, V) block is drawn)
+GREEDY, SAMPLE, DRAW = "greedy", "sample", "draw"
+
+
+def _signed(c: int) -> int:
+    """A 64-bit constant as the int64 that holds its bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLDEN, _MIX1, _MIX2 = (_signed(c) for c in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
+                                              0x94D049BB133111EB))
+
+
+def _shr(z: Tensor, n: int) -> Tensor:
+    """The logical right shift of int64 words by ``n``."""
+    return (z >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix64(z: Tensor) -> Tensor:
+    """splitmix64's finalizer over int64 words (products wrap mod 2**64)."""
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+def seeded_gumbel(seeds: Tensor, ntoks: Tensor, vocab: int) -> Tensor:
+    """(B, vocab) standard Gumbel noise, each row a pure function of its
+    (seed, ntok) and each entry of its token index: a seeded request's draw
+    for its ``ntok``-th output token, whatever the co-batched traffic, the
+    engine's generator or the step's form (eager, a graph, a burst). Row b's
+    key is splitmix64 of ``seed << 32 | ntok``; entry v is splitmix64's
+    (v + 1)-th output from that key, whose top 24 bits give u in (0, 1)."""
+    key = _mix64((seeds << 32) + ntoks + _GOLDEN)
+    idx = torch.arange(1, vocab + 1, dtype=torch.long, device=seeds.device)
+    z = _mix64(key[:, None] + idx[None, :] * _GOLDEN)
+    u = (_shr(z, 40).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _generator_mark(gen: torch.Generator):
+    """Where ``gen`` stands: its Philox offset on a CUDA device, its state
+    on the CPU."""
+    return gen.get_offset() if gen.device.type == "cuda" else gen.get_state()
+
+
+def _rewind(gen: torch.Generator, mark, done: int, wanted: int, shape) -> None:
+    """Leave ``gen``, which drew ``done`` blocks of ``shape`` since ``mark``,
+    where ``wanted`` such draws from ``mark`` leave it: on a CUDA device its
+    offset moved by the measured advance of one block, on the CPU its state
+    drawn forward again."""
+    if wanted == done:
+        return
+    if gen.device.type == "cuda":
+        per = (gen.get_offset() - mark) // done
+        gen.set_offset(mark + wanted * per)
+    else:
+        gen.set_state(mark)
+        for _ in range(wanted):
+            torch.rand(shape, generator=gen)
 
 
 def _penalized(logits: Tensor, sp: Dict[str, Tensor], ocounts: Tensor, pseen: Tensor,
@@ -244,21 +315,29 @@ class DecodeEngine:
       adjacent slots; after each step the host picks the group's top k of
       its k x k candidates and the group's cache rows are permuted by parent.
     - ``generator``: the ``torch.Generator`` unseeded sampled rows draw from
-      (a fresh one seeded 0 when None). A request's ``seed`` gives its row a
-      generator of its own per output token instead.
+      (a fresh one seeded 0 when None). A request's ``seed`` gives its row
+      Gumbel noise that is a function of (seed, output position) alone
+      instead (``seeded_gumbel``).
     - ``cache_sharding``: None, or ``Sharding(mesh, HEAD_SPLIT)``, the pools
       split by head over the model axis. A tensor-parallel model's pools
       hold its heads either way (the module docstring); any other spec
       raises.
-    - ``cuda_graph``: the batched step (``_step_logits``, the cached step of
-      every slot) runs as one CUDA graph over the static pools, the tokens
-      and lengths copied into static buffers before each replay; the
-      picker, host control, beams and the device-to-host copy stay eager.
-      On a CUDA device only; a tensor-parallel model (its all-reduces)
-      raises, as does a subclass that does not declare ``_captures_step``
-      in its own body (``PagedDecodeEngine`` and ``SpecDecodeEngine``
-      declare it). Per-row LoRA is captured: its factor rows are buffers
-      written in place at admission.
+    - ``cuda_graph``: the batched step (``_advance``: the cached step of
+      every slot, the picker, the ``adv`` select, the count update and the
+      logprob / beam extras) runs as one CUDA graph over the static pools
+      and the device per-slot state, one graph per host-known form of the
+      picker (greedy, sampled, drawing the engine generator's block; all
+      captured into one pool, the generator registered with each), then
+      one device-to-host copy. ``step(n_tokens=k)`` replays one graph of k
+      steps (one per k) where no constrained row and no beam group is
+      live, k capped at the largest headroom; its tokens are those of k
+      ``step()`` calls and the generator is left where they leave it.
+      Host control and the beams' ranking stay eager. On a CUDA device
+      only; a tensor-parallel model (its all-reduces) raises, as does a
+      subclass that does not declare ``_captures_step`` in its own body
+      (``PagedDecodeEngine`` and ``SpecDecodeEngine`` declare it). Per-row
+      LoRA is captured: its factor rows are buffers written in place at
+      admission.
     """
 
     # ``cuda_graph=True`` captures this class's step: read from the class's
@@ -331,9 +410,17 @@ class DecodeEngine:
                     "freq": np.zeros(max_batch, np.float32)}
         self._slot_eos = np.full((max_batch,), -1, np.int64)  # -1: none
         self._slot_seed = np.full((max_batch,), -1, np.int64)  # -1: unseeded
+        # each slot's output position, the seeded draw's counter (beam
+        # slots, which draw nothing, count their steps too)
         self._slot_ntok = np.zeros((max_batch,), np.int64)
         self._vocab = model.wte.num_embeddings
         dev = self.device
+        # what the step reads of each slot, on the device (``_sync_slots``)
+        self._dsp = DeviceMirror((len(_SP), max_batch), torch.float32, dev)
+        self._dseed = DeviceMirror((max_batch,), torch.long, dev)
+        self._dntok = DeviceMirror((max_batch,), torch.long, dev)
+        self._dlens = DeviceMirror((max_batch,), torch.long, dev)
+        self._dadv = DeviceMirror((max_batch,), torch.bool, dev)
         self._ocounts = torch.zeros((max_batch, self._vocab), dtype=torch.int32, device=dev)
         self._pseen = torch.zeros((max_batch, self._vocab), dtype=torch.bool, device=dev)
         self._lbias = torch.zeros((max_batch, self._vocab), dtype=torch.float32, device=dev)
@@ -368,10 +455,15 @@ class DecodeEngine:
             raise ValueError(f"chunk_prefill {chunk_prefill} must be in "
                              f"(0, block_size={self.block_size}]")
         self._chunk_state: Dict[int, dict] = {}
-        # the batched step over static token and length buffers, captured by
-        # a thread of the server next to others: thread-local capture errors
-        self._graph = (StepGraph(self._captured, self.device,
-                                 capture_error_mode="thread_local") if cuda_graph else None)
+        self._layouts: Dict[tuple, List[tuple]] = {}  # (steps, form) -> _steps' outputs
+        self._graph = self._make_graph() if cuda_graph else None
+
+    def _make_graph(self):
+        """The captured step: one graph per (steps, picker form), captured
+        by a thread of the server next to others (thread-local capture
+        errors)."""
+        return GraphPerKey(lambda key: self._steps(*key), self.device, generators=(self._gen,),
+                           capture_error_mode="thread_local")
 
     def _make_cache(self, cfg, max_batch: int, kv_dtype: torch.dtype) -> Optional[dict]:
         """The per-slot KV pools. A subclass with another cache layout
@@ -490,34 +582,55 @@ class DecodeEngine:
     def _lp_entry(lp_h, tv_h, ti_h, idx: int):
         return (float(lp_h[idx]), [(int(t), float(v)) for t, v in zip(ti_h[idx], tv_h[idx])])
 
-    def _pick_rows(self, logits: Tensor, slots: Sequence[int], ocounts: Tensor, pseen: Tensor,
-                   lbias: Tensor, draw: Sequence[int]) -> Tensor:
-        """The per-row sampler over the rows of ``slots`` (their parameters
-        from the slot columns): greedy where the temperature is 0, else a
-        draw from ``sampling_dist``'s masked distribution by Gumbel noise.
-        Only the rows of ``draw`` (the slots whose token is kept) are
-        sampled; the others, whose tokens are thrown away, take the greedy
-        pick. A seeded row's noise comes from its own (seed, ntok)
-        generator; the unseeded rows share one (B, V) block from the
-        engine's generator, drawn only when one of them samples."""
-        idx = np.asarray(slots)
-        temp = self._sp["temp"][idx]
-        cols = np.stack([self._sp[k][idx] for k in _SP])  # one host-to-device copy
-        sp = dict(zip(_SP, torch.from_numpy(cols).to(self.device)))
-        samp = (temp > 0) & np.isin(idx, np.asarray(list(draw), np.int64))
-        if not samp.any():  # no kept row samples: no sort, no draw
-            return self._agree(_penalized(logits, sp, ocounts, pseen, lbias).argmax(-1))
-        greedy, order, masked = sampling_dist(logits, sp, ocounts, pseen, lbias)
-        noise = torch.zeros_like(masked)
-        seeds = self._slot_seed[idx]
-        if (samp & (seeds < 0)).any():
-            noise = _gumbel(masked.shape, self._gen, self.device)
-        for j in np.nonzero(samp & (seeds >= 0))[0]:
-            gen = _seeded_generator(seeds[j], self._slot_ntok[idx[j]], self.device)
-            noise[j] = _gumbel((masked.shape[1],), gen, self.device)
+    def _sync_slots(self, adv: Optional[np.ndarray] = None) -> None:
+        """Write what host control changed of the per-slot state into the
+        device buffers the step reads: the sampling columns, seeds, output
+        counts and lengths, and ``adv`` (B,) the rows that advance."""
+        self._dsp.sync(np.stack([self._sp[k] for k in _SP]))
+        self._dseed.sync(self._slot_seed)
+        self._dntok.sync(self._slot_ntok)
+        self._dlens.sync(self._lens)
+        if adv is not None:
+            self._dadv.sync(adv)
+
+    def _cols(self, rows=slice(None)) -> Dict[str, Tensor]:
+        """The picker's per-slot device columns (``_SP``, ``seed``,
+        ``ntok``) of the slots ``rows``."""
+        cols = {k: self._dsp.dev[i, rows] for i, k in enumerate(_SP)}
+        cols["seed"] = self._dseed.dev[rows]
+        cols["ntok"] = self._dntok.dev[rows]
+        return cols
+
+    def _form(self, kept: np.ndarray) -> str:
+        """The picker's form for the slots ``kept`` (B,) whose tokens are
+        kept, from the host columns."""
+        samp = kept & (self._sp["temp"] > 0)
+        if not samp.any():
+            return GREEDY
+        return DRAW if (samp & (self._slot_seed < 0)).any() else SAMPLE
+
+    def _pick(self, logits: Tensor, cols: Dict[str, Tensor], kept: Optional[Tensor], form: str,
+              ocounts: Tensor, pseen: Tensor, lbias: Tensor) -> Tensor:
+        """The per-row sampler over rows with the columns ``cols``: greedy
+        where the temperature is 0, else a draw from ``sampling_dist``'s
+        masked distribution by Gumbel noise. Only the rows of ``kept`` (a
+        bool tensor; None: all) are sampled; the others, whose tokens are
+        thrown away, take the greedy pick. A seeded row's noise is
+        ``seeded_gumbel`` of its (seed, ntok); the unseeded rows share one
+        (B, V) block from the engine's generator, drawn in the ``DRAW``
+        form only (``_form``: an unseeded kept row samples)."""
+        if form == GREEDY:  # no sort, no draw
+            return self._agree(_penalized(logits, cols, ocounts, pseen, lbias).argmax(-1))
+        greedy, order, masked = sampling_dist(logits, cols, ocounts, pseen, lbias)
+        seeds = cols["seed"]
+        noise = seeded_gumbel(seeds.clamp_min(0), cols["ntok"], masked.shape[1])
+        if form == DRAW:
+            noise = torch.where(seeds[:, None] >= 0, noise,
+                                _gumbel(masked.shape, self._gen, self.device))
         choice = (masked + noise).argmax(-1, keepdim=True)
         sampled = order.gather(-1, choice)[:, 0]
-        return self._agree(torch.where(torch.from_numpy(samp).to(self.device), sampled, greedy))
+        samp = cols["temp"] > 0
+        return self._agree(torch.where(samp if kept is None else samp & kept, sampled, greedy))
 
     # ---------------- public API ----------------
 
@@ -742,14 +855,16 @@ class DecodeEngine:
         """One engine iteration: admit whatever fits (an admission emits the
         prefill's first token; a request whose budget is 1 or whose first
         token is EOS completes there), feed one chunk of each chunked
-        prefill, then advance every live row ``n_tokens`` tokens, one
-        batched step at a time. Returns ``{rid: [tokens]}``.
+        prefill, then advance every live row ``n_tokens`` tokens. Returns
+        ``{rid: [tokens]}``.
 
-        ``n_tokens = k`` runs k single decode steps back to back, each with
-        its own host control, so its tokens are those of k ``step()`` calls
-        for every row (greedy, seeded and unseeded sampled, constrained),
-        admission apart: it happens once per call. A row that retires within
-        the k steps stops there."""
+        ``n_tokens = k`` gives the tokens of k ``step()`` calls for every
+        row (greedy, seeded and unseeded sampled, constrained), admission
+        apart: it happens once per call. A row that retires within the k
+        steps stops there. Eagerly, and under ``cuda_graph`` while a
+        constrained row or a beam group is live, that is k single steps
+        with host control between; otherwise, under ``cuda_graph``, one
+        replay of a k-step graph (``_burst_len``)."""
         self.engine_steps += 1
         emitted: Dict[int, List[int]] = {}
         emit = lambda *a: self._emit_token(emitted, *a)  # noqa: E731
@@ -763,62 +878,132 @@ class DecodeEngine:
             fin = self._chunk_advance(slot)
             if fin is not None:
                 emit(*fin)
+        left = max(1, int(n_tokens))
         with torch.no_grad():
-            for _ in range(max(1, int(n_tokens))):
+            while left > 0:
                 active = [s for s, r in enumerate(self._slot_rid)
                           if r >= 0 and s not in self._chunk_state]
                 if not active:
                     break
-                self._decode_once(active, emit)
+                k = self._burst_len(left, active)
+                if k > 1:
+                    self._decode_burst(active, k, emit)
+                else:
+                    self._decode_once(active, emit)
+                left -= k
         for rid, toks_f in self._beam_finalized:
             emitted.setdefault(rid, []).extend(toks_f)
         self._beam_finalized.clear()
         return emitted
 
+    def _burst_len(self, n_tokens: int, active: List[int]) -> int:
+        """The steps the next replay takes: under ``cuda_graph`` with no
+        constrained row and no beam group live, ``n_tokens`` capped at the
+        largest headroom (budget, window) of the rows, as JAX's
+        ``_multi_k``, so that once the burst ends every row has retired or
+        had them all; else 1."""
+        if self._graph is None or n_tokens < 2 or self._beam_groups or any(
+                self._slot_constraint[s] is not None for s in active):
+            return 1
+        headroom = max(min(int(self._budget[s]), self.block_size - int(self._lens[s]))
+                       for s in active)
+        return min(n_tokens, max(headroom, 1))
+
+    def _run(self, k: int, adv: np.ndarray):
+        """k batched steps on the device of the rows ``adv`` (B,), the
+        others held; one replay under ``cuda_graph``, its output one buffer.
+        Returns the picker's form and the host copies, in one
+        device-to-host copy, of the tokens
+        (k, B) and the extras (k, ...); the device lengths and output
+        positions are recorded as advanced (rows at the window's end held)."""
+        self._sync_slots(adv)
+        form = self._form(adv)
+        lens0, ntok0 = self._lens.copy(), self._slot_ntok.copy()
+        flat = self._graph((k, form)) if self._graph is not None else self._steps(k, form)
+        toks, *rest = _unpack(flat.cpu().numpy(), self._layouts[(k, form)])
+        steps = np.where(adv, np.minimum(lens0 + k, self.block_size) - lens0, 0)
+        self._dlens.advanced(lens0 + steps)
+        self._dntok.advanced(ntok0 + steps)
+        return form, toks, rest
+
+    def _steps(self, k: int, form: str) -> Tensor:
+        """``_advance`` k times, its outputs stacked (k, ...) and packed for
+        the one copy to the host (``_pack``; their layout recorded by the
+        Python run that a graph captures): what a graph of k steps captures
+        (JAX's ``_mstep`` scan)."""
+        outs = [torch.stack(o) for o in zip(*(self._advance(form) for _ in range(k)))]
+        self._layouts[(k, form)] = _layout(*outs)
+        return _pack(*outs)
+
+    def _advance(self, form: str) -> tuple:
+        """One batched step in place over the device state: each row's token
+        at its device length, the picker in ``form``; the rows of ``adv``
+        below the window's end advance (token, length, output position,
+        output-token counts), the others are held, their token kept and
+        their write at their length overwritten by their next real feed (a
+        held row's length masks it out). Returns (tokens, *``_lp_of``,
+        *``_beam_tops``)."""
+        lens, tokens = self._dlens.dev, self._tokens
+        go = self._dadv.dev & (lens < self.block_size)
+        logits = self._slot_logits(tokens, lens)
+        nxt = self._pick(logits, self._cols(), go, form, self._ocounts, self._pseen, self._lbias)
+        nxt = torch.where(go, nxt, tokens)
+        tokens.copy_(nxt)
+        lens.add_(go)
+        self._dntok.dev.add_(go)
+        self._ocounts.scatter_add_(1, nxt[:, None], go[:, None].to(torch.int32))
+        return (nxt,) + self._lp_of(logits, nxt) + self._beam_tops(logits)
+
     def _decode_once(self, active: List[int], emit) -> None:
         """One batched decode step over the pool. Rows not in ``active``
-        (free slots, chunk-pending prompts) are held: their token, length and
-        counts stay, and the step's write at their length is overwritten by
-        their next real feed (a held row's length masks it out)."""
-        dev = self.device
-        logits = self._step_logits(torch.from_numpy(self._lens).to(dev))
-        adv_h = np.zeros((self.max_batch,), bool)
-        adv_h[active] = True
-        adv = torch.from_numpy(adv_h).to(dev)
-        nxt = self._pick_rows(logits, range(self.max_batch), self._ocounts, self._pseen,
-                              self._lbias, active)
-        nxt = torch.where(adv, nxt, self._tokens)
-        self._tokens = nxt
-        self._ocounts.index_put_((torch.arange(self.max_batch, device=dev), nxt),
-                                 adv.to(torch.int32), accumulate=True)
-        extras = self._lp_of(logits, nxt) + self._beam_tops(logits)
-        toks, *rest = _to_host(nxt, *extras)
+        (free slots, chunk-pending prompts) are held (``_advance``)."""
+        adv = np.zeros((self.max_batch,), bool)
+        adv[active] = True
+        _, toks, rest = self._run(1, adv)
+        toks = toks[0]
+        rest = [r[0] for r in rest]
         lph = rest[:3] if self.logprobs_topk else None
         bth = rest[3:] if self.logprobs_topk else rest
         self._lens[active] += 1
         beam_slots = {s for g in self._beam_groups.values() for s in g["slots"]}
         for s in active:
             if s in beam_slots:
+                self._slot_ntok[s] += 1  # as the device counted it
                 continue
             lp = self._lp_entry(*lph, s) if lph is not None else None
             emit(s, self._slot_rid[s], int(toks[s]), int(self._lens[s]), lp)
         if self._beam_groups:
             perm, newtoks = self._beam_step_update(bth[0], bth[1], toks)
             self._permute_rows(perm)
-            self._tokens = torch.from_numpy(newtoks).to(dev)
+            self._tokens.copy_(torch.from_numpy(newtoks))
 
-    def _step_logits(self, lens: Tensor) -> Tensor:
-        """The batched step's logits (B, V), each row's new K/K2/V written at
-        its length ``lens[b]``. Under ``cuda_graph`` a replay over the static
-        buffers."""
-        if self._graph is not None:
-            return self._graph(self._tokens, lens)
-        return self._slot_logits(self._tokens, lens)
-
-    def _captured(self, *static):
-        """What ``cuda_graph`` captures: the batched step, over static token
-        and length buffers (``SpecDecodeEngine``: its round)."""
-        return self._slot_logits(*static)
+    def _decode_burst(self, rows: List[int], k: int, emit) -> None:
+        """k batched steps of ``rows`` in one replay, the others held; then
+        the host emits them step by step as k ``_decode_once`` calls would.
+        A row that retires within the burst kept advancing on the device
+        (its tokens thrown away, its writes in its own rows, pages or the
+        scratch page, its length held at the window's end). The engine's
+        generator drew its (B, V) block at every step of a ``DRAW`` burst,
+        where single steps stop drawing once no unseeded sampler lives: it
+        is left where they leave it."""
+        adv = np.zeros((self.max_batch,), bool)
+        adv[rows] = True
+        mark = _generator_mark(self._gen)
+        form, toks, rest = self._run(k, adv)
+        lph = rest[:3] if self.logprobs_topk else None
+        live, drew = list(rows), 0
+        for j in range(k):
+            if not live:
+                break
+            drew += form == DRAW and any(self._sp["temp"][s] > 0 and self._slot_seed[s] < 0
+                                         for s in live)
+            for s in list(live):
+                self._lens[s] += 1
+                lp = self._lp_entry(lph[0][j], lph[1][j], lph[2][j], s) if lph else None
+                if not emit(s, self._slot_rid[s], int(toks[j, s]), int(self._lens[s]), lp):
+                    live.remove(s)
+        if form == DRAW:
+            _rewind(self._gen, mark, k, drew, (self.max_batch, self._vocab))
 
     def _slot_logits(self, tokens: Tensor, lens: Tensor) -> Tensor:
         """The cache access a subclass replaces (``PagedDecodeEngine``)."""
@@ -890,8 +1075,13 @@ class DecodeEngine:
 
     def _pick_first(self, slot: int, logits: Tensor, oc: Tensor, seen: Tensor):
         """The request's first token from its admission logits (1, V), with
-        its slot's parameters, bias row and counts; and its logprob entry."""
-        tok0 = self._pick_rows(logits, [slot], oc, seen, self._lbias[slot:slot + 1], [slot])
+        its slot's parameters (the device columns, as the step's), bias row
+        and counts; and its logprob entry."""
+        self._sync_slots()
+        kept = np.zeros((self.max_batch,), bool)
+        kept[slot] = True
+        tok0 = self._pick(logits, self._cols(slice(slot, slot + 1)), None, self._form(kept), oc,
+                          seen, self._lbias[slot:slot + 1])
         lpx = self._lp_of(logits, tok0)
         tok0_h, *lph = _to_host(tok0, *lpx)
         lp0 = self._lp_entry(*lph, 0) if lph else None
@@ -1171,9 +1361,9 @@ class SpecDecodeEngine(DecodeEngine):
     (int8 raises, as JAX's). ``drafts_proposed`` / ``drafts_accepted``
     count the draft tokens of every round and those the target kept.
 
-    The round reads the lengths from a device buffer (``DeviceMirror``),
-    written where host control changed a slot and advanced by the round
-    itself. ``cuda_graph=True`` (a CUDA device; neither model
+    The round reads the lengths and the live rows from the engine's device
+    buffers (``_dlens``, ``_dadv``), written where host control changed a
+    slot; it advances the lengths itself. ``cuda_graph=True`` (a CUDA device; neither model
     tensor-parallel) runs the round (``_round``: the draft steps, the
     verify, the accepted counts, the corrections and, with
     ``logprobs_topk``, the logprob extras) as one CUDA graph; admission,
@@ -1209,8 +1399,6 @@ class SpecDecodeEngine(DecodeEngine):
                                          n_views=model_n_views(draft_model), device=self.device)
         del self._dcache["len"]
         self._d_keys = _pool_keys(self._dcache)
-        self._dlens = DeviceMirror(max_batch, torch.long, self.device)
-        self._dlive = DeviceMirror(max_batch, torch.bool, self.device)
         self.drafts_proposed = 0  # gamma per live row and round
         self.drafts_accepted = 0
 
@@ -1253,8 +1441,8 @@ class SpecDecodeEngine(DecodeEngine):
             for key in self._d_keys:
                 self._dcache[key][:, slot] = pc[key][:, 0].to(self._dcache[key].dtype)
 
-    def _captured(self):
-        return self._round()
+    def _make_graph(self):
+        return StepGraph(self._round, self.device, capture_error_mode="thread_local")
 
     def _round(self):
         """One speculative round over every row, in place: gamma greedy
@@ -1283,7 +1471,7 @@ class SpecDecodeEngine(DecodeEngine):
         emit = torch.where(i < n_acc[:, None], torch.cat([drafts, drafts[:, -1:]], 1), corr)
         extras = self._lp_of(logits, emit)
         self._tokens.copy_(corr[:, 0])
-        lens.copy_(torch.where(self._dlive.dev, lens + n_acc + 1, torch.zeros_like(lens)))
+        lens.copy_(torch.where(self._dadv.dev, lens + n_acc + 1, torch.zeros_like(lens)))
         return (emit, n_acc, *extras)
 
     def step(self) -> Dict[int, List[int]]:
@@ -1307,8 +1495,7 @@ class SpecDecodeEngine(DecodeEngine):
             return emitted
         live = np.zeros((self.max_batch,), bool)
         live[active] = True
-        self._dlens.sync(self._lens)
-        self._dlive.sync(live)
+        self._sync_slots(live)
         with torch.no_grad():
             out = self._graph() if self._graph is not None else self._round()
             et, na, *lph = _to_host(*out)

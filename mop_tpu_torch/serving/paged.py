@@ -20,7 +20,9 @@ bandwidth (``cache_bytes`` against ``dense_equivalent_bytes``). The step
 composes plain torch ops and launches no kernel, as the dense engine's. The
 page tables live on the device beside their host copy, written in place
 where a page is granted or freed, so that the step reads them without a
-copy from the host; ``cuda_graph=True`` runs the step as one CUDA graph.
+copy from the host; ``cuda_graph=True`` runs the step, its picker included,
+as one CUDA graph, and a burst of ``step(n_tokens=k)`` as one graph of k
+steps (JAX's ``_pmstep``).
 """
 
 from __future__ import annotations
@@ -125,10 +127,11 @@ class PagedDecodeEngine(DecodeEngine):
     the prefix cache, chunked prefill and beams (JAX's paged engine has
     none of them either; ``num_beams`` raises); the pools are fp32 or bf16
     (int8 raises, as JAX's). ``cuda_graph=True`` (a CUDA device, a model
-    that is not tensor-parallel) runs the batched step as one CUDA graph
-    over the pools and the device page table (``step(n_tokens=k)`` replays
-    it k times); admission, page allocation, preemption and re-prefill stay
-    on the host.
+    that is not tensor-parallel) runs the batched step (the dense engine's
+    ``_advance``, picker included) as one CUDA graph over the pools and the
+    device page table, and the burst of ``step(n_tokens=k)`` as one replay
+    of a k-step graph; admission, page allocation, preemption and
+    re-prefill stay on the host.
     """
 
     _captures_step = True
@@ -376,7 +379,11 @@ class PagedDecodeEngine(DecodeEngine):
         so no preemption happens inside a burst; if it cannot cover k = 2
         the call takes a single step, which may preempt); the constrained
         rows sit the burst out and take one step after it. The tokens are
-        those of single steps."""
+        those of single steps. Under ``cuda_graph`` the burst is one replay
+        (``_decode_burst``): a row that retires within it writes on into its
+        own pages, and past them into the scratch page (its table's
+        unallocated entries), until the burst ends and its pages are
+        freed."""
         self.engine_steps += 1
         emitted: Dict[int, List[int]] = {}
 
@@ -400,12 +407,15 @@ class PagedDecodeEngine(DecodeEngine):
         with torch.no_grad():
             if active and n_tokens > 1:
                 k, elig = self._paged_multi_k(n_tokens, active)
-                if k > 1:
+                if k > 1 and self._graph is not None:
+                    self._decode_burst(elig, k, emit)
+                elif k > 1:
                     for _ in range(k):
                         live = [s for s in elig if self._slot_rid[s] >= 0]
                         if not live:
                             break
                         self._decode_once(live, emit)
+                if k > 1:
                     active = [s for s in active if s not in elig and self._slot_rid[s] >= 0]
             if active:
                 self._decode_once(active, emit)

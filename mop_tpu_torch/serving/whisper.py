@@ -17,7 +17,8 @@ The step reads each slot's length and liveness from device buffers
 CUDA graph, as JAX's ``_step_fn`` and ``_admit_fn``: the admission's
 encoder (K1 in every layer, its launches counted per replay) and cross
 K/V written into the slot a device index names; the mel's shape is the
-model's, so one graph serves every admission.
+model's, so one graph serves every admission. ``step(n_tokens=k)`` is then
+one replay of k greedy steps, as JAX's ``_mstep`` (one graph per k).
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ import torch
 from ..models.generate import (_lin, _split_heads, whisper_decode_params,
                                whisper_decode_step_rows, whisper_encode)
 from ..ops.quant import Q4Tensor, QTensor, _leaves, dequantize_params
-from ..utils.cuda_graph import StepGraph, require_graph
-from .engine import DeviceMirror, _to_host
+from ..utils.cuda_graph import GraphPerKey, StepGraph, require_graph
+from .engine import DeviceMirror
 
 Tensor = torch.Tensor
 
@@ -52,7 +53,9 @@ class WhisperServingEngine:
     int4 form (None: the model's own); the pools live on its device.
     ``kv_dtype``: the pools' storage, fp32 or bf16. ``cuda_graph=True`` (a
     CUDA device only, else a ValueError): the batched step and the
-    admission each one CUDA graph (the module docstring)."""
+    admission each one CUDA graph, and ``step(n_tokens=k)`` replays of
+    min(k, the least budget, the least window room) steps, one while no
+    row's budget or window ends sooner (the module docstring)."""
 
     def __init__(self, model, params: Optional[dict] = None, max_batch: int = 4,
                  bos_token: int = 1, eos_id: Optional[int] = None,
@@ -87,8 +90,9 @@ class WhisperServingEngine:
         # each graph captured by the thread that drives the engine (the HTTP
         # server's device worker) next to others: thread-local capture errors
         self._step_graph = self._admit_graph = None
-        if cuda_graph:
-            self._step_graph = StepGraph(self._step_rows, dev, capture_error_mode="thread_local")
+        if cuda_graph:  # one graph per burst size, the single step's 1
+            self._step_graph = GraphPerKey(self._steps_rows, dev,
+                                           capture_error_mode="thread_local")
             self._admit_graph = StepGraph(self._admit_rows, dev,
                                           capture_error_mode="thread_local")
         self._slot_rid: List[int] = [-1] * max_batch
@@ -159,17 +163,29 @@ class WhisperServingEngine:
     def _step_rows(self) -> Tensor:
         """The batched step in place: every row's token at its device length,
         the tokens becoming the argmax and the live rows' lengths advancing
-        by one. Returns the (B,) tokens."""
+        by one (a row at the window's end held there: its write lands in its
+        own last column). Returns the (B,) tokens."""
+        lens = self._dlens.dev
         logits = whisper_decode_step_rows(self.model, self.params, self._ck, self._cv, self._ks,
-                                          self._vs, self._tokens, self._dlens.dev)[0]
+                                          self._vs, self._tokens, lens)[0]
         self._tokens.copy_(logits.argmax(-1))
-        self._dlens.dev.add_(self._dlive.dev)
+        lens.add_(self._dlive.dev & (lens < self.win))
         return self._tokens
+
+    def _steps_rows(self, k: int) -> Tensor:
+        """``_step_rows`` k times: the (k, B) tokens as int32, ready for the
+        copy to the host (JAX's ``_mstep`` scan)."""
+        return torch.stack([self._step_rows().to(torch.int32) for _ in range(k)])
 
     def step(self, n_tokens: int = 1) -> Dict[int, List[int]]:
         """Admit whatever fits, then advance every live row ``n_tokens``
         tokens, one batched step at a time (a row that hits EOS retires
-        there). Returns ``{rid: [tokens]}``."""
+        there). Under ``cuda_graph`` the rows advance k = min(n_tokens, the
+        least budget, the least window room) tokens in one replay, as JAX's
+        ``step`` (a row that hits EOS within them retires there and its
+        later tokens are thrown away), and the next replay takes the
+        tokens left, so that the call gives the single steps' tokens.
+        Returns ``{rid: [tokens]}``."""
         self.engine_steps += 1
         emitted: Dict[int, List[int]] = {}
         while self._queue:
@@ -184,31 +200,43 @@ class WhisperServingEngine:
             self._budget[slot] = max_new
             self._lens[slot] = 0
             self._tokens[slot] = self.bos_token
-        for _ in range(max(1, int(n_tokens))):
+        left = max(1, int(n_tokens))
+        while left > 0:
             active = [s for s, r in enumerate(self._slot_rid) if r >= 0]
             if not active:
                 break
+            k = 1
+            if self._step_graph is not None:
+                k = max(1, min(left, int(self._budget[active].min()),
+                               int((self.win - self._lens[active]).min())))
             live = np.zeros((self.max_batch,), bool)
             live[active] = True
             self._dlens.sync(self._lens)
             self._dlive.sync(live)
             with torch.no_grad():
-                toks = self._step_graph() if self._step_graph is not None else self._step_rows()
-            toks = _to_host(toks)[0]
-            self._lens[active] += 1
-            self._dlens.advanced(self._lens)
-            for s in active:
-                rid = self._slot_rid[s]
-                tok = int(toks[s])
-                self.tokens_generated += 1
-                self._results[rid].append(tok)
-                emitted.setdefault(rid, []).append(tok)
-                self._budget[s] -= 1
-                if tok == self._slot_eos[s] or self._budget[s] <= 0 or self._lens[s] >= self.win:
-                    self._slot_rid[s] = -1
-                    self._lens[s] = 0
-                    self._done[rid] = True
+                out = self._step_graph(k) if self._step_graph is not None else self._steps_rows(1)
+            toks = out.cpu().numpy()
+            self._dlens.advanced(np.where(live, self._lens + k, self._lens))
+            for j in range(k):
+                for s in active:
+                    if self._slot_rid[s] >= 0:
+                        self._emit(emitted, s, int(toks[j, s]))
+            left -= k
         return emitted
+
+    def _emit(self, emitted: Dict[int, List[int]], s: int, tok: int) -> None:
+        """Record slot ``s``'s next token; retire it at its EOS, its budget
+        or the window's end."""
+        rid = self._slot_rid[s]
+        self._lens[s] += 1
+        self.tokens_generated += 1
+        self._results[rid].append(tok)
+        emitted.setdefault(rid, []).append(tok)
+        self._budget[s] -= 1
+        if tok == self._slot_eos[s] or self._budget[s] <= 0 or self._lens[s] >= self.win:
+            self._slot_rid[s] = -1
+            self._lens[s] = 0
+            self._done[rid] = True
 
     def run(self, n_tokens: int = 1) -> Dict[int, List[int]]:
         while self._queue or self.n_active:

@@ -27,8 +27,9 @@ captured step keeps:
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Hashable, Iterable, Optional
 
 import torch
 
@@ -218,3 +219,33 @@ class GraphPerShape:
         if graph is None:
             graph = self.graphs[key] = StepGraph(self.fn, self.device, pool=self.pool)
         return graph(*args)
+
+
+class GraphPerKey:
+    """``fn(key)`` as one ``StepGraph`` per hashable ``key`` (a burst size, a
+    host-known form of a step), made at the key's first call, as ``jax.jit``
+    keeps one executable per value of a static argument. The graphs are
+    replayed one at a time, each output cloned at its replay, so all are
+    captured into one shared pool (``StepGraph``'s rule); each registers
+    ``generators``. ``calls`` counts the calls of every graph."""
+
+    def __init__(self, fn: Callable, device, generators: Iterable[Optional[torch.Generator]] = (),
+                 capture_error_mode: str = "global"):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.generators = tuple(generators)
+        self.capture_error_mode = capture_error_mode
+        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.graphs = {}
+
+    @property
+    def calls(self) -> int:
+        return sum(g.calls for g in self.graphs.values())
+
+    def __call__(self, key: Hashable):
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = StepGraph(functools.partial(self.fn, key), self.device,
+                                                 self.generators, self.capture_error_mode,
+                                                 self.pool)
+        return graph()

@@ -15,6 +15,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 from mop_tpu.data import CharTokenizer as JaxCharTokenizer
 from mop_tpu.serving import DecodeEngine as JaxEngine
 from mop_tpu.serving import ServingServer as JaxServer
@@ -109,9 +110,11 @@ def test_cancel_health_metrics_and_inference_mode(servers):
                                                                   "cancelled": False}
     eng = psrv.engine
     step = eng.step
+    modes = []
 
     def slow_step(*a, **k):  # 10 ms a step: the stream outlasts the cancel's round trip
         time.sleep(0.01)
+        modes.append(torch.is_inference_mode_enabled())
         return step(*a, **k)
 
     eng.step = slow_step
@@ -126,6 +129,8 @@ def test_cancel_health_metrics_and_inference_mode(servers):
             assert _req(psrv.port, "/cancel", {"request_id": rid})["cancelled"] is True
             rest = [json.loads(line.decode()[len("data: "):]) for line in r
                     if line.startswith(b"data: ")]
+        # a request the worker steps whatever the cancel's timing
+        _req(psrv.port, "/generate", {"prompt": [1, 2], "max_new_tokens": 2})
     finally:
         eng.step = step
     assert rest[-1]["done"] and len(rest[-1]["tokens"]) < 60
@@ -138,7 +143,8 @@ def test_cancel_health_metrics_and_inference_mode(servers):
     with psrv._lock:  # the worker's steps ran under inference_mode
         for key in eng._pool_keys:
             assert not eng._cache[key].requires_grad and eng._cache[key].grad_fn is None
-        assert eng._tokens.is_inference() and eng._tokens.grad_fn is None
+        assert modes and all(modes)
+        assert not eng._tokens.requires_grad and eng._tokens.grad_fn is None
         assert not eng._ocounts.requires_grad
 
 
