@@ -184,26 +184,29 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    encoder's K1 launches; K5's record holds the decode shapes' timings
    (``decode_8x6x256x64``, ``decode_1x16x512x64``).
 14. serving (``mop_tpu_torch.serving``, ``cli.serve_http``): 14a, ``DecodeEngine`` at
-   ``tools/bench_serving.py``'s GPT-Quartet (6 x 512, 8 heads, vocab 512, block 512, buckets
-   64 / 128 / 256 / 512, 8 slots) over its 32 ``mixed_jobs`` (prompts of 48 to 249 tokens, 64
-   new): no kernel launch (K5 0), tokens/s, busy share and peak memory, every row against its
-   single-stream ``generate_cached`` up to the first near tie; ``step(n_tokens=4)`` graphed (a
-   call one replay of a 4-step graph, the picker inside) giving the single steps' tokens, with
-   its tokens/s, busy share, graphs and captures; ``chunk_prefill`` 64 and a 192-token system
-   prompt through the prefix cache, each held to the single-stream ``decode_chunk`` feed it
-   computes (with the share of tokens equal to the monolithic prefill's); a 4-beam request equal
-   to ``generate_beam``; int8 KV; 14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024,
-   block 2048, 4 slots) under a closed loop of 4 users, fp32 and int8 weights: requests/s,
-   TTFT and TPOT; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32 tokens, 4 slots),
-   eager and graphed (the step and the admission one graph each, K1 under capture): tokens
-   equal, K1 4 launches an admission in both forms (replays counted; held to the profiler's
-   records of 3 admissions in each), a graphed ``step(n_tokens=4)`` (a replay of 4 steps a call)
-   giving the graphed single steps' tokens with K1 4 an admission, the tokens of
+   ``tools/bench_serving.py``'s GPT-Quartet (6 x 512, 8 heads, vocab 512, block 512, buckets 64 /
+   128 / 256 / 512, 8 slots) over its 32 ``mixed_jobs`` (prompts of 48 to 249 tokens, 64 new): no
+   kernel launch (K5 0), tokens/s, busy share and peak memory, every row against its single-stream
+   ``generate_cached`` up to the first near tie; ``step(n_tokens=4)`` graphed (a call one replay of
+   a 4-step graph, the picker inside; an admission one replay of its bucket's graph) giving the
+   single steps' tokens, with its tokens/s, busy share, graphs and captures, then steady single
+   steps and bursts with the admissions' share of the wall and the admission graphs' keys, captures
+   and pool; ``chunk_prefill`` 64 and a 192-token system prompt through the prefix cache, each held
+   to the single-stream ``decode_chunk`` feed it computes (with the share of tokens equal to the
+   monolithic prefill's) and each graphed on its first 4 requests (a chunk, or a hit's tail, one
+   replay) with the eager engine's tokens; a 4-beam request equal to ``generate_beam``; int8 KV;
+   14b, the 170M of ``tools/bench_serving_slo.py`` (12 x 1024, block 2048, 4 slots) under a closed
+   loop of 4 users, fp32 eager and graphed (the eager tokens) and int8 weights graphed: requests/s,
+   TTFT and TPOT, the admissions' share; 14c, ``WhisperServingEngine`` at Whisper_20M (8 clips, 32
+   tokens, 4 slots), eager and graphed (the step and the admission one graph each, K1 under
+   capture): tokens equal, K1 4 launches an admission in both forms (replays counted; held to the
+   profiler's records of 3 admissions in each), a graphed ``step(n_tokens=4)`` (a replay of 4 steps
+   a call) giving the graphed single steps' tokens with K1 4 an admission, the tokens of
    ``whisper_transcribe_cached`` up to the first near tie, int8 weights; 14d, ``serve_http``
    trained and served on loopback: 8 concurrent text clients, a stream, ``/v1/completions``,
-   ``/v1/embeddings``, ``/v1/audio/transcriptions`` through a graphed Whisper engine
-   against ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The
-   kernels line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
+   ``/v1/embeddings``, ``/v1/audio/transcriptions`` through a graphed Whisper engine against
+   ``whisper_transcribe_cached``, ``/metrics``' TTFT / TPOT histograms and a drain. The kernels
+   line's K1 ``launches`` add the Whisper admissions' (and K5's the CLI's training).
 15. the trainer and the later CLIs: 15a, ``training.train_model`` at B_bench's width
    (``bench.py:23-29``: ``ViT_MoP`` 224 / 6 / 4, 5 views, 3 kernels, batch 256, bf16, AdamW 3e-3
    / 0.05 with ``cosine_lr``) on random uint8 CIFAR-shaped batches, a function of the step, for
@@ -222,27 +225,27 @@ Phases, one line each (a failed phase makes the script exit non-zero):
    its wrapper's count and the profiler's records, their files and headers; then
    ``ab5_paper_benchmark`` over phase 10's and the tournament's CSVs, its 5M row against the
    CSVs' means. The kernels line's ``launches`` add phase 15's.
-16. paged and speculative serving and export (``mop_tpu_torch.serving``): 16a, 14a's engine and
-   32 jobs through ``DecodeEngine`` (timed, busy share, peak memory, top-2 logprobs as the
-   references' margins); ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense slabs'
-   capacity) on one wave of 8 jobs: no preemption, every row equal to the dense engine's up to
-   its first near tie, ``step(n_tokens=4)`` graphed (a burst one replay) giving the single
-   steps' tokens; with 32 pages (half)
-   on the last 16 jobs, eager and graphed: tokens, engine steps, preemptions and pages equal,
-   no kernel launch, tokens/s, busy share, the cache's bytes against the dense slabs', at least
-   one preemption, each row never preempted equal to the dense engine's and each preempted row
-   to its single stream re-prefilled where it was preempted; 16b, ``SpecDecodeEngine`` at the
-   170M of ``tools/bench_speculative.py`` (12 x 1024, 16 heads, block 512), 4 slots, gamma 4,
-   requests of 16 + 32 tokens: the plain engine over 16 requests (the reference); the target as
-   its own draft over 4, every draft accepted and at most 1 + ceil(31 / 5) steps a request; the
-   2 x 128 draft's engine eager and graphed over 8: tokens, engine steps and drafts accepted
-   equal, tokens/s, busy share, the acceptance share, every row equal to the plain engine's up
-   to its first near tie; 16c, ``export_apply`` on the card of A (224 / 8 / 4), the
-   Quartet LM at the comparison config and E and D at depth 2: refused without
-   ``allow_custom_calls``, naming the ``mop_tpu_torch::`` op; the loaded artifact launching
-   K1 8, K5 8, K2 2 and K4 2 times a forward, its output against the eager forward (fp32,
-   atol 2e-5, rtol 2e-4), A's one artifact at batch 1, 3 and 256; 16d, ``serve_http --spec``
-   on the card (the speculative engine graphed). The kernels line's ``launches`` add 16c's.
+16. paged and speculative serving and export (``mop_tpu_torch.serving``): 16a, 14a's engine and 32
+   jobs through ``DecodeEngine`` (timed, busy share, peak memory, top-2 logprobs as the references'
+   margins); ``PagedDecodeEngine`` with 64 pages of 64 rows (the dense slabs' capacity) on one wave
+   of 8 jobs: no preemption, every row equal to the dense engine's up to its first near tie,
+   ``step(n_tokens=4)`` graphed (a burst one replay) giving the single steps' tokens; with 32 pages
+   (half) on the last 16 jobs, eager and graphed (each admission, re-admissions too, one replay of
+   its bucket's graph): tokens, engine steps, preemptions and pages equal, no kernel launch,
+   tokens/s, busy share, the cache's bytes against the dense slabs', at least one preemption, each
+   row never preempted equal to the dense engine's and each preempted row to its single stream
+   re-prefilled where it was preempted; 16b, ``SpecDecodeEngine`` at the 170M of
+   ``tools/bench_speculative.py`` (12 x 1024, 16 heads, block 512), 4 slots, gamma 4, requests of
+   16 + 32 tokens: the plain engine over 16 requests (the reference); the target as its own draft
+   over 4, every draft accepted and at most 1 + ceil(31 / 5) steps a request; the 2 x 128 draft's
+   engine eager and graphed over 8 (an admission, the draft's prefill with it, one replay): tokens,
+   engine steps and drafts accepted equal, tokens/s, busy share, the acceptance share, every row
+   equal to the plain engine's up to its first near tie; 16c, ``export_apply`` on the card of A
+   (224 / 8 / 4), the Quartet LM at the comparison config and E and D at depth 2: refused without
+   ``allow_custom_calls``, naming the ``mop_tpu_torch::`` op; the loaded artifact launching K1 8,
+   K5 8, K2 2 and K4 2 times a forward, its output against the eager forward (fp32, atol 2e-5, rtol
+   2e-4), A's one artifact at batch 1, 3 and 256; 16d, ``serve_http --spec`` on the card (the
+   speculative engine graphed). The kernels line's ``launches`` add 16c's.
 17. the multi-GPU modes (``mop_tpu_torch.parallel``) over NCCL at world size 1 (one process
    drives one card; the multi-rank numerics are the CPU tests' over gloo): 17a, data parallel
    over the bench.py recipe (B 224 / 6 / 4, batch 256, bf16), the plain and the scanned (K =
@@ -359,6 +362,7 @@ from mop_tpu_torch.models.generate import (init_decode_cache, whisper_decode_par
 from mop_tpu_torch.utils.cuda_graph import StepGraph
 from mop_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine, SpecDecodeEngine,
                                    WhisperServingEngine, export_apply, load_exported)
+from mop_tpu_torch.serving.engine import EXACT
 
 BATCH = 256
 N_CLASSES = 100
@@ -609,6 +613,7 @@ SERVE_JOBS, SERVE_NEW, SERVE_PROMPTS = 32, 64, (48, 250)  # prompts of 48 to 249
 SERVE_WARM = 64  # the warm-up prompts' length, and the beam request's
 SERVE_SYSTEM, SERVE_TAILS, SERVE_PREFIX_NEW = 192, (16, 48), 32  # the prefix cache's
 SERVE_CHUNK, SERVE_BURST = 64, 4
+SERVE_GRAPH_FEEDS = 4  # requests of 14a's graphed chunked and prefix-cache runs
 # tools/bench_serving_slo.py:45-61's 170M: 4 slots, 128-token prompts, 32 new.
 SLO_CFG = dict(n_layer=12, n_head=16, n_embd=1024, dropout=0.0, block_size=2048)
 SLO_MB, SLO_PROMPT, SLO_NEW, SLO_REQS = 4, 128, 32, 16
@@ -2398,6 +2403,56 @@ def closed_loop(eng, prompts, new, clients):
     return len(submit_t) / wall, ttft, tpot
 
 
+def watch_admissions(eng):
+    """Wrap an engine's admission: ``stats["s"]`` adds up the wall of its
+    ``_admit_one`` calls (the host control, the input copy, the prefill, the
+    pick and the copy to the host) and ``stats["n"]`` the requests they
+    admitted, ``stats["runs"]`` counts its bodies
+    (``_admit_run``: an admission, or a chunk of a chunked prefill) and
+    ``stats["off"]`` those that did not make the graph calls their route
+    takes: one on a bucketed, prefix-tail or chunk route of a graphed
+    engine, none on the exact route or in an eager engine."""
+    stats = {"s": 0.0, "n": 0, "runs": 0, "off": 0}
+    admit, run = eng._admit_one, eng._admit_run
+
+    def timed():
+        t0 = time.perf_counter()
+        out = admit()
+        stats["s"] += time.perf_counter() - t0
+        stats["n"] += out is not None
+        return out
+
+    def run_counted(route, *a, **kw):
+        graph = eng._adm_graph
+        before = graph.calls if graph is not None else 0
+        out = run(route, *a, **kw)
+        made = (graph.calls if graph is not None else 0) - before
+        stats["runs"] += 1
+        stats["off"] += made != (graph is not None and route != EXACT)
+        return out
+
+    eng._admit_one, eng._admit_run = timed, run_counted
+    return stats
+
+
+def graph_pool_line(eng):
+    """A graphed engine's admission graphs and its one pool, as text: the
+    keys, the replays (calls), their captures' seconds and the pool's
+    growth across them, beside the step graphs'."""
+    def caps(graphs):
+        done = [g for g in graphs if g.captured]
+        return len(done), sum(g.capture_s for g in done), sum(g.pool_bytes for g in done)
+
+    adm = eng._adm_graph
+    n_a, s_a, b_a = caps(adm.graphs.values())
+    steps = eng._graph.graphs.values() if hasattr(eng._graph, "graphs") else [eng._graph]
+    n_s, s_s, b_s = caps(steps)
+    keys = ", ".join("/".join(str(x) for x in k) for k in sorted(adm.graphs, key=str))
+    return (f"admission graphs [{keys}], {adm.calls} calls, {n_a} captured in {s_a:.3f} s, "
+            f"pool +{b_a / 2 ** 20:.1f} MiB; step graphs {n_s} captured in {s_s:.3f} s, pool "
+            f"+{b_s / 2 ** 20:.1f} MiB")
+
+
 class _IdText:
     """The Whisper model's token ids as text, for the server's
     ``whisper_tokenizer`` (its vocabulary has no text)."""
@@ -2446,15 +2501,7 @@ def serving_phases(smi):
     # every row's headroom is below it), the picker inside
     burst = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefill_buckets=SERVE_BUCKETS,
                          cuda_graph=True)
-    admit, adm_s = burst._admit_one, [0.0]
-
-    def timed_admit():  # an admission's wall: its prefill, pick and copy to the host
-        t0 = time.perf_counter()
-        out = admit()
-        adm_s[0] += time.perf_counter() - t0
-        return out
-
-    burst._admit_one = timed_admit
+    adm = watch_admissions(burst)  # each bucketed admission one replay and one copy
     with captures() as caps:
         (multi, multi_s), counts = counted(lambda: seconds_of(
             lambda: serve_all(burst, jobs, n_tokens=SERVE_BURST)))
@@ -2463,20 +2510,26 @@ def serving_phases(smi):
     serve_all(burst, jobs[:SERVE_MAX_BATCH])  # the single step's graph captured too
     steady = {}
     for k in (1, SERVE_BURST):  # every graph captured: single steps, then bursts
-        adm_s[0] = 0.0
+        adm["s"], adm["n"] = 0.0, 0
         out, secs = seconds_of(lambda: serve_all(burst, jobs, n_tokens=k))
-        steady[k] = (out == got, n_out / secs, 100 * adm_s[0] / secs)
+        steady[k] = (out == got, n_out / secs, 100 * adm["s"] / secs, 1e3 * adm["s"] / adm["n"])
     busy_b, wall_b = busy_share(lambda: serve_all(burst, short, n_tokens=SERVE_BURST))
-    check(multi == got and all(ok for ok, _, _ in steady.values()) and counts == none,
+    check(multi == got and all(ok for ok, _, _, _ in steady.values()) and counts == none
+          and adm["off"] == 0,
           f"step(n_tokens={SERVE_BURST}) graphed: the tokens of single steps, "
           f"{n_out / multi_s:.0f} tokens/s in {steps_b} engine steps "
           f"({n_out / (multi_s - cap_s):.0f} without its {len(caps)} captures' {cap_s:.3f} s; "
           f"graphs (steps, form) "
           f"{sorted(burst._graph.graphs)}), busy {100 * busy_b:.1f}% of {wall_b:.1f} ms over "
           f"{SERVE_MAX_BATCH} requests of 16 tokens (profiled); every graph captured, the graphed "
-          f"single steps {steady[1][1]:.0f} and the bursts {steady[SERVE_BURST][1]:.0f} tokens/s, the "
-          f"admissions {steady[1][2]:.1f}% and {steady[SERVE_BURST][2]:.1f}% of the wall; kernel "
-          f"launches {launched(counts) or 'none'} [{smi}]")
+          f"single steps {steady[1][1]:.0f} and the bursts {steady[SERVE_BURST][1]:.0f} "
+          f"tokens/s, the admissions {steady[1][2]:.1f}% and {steady[SERVE_BURST][2]:.1f}% of the "
+          f"wall, "
+          f"{steady[1][3]:.3f} and {steady[SERVE_BURST][3]:.3f} ms an admission (with eager "
+          f"admissions, earlier H100 runs: 2,197-2,365 and 2,040-2,588 tokens/s, "
+          f"49.5-56.0% of the wall); "
+          f"{adm['runs']} admissions, {adm['off']} not one replay each; "
+          f"{graph_pool_line(burst)}; kernel launches {launched(counts) or 'none'} [{smi}]")
     some = jobs[:SERVE_MAX_BATCH]
     chunked = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, chunk_prefill=SERVE_CHUNK)
     got_c = serve_all(chunked, some)
@@ -2491,6 +2544,15 @@ def serving_phases(smi):
         oks.append(tie_prefix(torch.tensor([row], device="cuda"), want, margins))
     agree = np.mean([a == b for g1, g2 in zip(got_c, got[:SERVE_MAX_BATCH])
                      for a, b in zip(g1, g2)])
+    chunked_g = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH,
+                             chunk_prefill=SERVE_CHUNK, cuda_graph=True)
+    adm_c = watch_admissions(chunked_g)
+    got_cg = serve_all(chunked_g, some[:SERVE_GRAPH_FEEDS])
+    check(got_cg == got_c[:SERVE_GRAPH_FEEDS] and adm_c["off"] == 0,
+          f"chunk_prefill {SERVE_CHUNK} graphed, the first {SERVE_GRAPH_FEEDS} requests: the "
+          f"eager engine's tokens; {adm_c['runs']} "
+          f"admission bodies (a prompt of at most {SERVE_CHUNK} exact and eager, the others a "
+          f"replay a chunk), {adm_c['off']} off; {graph_pool_line(chunked_g)}")
     check(all(o for o, _ in oks), f"chunk_prefill {SERVE_CHUNK}: each row equals the "
           f"single-stream {SERVE_CHUNK}-token decode_chunk feed (a prompt of at most "
           f"{SERVE_CHUNK}: generate_cached) up to its first near tie "
@@ -2523,6 +2585,18 @@ def serving_phases(smi):
             ok_r, first_tie = tie_prefix(torch.tensor([cached[-1]], device="cuda"), want, margins)
             oks.append(ok_r)
             ties.append(first_tie[0])
+    pgraph = DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH, prefix_cache_entries=4,
+                          cuda_graph=True)
+    adm_p = watch_admissions(pgraph)
+    cached_g = []
+    for p in prompts[:SERVE_GRAPH_FEEDS]:  # one at a time, as the eager engine's: hits after one
+        rid = pgraph.submit(p, SERVE_PREFIX_NEW)
+        cached_g.append(pgraph.run()[rid])
+    check(cached_g == cached[:SERVE_GRAPH_FEEDS]
+          and pgraph.prefix_cache_hits == SERVE_GRAPH_FEEDS - 1 and adm_p["off"] == 0,
+          f"prefix cache graphed, the first {SERVE_GRAPH_FEEDS} prompts: the eager engine's "
+          f"tokens and {pgraph.prefix_cache_hits} hits; "
+          f"each hit one replay of its tail's graph; {graph_pool_line(pgraph)}")
     nocache = serve_all(DecodeEngine(model, params, max_batch=SERVE_MAX_BATCH),
                         [(p, SERVE_PREFIX_NEW) for p in prompts])
     agree = np.mean([a == b for g1, g2 in zip(cached, nocache) for a, b in zip(g1, g2)])
@@ -2541,28 +2615,47 @@ def serving_phases(smi):
     check(all(len(g) == SERVE_NEW and 0 <= min(g) and max(g) < SERVE_VOCAB for g in got8),
           f"int8 KV (per-row scales): {sum(map(len, got8)) / s8:.0f} tokens/s over "
           f"{len(some)} requests, {100 * agree:.1f}% of tokens equal fp32 KV's [{smi}]")
-    del model, params, eng, burst, chunked, beng, peng, q8
+    del model, params, eng, burst, chunked, chunked_g, beng, peng, pgraph, q8
     say(f"  14a took {time.perf_counter() - t_phase:.1f} s")
 
     say(f"[14 serving] 14b: the 170M of tools/bench_serving_slo.py {SLO_CFG}, vocab "
         f"{SERVE_VOCAB}, {SLO_MB} slots, closed loop of {SLO_MB} users, {SLO_REQS} requests "
         f"of {SLO_PROMPT} + {SLO_NEW} tokens")
+    t_sub = time.perf_counter()
     model = create_gpt_quartet(SERVE_VOCAB, TransformerConfig(**SLO_CFG),
                                generator=torch.Generator().manual_seed(51)).eval()
     fp32 = decode_params(model)
     slo_prompts = [[int(t) for t in rs.randint(0, SERVE_VOCAB, SLO_PROMPT)]
                    for _ in range(SLO_REQS)]
-    for name, p in (("fp32", fp32), ("int8", quantize_params(fp32))):
-        eng = DecodeEngine(model, p, max_batch=SLO_MB, prefill_buckets=[SLO_PROMPT])
-        serve_all(eng, [(slo_prompts[0], 2), (slo_prompts[1], 2)])  # warm
+    loops = {}
+    # fp32 eager, then graphed (an admission one replay of the bucket's graph, a
+    # step one replay), then int8 weights graphed
+    for name, p, graphed in (("fp32", fp32, False), ("fp32", fp32, True),
+                             ("int8", quantize_params(fp32), True)):
+        eng = DecodeEngine(model, p, max_batch=SLO_MB, prefill_buckets=[SLO_PROMPT],
+                           cuda_graph=graphed)
+        # warm: two admissions and a step (graphed: each graph's warm-up and capture)
+        serve_all(eng, [(slo_prompts[0], 2), (slo_prompts[1], 2)])
+        adm = watch_admissions(eng)
+        base = eng._next_rid
         (rps, ttft, tpot), counts = counted(lambda: closed_loop(eng, slo_prompts, SLO_NEW,
                                                                 SLO_MB))
-        check(counts == none and len(ttft) == SLO_REQS,
-              f"170M {name} weights: {rps:.2f} requests/s, TTFT p50 {1e3 * np.median(ttft):.1f} "
+        loops[name, graphed] = [eng.results[base + i] for i in range(SLO_REQS)]
+        label = f"{name} weights" + (", graphed" if graphed else "")
+        check(counts == none and len(ttft) == SLO_REQS and adm["off"] == 0
+              and ((name, False) not in loops or loops[name, graphed] == loops[name, False]),
+              f"170M {label}: {rps:.2f} requests/s, TTFT p50 {1e3 * np.median(ttft):.1f} "
               f"ms (p90 {1e3 * np.percentile(ttft, 90):.1f}), TPOT p50 "
               f"{1e3 * np.median(tpot):.2f} ms (p90 {1e3 * np.percentile(tpot, 90):.2f}), "
-              f"{rps * SLO_NEW:.0f} tokens/s; launches {launched(counts) or 'none'} [{smi}]")
+              f"{rps * SLO_NEW:.0f} tokens/s, admissions {100 * adm['s'] * rps / SLO_REQS:.1f}% "
+              f"of the wall, {1e3 * adm['s'] / max(adm['n'], 1):.3f} ms each"
+              + ("; the eager engine's tokens" if (name, False) in loops and graphed else "")
+              + (f"; {graph_pool_line(eng)}" if graphed else "")
+              + (" (eager TTFT p50 73.5-109.4 ms in earlier H100 runs)"
+                 if name == "fp32" else "")
+              + f"; launches {launched(counts) or 'none'} [{smi}]")
     del model, fp32, eng
+    say(f"  14b took {time.perf_counter() - t_sub:.1f} s")
 
     say(f"[14 serving] 14c: WhisperServingEngine at Whisper_20M, {WHISPER_SERVE_CLIPS} clips, "
         f"{WHISPER_SERVE_TOKENS} tokens, max_batch {WHISPER_SERVE_MB}")
@@ -3164,8 +3257,9 @@ def paged_phase(smi, none):
           f"{big} step(n_tokens={SERVE_BURST}) graphed, {SERVE_MAX_BATCH} of the jobs: the tokens "
           f"of single steps, {SERVE_MAX_BATCH * SERVE_NEW / multi_s:.1f} tokens/s in "
           f"{burst.engine_steps} engine steps, one replay a burst (graphs "
-          f"{sorted(burst._graph.graphs)}; {len(caps)} captures {sum(c for c, _ in caps):.3f} s), "
-          f"peak_pages_in_use {burst.peak_pages_in_use} [{smi}]")
+          f"{sorted(burst._graph.graphs)}; {len(caps)} captures {sum(c for c, _ in caps):.3f} s, "
+          f"the admissions' among them), peak_pages_in_use {burst.peak_pages_in_use}; "
+          f"{graph_pool_line(burst)} [{smi}]")
     del spare, burst
 
     # half the capacity, eager and graphed, on the last jobs: they preempt
@@ -3173,10 +3267,13 @@ def paged_phase(smi, none):
     first = SERVE_JOBS - GRAPH_PAGED_JOBS
     half = jobs[first:]
 
+    engines = {}
+
     def paged(graphed):  # the state: steps, preemptions, pages; the busy share over 8 jobs
         eng = _RecordedPaged(model, params, max_batch=SERVE_MAX_BATCH, n_pages=PAGED_PAGES[1],
                              page_size=PAGED_PS, prefill_buckets=SERVE_BUCKETS, logprobs_topk=2,
                              cuda_graph=graphed)
+        engines[graphed] = (eng, watch_admissions(eng))
         state = lambda: (eng.engine_steps, eng.preemptions, eng.peak_pages_in_use,  # noqa: E731
                          eng.pages_in_use, list(eng.preempted), eng.cache_bytes(),
                          eng.dense_equivalent_bytes())
@@ -3187,10 +3284,17 @@ def paged_phase(smi, none):
                        f"{GRAPH_PAGED_JOBS} jobs (top-2 logprobs tracked)", paged, 1, 0,
                        lambda st: st[0], "tokens", GRAPH_PAGED_JOBS * SERVE_NEW, smi)
     steps, n_pre, peak_pages, in_use, preempted, cache, dense_eq = e["snap"]
-    check(g["outs"] == e["outs"] and g["snap"] == e["snap"] and n_pre > 0,
+    (_, adm_e), (geng, adm_g) = engines[False], engines[True]
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"] and n_pre > 0
+          and adm_g["off"] == 0 and adm_g["runs"] == adm_e["runs"],
           f"Paged_6x512: every request's greedy tokens from the graphed engine equal the eager "
           f"engine's ({GRAPH_PAGED_JOBS} requests); engine steps, preemptions, peak pages and "
-          f"pages in use {g['snap'][:4]} equal (eager {e['snap'][:4]}), at least one preemption")
+          f"pages in use {g['snap'][:4]} equal (eager {e['snap'][:4]}), at least one preemption; "
+          f"{adm_g['runs']} admissions (re-admissions included) each one replay, their wall "
+          f"{adm_e['s']:.3f} s eager, {adm_g['s']:.3f} s graphed (captures included); "
+          f"{graph_pool_line(geng)}")
+    engines.clear()
+    del geng
     dk = SERVE_CFG["n_embd"] // SERVE_CFG["n_head"]
     per_row = 3 * SERVE_CFG["n_layer"] * SERVE_CFG["n_head"] * dk * 4  # K/K2/V, fp32
     check(cache == per_row * (PAGED_PAGES[1] + 1) * PAGED_PS
@@ -3271,9 +3375,12 @@ def spec_phase(smi, none):
           f"rows without one); launches {launched(counts) or 'none'} [{smi}]")
     del eng
 
+    engines = {}
+
     def spec(graphed):  # the state: steps and drafts; the busy share over a wave of 8 tokens
         eng = SpecDecodeEngine(target, tp, draft, dp, max_batch=SPEC_MB, gamma=SPEC_GAMMA,
                                prefill_buckets=[SPEC_T0], cuda_graph=graphed)
+        engines[graphed] = (eng, watch_admissions(eng))
         state = lambda: (eng.engine_steps, eng.drafts_proposed,  # noqa: E731
                          eng.drafts_accepted)
         return (lambda: serve_all(eng, jobs[:GRAPH_SPEC_REQS]), state,
@@ -3282,10 +3389,16 @@ def spec_phase(smi, none):
     e, g = _graph_pair(f"Spec_170M SpecDecodeEngine, the 2 x 128 draft, gamma {SPEC_GAMMA}, "
                        f"{GRAPH_SPEC_REQS} requests (ms a round)", spec, 1, 0, lambda st: st[0],
                        "tokens", GRAPH_SPEC_REQS * SPEC_NEW, smi)
-    check(g["outs"] == e["outs"] and g["snap"] == e["snap"],
+    (_, adm_e), (geng, adm_g) = engines[False], engines[True]
+    check(g["outs"] == e["outs"] and g["snap"] == e["snap"] and adm_g["off"] == 0
+          and adm_g["runs"] == adm_e["runs"],
           f"Spec_170M: every request's tokens from the graphed engine equal the eager engine's "
           f"({GRAPH_SPEC_REQS} requests); engine steps, drafts proposed and accepted {g['snap']} "
-          f"equal (eager {e['snap']})")
+          f"equal (eager {e['snap']}); {adm_g['runs']} admissions, each the target's and the "
+          f"draft's prefill in one replay, their wall {adm_e['s']:.3f} s eager, "
+          f"{adm_g['s']:.3f} s graphed (captures included); {graph_pool_line(geng)}")
+    engines.clear()
+    del geng
     n_steps, proposed, accepted = e["snap"]
     ok, ties = tie_prefix(torch.tensor(e["outs"][0], device="cuda"), want[:GRAPH_SPEC_REQS],
                           margins[:GRAPH_SPEC_REQS])

@@ -914,17 +914,20 @@ def _shared_at(pos: Tensor, g: int) -> Tensor:
     return pos + torch.arange(g, device=pos.device)
 
 
-def _write_rows(cache: dict, i: int, pos: Union[int, Tensor], new) -> Optional[tuple]:
+def _write_rows(cache: dict, i: int, pos: Union[int, Tensor], new,
+                rows: Optional[Tensor] = None) -> Optional[tuple]:
     """Write layer i's new (k, k2, v) rows (B, H, G, dk) in place: at
     positions ``pos .. pos + G - 1`` of every batch row (``pos`` an int or a
     0-dim tensor), or row b's at ``pos[b]`` (a (B, G) tensor; positions
     past the window are clamped to its last column, which no live row
-    reads). Int8 caches get the rows quantized per row, their scales beside.
-    Returns the layer's int8 scales, else None."""
+    reads) of the cache's batch row ``rows[b]`` ((B, 1), default b). Int8
+    caches get the rows quantized per row, their scales beside. Returns the
+    layer's int8 scales, else None."""
     shared = not _per_row(pos)
     if not shared:
         pos = pos.clamp_max(cache["k"].shape[3] - 1)
-        rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        if rows is None:
+            rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
     for key, r in zip(("k", "k2", "v"), new):
         if "k_s" in cache:
             r, s = _q8_rows(r)
@@ -994,12 +997,40 @@ class SlotRows:
         return self.cache["mv"][i]
 
 
+class OneSlotRows:
+    """The dense cache's access for a one-row ``decode_rows`` into one slot:
+    row 0's window is the slot that ``slot`` (a (1,) device index) names,
+    its new rows written in place at ``[i, slot, :, pos]`` (``pos`` (1, G);
+    positions past the window clamped to its last column, which no live row
+    reads), its windows read by ``index_select``: the serving engines'
+    prefix tail and prefill chunk, one body for every slot."""
+
+    def __init__(self, cache: dict, slot: Tensor):
+        self.cache, self.slot = cache, slot
+        self.width = cache["k"].shape[3]
+
+    def write(self, i: int, pos: Tensor, new) -> Optional[tuple]:
+        scales = _write_rows(self.cache, i, pos, new, rows=self.slot[:, None])
+        return None if scales is None else tuple(s.index_select(0, self.slot) for s in scales)
+
+    def window(self, key: str, i: int) -> Tensor:
+        return self.cache[key][i].index_select(0, self.slot)
+
+    def write_views(self, i: int, pos: Tensor, views: Tensor) -> None:
+        mv = self.cache["mv"]
+        mv[i, self.slot[:, None], pos.clamp_max(mv.shape[2] - 1)] = views
+
+    def views(self, i: int) -> Tensor:
+        return self.window("mv", i)
+
+
 def decode_rows(model: nn.Module, params: Optional[dict], rows, tokens: Tensor,
                 lens: Union[int, Tensor]) -> Tensor:
     """The per-layer body of every cached step: (B, G) tokens appended at
     ``lens[b] .. lens[b] + G - 1`` (``lens`` a (B,) tensor, or an int shared
     by every row) -> logits (B, G, vocab). ``rows`` is the cache's access
-    (``SlotRows``, or the paged engine's page tables): ``write`` puts layer
+    (``SlotRows``, ``OneSlotRows``, or the paged engine's page tables):
+    ``write`` puts layer
     i's new K/K2/V rows at the positions (returning int8 scales or None),
     ``window`` gives layer i's (B, H, W, dk) window of a buffer in position
     order, ``write_views`` / ``views`` the same for GPT-MoP's view history.
@@ -1096,7 +1127,12 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
     the (B, T) prompt whose first ``t0`` columns are live (``t0 = T`` in
     ``prefill``), each score row standardized over the live columns (or its
     causal prefix with ``causal_std``), every layer's rows written to a
-    fresh cache. Returns the ln_f activations and the cache."""
+    fresh cache. Returns the ln_f activations and the cache. ``t0`` is the
+    int ``T`` (``prefill``: every column live, the unmasked form) or a 0-dim
+    tensor on the prompt's device (``prefill_padded``: the masked form
+    whatever its value, ``t0 = T`` included, the form a CUDA graph of one
+    bucket replays). The masked statistics multiply by the live count's
+    reciprocals, as ``_standardize_rows``' do."""
     cfg = model.config
     p = _params(model, params)
     b, t = prompt.shape
@@ -1106,10 +1142,13 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
     cache = init_decode_cache(cfg, b, kv_dtype, n_views=model_n_views(model), device=dev,
                               n_head=h)
     causal_gate = bool(getattr(model, "causal_gate", False))
-    padded = t0 != t
+    padded = isinstance(t0, Tensor)
     live = torch.arange(t, device=dev) < t0
     keep = torch.ones(t, t, dtype=torch.bool, device=dev).tril() & live[None, :]
     zero = torch.zeros((), device=dev)
+    if padded:  # the live count, 1 at least, and the unbiased divisor's reciprocals
+        n_live = t0.clamp_min(1).float()
+        inv_n, inv_dof = n_live.reciprocal(), (n_live - 1.0).clamp_min(1.0).reciprocal()
 
     def std(s, eps=cfg.score_norm_eps):
         if cfg.causal_std:  # row i's prefix is live for every live row
@@ -1118,11 +1157,9 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
             mu = s.mean(-1, keepdim=True)
             var = (s - mu).square().sum(-1, keepdim=True) / max(1, t - 1)
             return (s - mu) / (torch.sqrt(var) + eps)
-        nf = float(max(t0, 1))
         m = live[None, None, None, :]
-        mu = torch.where(m, s, zero).sum(-1, keepdim=True) / nf
-        var = (torch.where(m, (s - mu).square(), zero).sum(-1, keepdim=True)
-               / max(nf - 1.0, 1.0))
+        mu = torch.where(m, s, zero).sum(-1, keepdim=True) * inv_n
+        var = torch.where(m, (s - mu).square(), zero).sum(-1, keepdim=True) * inv_dof
         return (s - mu) / (torch.sqrt(var) + eps)
 
     with torch.no_grad():
@@ -1141,8 +1178,9 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
                 q2 = _split_heads(_lin(hx, ap["q2_proj"], sp, "attn.q2_proj"), h)
                 k2 = _split_heads(_lin(hx, ap["k2_proj"], sp, "attn.k2_proj"), h)
                 m = torch.sigmoid(ap["mixture"][0])
-                scores = ((1.0 - m) * std(qk)
-                          + m * (std(qk) * std(q2 @ k2.transpose(-1, -2) * scale))
+                s1 = std(qk)
+                scores = ((1.0 - m) * s1
+                          + m * (s1 * std(q2 @ k2.transpose(-1, -2) * scale))
                           * ap["quartet_scale"][0])
             else:
                 k2 = k
@@ -1159,7 +1197,7 @@ def _prefill(model: nn.Module, params: Optional[dict], prompt: Tensor, t0, kv_dt
             x = _mlp(x, bp, sp)
             _write_rows(cache, i, 0, (k, k2, v))
         x = _ln(x, p["ln_f"])
-    cache["len"] = int(t0)
+    cache["len"] = t0
     return x, cache
 
 
@@ -1174,16 +1212,20 @@ def prefill(model: nn.Module, params: Optional[dict], prompt: Tensor,
     return x[:, -1] @ _params(model, params)["wte"]["embedding"].t(), cache
 
 
-def prefill_padded(model: nn.Module, params: Optional[dict], prompt_padded: Tensor, t0: int,
-                   kv_dtype: torch.dtype = torch.float32):
+def prefill_padded(model: nn.Module, params: Optional[dict], prompt_padded: Tensor,
+                   t0: Union[int, Tensor], kv_dtype: torch.dtype = torch.float32):
     """Prefill over a padded (B, T_pad) prompt whose first ``t0`` columns are
     the real one: ``prefill``'s logits and first ``t0`` cache rows (pad
     columns are masked out of every row's statistics), ``len = t0``. Rows
     past ``t0`` are written too and are garbage, masked by ``len`` and
-    overwritten by later appends."""
-    t0 = int(t0)
+    overwritten by later appends. ``t0`` an int or a 0-dim tensor, taken to
+    the prompt's device: one body for every ``t0`` of the bucket, the form
+    the serving engines' admission graph replays, read at ``t0 - 1`` on the
+    device."""
+    t0 = torch.as_tensor(t0, device=prompt_padded.device)
     x, cache = _prefill(model, params, prompt_padded, t0, kv_dtype)
-    return x[:, t0 - 1] @ _params(model, params)["wte"]["embedding"].t(), cache
+    last = x.index_select(1, (t0 - 1).reshape(1))[:, 0]
+    return last @ _params(model, params)["wte"]["embedding"].t(), cache
 
 
 def _resize(cache: dict, new_w: int) -> dict:

@@ -25,9 +25,16 @@ device-to-host copy. The step reads the per-slot state from device buffers
 the rows that advance), written where host control changes a slot, and
 advances it in place: the decode, the picker, the count update and the
 extras are one body, run eagerly or as one CUDA graph (JAX's ``_step``), and
-``step(n_tokens=k)`` may run k of them as one graph (JAX's ``_mstep``). The
-step composes plain torch ops and launches no kernel: the Quartet scores of
-a cached row standardize over its live prefix, not over K5's whole window.
+``step(n_tokens=k)`` may run k of them as one graph (JAX's ``_mstep``). An
+admission is one body too (``_admit_rows``: the prefill or the fed chunk,
+the paste into the slot a device index names, the length, the first pick,
+its logprobs and the slot's token, counts and prompt mask), over the
+engine's input buffer ``_adm_in``, written by one host-to-device copy; run
+eagerly or as one CUDA graph per bucket, prefix tail or chunk width (JAX's
+``_adm_padded``, ``_adm_chunk``, ``_chunk_feed`` / ``_chunk_tok0``), then
+one device-to-host copy. The step composes plain torch ops and launches no
+kernel: the Quartet scores of a cached row standardize over its live
+prefix, not over K5's whole window.
 Params are ``decode_params(model)`` or its ``ops.quant`` int8 / int4 form;
 the engine runs on their device.
 
@@ -51,9 +58,9 @@ import numpy as np
 import torch
 
 from ..models.beam import _top_k
-from ..models.generate import (_gumbel, decode_chunk_rows, decode_params, decode_split_of,
-                               decode_step_rows, init_decode_cache, local_heads, model_n_views,
-                               prefill, prefill_padded)
+from ..models.generate import (OneSlotRows, _gumbel, decode_chunk_rows, decode_params,
+                               decode_rows, decode_split_of, decode_step_rows, init_decode_cache,
+                               local_heads, model_n_views, prefill, prefill_padded)
 from ..parallel.mesh import MODEL_AXIS
 from ..utils.cuda_graph import GraphPerKey, StepGraph, require_graph
 from .constrain import mask_row
@@ -176,6 +183,13 @@ _SP = ("temp", "topk", "topp", "minp", "rep", "pres", "freq")
 # samples (no sort, no draw); kept rows sample, none from the engine's
 # generator; an unseeded kept row samples (the (B, V) block is drawn)
 GREEDY, SAMPLE, DRAW = "greedy", "sample", "draw"
+
+# the admission's routes (``DecodeEngine._admit_rows``): a prompt past the
+# last bucket (or with no buckets) prefilled at its own length, eagerly, as
+# JAX compiles one executable per length; one padded to its bucket; a
+# prefix hit's tail padded to a power of two; a chunk of a chunked prefill
+EXACT, BUCKET, TAIL, CHUNK = "exact", "bucket", "tail", "chunk"
+_ADM_HEAD = 3  # ``_adm_in``'s scalars before the prompt: slot, base, g
 
 
 def _signed(c: int) -> int:
@@ -332,9 +346,18 @@ class DecodeEngine:
       steps (one per k) where no constrained row and no beam group is
       live, k capped at the largest headroom; its tokens are those of k
       ``step()`` calls and the generator is left where they leave it.
-      Host control and the beams' ranking stay eager. On a CUDA device
-      only; a tensor-parallel model (its all-reduces) raises, as does a
-      subclass that does not declare ``_captures_step`` in its own body
+      An admission (``_admit_rows``) is one replay and one copy: a graph
+      per (bucket width, picker form) for a bucketed prompt, per (tail
+      width, form) for a prefix hit (the tail padded to the next power of
+      two), per (chunk_prefill, form or none) for a chunk, all in the
+      step's pool with the generator registered; the slot, the feed's
+      base and length are device scalars. Two admissions stay eager by
+      design, as JAX's are per exact length: a prompt past the last bucket
+      (or an engine without buckets, with no prefix hit or chunk), and a
+      beam request (``_admit_beam``); a capture that fails raises. Host
+      control and the beams' ranking stay eager. On a CUDA device only; a
+      tensor-parallel model (its all-reduces) raises, as does a subclass
+      that does not declare ``_captures_step`` in its own body
       (``PagedDecodeEngine`` and ``SpecDecodeEngine`` declare it). Per-row
       LoRA is captured: its factor rows are buffers written in place at
       admission.
@@ -456,14 +479,26 @@ class DecodeEngine:
                              f"(0, block_size={self.block_size}]")
         self._chunk_state: Dict[int, dict] = {}
         self._layouts: Dict[tuple, List[tuple]] = {}  # (steps, form) -> _steps' outputs
-        self._graph = self._make_graph() if cuda_graph else None
+        # an admission's inputs, one host-to-device copy before its body:
+        # slot, the feed's base and length, then the prompt zero-padded to
+        # the window
+        self._adm_in = torch.zeros((_ADM_HEAD + self.block_size,), dtype=torch.long, device=dev)
+        self._adm_layouts: Dict[tuple, List[tuple]] = {}  # admission key -> its outputs
+        self._graph = self._adm_graph = None
+        if cuda_graph:
+            # every graph of the engine in one pool: they replay one at a time
+            self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+            self._graph = self._make_graph()
+            self._adm_graph = GraphPerKey(self._admit_rows, dev, generators=(self._gen,),
+                                          capture_error_mode="thread_local",
+                                          pool=self._graph_pool)
 
     def _make_graph(self):
         """The captured step: one graph per (steps, picker form), captured
         by a thread of the server next to others (thread-local capture
         errors)."""
         return GraphPerKey(lambda key: self._steps(*key), self.device, generators=(self._gen,),
-                           capture_error_mode="thread_local")
+                           capture_error_mode="thread_local", pool=self._graph_pool)
 
     def _make_cache(self, cfg, max_batch: int, kv_dtype: torch.dtype) -> Optional[dict]:
         """The per-slot KV pools. A subclass with another cache layout
@@ -532,11 +567,14 @@ class DecodeEngine:
             return self.params
         return lora_params_view(self.params, self._lora_rows)
 
-    def _admit_params(self, aid: int) -> dict:
-        """The params of a one-row admission: its adapter's factors."""
+    def _admit_params(self, slot: Tensor) -> dict:
+        """The params of a one-row admission into the slot that ``slot`` (a
+        (1,) device index) names: its adapter's factor rows, which
+        ``_set_slot_adapter`` wrote."""
         if not self._lora_bank:
             return self.params
-        rows = {path: (a[aid][None], b[aid][None]) for path, (a, b) in self._lora_bank.items()}
+        rows = {path: (a.index_select(0, slot), b.index_select(0, slot))
+                for path, (a, b) in self._lora_rows.items()}
         return lora_params_view(self.params, rows)
 
     def _set_slot_adapter(self, slot: int, aid: int) -> None:
@@ -548,15 +586,20 @@ class DecodeEngine:
             ra[slot] = a[aid]
             rb[slot] = b[aid]
 
-    def _bucket_pad(self, prompt: np.ndarray):
-        """(padded (1, bucket) tensor, t0) if a bucket holds the prompt, else None."""
-        t0 = int(prompt.size)
+    def _bucket_of(self, t0: int) -> Optional[int]:
+        """The smallest bucket that holds a ``t0``-token prompt, else None."""
         if self.prefill_buckets and t0 <= self.prefill_buckets[-1]:
-            t_pad = next(b for b in self.prefill_buckets if b >= t0)
-            padded = np.zeros((1, t_pad), np.int64)
-            padded[0, :t0] = prompt
-            return torch.from_numpy(padded).to(self.device), t0
+            return next(b for b in self.prefill_buckets if b >= t0)
         return None
+
+    def _route(self, t0: int, lcp: int) -> Tuple[str, int]:
+        """An admission's route and feed width: a prefix hit's ``t0 - lcp``
+        tail padded to the next power of two (JAX's ``g_pad``), else the
+        prompt's bucket, else its own length."""
+        if lcp:
+            return TAIL, 1 << (t0 - lcp - 1).bit_length()
+        b = self._bucket_of(t0)
+        return (EXACT, t0) if b is None else (BUCKET, b)
 
     # ---------------- sampling ----------------
 
@@ -593,12 +636,16 @@ class DecodeEngine:
         if adv is not None:
             self._dadv.sync(adv)
 
-    def _cols(self, rows=slice(None)) -> Dict[str, Tensor]:
+    def _cols(self, slot: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """The picker's per-slot device columns (``_SP``, ``seed``,
-        ``ntok``) of the slots ``rows``."""
-        cols = {k: self._dsp.dev[i, rows] for i, k in enumerate(_SP)}
-        cols["seed"] = self._dseed.dev[rows]
-        cols["ntok"] = self._dntok.dev[rows]
+        ``ntok``) of every slot, or of the one that ``slot`` (a (1,) device
+        index) names."""
+        sp, seed, ntok = self._dsp.dev, self._dseed.dev, self._dntok.dev
+        if slot is not None:
+            sp = sp.index_select(1, slot)
+            seed, ntok = seed.index_select(0, slot), ntok.index_select(0, slot)
+        cols = {k: sp[i] for i, k in enumerate(_SP)}
+        cols["seed"], cols["ntok"] = seed, ntok
         return cols
 
     def _form(self, kept: np.ndarray) -> str:
@@ -1073,29 +1120,6 @@ class DecodeEngine:
         self._slot_eos[slot] = eos
         self._slot_seed[slot] = seed
 
-    def _pick_first(self, slot: int, logits: Tensor, oc: Tensor, seen: Tensor):
-        """The request's first token from its admission logits (1, V), with
-        its slot's parameters (the device columns, as the step's), bias row
-        and counts; and its logprob entry."""
-        self._sync_slots()
-        kept = np.zeros((self.max_batch,), bool)
-        kept[slot] = True
-        tok0 = self._pick(logits, self._cols(slice(slot, slot + 1)), None, self._form(kept), oc,
-                          seen, self._lbias[slot:slot + 1])
-        lpx = self._lp_of(logits, tok0)
-        tok0_h, *lph = _to_host(tok0, *lpx)
-        lp0 = self._lp_entry(*lph, 0) if lph else None
-        return int(tok0_h[0]), lp0
-
-    def _activate(self, slot: int, tok0: int, oc: Tensor, seen: Tensor) -> None:
-        """Install a request's penalty rows (its first token counted) and
-        first token into its slot."""
-        oc = oc.clone()
-        oc[0, tok0] += 1
-        self._ocounts[slot] = oc[0]
-        self._pseen[slot] = seen[0]
-        self._tokens[slot] = tok0
-
     def _admit_one(self):
         """Admit the next queued request into a free slot (a one-row prefill
         pasted into the pool). Returns (slot, rid, tok0, prompt_len, lp0), tok0
@@ -1111,7 +1135,6 @@ class DecodeEngine:
         (rid, prompt, max_new, sp, eos, bias_row, stops, aid, con, seed, _nb,
          _lpen) = self._queue.popleft()
         t0 = int(prompt.size)
-        dev = self.device
         self._set_slot_sampling(slot, sp, eos, seed)
         self._slot_ntok[slot] = len(self._results[rid])
         entry, lcp = self._prefix_lookup(prompt, aid)
@@ -1121,56 +1144,24 @@ class DecodeEngine:
         self._slot_constraint[slot] = con
         self._slot_cstate[slot] = None if con is None else con.init_state()
         self._set_bias_row(slot)
-        oc = torch.zeros((1, self._vocab), dtype=torch.int32, device=dev)
-        seen = torch.zeros((1, self._vocab), dtype=torch.bool, device=dev)
-        seen[0, torch.from_numpy(prompt).to(dev)] = True
-        c = self._cache
-        base = lcp if entry is not None else 0
-        if entry is not None:
+        if entry is not None:  # the entry's rows, one copy a pool key
             for key in self._pool_keys:
-                c[key][:, slot] = entry[key]
+                self._cache[key][:, slot] = entry[key]
             self.prefix_cache_hits += 1
             self.prefix_tokens_reused += lcp
-        if self.chunk_prefill is not None and t0 - base > self.chunk_prefill:
-            # reserve the slot and feed the prompt one chunk per step
-            self._lens[slot] = base
-            self._chunk_state[slot] = {"rid": rid, "prompt": prompt, "fed": base, "t0": t0,
-                                       "oc": oc, "seen": seen, "aid": aid}
-            self._slot_rid[slot] = rid
-            self._budget[slot] = max_new
-            return slot, rid, None, t0, None
-        with torch.no_grad():
-            params = self._admit_params(aid)
-            if entry is not None:
-                logits = self._feed(slot, params, prompt[lcp:], lcp)
-            else:
-                padded = self._bucket_pad(prompt)
-                if padded is not None:
-                    logits, pc = prefill_padded(self.model, params, padded[0], padded[1],
-                                                kv_dtype=self.kv_dtype)
-                else:
-                    logits, pc = prefill(self.model, params, torch.from_numpy(prompt[None]).to(dev),
-                                         kv_dtype=self.kv_dtype)
-                for key in self._pool_keys:
-                    c[key][:, slot] = pc[key][:, 0].to(c[key].dtype)
-            self._lens[slot] = t0
-            tok0, lp0 = self._pick_first(slot, logits, oc, seen)
-        self._activate(slot, tok0, oc, seen)
         self._slot_rid[slot] = rid
         self._budget[slot] = max_new  # tokens still to emit, tok0 included
+        if self.chunk_prefill is not None and t0 - lcp > self.chunk_prefill:
+            # reserve the slot and feed the prompt one chunk per step
+            self._lens[slot] = lcp
+            self._chunk_state[slot] = {"rid": rid, "prompt": prompt, "fed": lcp, "t0": t0,
+                                       "aid": aid}
+            return slot, rid, None, t0, None
+        route, width = self._route(t0, lcp)
+        tok0, lp0 = self._admit_run(route, width, slot, prompt, lcp, t0 - lcp)
         self._prefix_store(prompt, slot, aid)
         self._on_admit(slot, prompt)
         return slot, rid, tok0, t0, lp0
-
-    def _feed(self, slot: int, params: dict, tail: np.ndarray, base: int) -> Tensor:
-        """Append ``tail``'s tokens to ``slot``'s rows from position ``base``
-        (``decode_chunk_rows`` over the slot's one-row view of the pools, which
-        it writes in place); the logits (1, V) after the last token."""
-        view = {key: self._cache[key][:, slot:slot + 1] for key in self._pool_keys}
-        toks = torch.from_numpy(np.asarray(tail, np.int64)[None]).to(self.device)
-        lens = torch.full((1,), base, dtype=torch.long, device=self.device)
-        logits, _ = decode_chunk_rows(self.model, params, view, toks, lens)
-        return logits[:, -1]
 
     def _chunk_advance(self, slot: int):
         """Feed the next chunk of ``slot``'s pending prompt; after the last,
@@ -1179,19 +1170,127 @@ class DecodeEngine:
         st = self._chunk_state[slot]
         fed, t0 = st["fed"], st["t0"]
         g = min(self.chunk_prefill, t0 - fed)
-        with torch.no_grad():
-            logits = self._feed(slot, self._admit_params(st["aid"]),
-                                st["prompt"][fed:fed + g], fed)
-            st["fed"] = fed + g
-            self._lens[slot] = st["fed"]
-            if st["fed"] < t0:
-                return None
-            tok0, lp0 = self._pick_first(slot, logits, st["oc"], st["seen"])
-        self._activate(slot, tok0, st["oc"], st["seen"])
+        first = self._admit_run(CHUNK, self.chunk_prefill, slot, st["prompt"], fed, g,
+                                pick=fed + g == t0)
+        st["fed"] = fed + g
+        if first is None:
+            return None
         self._prefix_store(st["prompt"], slot, st["aid"])
         self._on_admit(slot, st["prompt"])
         del self._chunk_state[slot]
-        return slot, st["rid"], tok0, t0, lp0
+        return (slot, st["rid"]) + first[:1] + (t0,) + first[1:]
+
+    def _admit_key(self, t0: int) -> tuple:
+        """What a subclass's admission body adds to its key (the speculative
+        engine's draft bucket)."""
+        return ()
+
+    def _admit_run(self, route: str, width: int, slot: int, prompt: np.ndarray, base: int,
+                   g: int, pick: bool = True):
+        """Feed ``prompt[base:base + g]`` into ``slot`` by ``route`` at feed
+        width ``width`` (``_admit_rows``): one host-to-device copy of its
+        inputs, the per-slot mirrors synced (the sampling columns the pick
+        reads) and its picker form read on the host, then the body, one
+        replay under ``cuda_graph`` (the exact route eager), and, with
+        ``pick``, one device-to-host copy of the first token and its
+        logprob entry: (tok0, lp0); None without ``pick``."""
+        row = np.zeros((_ADM_HEAD + self.block_size,), np.int64)
+        row[:_ADM_HEAD] = slot, base, g
+        row[_ADM_HEAD:_ADM_HEAD + prompt.size] = prompt
+        self._adm_in.copy_(torch.from_numpy(row))
+        self._sync_slots()
+        form = None
+        if pick:
+            kept = np.zeros((self.max_batch,), bool)
+            kept[slot] = True
+            form = self._form(kept)
+        key = (route, width, form) + self._admit_key(base + g)
+        with torch.no_grad():
+            if self._adm_graph is not None and route != EXACT:
+                flat = self._adm_graph(key)
+            else:
+                flat = self._admit_rows(key)
+        self._lens[slot] = base + g
+        self._dlens.advanced(self._lens)
+        if not pick:
+            return None
+        tok0, *lph = _unpack(flat.cpu().numpy(), self._adm_layouts[key])
+        return int(tok0[0]), (self._lp_entry(*lph, 0) if lph else None)
+
+    def _admit_rows(self, key: tuple) -> Optional[Tensor]:
+        """One admission in place over ``_adm_in`` (the slot a (1,) device
+        index, the base and the fed count g 0-dim device scalars), for
+        ``key = (route, width, form, *more)``: the feed, a prefill
+        (``prefill`` on the exact route; ``prefill_padded`` to the
+        bucket, its live length g on the device) pasted into the slot
+        (``_paste``), or ``width`` prompt tokens from ``base`` appended to
+        the slot's rows (``_feed_rows``: a prefix hit's tail or a chunk, the
+        pads past g written past the live rows); the slot's device length
+        ``base + g``; a subclass's ``_admit_more``; then, with a picker
+        ``form``, the first token by ``_pick`` over the slot's columns,
+        bias row, output counts (the prompt's last ``ntok`` tokens, the
+        emitted count ``_sync_slots`` wrote to the slot's mirror) and
+        prompt mask (its first ``base + g``), ``_lp_of``'s extras, and the
+        slot's token, counts (the first token counted) and mask written.
+        Returns the first token and extras packed for the copy to the host
+        (their layout in ``_adm_layouts``), or None without a form: the
+        eager route and the body a graph of ``key`` captures (JAX's
+        ``_adm_padded``, ``_adm_chunk``, ``_chunk_feed`` + ``_chunk_tok0``)."""
+        route, width, form, *more = key
+        inp = self._adm_in
+        slot, base, g = inp[0:1], inp[1], inp[2]
+        prompt = inp[_ADM_HEAD:][None]  # (1, block)
+        t_end = base + g
+        params = self._admit_params(slot)
+        if route in (EXACT, BUCKET):
+            if route == EXACT:
+                logits, pc = prefill(self.model, params, prompt[:, :width], kv_dtype=self.kv_dtype)
+            else:
+                logits, pc = prefill_padded(self.model, params, prompt[:, :width], g,
+                                            kv_dtype=self.kv_dtype)
+            self._paste(pc, slot)
+        else:
+            at = (base + torch.arange(width, device=inp.device)).clamp_max(self.block_size - 1)
+            logits = self._feed_rows(slot, params, prompt.index_select(1, at), base, g)
+        self._dlens.dev.index_copy_(0, slot, t_end.reshape(1))
+        self._admit_more(prompt, t_end, slot, *more)
+        if form is None:
+            return None
+        # the prompt's columns: a prefill's width, a feed's whole window
+        span = width if route in (EXACT, BUCKET) else self.block_size
+        pos = torch.arange(span, device=inp.device)
+        live = (pos < t_end).to(torch.int32)[None]
+        cols = self._cols(slot)  # its ntok: a re-admission's emitted tokens, the prompt's last
+        seen = self._ocounts.new_zeros((1, self._vocab)).scatter_add_(
+            1, prompt[:, :span], live) > 0
+        oc = self._ocounts.new_zeros((1, self._vocab)).scatter_add_(
+            1, prompt[:, :span], live * (pos >= t_end - cols["ntok"]))
+        tok0 = self._pick(logits, cols, None, form, oc, seen, self._lbias.index_select(0, slot))
+        lpx = self._lp_of(logits, tok0)
+        self._tokens.index_copy_(0, slot, tok0)
+        self._ocounts.index_copy_(0, slot, oc.scatter_add(1, tok0[:, None], live[:, :1]))
+        self._pseen.index_copy_(0, slot, seen)
+        self._adm_layouts[key] = _layout(tok0, *lpx)
+        return _pack(tok0, *lpx)
+
+    def _paste(self, pc: dict, slot: Tensor) -> None:
+        """A one-row prefill's cache ``pc`` into the slot that ``slot`` (a
+        (1,) device index) names: the cache access a subclass replaces."""
+        for key in self._pool_keys:
+            self._cache[key].index_copy_(1, slot, pc[key].to(self._cache[key].dtype))
+
+    def _feed_rows(self, slot: Tensor, params: dict, toks: Tensor, base: Tensor,
+                   g: Tensor) -> Tensor:
+        """Append the (1, G) ``toks`` to the slot's rows from position
+        ``base``, in place (``decode_rows`` over ``OneSlotRows``); the
+        logits (1, V) after its ``g``-th token."""
+        logits = decode_rows(self.model, params, OneSlotRows(self._cache, slot), toks,
+                             base.reshape(1))
+        return logits.index_select(1, (g - 1).reshape(1))[:, 0]
+
+    def _admit_more(self, prompt: Tensor, t0: Tensor, slot: Tensor, *more) -> None:
+        """Subclass hook inside the admission's body (``_admit_key``'s
+        entries in ``more``)."""
 
     # ---------------- beam groups ----------------
 
@@ -1366,8 +1465,12 @@ class SpecDecodeEngine(DecodeEngine):
     slot; it advances the lengths itself. ``cuda_graph=True`` (a CUDA device; neither model
     tensor-parallel) runs the round (``_round``: the draft steps, the
     verify, the accepted counts, the corrections and, with
-    ``logprobs_topk``, the logprob extras) as one CUDA graph; admission,
-    the draft's prefill and host control stay eager.
+    ``logprobs_topk``, the logprob extras) as one CUDA graph, and a
+    bucketed or prefix-hit admission as one replay of the dense engine's
+    admission graph with the draft's bucketed prefill of the whole prompt
+    inside it (``_admit_more``, JAX's ``_d_adm_padded``), keyed by the
+    draft's bucket too; a prompt past the last bucket is admitted eagerly
+    into both pools, as the dense engine's. Host control stays eager.
     """
 
     _captures_step = True
@@ -1426,23 +1529,37 @@ class SpecDecodeEngine(DecodeEngine):
                              "supported (use DecodeEngine)")
         return super().submit(prompt, max_new_tokens, eos_id=eos_id, stop=stop)
 
+    def _admit_key(self, t0: int) -> tuple:
+        """The draft's prefill bucket (None: past the last)."""
+        return (self._bucket_of(t0),)
+
+    def _admit_more(self, prompt: Tensor, t0: Tensor, slot: Tensor, *more) -> None:
+        """The draft's prefill of the whole prompt padded to its bucket
+        (JAX's ``_d_adm_padded``), inside the target's admission body: one
+        replay admits both."""
+        width = more[0]
+        if width is None:
+            return
+        _, pc = prefill_padded(self.draft_model, self.draft_params, prompt[:, :width], t0,
+                               kv_dtype=self.kv_dtype)
+        for key in self._d_keys:
+            self._dcache[key].index_copy_(1, slot, pc[key].to(self._dcache[key].dtype))
+
     def _on_admit(self, slot: int, prompt: np.ndarray) -> None:
-        """The draft's prefill of the whole prompt (bucketed as the target's)
-        into its slot."""
+        """The draft's exact prefill of a prompt past the last bucket into its
+        slot, eagerly, as the target's (a bucketed prompt's ran in the
+        admission's body, ``_admit_more``)."""
+        if self._bucket_of(prompt.size) is not None:
+            return
         with torch.no_grad():
-            padded = self._bucket_pad(prompt)
-            if padded is not None:
-                _, pc = prefill_padded(self.draft_model, self.draft_params, padded[0],
-                                       padded[1], kv_dtype=self.kv_dtype)
-            else:
-                _, pc = prefill(self.draft_model, self.draft_params,
-                                torch.from_numpy(prompt[None]).to(self.device),
-                                kv_dtype=self.kv_dtype)
+            _, pc = prefill(self.draft_model, self.draft_params,
+                            torch.from_numpy(prompt[None]).to(self.device), kv_dtype=self.kv_dtype)
             for key in self._d_keys:
                 self._dcache[key][:, slot] = pc[key][:, 0].to(self._dcache[key].dtype)
 
     def _make_graph(self):
-        return StepGraph(self._round, self.device, capture_error_mode="thread_local")
+        return StepGraph(self._round, self.device, capture_error_mode="thread_local",
+                         pool=self._graph_pool)
 
     def _round(self):
         """One speculative round over every row, in place: gamma greedy

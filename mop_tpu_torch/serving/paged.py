@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.generate import decode_rows, model_n_views, prefill, prefill_padded
+from ..models.generate import decode_rows, model_n_views
 from ..utils.device import resolve_device
 from .engine import _SP, DecodeEngine, _no_int8_pools
 
@@ -130,8 +130,11 @@ class PagedDecodeEngine(DecodeEngine):
     that is not tensor-parallel) runs the batched step (the dense engine's
     ``_advance``, picker included) as one CUDA graph over the pools and the
     device page table, and the burst of ``step(n_tokens=k)`` as one replay
-    of a k-step graph; admission, page allocation, preemption and
-    re-prefill stay on the host.
+    of a k-step graph; a bucketed admission (a re-prefill after a
+    preemption too) is one replay of a graph per (bucket, picker form) that
+    pastes over the slot's whole page-table row (``_paste``), a prompt past
+    the last bucket eager, as the dense engine's. Page allocation,
+    preemption and host control stay on the host.
     """
 
     _captures_step = True
@@ -300,9 +303,13 @@ class PagedDecodeEngine(DecodeEngine):
     def _admit_one(self):
         """Admit the queue's head into a free slot once the pool holds the
         pages of its prompt and first token; None while it waits (the live
-        rows always drain). A re-admitted request keeps its penalty counts
-        (from the tokens it emitted), its constraint's state and its seeded
-        stream's position."""
+        rows always drain). The pages are granted on the host; the prefill,
+        the paste and the pick are the dense engine's admission body
+        (``_admit_rows``, one replay per bucket under ``cuda_graph``; a
+        prompt past the last bucket eagerly). A re-admitted request keeps
+        its penalty counts (its prompt's last tokens are the ones it
+        emitted), its constraint's state and its seeded stream's
+        position."""
         try:
             slot = self._slot_rid.index(-1)
         except ValueError:
@@ -320,7 +327,6 @@ class PagedDecodeEngine(DecodeEngine):
         self._clear_table(slot)
         for _ in range(n_need):
             self._grow(slot, self._alloc_page())
-        self._lens[slot] = t0
         self._slot_prompt[slot] = prompt.copy()
         self._slot_res_base[slot] = len(self._results[rid])
         self._set_slot_sampling(slot, sp, eos, seed)
@@ -331,33 +337,20 @@ class PagedDecodeEngine(DecodeEngine):
         self._slot_constraint[slot] = con
         self._slot_cstate[slot] = self._replay_constraint(con, rid)
         self._set_bias_row(slot)
-        dev = self.device
-        oc = np.zeros((1, self._vocab), np.int32)
-        if self._results[rid]:
-            np.add.at(oc[0], np.asarray(self._results[rid], np.int64), 1)
-        seen = np.zeros((1, self._vocab), bool)
-        seen[0, prompt] = True  # the whole prefix, emitted tokens included
-        oc, seen = torch.from_numpy(oc).to(dev), torch.from_numpy(seen).to(dev)
-        with torch.no_grad():
-            params = self._admit_params(aid)
-            padded = self._bucket_pad(prompt)
-            if padded is not None:
-                logits, pc = prefill_padded(self.model, params, padded[0], padded[1],
-                                            kv_dtype=self.kv_dtype)
-            else:
-                logits, pc = prefill(self.model, params, torch.from_numpy(prompt[None]).to(dev),
-                                     kv_dtype=self.kv_dtype)
-            self._paste(pc, slot, n_need)
-            tok0, lp0 = self._pick_first(slot, logits, oc, seen)
-        self._activate(slot, tok0, oc, seen)
+        route, width = self._route(t0, 0)
+        tok0, lp0 = self._admit_run(route, width, slot, prompt, 0, t0)
         self._slot_rid[slot] = rid
         self._budget[slot] = max_new
         return slot, rid, tok0, t0, lp0
 
-    def _paste(self, pc: dict, slot: int, n_pages: int) -> None:
-        """The prefill's rows (one row of a block-wide cache) into the slot's
-        first ``n_pages`` pages."""
-        idx = self._table_dev[slot, :n_pages]
+    def _paste(self, pc: dict, slot: Tensor) -> None:
+        """The prefill's rows (one row of a block-wide cache) into the pages
+        of the slot that ``slot`` (a (1,) device index) names: its whole
+        ``pages_per_slot`` table row, the entries past its allocation the
+        scratch page 0, whose duplicate writes are garbage by design, so
+        that one admission graph serves a bucket whatever its page count
+        (JAX's ``_padm_finish``)."""
+        idx = self._table_dev.index_select(0, slot)[0]
         npb, ps = self.pages_per_slot, self.page_size
         for key in self._pool_keys:
             rows = pc[key][:, 0]  # (L, H, block, dk); mv (L, block, V)
@@ -366,7 +359,7 @@ class PagedDecodeEngine(DecodeEngine):
             else:
                 L, h, _, dk = rows.shape
                 chunk = rows.reshape(L, h, npb, ps, dk).transpose(1, 2)
-            self._pool[key][:, idx] = chunk[:, :n_pages].to(self._pool[key].dtype)
+            self._pool[key].index_copy_(1, idx, chunk.to(self._pool[key].dtype))
 
     # ---------------- engine loop ----------------
 

@@ -226,16 +226,20 @@ class GraphPerKey:
     host-known form of a step), made at the key's first call, as ``jax.jit``
     keeps one executable per value of a static argument. The graphs are
     replayed one at a time, each output cloned at its replay, so all are
-    captured into one shared pool (``StepGraph``'s rule); each registers
-    ``generators``. ``calls`` counts the calls of every graph."""
+    captured into one shared pool (``StepGraph``'s rule): ``pool``, or a
+    new one when None (an engine passes the pool its other graphs share);
+    each registers ``generators``. ``calls`` counts the calls of every
+    graph."""
 
     def __init__(self, fn: Callable, device, generators: Iterable[Optional[torch.Generator]] = (),
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global", pool=None):
         self.fn = fn
         self.device = torch.device(device)
         self.generators = tuple(generators)
         self.capture_error_mode = capture_error_mode
-        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        if pool is None and self.device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
         self.graphs = {}
 
     @property
